@@ -1,0 +1,208 @@
+"""Multi-Armed-Bandit split-decision module (paper §4.1, eqs. 2–9), deploy half.
+
+The port of ``repro.core.mab``'s UCB decisions and Algorithm-1
+bookkeeping, batched over a leading grid axis G: every leaf of
+``MABState`` carries one row per grid cell, and the per-task arrays
+carry (G, rows).  Two context-separated bandits:
+
+  * ``h`` — high-SLA context: the task's deadline exceeds the EMA
+    estimate R^a of the layer-split response time for its app;
+  * ``l`` — low-SLA context: deadline below the estimate.
+
+Each context holds Q-estimates and decision counts for the two arms
+(L = layer split, S = semantic split).  Deployment uses UCB (eq. 9).
+
+Numerics follow the reference as XLA:CPU executes it, since that is the
+oracle this port is checked against:
+
+  * Q/N/R/eps/rho are float32, t int32, and the decision math float32;
+  * the EMA ``phi·r + (1−phi)·R`` and the Q step ``Q + gamma·(O − Q)``
+    are contracted into one fused multiply-add by XLA:CPU; ``_fma32``
+    reproduces that single rounding;
+  * the per-bucket reward sums accumulate in float32, row by row in
+    admission order, the counts in float64, and the mean is taken in
+    float64 before the float32 cast.  That is JAX's op-by-op result and
+    XLA:CPU's jitted one for up to 14 rows; on wider slot arrays the
+    jitted reference regroups the float32 sums, a last-ulp difference
+    (ROADMAP queue 3).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+LAYER, SEMANTIC = 0, 1        # arm indices
+HIGH, LOW = 0, 1              # context indices
+
+f32 = torch.float32
+
+
+class MABState(NamedTuple):
+    Q: torch.Tensor            # (G, 2 contexts, 2 arms) reward estimates
+    N: torch.Tensor            # (G, 2, 2) decision counts
+    R: torch.Tensor            # (G, num_apps) EMA layer-split response time
+    eps: torch.Tensor          # (G,) exploration prob (train)
+    rho: torch.Tensor          # (G,) reward threshold (RBED)
+    t: torch.Tensor            # (G,) int32 scheduling-interval counter
+
+
+_FIELDS = {"Q": np.float32, "N": np.float32, "R": np.float32,
+           "eps": np.float32, "rho": np.float32, "t": np.int32}
+
+
+def init_state(num_apps: int, eps0: float = 1.0, rho0: float = 0.05, *,
+               grid: int = 1, device="cuda") -> MABState:
+    """Fresh state, one copy per grid cell."""
+    return mab_state_from_numpy(
+        {"Q": np.zeros((2, 2)), "N": np.zeros((2, 2)),
+         "R": np.zeros((num_apps,)), "eps": eps0, "rho": rho0, "t": 1},
+        grid=grid, device=device)
+
+
+def mab_state_from_numpy(d, *, grid: int = 1, device="cuda") -> MABState:
+    """Build the port's state from the reference's ``MABState`` fields
+    given as NumPy arrays (``{Q, N, R, eps, rho, t}``, unbatched), with
+    one copy per grid cell on ``device``.  The values are cast to the
+    reference dtypes (float32, t int32)."""
+    dev = resolve(device)
+    out = {}
+    for k, dt in _FIELDS.items():
+        a = np.asarray(d[k]).astype(dt)
+        out[k] = torch.from_numpy(np.repeat(a[None], grid, axis=0)).to(dev)
+    return MABState(**out)
+
+
+def mab_state_to_numpy(state: MABState) -> dict:
+    """The state's leaves as NumPy arrays with their leading grid axis."""
+    return {k: getattr(state, k).cpu().numpy() for k in _FIELDS}
+
+
+def _fma32(a, b, c):
+    """float32 ``a*b + c`` with one rounding, as XLA:CPU contracts it:
+    the float32 product is exact in float64, so the sum is rounded once
+    in float64 and once more to float32."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _gather_app(R, app):
+    """R (G, apps) at app (G, M) -> (G, M)."""
+    return torch.gather(R, 1, app.long())
+
+
+def context_of(state: MABState, sla, app):
+    """HIGH if sla >= R^app else LOW, per (G, M) row."""
+    return torch.where(sla >= _gather_app(state.R, app),
+                       HIGH, LOW).to(torch.int32)
+
+
+def decide_ucb_batch(state: MABState, sla, app, c: float = 0.5):
+    """UCB deployment decisions (eq. 9) for (G, M) rows against each
+    cell's state; returns (arm, ctx), both (G, M) int32."""
+    ctx = context_of(state, sla, app)
+    logt = torch.log(torch.clamp(state.t.to(f32), min=2.0))       # (G,)
+    idx = ctx.long()[..., None].expand(*ctx.shape, 2)
+    Nc = torch.gather(state.N, 1, idx)                            # (G,M,2)
+    Qc = torch.gather(state.Q, 1, idx)
+    bonus = c * torch.sqrt(logt[:, None, None] / torch.clamp(Nc, min=1.0))
+    return torch.argmax(Qc + bonus, dim=-1).to(torch.int32), ctx
+
+
+def decide_ucb(state: MABState, sla, app, c: float = 0.5):
+    """One UCB decision per grid cell: sla/app are (G,)."""
+    d, ctx = decide_ucb_batch(state, sla[:, None], app[:, None], c)
+    return d[:, 0], ctx[:, 0]
+
+
+def _masked_rows(mask):
+    """Per-cell row indices of the True entries of ``mask`` (G, M), in row
+    order, plus their count; one host read for the longest cell."""
+    order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
+    count = mask.sum(dim=1)
+    return order, count, int(count.max()) if mask.numel() else 0
+
+
+def update_response_estimates(state: MABState, apps, resp, was_layer,
+                              phi: float = 0.9) -> MABState:
+    """EMA update of R^a (eq. 2), applied per leaving layer-split task in
+    row order (the reference's scan).  apps (G, M) int, resp (G, M)
+    float32, was_layer (G, M) bool."""
+    R = state.R.clone()
+    G = R.shape[0]
+    gi = torch.arange(G, device=R.device)
+    phi32 = torch.tensor(phi, dtype=f32, device=R.device)
+    keep32 = torch.tensor(1.0 - phi, dtype=f32, device=R.device)
+    order, count, n = _masked_rows(was_layer)
+    for i in range(n):
+        row = order[:, i]
+        a = apps[gi, row].long()
+        cur = R[gi, a]
+        new = _fma32(phi32, resp[gi, row], keep32 * cur)
+        R[gi, a] = torch.where(i < count, new, cur)
+    return state._replace(R=R)
+
+
+def interval_rewards_masked(state: MABState, apps, sla, resp, acc,
+                            decisions, mask):
+    """Per-(context, arm) mean rewards O^{c,d} and counts (eqs. 3–4) over
+    masked (G, M) rows; rows with ``mask`` False are ignored.  Returns
+    (O, cnt), each (G, 2, 2) float32."""
+    G, M = sla.shape
+    dev = sla.device
+    ctx = torch.where(sla >= _gather_app(state.R, apps), HIGH, LOW)
+    per_task = 0.5 * ((resp <= sla).to(f32) + acc)
+    bucket = ctx * 2 + decisions.long()
+    onehot = (bucket[..., None] == torch.arange(4, device=dev)) \
+        & mask[..., None]
+    cnt = onehot.to(torch.float64).sum(dim=1)                     # (G, 4)
+    # float32 sums, one row at a time in row order
+    O = torch.zeros((G, 4), dtype=f32, device=dev)
+    gi = torch.arange(G, device=dev)
+    order, count, n = _masked_rows(mask)
+    for i in range(n):
+        row = order[:, i]
+        val = torch.where(i < count, per_task[gi, row], 0.0)
+        O.scatter_add_(1, bucket[gi, row][:, None], val[:, None])
+    O = torch.where(cnt > 0, O.double() / torch.clamp(cnt, min=1.0), 0.0)
+    return O.to(f32).reshape(G, 2, 2), cnt.to(f32).reshape(G, 2, 2)
+
+
+def update_q(state: MABState, O, cnt, gamma: float = 0.3) -> MABState:
+    """Q <- Q + gamma (O - Q) where data exists (eq. 5), N += counts."""
+    g32 = torch.tensor(gamma, dtype=f32, device=O.device)
+    Q = torch.where(cnt > 0, _fma32(g32, O - state.Q, state.Q), state.Q)
+    return state._replace(Q=Q, N=state.N + cnt)
+
+
+def rbed_update(state: MABState, O, cnt, k: float = 0.1) -> MABState:
+    """Feedback-based ε decay / ρ increment (eqs. 7–8)."""
+    have = (cnt > 0).reshape(cnt.shape[0], 4)
+    Ow = torch.where(have, O.reshape(O.shape[0], 4), 0.0)
+    total = Ow[:, 0]
+    for j in range(1, 4):                   # float32, row-major order
+        total = total + Ow[:, j]
+    n_have = torch.clamp(have.sum(dim=1), min=1).to(f32)
+    o_mab = torch.where(have.any(dim=1), total / n_have, 0.0)
+    improve = o_mab > state.rho
+    dec32 = torch.tensor(1.0 - k, dtype=f32, device=O.device)
+    inc32 = torch.tensor(1.0 + k, dtype=f32, device=O.device)
+    eps = torch.where(improve, dec32 * state.eps, state.eps)
+    rho = torch.where(improve, inc32 * state.rho, state.rho)
+    return state._replace(eps=eps, rho=rho)
+
+
+def end_of_interval_masked(state: MABState, apps, sla, resp, acc, decisions,
+                           mask, phi: float = 0.9, gamma: float = 0.3,
+                           k: float = 0.1) -> MABState:
+    """Algorithm-1 end-of-interval bookkeeping over masked (G, M) rows.
+    With an all-False mask this degrades to ``t += 1``."""
+    state = update_response_estimates(
+        state, apps, resp, mask & (decisions == LAYER), phi)
+    O, cnt = interval_rewards_masked(state, apps, sla, resp, acc,
+                                     decisions, mask)
+    state = update_q(state, O, cnt, gamma)
+    state = rbed_update(state, O, cnt, k)
+    return state._replace(t=state.t + 1)

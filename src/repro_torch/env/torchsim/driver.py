@@ -1,0 +1,284 @@
+"""Trace/grid drivers: the interval program over a device-resident grid.
+
+The port of ``repro.env.jaxsim.driver`` for the static and MAB-deploy
+engines.  ``run_program`` is THE interval program: a Python loop over
+intervals whose every step works on the whole grid at once (leading axis
+G), calling the engine's ``decide / place / feedback`` hooks around the
+shared physics.  ``run_grid_engine`` compiles nothing: it stacks the
+traces, uploads them once (``arrays.to_device``) and runs the loop on
+``device``.  ``run_trace_*`` is the same with G=1.
+
+Every entry point runs on ``device="cuda"`` unless the caller asks for
+the CPU, and raises when CUDA is asked for and absent.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.mab import MABState, mab_state_from_numpy
+from repro_torch.device import resolve
+from repro_torch.env.cluster import Cluster, make_cluster
+from repro_torch.env.torchsim import engines, kernels
+from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
+                                             TraceArrays,
+                                             check_grid_homogeneous,
+                                             default_capacity, stack_traces,
+                                             to_device)
+
+#: MAB hyperparameters of the in-loop learned policies, matching the host
+#: ``MABDecider`` defaults: (ucb_c, phi, gamma, k)
+MAB_HP = (0.5, 0.3, 0.3, 0.1)
+
+#: layout of the packed per-substep metric accumulator:
+#: [n_fin, Σresp, n_viol, Σacc, Σreward, Σwait, fin_dec·3]
+METRIC_COLS = ("n_fin", "sum_resp", "n_viol", "sum_acc", "sum_reward",
+               "sum_wait", "fin_layer", "fin_semantic", "fin_compressed")
+
+#: phases of ``run_program`` timed when the caller passes ``phase_s``
+PHASES = ("decide", "place", "physics", "feedback")
+
+f8 = torch.float64
+
+
+def _init_acc(G: int, n: int, device) -> dict:
+    def z(*shape):
+        return torch.zeros((G,) + shape, dtype=f8, device=device)
+    return {"now": z(), "energy": z(), "pwt": z(n),
+            "metrics": z(len(METRIC_COLS))}
+
+
+def _interval_physics(state, acc, bw_row, cl, substeps, dt, interval_s,
+                      swap_slowdown):
+    """Shared interval tail for every engine: waiting-time accounting, the
+    substep physics, and the utilization → power → energy accumulation.
+    Also returns the per-worker interval utilization."""
+    state = dict(state)
+    state["wait_s"] = state["wait_s"] + \
+        (state["alive"] & ~state["placed"]).to(f8) * interval_s
+    state, acc, busy = kernels.run_substeps(
+        state, acc, bw_row, cl, substeps=substeps, dt=dt,
+        swap_slowdown=swap_slowdown)
+    util = busy / interval_s
+    power = cl["power_idle"] + (cl["power_peak"] - cl["power_idle"]) \
+        * torch.clamp(util, 0.0, 1.0)
+    acc = dict(acc)
+    acc["energy"] = acc["energy"] + power.sum(dim=1) * interval_s
+    return state, acc, util
+
+
+class _PhaseClock:
+    """Adds each phase's wall seconds (after a device synchronize) into a
+    caller-owned dict; does nothing when the dict is None."""
+
+    def __init__(self, phase_s: Optional[dict], device):
+        self.phase_s = phase_s
+        self.device = device
+        if phase_s is not None:
+            for p in PHASES:
+                phase_s.setdefault(p, 0.0)
+            self._sync()
+            self._t = time.perf_counter()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def lap(self, phase: str):
+        if self.phase_s is None:
+            return
+        self._sync()
+        now = time.perf_counter()
+        self.phase_s[phase] += now - self._t
+        self._t = now
+
+
+def run_program(engine, trace: dict, cl: dict, es, K: int, substeps: int,
+                interval_s: float, swap_slowdown: float,
+                phase_s: Optional[dict] = None) -> dict:
+    """THE interval program over a stacked device grid ``trace`` (leaves
+    (G, T, ...)) and cluster rows ``cl``; returns the per-cell
+    accumulators and the engine's outputs as device tensors.  With
+    ``phase_s`` the wall time of each of ``PHASES`` is added into it
+    (synchronizing the device at every phase boundary)."""
+    G, T = trace["valid"].shape[:2]
+    frag = trace["vinstr"] if "vinstr" in trace else trace["instr"]
+    F = frag.shape[-1]
+    n = cl["ram"].shape[0]
+    device = trace["valid"].device
+    dt = interval_s / substeps
+    state = kernels.init_state(G, K, F, n, device)
+    acc = _init_acc(G, n, device)
+    clock = _PhaseClock(phase_s, device)
+    for t in range(T):
+        arr, es = engine.decide(es, trace, t)
+        state = kernels.admit(state, arr)
+        clock.lap("decide")
+        req, es, aux = engine.place(es, state, cl, trace, t, interval_s)
+        state = kernels.apply_requests(state, cl, req)
+        clock.lap("place")
+        prev_done = state["task_done"]
+        state, acc, util = _interval_physics(
+            state, acc, trace["bw_mult"][:, t], cl, substeps, dt,
+            interval_s, swap_slowdown)
+        clock.lap("physics")
+        fin = state["task_done"] & ~prev_done
+        es = engine.feedback(es, state, fin, util, aux, t, interval_s)
+        state["alive"] = state["alive"] & ~state["task_done"]
+        clock.lap("feedback")
+    out = {"metrics": acc["metrics"], "energy": acc["energy"],
+           "pwt": acc["pwt"], "dropped": state["dropped"]}
+    out.update(engine.outputs(es))
+    return out
+
+
+def _summarize(out, interval_s: float, n_intervals: int,
+               cost_hr_total: float) -> dict:
+    """Assemble the §6.4 summary dict from one cell's accumulators
+    (NumPy)."""
+    m = dict(zip(METRIC_COLS, np.asarray(out["metrics"], np.float64)))
+    n_fin = m["n_fin"]
+    d = max(n_fin, 1.0)
+    mean_resp = m["sum_resp"] / d
+    mean_wait = m["sum_wait"] / d
+    pwt = np.asarray(out["pwt"], np.float64)
+    tot = pwt.sum()
+    fair = float(tot ** 2 / (len(pwt) * np.sum(pwt ** 2) + 1e-12)) \
+        if tot > 0 else 1.0
+    cost = cost_hr_total * interval_s / 3600.0 * n_intervals
+    return {
+        "accuracy": float(m["sum_acc"] / d),
+        "sla_violations": float(m["n_viol"] / d),
+        "reward": float(m["sum_reward"] / d),
+        "response_intervals": float(mean_resp / interval_s),
+        "wait_intervals": float(mean_wait / interval_s),
+        "exec_intervals": float((mean_resp - mean_wait) / interval_s),
+        "energy_mwhr": float(out["energy"]) / 3.6e9,
+        "fairness": fair,
+        "cost_per_container": float(cost / max(1, int(tot))),
+        "layer_fraction": float(m["fin_layer"] / d),
+        "tasks_completed": int(n_fin),
+        "dropped_tasks": int(out["dropped"]),
+    }
+
+
+def run_grid_engine(engine, traces: Sequence, es_builder: Callable,
+                    cluster: Optional[Cluster] = None,
+                    max_active: Optional[int] = None,
+                    swap_slowdown: float = 0.5, device="cuda",
+                    phase_s: Optional[dict] = None) -> list:
+    """Run a grid of compiled traces through the interval program under
+    ``engine`` on ``device``; returns one summary dict per trace (same
+    order).  ``es_builder(G, device)`` builds the engine state with one
+    row per cell."""
+    dev = resolve(device)
+    check_grid_homogeneous(traces)
+    cluster = cluster or make_cluster()
+    cl = ClusterArrays.from_cluster(cluster)
+    K = max_active or default_capacity(traces)
+    t0 = traces[0]
+    leaves = to_device(stack_traces(traces), dev)
+    cld = to_device(cl.as_dict(), dev)
+    out = run_program(engine, leaves, cld, es_builder(len(traces), dev), K,
+                      t0.substeps, t0.interval_s, swap_slowdown, phase_s)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    cost_total = float(cl.cost_hr.sum())
+    return [engine.summarize(row, _summarize(row, t0.interval_s,
+                                             t0.n_intervals, cost_total))
+            for row in ({k: v[i] for k, v in out.items()}
+                        for i in range(len(traces)))]
+
+
+def run_trace_engine(engine, trace, es_builder: Callable, **kw) -> dict:
+    """One compiled trace through the interval program (a grid of one)."""
+    return run_grid_engine(engine, [trace], es_builder, **kw)[0]
+
+
+# ------------------------------------------------ engine-state assembly
+
+
+def _check_variants(traces, expected):
+    """A dual trace's V axis must realize the decision codes the engine
+    decides between."""
+    for t in traces:
+        got = tuple(getattr(t, "variants", (0, 1)))
+        if got != tuple(expected):
+            raise ValueError(
+                f"trace realizes variants {got}, engine needs "
+                f"{tuple(expected)} (compile_trace_dual(variants=...))")
+
+
+def _mab_es(mab_state):
+    """Engine-state builder for the MAB engines: every cell starts from
+    its own copy of ``mab_state`` — a port ``MABState`` with a grid axis
+    of 1 (or of G), or the reference's fields as a dict of NumPy arrays
+    (see ``mab_state_from_numpy``)."""
+    def build(G, dev):
+        if isinstance(mab_state, MABState):
+            g0 = mab_state.Q.shape[0]
+            if g0 not in (1, G):
+                raise ValueError(f"mab_state has a grid axis of {g0}, the "
+                                 f"grid has {G} cells")
+            return {"mab": MABState(*[
+                v.to(dev).expand(G, *v.shape[1:]).clone()
+                for v in mab_state])}
+        return {"mab": mab_state_from_numpy(mab_state, grid=G, device=dev)}
+    return build
+
+
+# ------------------------------------------------- engine-selecting API
+
+
+def run_grid_arrays(traces: Sequence[TraceArrays],
+                    cluster: Optional[Cluster] = None,
+                    max_active: Optional[int] = None,
+                    swap_slowdown: float = 0.5, device="cuda",
+                    phase_s: Optional[dict] = None) -> list:
+    """Run a grid of statically-decided compiled traces (BestFit
+    placement); returns one §6.4 summary dict per trace."""
+    return run_grid_engine(engines.StaticEngine(), traces,
+                           lambda G, dev: {}, cluster=cluster,
+                           max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device,
+                           phase_s=phase_s)
+
+
+def run_trace_arrays(trace: TraceArrays, cluster: Optional[Cluster] = None,
+                     max_active: Optional[int] = None,
+                     swap_slowdown: float = 0.5, device="cuda") -> dict:
+    """Run one compiled trace through the static program."""
+    return run_grid_arrays([trace], cluster=cluster, max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device)[0]
+
+
+def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
+                            cluster: Optional[Cluster] = None,
+                            max_active: Optional[int] = None,
+                            swap_slowdown: float = 0.5, device="cuda",
+                            mab_hp=MAB_HP,
+                            phase_s: Optional[dict] = None) -> list:
+    """Run a grid of dual traces under the deploy-mode MAB policy (online
+    UCB split decisions + Algorithm-1 feedback, BestFit placement).  Every
+    cell carries its own copy of ``mab_state``.  Summaries gain the final
+    MAB scalars (``mab_eps``/``mab_rho``/``mab_t``).  The DASO placement
+    stage is not ported yet (ROADMAP queue 1 item 6)."""
+    _check_variants(traces, engines.MAB_VARIANTS)
+    engine = engines.MABDeployEngine(mab_hp=tuple(mab_hp))
+    return run_grid_engine(engine, traces, _mab_es(mab_state),
+                           cluster=cluster, max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device,
+                           phase_s=phase_s)
+
+
+def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
+                             cluster: Optional[Cluster] = None,
+                             max_active: Optional[int] = None,
+                             swap_slowdown: float = 0.5, device="cuda",
+                             mab_hp=MAB_HP) -> dict:
+    """Run one dual trace through the deploy-mode MAB program."""
+    return run_grid_arrays_learned(
+        [trace], mab_state, cluster=cluster, max_active=max_active,
+        swap_slowdown=swap_slowdown, device=device, mab_hp=mab_hp)[0]

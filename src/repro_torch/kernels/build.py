@@ -1,0 +1,104 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes).
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
+use, from the repository's sources only, into ``kernels/_build/`` (listed
+in ``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -Xptxas -v -o _build/lib<name>-<hash>.so
+
+The library name carries a hash of the source, so an edited source is
+rebuilt and a stale library is never loaded.  ``build_all`` starts one
+nvcc per source, all at once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+#: every kernel source of the port, built together by ``build_all``
+SOURCES = ("edge_substep", "placement")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else on ``PATH``, else
+    the toolkit's default location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built at first use and need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+class KernelLibraries:
+    """Loaded kernel libraries of this process, built on first request.
+    ``logs`` keeps each build's compiler output (``-Xptxas -v``: registers,
+    shared memory, spills)."""
+
+    def __init__(self):
+        self._libs: Dict[str, ctypes.CDLL] = {}
+        self.logs: Dict[str, str] = {}
+
+    def build_all(self, names=SOURCES) -> Dict[str, str]:
+        """Compile every missing library, one nvcc per source started
+        together; returns the compiler output per source."""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            self.logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        return dict(self.logs)
+
+    def get(self, name: str) -> ctypes.CDLL:
+        lib = self._libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                self.build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            self._libs[name] = lib
+        return lib
+
+
+LIBRARIES = KernelLibraries()

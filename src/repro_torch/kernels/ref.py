@@ -1,0 +1,155 @@
+"""Eager PyTorch twin of the edge-substep physics kernel.
+
+``edge_substep_ref`` is the port of ``repro.kernels.ref.edge_substep_ref``
+with the same formulas in the same order, batched over an optional
+leading grid axis G.  It is the oracle of the hand-written CUDA kernel
+(``repro_torch.kernels.edge_substep``) and the path a CPU tensor takes.
+
+Out-of-range stage: the reference gathers each chain's active-stage
+channels with ``take_along_axis``, and JAX's default gather *fills* an
+out-of-range index (``stage == F`` happens once a chain ran off its
+last column): NaN for the float channels, True for ``done``.  So such a
+stage is not runnable, holds no RAM, moves no transfer and counts as
+done.  ``torch.gather`` raises on such an index instead, so the twin
+clamps the index and substitutes those fill semantics explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+f8 = torch.float64
+
+#: operand order of the fused physics (carries first, then the
+#: interval-static per-task/per-fragment channels, then cluster rows)
+CARRY_NAMES = ("instr", "done", "transfer", "stage", "task_done", "resp",
+               "now", "metrics")
+STATIC_NAMES = ("worker", "ram_task", "out_bytes", "nfrag", "chain",
+                "placed", "sla", "arrival", "acc_t", "wait_s", "decision",
+                "bw_mult", "mips", "cap", "net_bw")
+OUT_NAMES = CARRY_NAMES + ("busy", "pwt_delta")
+
+#: the cluster rows shared by every grid cell (never batched)
+SHARED_NAMES = ("mips", "cap", "net_bw")
+
+
+def _take(x, idx):
+    """x (G, K, F) at per-task column idx (G, K) -> (G, K)."""
+    return torch.gather(x, 2, idx[..., None])[..., 0]
+
+
+def edge_substep_ref(instr, done, transfer, stage, task_done, resp, now,
+                     metrics, worker, ram_task, out_bytes, nfrag, chain,
+                     placed, sla, arrival, acc_t, wait_s, decision,
+                     bw_mult, mips, cap, net_bw, *, substeps, dt,
+                     swap_slowdown, nic_cap):
+    """One scheduling interval of SplitPlace substep physics.
+
+    Shapes without a grid axis: (K, F) ``instr``/``done``/``transfer``/
+    ``worker``/``out_bytes``; (K,) per-task channels; (1,) ``now``; (9,)
+    ``metrics``; (n,) cluster rows.  With a grid axis every operand
+    except ``mips``/``cap``/``net_bw`` gains a leading G.  Returns the
+    ``OUT_NAMES`` tuple: updated carries plus per-worker busy seconds
+    and the interval's per-worker completion census.
+    """
+    batched = instr.dim() == 3
+    if not batched:
+        args = [instr, done, transfer, stage, task_done, resp, now, metrics,
+                worker, ram_task, out_bytes, nfrag, chain, placed, sla,
+                arrival, acc_t, wait_s, decision, bw_mult]
+        outs = edge_substep_ref(*[a[None] for a in args], mips, cap,
+                                net_bw, substeps=substeps, dt=dt,
+                                swap_slowdown=swap_slowdown,
+                                nic_cap=nic_cap)
+        return tuple(o[0] for o in outs)
+
+    G, K, F = worker.shape
+    n = mips.shape[0]
+    dev = instr.device
+    fidx = torch.arange(F, dtype=torch.int32, device=dev)
+    arange_n = torch.arange(n, device=dev)
+    wsafe = worker.clamp(0, n - 1).long()
+    chain_f = chain[..., None]
+    not_chain_f = ~chain_f
+    placed_f = placed[..., None] & (worker >= 0)
+    holdable = worker >= 0
+    chactive = chain & placed & ~task_done
+    kfn = wsafe[..., None] == arange_n                          # (G,K,F,n)
+    mips_f = mips[wsafe]
+    doh = (decision.clamp(0, 2)[..., None]
+           == torch.arange(3, device=dev)).to(f8)               # (G,K,3)
+    hand_static = chain_f & (fidx < (nfrag - 1)[..., None])
+    out_r = torch.cat([torch.zeros_like(out_bytes[..., :1]),
+                       out_bytes[..., :-1]], dim=2)
+    w_prev = torch.roll(worker, 1, dims=2).clamp(0, n - 1).long()
+    bw_pair = torch.minimum(
+        torch.full_like(out_bytes, nic_cap),
+        torch.minimum(net_bw[w_prev] / 100.0, net_bw[wsafe] / 100.0))
+    gi = torch.arange(G, device=dev)[:, None, None]
+    bw_pair = bw_pair * torch.minimum(bw_mult[gi, w_prev], bw_mult[gi, wsafe])
+    swap_f8 = torch.tensor(swap_slowdown, dtype=f8, device=dev)
+
+    def census(mask_f):
+        """(G, K, n) per-(task, worker) counts of a (G, K, F) mask."""
+        return (mask_f[..., None] & kfn).sum(dim=2).to(f8)
+
+    now_s = now[:, 0].clone()
+    busy = torch.zeros((G, n), dtype=f8, device=dev)
+    m = metrics.clone()
+    resp_rec = resp.clone()
+    done0 = done
+    for _ in range(substeps):
+        notdone = ~done
+        cnt = census(notdone & holdable & not_chain_f)
+        is_stage = fidx == stage[..., None]
+        tle = (transfer <= 0.0) & is_stage
+        runnable = (not_chain_f | tle) & placed_f & notdone
+        holds = (not_chain_f | is_stage) & holdable & notdone
+        # active-stage channels; an out-of-range stage reads the fill
+        # values (not runnable, not holding, no transfer)
+        in_rng = (stage >= 0) & (stage < F)
+        s_idx = stage.clamp(0, F - 1).long()
+        w_stage = _take(wsafe, s_idx)
+        cur_tl = _take(transfer, s_idx)
+        bw_s = _take(bw_pair, s_idx)
+        r_ch = _take(runnable, s_idx) & chain & in_rng
+        h_ch = _take(holds, s_idx) & chain & in_rng
+        ohs = (w_stage[..., None] == arange_n).to(f8)            # (G,K,n)
+        load = cnt.sum(dim=1) + torch.einsum("gk,gkn->gn", r_ch.to(f8), ohs)
+        ram_load = torch.einsum("gk,gkn->gn", ram_task, cnt) \
+            + torch.einsum("gk,gkn->gn",
+                           torch.where(h_ch, ram_task, 0.0), ohs)
+        swap = ram_load > cap
+        busy = busy + (load > 0) * dt
+        load_f = torch.gather(load, 1, wsafe.reshape(G, -1)).reshape(G, K, F)
+        swap_f = torch.gather(swap, 1, wsafe.reshape(G, -1)).reshape(G, K, F)
+        rate = mips_f / torch.clamp(load_f, min=1.0)
+        rate = torch.where(swap_f, rate * swap_f8, rate)
+        instr = instr - torch.where(runnable, rate * dt, 0.0)
+        newly = runnable & (instr <= 0.0)
+        done = done | newly
+        hand = newly & hand_static
+        hand_r = torch.cat([torch.zeros_like(hand[..., :1]), hand[..., :-1]],
+                           dim=2)
+        transfer = torch.where(hand_r, out_r, transfer)
+        newfin = done.all(dim=2) & ~task_done
+        task_done = task_done | newfin
+        resp_t = now_s[:, None] - arrival
+        resp_rec = torch.where(newfin, resp_t, resp_rec)
+        finf = newfin.to(f8)
+        mcols = torch.stack(
+            [torch.ones_like(resp_t), resp_t, (resp_t > sla).to(f8), acc_t,
+             ((resp_t <= sla) + acc_t) / 2.0, wait_s,
+             doh[..., 0], doh[..., 1], doh[..., 2]], dim=2)       # (G,K,9)
+        m = m + torch.einsum("gk,gkc->gc", finf, mcols)
+        s = stage
+        cond = chactive & (s > 0) & (cur_tl > 0.0) & in_rng
+        transfer = transfer - torch.where(
+            cond, bw_s * 1e6 * dt, 0.0)[..., None] * is_stage
+        done_s = torch.where(in_rng, _take(done, s_idx), True)
+        adv = chactive & done_s & (s < nfrag - 1)
+        stage = stage + adv.to(torch.int32)
+        now_s = now_s + dt
+    completed = done & ~done0
+    pwt_delta = census(completed).sum(dim=1)
+    return (instr, done, transfer, stage, task_done, resp_rec,
+            now_s[:, None], m, busy, pwt_delta)

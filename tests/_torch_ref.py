@@ -1,0 +1,105 @@
+"""Shared helpers of the port's tests: the JAX reference run in a child
+interpreter, and the inputs both sides are fed.
+
+``repro.env.jaxsim`` imports ``jax.experimental.enable_x64``, which the
+installed JAX no longer has.  The alias that restores it is set only
+inside the child process, never in the pytest process, whose workers
+also run the JAX package's own tests.  The child gets ``PYTHONPATH=src``
+and ``JAX_PLATFORMS=cpu``, runs ``code`` with ``OUT`` bound to an output
+path, and the caller loads what it wrote there.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PRELUDE = """\
+import sys
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64
+OUT = sys.argv[1]
+"""
+
+#: the literal MAB state of tools/regen_golden.py, as the reference's
+#: fields (NumPy) and as reference-side code
+MAB_LITERAL = {"R": np.array([700.0, 1800.0, 3500.0]),
+               "Q": np.array([[0.8, 0.6], [0.3, 0.7]]),
+               "N": np.array([[20.0, 10.0], [5.0, 25.0]]),
+               "eps": 0.4, "rho": 0.06, "t": 40}
+MAB_LITERAL_JAX = """\
+import jax.numpy as jnp
+from repro.core import mab
+MAB_STATE = mab.init_state(3)._replace(
+    R=jnp.array([700.0, 1800.0, 3500.0], jnp.float32),
+    Q=jnp.array([[0.8, 0.6], [0.3, 0.7]], jnp.float32),
+    N=jnp.array([[20.0, 10.0], [5.0, 25.0]], jnp.float32),
+    eps=jnp.asarray(0.4, jnp.float32),
+    rho=jnp.asarray(0.06, jnp.float32),
+    t=jnp.asarray(40, jnp.int32))
+"""
+
+
+def run_reference(code: str, out_path, timeout: float = 600) -> None:
+    """Run ``code`` (reference-side Python) in a fresh interpreter; raise
+    with its output if it fails."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-c", PRELUDE + textwrap.dedent(code),
+         str(out_path)], env=env, cwd=ROOT, capture_output=True, text=True,
+        timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"reference child failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+
+
+def substep_fuzz(rng: np.random.RandomState, k: int = 12, f: int = 4,
+                 n: int = 6) -> dict:
+    """One consistent fuzzed slot state for the substep physics, drawn
+    exactly as ``tests/test_edge_substep.py`` draws it: padding columns
+    born done with worker −1, stages in [0, f] (f once a chain ran off its
+    last column), positive physical quantities.  Keys are the kernel's
+    operand names."""
+    nfrag = rng.randint(1, f + 1, k).astype(np.int32)
+    colpad = np.arange(f)[None, :] >= nfrag[:, None]
+    done = rng.rand(k, f) < 0.35
+    done |= colpad
+    worker = rng.randint(0, n, (k, f)).astype(np.int32)
+    worker[colpad] = -1
+    placed = rng.rand(k) < 0.8
+    worker[~placed] = -1
+    task_done = done.all(axis=1) & (rng.rand(k) < 0.5)
+    stage = np.minimum(done.argmin(axis=1).astype(np.int32), nfrag - 1)
+    stage[done.all(axis=1)] = nfrag[done.all(axis=1)]
+    return dict(
+        instr=np.where(done, 0.0, rng.uniform(1e3, 5e4, (k, f))),
+        done=done,
+        transfer=np.where(done, 0.0, rng.uniform(0.0, 30.0, (k, f))),
+        stage=stage,
+        task_done=task_done,
+        resp=np.where(task_done, rng.uniform(1.0, 50.0, k), 0.0),
+        now=np.asarray([rng.uniform(0.0, 900.0)]),
+        metrics=rng.uniform(0.0, 10.0, 9),
+        worker=worker,
+        ram_task=rng.uniform(0.5, 8.0, k),
+        out_bytes=rng.uniform(0.1, 40.0, (k, f)),
+        nfrag=nfrag,
+        chain=rng.rand(k) < 0.5,
+        placed=placed,
+        sla=rng.uniform(5.0, 60.0, k),
+        arrival=rng.uniform(0.0, 600.0, k),
+        acc_t=rng.uniform(0.5, 1.0, k),
+        wait_s=rng.uniform(0.0, 10.0, k),
+        decision=rng.randint(0, 3, k).astype(np.int32),
+        bw_mult=rng.uniform(0.3, 1.0, n),
+        mips=rng.uniform(2e3, 8e3, n),
+        cap=rng.uniform(4.0, 16.0, n),
+        net_bw=rng.uniform(100.0, 1000.0, n),
+    )

@@ -1,0 +1,176 @@
+"""The port's interval program end to end, on the CPU.
+
+  * ``run_trace_arrays`` reproduces ``tests/data/golden_static_bestfit_rr
+    .json`` at the fixture's own tolerance (rtol=1e-6, atol=1e-12);
+  * static (``bestfit-rr``, ``mc``) and ``"mab"``-deploy grids (G=3, λ=5,
+    T=8, substeps=4) match the live JAX driver's summaries at rtol=1e-9,
+    with the MAB interval counter exact, on the Table-3 fleet and on a
+    fleet with a tenth of its RAM (where the feasibility repair walks the
+    live slots every interval); the reference runs in a child interpreter
+    (``_torch_ref``);
+  * a grid equals its cells run one by one;
+  * ``run_grid_batched`` returns one record per (λ, seed) cell and
+    refuses what is not ported yet.
+"""
+from __future__ import annotations
+
+import itertools
+import json
+import os
+
+import numpy as np
+import pytest
+
+from _torch_ref import MAB_LITERAL, MAB_LITERAL_JAX, ROOT, run_reference
+from repro_torch.env.cluster import make_cluster
+from repro_torch.env.torchsim import (compile_trace, compile_trace_dual,
+                                      engines,
+                                      make_static_decider, run_grid_arrays,
+                                      run_grid_arrays_learned,
+                                      run_trace_arrays,
+                                      run_trace_arrays_learned)
+from repro_torch.launch.experiments import NOT_PORTED, run_grid_batched
+
+GOLDEN = os.path.join(ROOT, "tests", "data", "golden_static_bestfit_rr.json")
+GRID = dict(lam=5.0, seeds=(0, 1, 2), n_intervals=8, substeps=4)
+POLICIES = ("bestfit-rr", "mc", "mab")
+RAM_SCALES = (1.0, 0.1)
+
+
+def _traces(policy, ram_scale=1.0):
+    kw = dict(lam=GRID["lam"], n_intervals=GRID["n_intervals"],
+              substeps=GRID["substeps"],
+              cluster=make_cluster(ram_scale=ram_scale))
+    if policy == "mab":
+        return [compile_trace_dual(seed=s, **kw) for s in GRID["seeds"]]
+    dec = make_static_decider(policy)
+    return [compile_trace(dec, seed=s, **kw) for s in GRID["seeds"]]
+
+
+def _run(policy, traces, ram_scale=1.0):
+    cluster = make_cluster(ram_scale=ram_scale)
+    if policy == "mab":
+        return run_grid_arrays_learned(traces, MAB_LITERAL, cluster=cluster,
+                                       device="cpu")
+    return run_grid_arrays(traces, cluster=cluster, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_driver") / "summaries.json"
+    run_reference(MAB_LITERAL_JAX + f"""
+import json
+from repro.env import jaxsim
+from repro.env.cluster import make_cluster
+seeds = {GRID['seeds']!r}
+res = {{}}
+for scale in {RAM_SCALES!r}:
+    cl = make_cluster(ram_scale=scale)
+    kw = dict(lam={GRID['lam']}, n_intervals={GRID['n_intervals']},
+              substeps={GRID['substeps']}, cluster=cl)
+    for pol in ("bestfit-rr", "mc"):
+        dec = jaxsim.make_static_decider(pol)
+        res[f"{{pol}}/{{scale}}"] = jaxsim.run_grid_arrays(
+            [jaxsim.compile_trace(dec, seed=s, **kw) for s in seeds],
+            cluster=cl)
+    res[f"mab/{{scale}}"] = jaxsim.run_grid_arrays_learned(
+        [jaxsim.compile_trace_dual(seed=s, **kw) for s in seeds], MAB_STATE,
+        cluster=cl)
+with open(OUT, "w") as f:
+    json.dump(res, f)
+""", out)
+    with open(out) as f:
+        return json.load(f)
+
+
+def test_golden_static_bestfit_rr():
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    tr = compile_trace(make_static_decider("bestfit-rr"), lam=5.0, seed=0,
+                       n_intervals=8, substeps=4)
+    got = run_trace_arrays(tr, device="cpu")
+    assert golden["case"] == "static bestfit-rr lam=5 seed=0 T=8 substeps=4"
+    assert set(golden["summary"]) == set(got)
+    for k, v in golden["summary"].items():
+        assert np.isclose(got[k], v, rtol=1e-6, atol=1e-12), \
+            f"{k}: fixture={v!r} port={got[k]!r}"
+
+
+@pytest.mark.parametrize("ram_scale", RAM_SCALES)
+@pytest.mark.parametrize("policy", POLICIES)
+def test_grid_matches_jax_driver(ref, policy, ram_scale):
+    got = _run(policy, _traces(policy, ram_scale), ram_scale)
+    want = ref[f"{policy}/{ram_scale}"]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w), f"cell {i}: {sorted(set(g) ^ set(w))}"
+        for k, v in w.items():
+            assert np.isclose(g[k], v, rtol=1e-9, atol=1e-12), \
+                f"{policy} cell {i} {k}: jax={v!r} port={g[k]!r}"
+        if policy == "mab":
+            assert g["mab_t"] == w["mab_t"] == 40 + GRID["n_intervals"]
+        assert g["dropped_tasks"] == 0 and g["tasks_completed"] > 0
+
+
+def test_small_ram_fleet_runs_the_repair_scan(monkeypatch):
+    """On the tenth-RAM fleet the sequential repair runs in every
+    interval, so the comparison above covers it."""
+    from repro_torch.kernels import placement
+    trips = []
+    scan = placement.repair_scan
+
+    def counting(*args):
+        trips.append(int(args[1].max()))
+        return scan(*args)
+
+    monkeypatch.setattr(placement, "repair_scan", counting)
+    _run("bestfit-rr", _traces("bestfit-rr", 0.1), 0.1)
+    assert len(trips) == GRID["n_intervals"] and min(trips) > 0
+
+
+@pytest.mark.parametrize("policy", ("bestfit-rr", "mab"))
+def test_grid_equals_single_trace_runs(policy):
+    traces = _traces(policy)
+    grid = _run(policy, traces)
+    for tr, g in zip(traces, grid):
+        one = run_trace_arrays_learned(tr, MAB_LITERAL, device="cpu") \
+            if policy == "mab" else run_trace_arrays(tr, device="cpu")
+        assert one == g
+
+
+@pytest.mark.parametrize("policy", ("mc", "mab"))
+def test_run_grid_batched_one_record_per_cell(policy):
+    lams, seeds = (4.0, 6.0), (3, 5)
+    phase_s = {}
+    recs = run_grid_batched(policy, seeds=seeds, lams=lams, n_intervals=5,
+                            substeps=3, mab_state=MAB_LITERAL, device="cpu",
+                            phase_s=phase_s)
+    cells = list(itertools.product(lams, seeds))
+    assert [(r["lam"], r["seed"]) for r in recs] == cells
+    assert all(r["policy"] == policy for r in recs)
+    assert all(isinstance(v, float) for r in recs for k, v in r.items()
+               if k not in ("policy", "seed", "lam"))
+    assert set(phase_s) == {"decide", "place", "physics", "feedback"}
+    # the same cells run as single-variant static traces one by one
+    if policy == "mc":
+        for (lam, seed), r in zip(cells, recs):
+            one = run_trace_arrays(compile_trace(
+                make_static_decider("mc"), lam=lam, seed=seed,
+                n_intervals=5, substeps=3), device="cpu")
+            assert r["tasks_completed"] == one["tasks_completed"]
+
+
+@pytest.mark.parametrize("policy", sorted(NOT_PORTED))
+def test_unported_policies_raise(policy):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        run_grid_batched(policy, n_intervals=2, substeps=2, device="cpu",
+                         mab_state=MAB_LITERAL)
+
+
+def test_train_mode_and_daso_raise():
+    with pytest.raises(NotImplementedError, match="item 7"):
+        run_grid_batched("mab", mode="train", mab_state=MAB_LITERAL,
+                         n_intervals=2, substeps=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        engines.MABDeployEngine(mab_hp=(0.5, 0.3, 0.3, 0.1),
+                                daso_cfg=object())

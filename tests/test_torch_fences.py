@@ -1,0 +1,96 @@
+"""Fences around the PyTorch port.
+
+  * ``repro_torch`` imports neither JAX nor anything of the JAX package
+    ``repro`` (checked in a fresh interpreter, after importing every
+    module of the port, and in the sources);
+  * its entry points default to CUDA and raise on a machine without it
+    instead of falling back to the CPU.
+"""
+from __future__ import annotations
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from _torch_ref import ROOT
+
+SRC = os.path.join(ROOT, "src")
+PKG = os.path.join(SRC, "repro_torch")
+
+
+def _port_modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _port_modules()
+    assert "repro_torch.kernels.edge_substep" in mods
+    code = ("import importlib, sys\n"
+            f"mods = {mods!r}\n"
+            "for m in mods: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len(mods), bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_sources_name_no_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.M)
+    offenders = []
+    for dirpath, _, files in os.walk(PKG):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(dirpath, fn)
+                with open(path) as f:
+                    if pat.search(f.read()):
+                        offenders.append(os.path.relpath(path, ROOT))
+    assert not offenders
+
+
+def _entry_points():
+    from repro_torch.core import mab
+    from repro_torch.env.torchsim import (compile_trace, compile_trace_dual,
+                                          make_static_decider,
+                                          run_grid_arrays,
+                                          run_grid_arrays_learned,
+                                          run_trace_arrays)
+    from repro_torch.launch.experiments import run_grid_batched
+    lit = {"Q": np.zeros((2, 2)), "N": np.zeros((2, 2)),
+           "R": np.zeros(3), "eps": 0.5, "rho": 0.1, "t": 1}
+    tr = compile_trace(make_static_decider("mc"), lam=2.0, seed=0,
+                       n_intervals=2, substeps=2)
+    dual = compile_trace_dual(lam=2.0, seed=0, n_intervals=2, substeps=2)
+    return {
+        "run_grid_batched": lambda: run_grid_batched("mc", n_intervals=2,
+                                                     substeps=2),
+        "run_trace_arrays": lambda: run_trace_arrays(tr),
+        "run_grid_arrays": lambda: run_grid_arrays([tr]),
+        "run_grid_arrays_learned": lambda: run_grid_arrays_learned(
+            [dual], lit),
+        "mab_state_from_numpy": lambda: mab.mab_state_from_numpy(lit),
+        "mab_init_state": lambda: mab.init_state(3),
+    }
+
+
+@pytest.mark.parametrize("name", ["run_grid_batched", "run_trace_arrays",
+                                  "run_grid_arrays",
+                                  "run_grid_arrays_learned",
+                                  "mab_state_from_numpy", "mab_init_state"])
+def test_entry_points_default_to_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points()[name]()
