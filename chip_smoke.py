@@ -4,14 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(the substep physics and the two placement scans), holds each against
-its eager PyTorch twin (fuzzed slot states and one real main-path
-interval; float64 at rtol=1e-12, bools and ints exact, bitwise identical
-over two runs), then drives the main path — ``run_grid_batched`` for
-``bestfit-rr`` and for the ``"mab"`` deploy policy over a 16-cell
-(8 seeds × λ∈{6, 24}) grid on the 50-worker Table-3 fleet, 100 intervals
-of 30 substeps — counting every kernel's launches, and cross-checks the GPU
-driver against the committed golden fixture and against the CPU path.
+(the substep physics, the two placement scans and flash attention) and
+holds each against its eager PyTorch twin: the simulator kernels on
+fuzzed slot states and one real main-path interval (float64 at
+rtol=1e-12, bools and ints exact, bitwise identical over two runs), flash
+attention at the reference's test shapes and the serving shape (atol
+2e-5 in float32, 2e-2 in bfloat16).  Then it drives the two main paths,
+each with every kernel's launch count set to 0 just before and read just
+after:
+
+* the simulator — ``run_grid_batched`` for ``bestfit-rr`` and for the
+  ``"mab"`` deploy policy over a 16-cell (8 seeds × λ∈{6, 24}) grid on
+  the 50-worker Table-3 fleet, 100 intervals of 30 substeps;
+* serving — ``SplitPlaceEngine`` over TinyLlama-1.1B at full width
+  (22 layers, d=2048, bfloat16, random weights from seed 0), 2 stages /
+  2 branches, batch 4 × 1024 tokens, 20 requests under the reference's
+  tight/loose deadline rule;
+
+and cross-checks the GPU driver against the committed golden fixture and
+the CPU path, and the GPU model against the CPU one at a reduced size.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
 numbers, a ``{"kernels": [...]}`` JSON line and, as the last line,
@@ -44,6 +55,21 @@ MAIN = dict(seeds=tuple(range(8)), lams=(6.0, 24.0), n_intervals=100,
             substeps=30)
 H100_BYTES_S = 3.35e12             # HBM3, NVIDIA H100 SXM data sheet
 H100_FP64_S = 34e12                # FP64 (non-tensor), same data sheet
+H100_BF16_S = 989e12               # bf16 dense tensor cores, same sheet
+#: flash attention: the reference's test shapes (b, sq, sk, h, kvh, hd,
+#: causal, window) and tolerances (tests/test_kernels.py)
+FLASH_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
+               (1, 128, 128, 8, 8, 64, True, 0),
+               (2, 96, 96, 4, 1, 32, True, 0),
+               (1, 33, 77, 2, 2, 16, True, 0),
+               (2, 80, 80, 4, 2, 32, True, 8),
+               (2, 80, 80, 4, 2, 32, True, 32),
+               (1, 40, 56, 2, 2, 64, False, 0)]
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the serving path: TinyLlama-1.1B at full width, the engine's plans,
+#: batch × seq tokens per request
+SERVE = dict(arch="tinyllama-1.1b", requests=20, batch=4, seq=1024,
+             stages=2, branches=2)
 
 
 def log(*a):
@@ -178,16 +204,18 @@ def main_path_interval(n_warm=30):
     return bestfit, repair, physics, kw
 
 
-def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops):
+def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
+            peak=H100_FP64_S, library_ms=None):
     """One entry of the kernels JSON line; the bound is the larger of the
-    bytes over the HBM rate and the FP64 operations over the FP64 rate."""
+    bytes over the HBM rate and the operations over ``peak`` (the FP64
+    rate unless given)."""
     b_ms = nbytes / H100_BYTES_S * 1e3
-    o_ms = flops / H100_FP64_S * 1e3
+    o_ms = flops / peak * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def _nbytes(tensors):
@@ -290,12 +318,108 @@ def kernel_phase():
     return records
 
 
+def _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype):
+    import torch
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+            .to("cuda", getattr(torch, dtype))
+            for shape in ((b, sq, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd))]
+
+
+def _flash_check(q, k, v, causal, window, dtype, where):
+    """Kernel vs twin on the card at the reference's tolerance; returns
+    the largest absolute difference."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    again = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"{where}: output {got.dtype} "
+                             f"{tuple(got.shape)}")
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= FLASH_ATOL[dtype]:
+        raise AssertionError(f"{where}: kernel vs twin max abs err {err:.3e}"
+                             f" > {FLASH_ATOL[dtype]}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{where}: two runs differ")
+    return err
+
+
+def flash_phase():
+    """Flash attention vs its twin on the card at the reference's test
+    shapes (float32 and bfloat16) and the serving shape; times the kernel,
+    the twin and the library's scaled_dot_product_attention (a yardstick
+    only: the port never calls it) at the serving shape in bfloat16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+    rng = np.random.RandomState(0)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype in ("float32", "bfloat16"):
+        for b, sq, sk, h, kvh, hd, causal, window in FLASH_CASES:
+            q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype)
+            err = _flash_check(q, k, v, causal, window, dtype,
+                               f"flash {dtype} {(b, sq, sk, h, kvh, hd)} "
+                               f"causal={causal} window={window}")
+            worst[dtype] = max(worst[dtype], err)
+    log(f"flash_attention at the reference's {len(FLASH_CASES)} test cases "
+        f"matches the twin: max abs err float32 {worst['float32']:.3e} "
+        f"(atol {FLASH_ATOL['float32']}), bfloat16 {worst['bfloat16']:.3e} "
+        f"(atol {FLASH_ATOL['bfloat16']}), bitwise repeatable")
+
+    cfg = get_config(SERVE["arch"])
+    b, s = SERVE["batch"], SERVE["seq"]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, dtype)
+        errs[dtype] = _flash_check(q, k, v, True, 0, dtype,
+                                   f"flash {dtype} serving shape")
+    # q, k, v are the bfloat16 serving-shape operands from here on
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    lib_err = float((lib.transpose(1, 2).float()
+                     - flash_attention_cuda(q, k, v).float()).abs().max())
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    # causal half of QK^T and PV: 2·b·h·sq·sk·hd, on bf16 tensor cores;
+    # bytes: q, k, v read once and an output of q's size written once
+    flops = 2.0 * b * h * s * s * hd
+    rec = _record("flash_attention",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:87",
+                  errs["bfloat16"], ms, plain_ms, _nbytes([q, k, v, q]),
+                  flops, peak=H100_BF16_S, library_ms=library_ms)
+    log(f"flash_attention at the serving shape b={b} s={s} h={h} kvh={kvh} "
+        f"hd={hd} causal: matches the twin (max abs err float32 "
+        f"{errs['float32']:.3e}, bfloat16 {errs['bfloat16']:.3e}); bfloat16 "
+        f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms/call, which "
+        f"differs from the kernel by {lib_err:.3e} at most), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    return rec
+
+
 def _counters():
     from repro_torch.kernels import placement
     from repro_torch.kernels.edge_substep import edge_substep
+    from repro_torch.kernels.flash_attention import flash_attention
     return {"edge_substep": edge_substep,
             "bestfit_scan": placement.bestfit_scan,
-            "repair_scan": placement.repair_scan}
+            "repair_scan": placement.repair_scan,
+            "flash_attention": flash_attention}
+
+
+#: the kernels each main path runs
+SIM_KERNELS = ("edge_substep", "bestfit_scan", "repair_scan")
 
 
 def main_path(policy, **kw):
@@ -314,7 +438,8 @@ def main_path(policy, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
-    for name, count in launches.items():
+    for name in SIM_KERNELS:
+        count = launches[name]
         if count != MAIN["n_intervals"]:
             raise AssertionError(f"{policy}: {name} launched {count} times, "
                                  f"expected once per interval "
@@ -336,6 +461,180 @@ def main_path(policy, **kw):
         f"{wall - sum(phase_s.values()):.3f} s"
         + f"; mean reward {np.mean([r['reward'] for r in recs]):.4f}")
     return recs, wall, launches, phase_s
+
+
+def serving_path():
+    """The serving main path: TinyLlama-1.1B at full width through
+    ``SplitPlaceEngine`` (the port's ``launch.serve`` request loop), with
+    every kernel's launch count set to 0 just before and read just after;
+    returns the launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.model import forward, init_params
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, the config counts "
+                             f"{cfg.param_count()}")
+    log(f"serving: {SERVE['arch']} {cfg.num_layers} layers d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim}"
+        f" d_ff={cfg.d_ff} vocab {cfg.vocab_size} {cfg.param_dtype}: "
+        f"{n_params} parameters ({n_bytes / 1e9:.3f} GB) made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = serve_requests(params, cfg, requests=SERVE["requests"],
+                         batch=SERVE["batch"], seq=SERVE["seq"],
+                         stages=SERVE["stages"], branches=SERVE["branches"],
+                         device="cuda", log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    results, L, B = out["results"], cfg.num_layers, SERVE["branches"]
+    # warmup (pipe + branches + mono), the two timed plans, then per
+    # request its plan and the monolithic reference
+    want = (L + B * L + L) + (L + B * L) + sum(
+        L * (1 if r.plan == 0 else B) + L for r in results)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"serving: flash_attention launched "
+                             f"{launches['flash_attention']} times, the "
+                             f"path's forwards need {want}")
+    for i, r in enumerate(results):
+        if not (np.isfinite(r.latency_s) and np.isfinite(r.reward)
+                and 0.0 <= r.fidelity <= 1.0):
+            raise AssertionError(f"serving: request {i}: {r}")
+        if r.plan == 0 and r.fidelity != 1.0:
+            raise AssertionError(f"serving: layer-plan fidelity "
+                                 f"{r.fidelity} != 1.0 at request {i}")
+    eng = out["engine"]
+    if len(eng._replay) < 16:
+        raise AssertionError("serving: DASO never reached its replay gate")
+    Q = eng.state.Q[0].cpu().numpy()
+    if not np.isfinite(Q).all():
+        raise AssertionError(f"serving: MAB Q not finite: {Q}")
+    tok = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (SERVE["batch"], SERVE["seq"])).astype(np.int32),
+        device="cuda")
+    with torch.no_grad():
+        logits = forward(params, {"tokens": tok}, cfg)
+    if logits.shape != (SERVE["batch"], SERVE["seq"], cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"serving: logits {tuple(logits.shape)} "
+                             f"finite={bool(torch.isfinite(logits).all())}")
+    tokens = SERVE["batch"] * SERVE["seq"]
+    by_plan = {p: [r for r in results if r.plan == p] for p in (0, 1)}
+    fid = {p: float(np.mean([r.fidelity for r in rs])) if rs else None
+           for p, rs in by_plan.items()}
+    log(f"serving main path: {len(results)} requests of {tokens} tokens in "
+        f"{wall:.3f} s wall ({len(results) / wall:.3f} requests/s, "
+        f"{len(results) * tokens / wall:.1f} tokens/s served, warmup and "
+        f"the two timed plan runs included); plan latency layer-pipeline "
+        f"{out['t_layer'] * 1e3:.2f} ms ({tokens / out['t_layer']:.1f} "
+        f"tokens/s), semantic-branch {out['t_sem'] * 1e3:.2f} ms per branch "
+        f"({tokens / out['t_sem']:.1f} tokens/s); plans "
+        f"{[r.plan for r in results]} (layer {len(by_plan[0])}, semantic "
+        f"{len(by_plan[1])}); mean fidelity layer {fid[0]} semantic "
+        f"{fid[1]}; deadlines met {sum(r.met_deadline for r in results)}/"
+        f"{len(results)}; mean reward "
+        f"{np.mean([r.reward for r in results]):.4f}; launches {launches}; "
+        f"final MAB Q {np.round(Q.astype(float), 4).tolist()} N "
+        f"{eng.state.N[0].cpu().numpy().tolist()}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    profile_forward(params, cfg, {"tokens": tok})
+    return launches
+
+
+def _family(name):
+    if "flash_attention" in name:
+        return "attention (flash kernel)"
+    if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "matrix products (cuBLAS)"
+    return "elementwise and other"
+
+
+def profile_forward(params, cfg, batch):
+    """Device time of one monolithic forward by kernel family, read from
+    torch.profiler (CUPTI); the wall is the host clock around the same
+    forward under the profiler, so the idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import forward
+    with torch.no_grad():
+        forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        kernels[ev.key] = (us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy == 0.0:
+        log("profile of one forward: the profiler recorded no device time "
+            "(not measured)")
+        return
+    fams = {}
+    for name, (ms, n) in kernels.items():
+        ms0, n0 = fams.get(_family(name), (0.0, 0))
+        fams[_family(name)] = (ms0 + ms, n0 + n)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"profile of one forward ({SERVE['batch']} x {SERVE['seq']} tokens): "
+        f"wall {wall_ms:.2f} ms under the profiler, device busy "
+        f"{busy:.2f} ms (idle share at most {1 - busy / wall_ms:.3f}); "
+        + "; ".join(f"{f} {ms:.2f} ms in {n} kernels "
+                    f"({ms / busy:.3f} of busy)"
+                    for f, (ms, n) in sorted(fams.items(),
+                                             key=lambda kv: -kv[1][0]))
+        + "; top kernels: "
+        + "; ".join(f"{name[:60]} {ms:.2f} ms x{n}"
+                    for name, (ms, n) in top))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+def model_cross_check():
+    """The model on the card against the CPU at the reference's CPU size in
+    float32 (rtol 1e-4 / atol 1e-5, TF32 off on both)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import forward, init_params
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the cross-check needs "
+                             "float32 products")
+    cfg = get_config(SERVE["arch"]).reduced(max_d_model=256, max_layers=4)
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    on_gpu = forward(init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cuda"), {"tokens": tok.cuda()}, cfg)
+    on_cpu = forward(init_params(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu"), {"tokens": tok}, cfg)
+    torch.testing.assert_close(on_gpu.cpu(), on_cpu, rtol=1e-4, atol=1e-5)
+    log("cross-check: the reduced TinyLlama forward on cuda matches the cpu "
+        "path at rtol=1e-4 / atol=1e-5")
 
 
 def cross_checks():
@@ -392,14 +691,22 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     records = kernel_phase()
+    records.append(flash_phase())
 
     _, _, launches, _ = main_path("bestfit-rr")
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        if rec["name"] in SIM_KERNELS:
+            rec["launches"] = launches[rec["name"]]
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
 
+    launches = serving_path()
+    for rec in records:
+        if rec["name"] not in SIM_KERNELS:
+            rec["launches"] = launches[rec["name"]]
+
     cross_checks()
+    model_cross_check()
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -206,3 +206,14 @@ def end_of_interval_masked(state: MABState, apps, sla, resp, acc, decisions,
     state = update_q(state, O, cnt, gamma)
     state = rbed_update(state, O, cnt, k)
     return state._replace(t=state.t + 1)
+
+
+def end_of_interval(state: MABState, apps, sla, resp, acc, decisions,
+                    phi: float = 0.9, gamma: float = 0.3,
+                    k: float = 0.1) -> MABState:
+    """Algorithm-1 bookkeeping for the tasks leaving this interval, for a
+    one-cell state (G=1) and (n,) rows: ``end_of_interval_masked`` with
+    every row kept."""
+    rows = [t[None] for t in (apps, sla, resp, acc, decisions)]
+    mask = torch.ones_like(rows[0], dtype=torch.bool)
+    return end_of_interval_masked(state, *rows, mask, phi, gamma, k)

@@ -1,9 +1,11 @@
-"""Eager PyTorch twin of the edge-substep physics kernel.
+"""Eager PyTorch twins of the port's kernels.
 
 ``edge_substep_ref`` is the port of ``repro.kernels.ref.edge_substep_ref``
 with the same formulas in the same order, batched over an optional
 leading grid axis G.  It is the oracle of the hand-written CUDA kernel
 (``repro_torch.kernels.edge_substep``) and the path a CPU tensor takes.
+``attention_ref`` is the port of ``repro.kernels.ref.attention_ref``, the
+oracle of ``repro_torch.kernels.flash_attention`` and its CPU path.
 
 Out-of-range stage: the reference gathers each chain's active-stage
 channels with ``take_along_axis``, and JAX's default gather *fills* an
@@ -18,6 +20,32 @@ from __future__ import annotations
 import torch
 
 f8 = torch.float64
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, causal=True, window=0):
+    """q (b, sq, h, hd); k, v (b, sk, kvh, hd) -> (b, sq, h, hd) in q's
+    dtype.  Fully materialized, float32 inside; query head ``kv*g + gi``
+    reads kv head ``kv``; positions are ``0..s-1`` on both sides, so the
+    causal mask is top-left aligned when sq != sk; masked scores are
+    ``-1e30``, so a row with no visible key averages every value."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= (qp - kp) < window
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
 
 #: operand order of the fused physics (carries first, then the
 #: interval-static per-task/per-fragment channels, then cluster rows)

@@ -1,0 +1,107 @@
+"""Shared neural building blocks: norm, MLP, rotary position embedding, init.
+
+The port of ``repro.models.layers`` for the attention-only dense blocks.
+Weights keep the reference's layouts (``w_up``/``w_gate`` (d, d_ff),
+``w_down`` (d_ff, d)); numerics follow it where it fixes them: the norm
+computes in float32 and multiplies by ``1 + weight``, rope angles are
+float32 and the rotation runs in float32 before casting back.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+def dense_init(generator, shape, dtype, fan_in=None, device=None):
+    """Normal(0, 1) × 1/√fan_in drawn in float32 from ``generator`` (on
+    the generator's device), cast to ``dtype`` and moved to ``device``;
+    ``fan_in`` defaults to ``shape[0]`` as in the reference."""
+    fan_in = fan_in if fan_in is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(1, fan_in))
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=generator.device) * scale
+    return w.to(device=device, dtype=dtype)
+
+
+def rmsnorm(x, weight, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * (1.0 + weight.float())).to(dt)
+
+
+def _relu2(x):
+    return torch.square(F.relu(x))
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name in ("gelu", "gelu_plain"):
+        return _gelu
+    if name == "relu2":  # nemotron squared-ReLU
+        return _relu2
+    raise ValueError(name)
+
+
+# ----------------------------------------------------------------- MLP
+
+def mlp_init(generator, d_model, d_ff, cfg, dtype, device=None):
+    p = {"w_up": dense_init(generator, (d_model, d_ff), dtype, device=device),
+         "w_down": dense_init(generator, (d_ff, d_model), dtype, fan_in=d_ff,
+                              device=device)}
+    if cfg.mlp_gated:
+        p["w_gate"] = dense_init(generator, (d_model, d_ff), dtype,
+                                 device=device)
+    return p
+
+
+def mlp_apply(p, x, cfg):
+    act = activation_fn(cfg.activation)
+    up = x @ p["w_up"]
+    if cfg.mlp_gated:
+        h = act(x @ p["w_gate"]) * up
+    else:
+        h = act(up)
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------- RoPE
+
+def rope_angles(positions, dim, theta):
+    """positions (...,) -> float32 cos/sin of shape (..., dim//2)."""
+    freqs = theta ** (-torch.arange(0, dim, 2, dtype=torch.float32,
+                                    device=positions.device) / dim)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, positions, theta=10000.0, fraction=1.0):
+    """x (b, s, h, hd); positions (b, s).  Rotates the leading
+    ``fraction`` of hd in interleaved pairs (x[..., ::2], x[..., 1::2]),
+    the reference's convention, not the half-split one."""
+    hd = x.shape[-1]
+    rot = int(hd * fraction)
+    rot -= rot % 2
+    xr, xp = x[..., :rot], x[..., rot:]
+    cos, sin = rope_angles(positions, rot, theta)           # (b, s, rot/2)
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = xr[..., ::2].float(), xr[..., 1::2].float()
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
+    return torch.cat([y, xp], dim=-1) if rot < hd else y

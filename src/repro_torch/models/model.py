@@ -1,0 +1,179 @@
+"""Decoder model of the dense attention blocks.
+
+The port of ``repro.models.model`` for ``"attn"`` blocks: parameters are
+a dict ``{"embed", "final_norm", "head", "blocks"}`` with one dict per
+layer in ``blocks`` (the reference stacks its body periods along a
+leading axis for ``lax.scan``; the port's forward is a plain loop over
+layers, and ``params_from_jax`` unstacks that axis).
+
+Public API:
+    init_params(cfg, generator, device)   -> params
+    params_from_jax(tree, cfg, device)    -> params
+    forward(params, batch, cfg)           -> logits (float32)
+
+Other block kinds, explicit positions, M-RoPE, cross attention and
+decoding raise, naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
+                                       mlp_init, rmsnorm)
+
+#: what the port does not run yet, and the ROADMAP queue-1 item that
+#: brings it; anything else not ported is item 18
+NOT_PORTED = {
+    "attn_moe": "item 14 (MoE blocks, models/moe.py + moe_route)",
+    "mamba": "item 15 (Mamba blocks, models/ssm.py + selective_scan)",
+    "rglru": "item 16 (RG-LRU blocks, models/rglru.py + rglru_scan)",
+    "local_attn": "item 16 (the RG-LRU hybrid's local attention)",
+    "decode": "item 17 (decode and the KV cache)",
+    "positions": "item 17 (decode and the KV cache: explicit positions)",
+}
+
+
+def _not_ported(what: str):
+    item = NOT_PORTED.get(what, "item 18 (the remaining model zoo)")
+    return NotImplementedError(f"repro_torch does not run {what!r} yet "
+                               f"(ROADMAP queue 1 {item})")
+
+
+def check_supported(cfg, batch=None):
+    """Raise for a config or batch that needs what the port lacks: block
+    kinds other than ``"attn"``, position schemes other than rope or
+    none, and batch entries other than ``tokens``."""
+    for kind in cfg.layer_kinds:
+        if kind != "attn":
+            raise _not_ported(kind)
+    if cfg.pos_emb not in ("rope", "none"):
+        raise _not_ported(cfg.pos_emb)
+    for key in batch or ():
+        if key != "tokens":
+            raise _not_ported("positions" if key.startswith("positions")
+                              else key)
+
+
+# ------------------------------------------------------------ parameters
+
+def init_block(generator, kind, cfg, device=None):
+    if kind != "attn":
+        raise _not_ported(kind)
+    dtype = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
+    return {"norm1": torch.zeros((d,), dtype=dtype, device=device),
+            "attn": attn.attn_init(generator, cfg, dtype, device=device),
+            "norm2": torch.zeros((d,), dtype=dtype, device=device),
+            "mlp": mlp_init(generator, d, cfg.d_ff, cfg, dtype,
+                            device=device)}
+
+
+def init_params(cfg, generator=None, device="cuda"):
+    """Random parameters with the reference's distribution (``dense_init``:
+    normal × 1/√fan_in in float32, cast to ``param_dtype``; norms zero),
+    drawn from ``generator`` (default: a CPU generator seeded 0) on its
+    own device and placed on ``device``."""
+    check_supported(cfg)
+    dev = resolve(device)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    dtype = dtype_of(cfg.param_dtype)
+    d, v = cfg.d_model, cfg.vocab_size
+    params = {"embed": dense_init(generator, (v, d), dtype, fan_in=d,
+                                  device=dev),
+              "final_norm": torch.zeros((d,), dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, (d, v), dtype, device=dev)
+    params["blocks"] = [init_block(generator, kind, cfg, device=dev)
+                        for kind in cfg.layer_kinds]
+    return params
+
+
+def _to_tensors(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _to_tensors(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_tensors(v, device, dtype) for v in tree]
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: exact in f32
+        a = a.astype(np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def params_from_jax(tree, cfg, device="cuda"):
+    """The reference's parameter pytree (``repro.models.init_params``),
+    given as NumPy arrays, as the port's parameters on ``device``: the
+    body's leading period axis is unstacked into one dict per layer, in
+    the order prefix, body periods, suffix.  Leaves are cast to
+    ``param_dtype``."""
+    check_supported(cfg)
+    dev = resolve(device)
+    prefix, (pattern, periods), suffix = cfg.scan_segments
+    blocks = list(tree.get("prefix", []))
+    for i in range(periods):
+        period = _index(tree["body"], i)
+        blocks.extend(period[f"b{j}"] for j in range(len(pattern)))
+    blocks.extend(tree.get("suffix", []))
+    params = {k: tree[k] for k in ("embed", "final_norm", "head")
+              if k in tree}
+    params["blocks"] = blocks
+    return _to_tensors(params, dev, dtype_of(cfg.param_dtype))
+
+
+# --------------------------------------------------------------- forward
+
+def positions_of(tokens):
+    """The implicit positions ``0..s-1`` of every row, (b, s) int32."""
+    b, s = tokens.shape[:2]
+    return torch.arange(s, dtype=torch.int32,
+                        device=tokens.device).expand(b, s)
+
+
+def embed_tokens(params, tokens, cfg):
+    x = params["embed"][tokens.long()]
+    return x.to(dtype_of(cfg.compute_dtype))
+
+
+def apply_block(kind, p, x, positions, cfg):
+    """One ``"attn"`` block: pre-norm self attention and MLP, each with a
+    residual.  Returns the new residual stream."""
+    if kind != "attn":
+        raise _not_ported(kind)
+    h, _ = attn.self_attention(p["attn"],
+                               rmsnorm(x, p["norm1"], cfg.norm_eps),
+                               positions, cfg, window=cfg.sliding_window)
+    x = x + h
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+
+
+def lm_head(params, x, cfg):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
+        else params["head"]
+    return (x @ w).float()
+
+
+def forward(params, batch, cfg):
+    """Full-sequence forward of ``batch["tokens"]`` (b, s); returns
+    float32 logits (b, s, vocab)."""
+    check_supported(cfg, batch)
+    tokens = batch["tokens"]
+    positions = positions_of(tokens)
+    x = embed_tokens(params, tokens, cfg)
+    for kind, p in zip(cfg.layer_kinds, params["blocks"]):
+        x = apply_block(kind, p, x, positions, cfg)
+    return lm_head(params, x, cfg)
+
+
+def decode_step(params, tokens, cache, pos, cfg):
+    """One-token decode with a KV cache: not ported yet."""
+    raise _not_ported("decode")

@@ -1,0 +1,211 @@
+"""SLA-aware serving engine: SplitPlace's MAB policy driving real plan
+selection over batched requests.
+
+The port of ``repro.serving.engine``.  Per request:
+  1. context = deadline vs the EMA estimate of the layer-pipeline latency
+     (eq. 2 semantics, measured wall clock);
+  2. the MAB (UCB at serve time) picks layer_pipeline or semantic_branch;
+  3. DASO places the plan's fragments on device slices given their
+     queue depths;
+  4. the plan executes (really: ``pipeline_forward`` / ``branch_forward``);
+  5. the monolithic forward gives the fidelity reference;
+  6. reward couples deadline satisfaction with fidelity (agreement of the
+     plan's argmax tokens with the monolithic forward), eqs. 3–5, and
+     feeds Algorithm 1 and DASO's replay.
+
+Everything runs on ``device`` (CUDA by default; the flash-attention
+kernel on the card, its eager twin on the CPU).  Timing synchronizes the
+card where the reference calls ``block_until_ready``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.core import daso as daso_mod
+from repro_torch.core import mab as mab_mod
+from repro_torch.device import resolve
+from repro_torch.models.model import forward
+from repro_torch.serving.plans import (LAYER_PLAN, SEMANTIC_PLAN, PlanSpec,
+                                       branch_forward, optimal_stage_bounds,
+                                       pipeline_forward)
+
+f32 = torch.float32
+
+
+@dataclasses.dataclass
+class Request:
+    tokens: np.ndarray          # (b, s)
+    deadline_s: float
+    app: int = 0
+
+
+@dataclasses.dataclass
+class ServeResult:
+    plan: int
+    latency_s: float
+    fidelity: float             # argmax agreement with monolithic forward
+    met_deadline: bool
+    reward: float
+
+
+class SplitPlaceEngine:
+    def __init__(self, params, cfg, num_stages=2, num_branches=2,
+                 phi=0.9, gamma=0.3, ucb_c=0.5, seed=0, num_slices=4,
+                 device="cuda"):
+        self.device = resolve(device)
+        self.params = params
+        self.cfg = cfg
+        self.layer_plan = PlanSpec(LAYER_PLAN, num_stages=num_stages)
+        self.sem_plan = PlanSpec(SEMANTIC_PLAN, num_branches=num_branches)
+        self.state = mab_mod.init_state(num_apps=1, device=self.device)
+        self.phi, self.gamma, self.ucb_c = phi, gamma, ucb_c
+        self._stage_bounds = optimal_stage_bounds(cfg, seq=256, batch=1,
+                                                  num_stages=num_stages)
+        # DASO fragment->device-slice placement (the paper's placement
+        # sub-problem): per-slice queue depth is the state; fragments are
+        # pipeline stages or semantic branches
+        self.num_slices = num_slices
+        max_frag = max(num_stages, num_branches)
+        self._daso_cfg = daso_mod.DASOConfig(
+            num_workers=num_slices, max_containers=max_frag,
+            state_features=1, hidden=32, depth=2, place_iters=25,
+            lr_place=0.2)
+        self._theta, self._daso_opt = daso_mod.make_trainer(
+            self._daso_cfg, torch.Generator().manual_seed(seed),
+            self.device)
+        self.slice_load = np.zeros(num_slices)
+        self._replay = []
+
+    def _pipe(self, batch):
+        return pipeline_forward(self.params, batch, self.cfg,
+                                self.layer_plan.num_stages,
+                                bounds=self._stage_bounds)
+
+    def _branch(self, batch):
+        return branch_forward(self.params, batch, self.cfg,
+                              self.sem_plan.num_branches)
+
+    def _mono(self, batch):
+        return forward(self.params, batch, self.cfg)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _tensor(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def place_fragments(self, plan: int):
+        """DASO placement of the plan's fragments onto device slices given
+        the current per-slice queue depths; returns (assignment,
+        queue_cost, packed DASO input)."""
+        n = (self.layer_plan.num_stages if plan == LAYER_PLAN
+             else self.sem_plan.num_branches)
+        C = self._daso_cfg.max_containers
+        mask = np.zeros(C, np.float32)
+        mask[:n] = 1.0
+        decisions = np.full(C, plan, np.int32)
+        logits = np.zeros((C, self.num_slices), np.float32)
+        # warm start: least-loaded slices
+        order = np.argsort(self.slice_load)
+        for i in range(n):
+            logits[i, order[i % self.num_slices]] = 2.0
+        state = self._tensor(self.slice_load[:, None] / 4.0, f32)
+        mask_t = self._tensor(mask, f32)
+        dec_t = self._tensor(decisions, torch.int32)
+        if len(self._replay) >= 16:
+            p_opt, _, _ = daso_mod.optimize_placement(
+                self._daso_cfg, self._theta, state, self._tensor(logits, f32),
+                dec_t, mask_t)
+        else:
+            p_opt = self._tensor(logits, f32)
+        assign = daso_mod.placement_to_assignment(
+            p_opt, mask_t).cpu().numpy()[:n]
+        if plan == LAYER_PLAN:
+            # sequential stages: queue cost = sum of per-stage waits
+            qcost = float(sum(self.slice_load[a] for a in assign))
+        else:
+            # parallel branches: straggler = max wait
+            qcost = float(max(self.slice_load[a] for a in assign))
+        for a in assign:
+            self.slice_load[a] += 1.0
+        self.slice_load *= 0.8                     # queues drain
+        x = daso_mod.pack_input(self._daso_cfg, state, p_opt, dec_t,
+                                mask_t).cpu().numpy()
+        return assign, qcost, x
+
+    def _daso_feedback(self, x, reward):
+        self._replay.append((x, reward))
+        if len(self._replay) >= 16 and len(self._replay) % 4 == 0:
+            xs = self._tensor(np.stack([r[0] for r in self._replay[-64:]]),
+                              f32)
+            ys = self._tensor(np.array([r[1] for r in self._replay[-64:]],
+                                       np.float32), f32)
+            for _ in range(2):
+                self._theta, self._daso_opt, _ = daso_mod.train_epoch(
+                    self._daso_cfg, self._theta, self._daso_opt, xs, ys)
+
+    def warmup(self, tokens):
+        b = {"tokens": self._tensor(tokens, torch.int32)}
+        with torch.no_grad():
+            self._pipe(b)
+            self._branch(b)
+            self._mono(b)
+        self._sync()
+
+    def _run(self, plan_kind: int, batch) -> tuple:
+        """Run one plan; returns (logits, wall seconds).
+
+        The semantic plan's wall time is divided by the branch count, as
+        the reference does: the plan stands for B branches on B disjoint
+        device slices running in parallel, and one card, like the
+        reference's CPU, runs them one after another.  Keeping the
+        division keeps the latency the MAB trades against fidelity the
+        one the reference's engine sees.
+        """
+        fn = self._pipe if plan_kind == LAYER_PLAN else self._branch
+        self._sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = fn(batch)
+        self._sync()
+        wall = time.perf_counter() - t0
+        if plan_kind != LAYER_PLAN:
+            wall /= self.sem_plan.num_branches
+        return logits, wall
+
+    def serve(self, req: Request) -> ServeResult:
+        batch = {"tokens": self._tensor(req.tokens, torch.int32)}
+        d, _ = mab_mod.decide_ucb(self.state,
+                                  self._tensor([req.deadline_s], f32),
+                                  self._tensor([req.app], torch.int32),
+                                  self.ucb_c)
+        plan = int(d[0])          # 0=LAYER(pipeline) 1=SEMANTIC(branch)
+        assign, qcost, daso_x = self.place_fragments(plan)
+        logits, latency = self._run(plan, batch)
+        latency = latency * (1.0 + 0.25 * qcost)   # queueing on busy slices
+        with torch.no_grad():
+            ref = self._mono(batch)
+        fid = float((torch.argmax(logits, -1) == torch.argmax(ref, -1))
+                    .to(f32).mean())
+        met = latency <= req.deadline_s
+        reward = 0.5 * (float(met) + fid)
+        # Algorithm-1 bookkeeping (single leaving task)
+        self.state = mab_mod.end_of_interval(
+            self.state,
+            self._tensor([req.app], torch.int32),
+            self._tensor([req.deadline_s], f32),
+            self._tensor([latency], f32),
+            self._tensor([fid], f32),
+            self._tensor([plan], torch.int32),
+            self.phi, self.gamma)
+        self._daso_feedback(daso_x, reward)
+        return ServeResult(plan, latency, fid, met, reward)
+
+    def serve_many(self, reqs: List[Request]) -> List[ServeResult]:
+        return [self.serve(r) for r in reqs]

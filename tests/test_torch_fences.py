@@ -32,7 +32,12 @@ def _port_modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.edge_substep" in mods
+    for m in ("repro_torch.kernels.edge_substep",
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.configs.tinyllama_1_1b",
+              "repro_torch.models.model", "repro_torch.serving.engine",
+              "repro_torch.core.daso", "repro_torch.launch.serve"):
+        assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"
             "for m in mods: importlib.import_module(m)\n"
@@ -67,7 +72,12 @@ def _entry_points():
                                           run_grid_arrays,
                                           run_grid_arrays_learned,
                                           run_trace_arrays)
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.launch.experiments import run_grid_batched
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import SplitPlaceEngine
+    cfg = get_config("tinyllama-1.1b").reduced()
     lit = {"Q": np.zeros((2, 2)), "N": np.zeros((2, 2)),
            "R": np.zeros(3), "eps": 0.5, "rho": 0.1, "t": 1}
     tr = compile_trace(make_static_decider("mc"), lam=2.0, seed=0,
@@ -82,15 +92,35 @@ def _entry_points():
             [dual], lit),
         "mab_state_from_numpy": lambda: mab.mab_state_from_numpy(lit),
         "mab_init_state": lambda: mab.init_state(3),
+        "init_params": lambda: init_params(cfg),
+        "SplitPlaceEngine": lambda: SplitPlaceEngine(
+            init_params(cfg, device="cpu"), cfg),
+        "serve_main": lambda: serve.main(["--reduced", "--requests", "1"]),
     }
 
 
 @pytest.mark.parametrize("name", ["run_grid_batched", "run_trace_arrays",
                                   "run_grid_arrays",
                                   "run_grid_arrays_learned",
-                                  "mab_state_from_numpy", "mab_init_state"])
+                                  "mab_state_from_numpy", "mab_init_state",
+                                  "init_params", "SplitPlaceEngine",
+                                  "serve_main"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points()[name]()
+
+
+def test_serve_runs_on_the_cpu_when_asked(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                "--batch", "1", "--seq", "8"])
+    out = capsys.readouterr().out
+    assert "plan latencies" in out and "req   1" in out
+
+
+def test_serve_stream_names_its_roadmap_item():
+    from repro_torch.launch import serve
+    with pytest.raises(NotImplementedError, match="item 9"):
+        serve.main(["--stream", "--device", "cpu"])

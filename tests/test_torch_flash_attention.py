@@ -1,0 +1,115 @@
+"""The port's flash attention against the reference's.
+
+On the CPU ``repro_torch.kernels.flash_attention`` runs its eager twin
+``ref.attention_ref``; it is held against the Pallas kernel (interpret
+mode, as ``tests/test_kernels.py`` runs it) and against the reference's
+``ref.attention_ref`` at every shape, dtype, window and non-causal case
+of ``tests/test_kernels.py``, with that file's tolerances: atol 2e-5 in
+float32, 2e-2 in bfloat16 (one bfloat16 rounding of outputs of size
+~1).  Inputs are made with numpy in float32 and cast once on each side.
+The CUDA kernel against the twin needs a card and skips here.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as pallas_flash
+from repro.kernels import ref as jref
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+CAUSAL_SHAPES = [
+    (2, 64, 64, 4, 2, 32),
+    (1, 128, 128, 8, 8, 64),
+    (2, 96, 96, 4, 1, 32),        # GQA kv=1 (recurrentgemma-style)
+    (1, 33, 77, 2, 2, 16),        # ragged, non-multiple sizes
+]
+
+
+def _inputs(seed, b, sq, sk, h, kvh, hd, dtype):
+    rng = np.random.RandomState(seed)
+    arrs = [rng.randn(b, sq, h, hd).astype(np.float32),
+            rng.randn(b, sk, kvh, hd).astype(np.float32),
+            rng.randn(b, sk, kvh, hd).astype(np.float32)]
+    jax_side = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    port_side = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jax_side, port_side
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _check(jax_side, port_side, dtype, q_block, kv_block, **kw):
+    got = flash_attention(*port_side, **kw)
+    assert got.dtype == port_side[0].dtype
+    assert tuple(got.shape) == tuple(port_side[0].shape)
+    tol = TOL[dtype]
+    pallas = pallas_flash(*jax_side, q_block=q_block, kv_block=kv_block, **kw)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=tol)
+    np.testing.assert_allclose(_f32(got), _f32(jref.attention_ref(
+        *jax_side, **kw)), atol=tol)
+
+
+@pytest.mark.parametrize("shape", CAUSAL_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_causal_matches_pallas_and_ref(shape, dtype):
+    jax_side, port_side = _inputs(1, *shape, dtype)
+    _check(jax_side, port_side, dtype, 32, 32, causal=True)
+
+
+@pytest.mark.parametrize("window", [8, 32])
+def test_sliding_window_matches_pallas_and_ref(window):
+    jax_side, port_side = _inputs(2, 2, 80, 80, 4, 2, 32, "float32")
+    _check(jax_side, port_side, "float32", 16, 16, causal=True,
+           window=window)
+
+
+def test_noncausal_matches_pallas_and_ref():
+    jax_side, port_side = _inputs(3, 1, 40, 56, 2, 2, 64, "float32")
+    _check(jax_side, port_side, "float32", 16, 16, causal=False)
+
+
+def test_row_with_no_visible_key_matches_ref():
+    """sq > sk with a window: late rows see no key; the reference's
+    softmax over all-masked scores is uniform, so they get mean(v)."""
+    jax_side, port_side = _inputs(4, 1, 24, 8, 2, 1, 16, "float32")
+    got = tref.attention_ref(*port_side, causal=True, window=4)
+    want = jref.attention_ref(*jax_side, causal=True, window=4)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=2e-5)
+    mean_v = port_side[2].mean(dim=1)[:, None]          # (b, 1, kvh=1, hd)
+    np.testing.assert_allclose(_f32(got[:, -1:]),
+                               np.broadcast_to(_f32(mean_v), (1, 1, 2, 16)),
+                               atol=2e-5)
+
+
+def test_rejects_mismatched_operands():
+    _, (q, k, v) = _inputs(5, 1, 8, 8, 4, 2, 16, "float32")
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, k[:, :, :1].repeat(1, 1, 3, 1),
+                        v[:, :, :1].repeat(1, 1, 3, 1))
+    with pytest.raises(ValueError, match="dtypes"):
+        flash_attention(q, k.double(), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_twin(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for shape in CAUSAL_SHAPES:
+        _, port_side = _inputs(6, *shape, dtype)
+        cuda = [t.cuda() for t in port_side]
+        before = flash_attention.launches
+        got = flash_attention(*cuda, causal=True)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = tref.attention_ref(*cuda, causal=True)
+        np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                                   atol=TOL[dtype])

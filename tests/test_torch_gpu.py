@@ -1,4 +1,5 @@
-"""The CUDA kernel against its eager twin, on the card.
+"""The CUDA kernels against their eager twins, and the serving path, on
+the card.
 
 Runs only where a CUDA device is present (``-m gpu``); skips elsewhere.
 The file imports no JAX, so it also runs on a machine that has PyTorch
@@ -109,3 +110,72 @@ def test_placement_kernels_match_twins(cuda):
             state, acc, trace["bw_mult"][:, t], cl, 4, 75.0, 300.0, 0.5)
         state["alive"] = state["alive"] & ~state["task_done"]
     assert walked > 0
+
+
+FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
+    (2, 64, 64, 4, 2, 32, True, 0),
+    (1, 128, 128, 8, 8, 64, True, 0),
+    (2, 96, 96, 4, 1, 32, True, 0),
+    (1, 33, 77, 2, 2, 16, True, 0),
+    (2, 80, 80, 4, 2, 32, True, 8),
+    (2, 80, 80, 4, 2, 32, True, 32),
+    (1, 40, 56, 2, 2, 64, False, 0),
+    (1, 24, 8, 2, 1, 16, True, 4),          # late rows see no key
+    (1, 300, 300, 12, 4, 128, True, 0),
+    (1, 257, 257, 32, 4, 64, True, 0),      # TinyLlama's heads, ragged
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_twin(cuda, case, dtype):
+    """atol 2e-5 in float32, 2e-2 in bfloat16 (tests/test_kernels.py)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, sk, h, kvh, hd, causal, window = case
+    rng = np.random.RandomState(sq + hd)
+    q, k, v = [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(cuda, dtype) for shape in ((b, sq, h, hd),
+                                               (b, sk, kvh, hd),
+                                               (b, sk, kvh, hd))]
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.0, atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_serving_path_reduced(cuda):
+    """The serving slice at the reference's CPU size (float32): the card's
+    logits match the CPU's (rtol 1e-4 / atol 1e-5; float32 products on
+    both, TF32 off), and the engine serves through the flash kernel with
+    layer-plan fidelity 1.0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.model import forward, init_params
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config("tinyllama-1.1b").reduced(max_d_model=256, max_layers=4)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    got = forward(params, {"tokens": tok.to(cuda)}, cfg)
+    want = forward(cpu_params, {"tokens": tok}, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    flash_attention.launches = 0
+    out = serve_requests(params, cfg, requests=6, batch=2, seq=64,
+                         device=cuda, log=lambda *a: None)
+    assert flash_attention.launches > 0
+    for r in out["results"]:
+        assert np.isfinite(r.latency_s) and 0.0 <= r.fidelity <= 1.0
+        if r.plan == 0:
+            assert r.fidelity == 1.0
