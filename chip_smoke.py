@@ -8,8 +8,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 holds each against its eager PyTorch twin: the simulator kernels on
 fuzzed slot states and one real main-path interval (float64 at
 rtol=1e-12, bools and ints exact, bitwise identical over two runs), flash
-attention at the reference's test shapes and the serving shape (atol
-2e-5 in float32, 2e-2 in bfloat16).  Then it drives the two main paths,
+attention at the reference's test shapes and at the serving path's two
+shapes, the full forward's heads and one semantic branch's (atol 2e-5 in
+float32, 2e-2 in bfloat16).  Then it drives the two main paths,
 each with every kernel's launch count set to 0 just before and read just
 after:
 
@@ -22,7 +23,8 @@ after:
   tight/loose deadline rule;
 
 and cross-checks the GPU driver against the committed golden fixture and
-the CPU path, and the GPU model against the CPU one at a reduced size.
+the CPU path, and the GPU model and both serving plans against the CPU
+at a reduced size.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
 numbers, a ``{"kernels": [...]}`` JSON line and, as the last line,
@@ -347,11 +349,35 @@ def _flash_check(q, k, v, causal, window, dtype, where):
     return err
 
 
+def serving_heads(cfg):
+    """(label, query heads, kv heads) of every attention call the serving
+    path makes: the full forward's (layer plan, monolithic reference) and
+    one semantic branch's, read from the plan's own head slicing
+    (``_slice_block_params`` on shape-only weights)."""
+    import torch
+    from repro_torch.serving.plans import _slice_block_params
+    d, h, kvh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+
+    def meta(*shape):
+        return torch.empty(*shape, device="meta")
+
+    block = {"attn": {"wq": meta(d, h, hd), "wk": meta(d, kvh, hd),
+                      "wv": meta(d, kvh, hd), "wo": meta(h, hd, d)}}
+    B = SERVE["branches"]
+    sliced = _slice_block_params(block, cfg, 0, B)["attn"]
+    return [("full forward", h, kvh),
+            (f"one of {B} branches", sliced["wq"].shape[1],
+             sliced["wk"].shape[1])]
+
+
 def flash_phase():
     """Flash attention vs its twin on the card at the reference's test
-    shapes (float32 and bfloat16) and the serving shape; times the kernel,
-    the twin and the library's scaled_dot_product_attention (a yardstick
-    only: the port never calls it) at the serving shape in bfloat16."""
+    shapes and at every serving shape (the full forward's heads and one
+    semantic branch's), in float32 and bfloat16; times the kernel at each
+    serving shape, and the twin and the library's
+    scaled_dot_product_attention (a yardstick only: the port never calls
+    it) at the full forward's, in bfloat16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -372,15 +398,25 @@ def flash_phase():
         f"(atol {FLASH_ATOL['bfloat16']}), bitwise repeatable")
 
     cfg = get_config(SERVE["arch"])
-    b, s = SERVE["batch"], SERVE["seq"]
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    errs = {}
-    for dtype in ("float32", "bfloat16"):
-        q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, dtype)
-        errs[dtype] = _flash_check(q, k, v, True, 0, dtype,
-                                   f"flash {dtype} serving shape")
-    # q, k, v are the bfloat16 serving-shape operands from here on
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
+    b, s, hd = SERVE["batch"], SERVE["seq"], cfg.resolved_head_dim
+    shapes = serving_heads(cfg)
+    at = {}
+    for label, hb, kvb in shapes:
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _flash_inputs(rng, b, s, s, hb, kvb, hd, dtype)
+            errs[dtype] = _flash_check(
+                q, k, v, True, 0, dtype,
+                f"flash {dtype} serving shape ({label}, h={hb} kvh={kvb})")
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
+        at[label] = (q, k, v, errs, ms)
+        log(f"flash_attention at the serving shape of the {label}: b={b} "
+            f"s={s} h={hb} kvh={kvb} hd={hd} causal: matches the twin (max "
+            f"abs err float32 {errs['float32']:.3e}, bfloat16 "
+            f"{errs['bfloat16']:.3e}); bfloat16 {ms:.4f} ms/call")
+    # the record holds the full forward's shape, in bfloat16
+    label, h, kvh = shapes[0]
+    q, k, v, errs, ms = at[label]
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -397,9 +433,7 @@ def flash_phase():
                   "src/repro/kernels/flash_attention.py:87",
                   errs["bfloat16"], ms, plain_ms, _nbytes([q, k, v, q]),
                   flops, peak=H100_BF16_S, library_ms=library_ms)
-    log(f"flash_attention at the serving shape b={b} s={s} h={h} kvh={kvh} "
-        f"hd={hd} causal: matches the twin (max abs err float32 "
-        f"{errs['float32']:.3e}, bfloat16 {errs['bfloat16']:.3e}); bfloat16 "
+    log(f"flash_attention at the full forward's shape, bfloat16: "
         f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call, "
         f"scaled_dot_product_attention {library_ms:.4f} ms/call, which "
         f"differs from the kernel by {lib_err:.3e} at most), bound "
@@ -472,6 +506,7 @@ def serving_path():
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.plans import branch_forward
     cfg = get_config(SERVE["arch"])
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -548,7 +583,18 @@ def serving_path():
         f"final MAB Q {np.round(Q.astype(float), 4).tolist()} N "
         f"{eng.state.N[0].cpu().numpy().tolist()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    profile_forward(params, cfg, {"tokens": tok})
+    # the plans' spread within this run, outside the counted path
+    batch = {"tokens": tok}
+    runs = {p: [eng._run(p, batch)[1] * 1e3 for _ in range(5)]
+            for p in (0, 1)}
+    log(f"plan runs after serving, ms (semantic per branch): layer "
+        f"{[round(t, 3) for t in runs[0]]}, semantic "
+        f"{[round(t, 3) for t in runs[1]]}")
+    profile_run("one monolithic forward",
+                lambda: forward(params, batch, cfg))
+    profile_run(f"one semantic-plan run ({SERVE['branches']} branches)",
+                lambda: branch_forward(params, batch, cfg,
+                                       SERVE["branches"]))
     return launches
 
 
@@ -560,22 +606,21 @@ def _family(name):
     return "elementwise and other"
 
 
-def profile_forward(params, cfg, batch):
-    """Device time of one monolithic forward by kernel family, read from
-    torch.profiler (CUPTI); the wall is the host clock around the same
-    forward under the profiler, so the idle share is an upper bound."""
+def profile_run(label, fn):
+    """Device time of one run of ``fn`` by kernel family, read from
+    torch.profiler (CUPTI); the wall is the host clock around the same run
+    under the profiler, so the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models.model import forward
     with torch.no_grad():
-        forward(params, batch, cfg)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with torch.no_grad():
-            forward(params, batch, cfg)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -588,7 +633,7 @@ def profile_forward(params, cfg, batch):
         kernels[ev.key] = (us / 1e3, ev.count)
     busy = sum(ms for ms, _ in kernels.values())
     if busy == 0.0:
-        log("profile of one forward: the profiler recorded no device time "
+        log(f"profile of {label}: the profiler recorded no device time "
             "(not measured)")
         return
     fams = {}
@@ -596,7 +641,7 @@ def profile_forward(params, cfg, batch):
         ms0, n0 = fams.get(_family(name), (0.0, 0))
         fams[_family(name)] = (ms0 + ms, n0 + n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-    log(f"profile of one forward ({SERVE['batch']} x {SERVE['seq']} tokens): "
+    log(f"profile of {label} ({SERVE['batch']} x {SERVE['seq']} tokens): "
         f"wall {wall_ms:.2f} ms under the profiler, device busy "
         f"{busy:.2f} ms (idle share at most {1 - busy / wall_ms:.3f}); "
         + "; ".join(f"{f} {ms:.2f} ms in {n} kernels "
@@ -617,24 +662,46 @@ def _leaves(tree):
 
 
 def model_cross_check():
-    """The model on the card against the CPU at the reference's CPU size in
-    float32 (rtol 1e-4 / atol 1e-5, TF32 off on both)."""
+    """The model and both plans on the card against the CPU at the
+    reference's CPU size in float32 (rtol 1e-4 / atol 1e-5, TF32 off on
+    both); the layer plan equals the forward bitwise on the card."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.plans import (branch_forward,
+                                           optimal_stage_bounds,
+                                           pipeline_forward)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the cross-check needs "
                              "float32 products")
     cfg = get_config(SERVE["arch"]).reduced(max_d_model=256, max_layers=4)
     tok = torch.from_numpy(np.random.RandomState(1).randint(
         0, cfg.vocab_size, (2, 64)).astype(np.int32))
-    on_gpu = forward(init_params(cfg, torch.Generator().manual_seed(0),
-                                 device="cuda"), {"tokens": tok.cuda()}, cfg)
-    on_cpu = forward(init_params(cfg, torch.Generator().manual_seed(0),
-                                 device="cpu"), {"tokens": tok}, cfg)
-    torch.testing.assert_close(on_gpu.cpu(), on_cpu, rtol=1e-4, atol=1e-5)
-    log("cross-check: the reduced TinyLlama forward on cuda matches the cpu "
-        "path at rtol=1e-4 / atol=1e-5")
+    params = {dev: init_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev) for dev in ("cuda", "cpu")}
+    batch = {"cuda": {"tokens": tok.cuda()}, "cpu": {"tokens": tok}}
+    bounds = optimal_stage_bounds(cfg, seq=256, batch=1,
+                                  num_stages=SERVE["stages"])
+    runs = {
+        "forward": lambda d: forward(params[d], batch[d], cfg),
+        "pipeline_forward": lambda d: pipeline_forward(
+            params[d], batch[d], cfg, SERVE["stages"], bounds=bounds),
+        "branch_forward": lambda d: branch_forward(
+            params[d], batch[d], cfg, SERVE["branches"]),
+    }
+    out = {}
+    for name, run in runs.items():
+        with torch.no_grad():
+            out[name] = run("cuda")
+            torch.testing.assert_close(out[name].cpu(), run("cpu"),
+                                       rtol=1e-4, atol=1e-5,
+                                       msg=lambda m: f"{name}: {m}")
+    if not torch.equal(out["pipeline_forward"], out["forward"]):
+        raise AssertionError("pipeline_forward differs from forward on cuda")
+    log("cross-check: the reduced TinyLlama forward, layer plan and "
+        f"{SERVE['branches']}-branch semantic plan on cuda match the cpu "
+        "path at rtol=1e-4 / atol=1e-5; the layer plan equals the forward "
+        "bitwise")
 
 
 def cross_checks():

@@ -201,6 +201,24 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// Raises the kernel's dynamic shared-memory limit past the 48 KB default,
+// once per instantiation and device (the attribute is per device).
+template <typename T, int HD>
+cudaError_t allow_smem(int bytes) {
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kvh, int causal, int window,
@@ -208,9 +226,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const int g = h / kvh;
   const int bq = THREADS / g;
   const int bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = allow_smem<T, HD>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + bq - 1) / bq, kvh, b);
   flash_attention_kernel<T, HD><<<grid, THREADS, bytes, stream>>>(

@@ -51,6 +51,20 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v are on different devices")
 
 
+_LAUNCHER = []
+
+
+def _launcher():
+    """The library's C entry point, typed once per process."""
+    if not _LAUNCHER:
+        fn = LIBRARIES.get("flash_attention").flash_attention_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        _LAUNCHER.append(fn)
+    return _LAUNCHER[0]
+
+
 def flash_attention_cuda(q, k, v, causal=True, window=0):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
     allocated output."""
@@ -72,10 +86,7 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out
-    fn = LIBRARIES.get("flash_attention").flash_attention_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+    fn = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -5,10 +5,11 @@ requests, the port of ``repro.launch.serve``'s default (plan) mode.
         --batch 4 --seq 1024
 
 serves the full-width model (``--arch``, default TinyLlama-1.1B, random
-weights from ``--seed``) on the card; ``--reduced`` cuts it to the
-reference's CPU size (``reduced(max_d_model=256, max_layers=4)``) and
-``--device cpu`` runs the eager path.  The reference's ``--stream`` mode
-(the edge-simulator serving loop) is not ported yet.
+weights from ``--seed``) on the card.  ``--device cpu`` runs the eager
+path on the model cut to the reference's CPU size
+(``reduced(max_d_model=256, max_layers=4)``, as its ``_plan_main``
+always serves).  The reference's ``--stream`` mode (the edge-simulator
+serving loop) is not ported yet.
 """
 from __future__ import annotations
 
@@ -65,9 +66,8 @@ def main(argv=None):
     ap.add_argument("--branches", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
-    ap.add_argument("--reduced", action="store_true",
-                    help="serve the reference's CPU-sized cut of the model")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda: full width; cpu: the reference's CPU size")
     ap.add_argument("--stream", action="store_true",
                     help="the edge-simulator serving loop (not ported)")
     args = ap.parse_args(argv)
@@ -77,7 +77,7 @@ def main(argv=None):
             "(ROADMAP queue 1 item 9: streaming)")
     dev = resolve(args.device)
     cfg = get_config(args.arch)
-    if args.reduced:
+    if dev.type == "cpu":
         cfg = cfg.reduced(max_d_model=256, max_layers=4)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev)

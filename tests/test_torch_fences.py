@@ -95,7 +95,7 @@ def _entry_points():
         "init_params": lambda: init_params(cfg),
         "SplitPlaceEngine": lambda: SplitPlaceEngine(
             init_params(cfg, device="cpu"), cfg),
-        "serve_main": lambda: serve.main(["--reduced", "--requests", "1"]),
+        "serve_main": lambda: serve.main(["--requests", "1"]),
     }
 
 
@@ -114,7 +114,7 @@ def test_entry_points_default_to_cuda(name):
 
 def test_serve_runs_on_the_cpu_when_asked(capsys):
     from repro_torch.launch import serve
-    serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+    serve.main(["--device", "cpu", "--requests", "2",
                 "--batch", "1", "--seq", "8"])
     out = capsys.readouterr().out
     assert "plan latencies" in out and "req   1" in out

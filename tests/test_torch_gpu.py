@@ -123,6 +123,7 @@ FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
     (1, 24, 8, 2, 1, 16, True, 4),          # late rows see no key
     (1, 300, 300, 12, 4, 128, True, 0),
     (1, 257, 257, 32, 4, 64, True, 0),      # TinyLlama's heads, ragged
+    (1, 257, 257, 16, 2, 64, True, 0),      # one of its two branches
 ]
 
 
