@@ -4,27 +4,33 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
-(the substep physics, the two placement scans and flash attention) and
-holds each against its eager PyTorch twin: the simulator kernels on
-fuzzed slot states and one real main-path interval (float64 at
-rtol=1e-12, bools and ints exact, bitwise identical over two runs), flash
-attention at the reference's test shapes and at the serving path's two
-shapes, the full forward's heads and one semantic branch's (atol 2e-5 in
-float32, 2e-2 in bfloat16).  Then it drives the two main paths,
-each with every kernel's launch count set to 0 just before and read just
-after:
+(the substep physics, the two placement scans, flash attention, MoE
+routing and the selective scan) and holds each against its eager PyTorch
+twin: the simulator kernels on fuzzed slot states and one real main-path
+interval (float64 at rtol=1e-12, bools and ints exact, bitwise identical
+over two runs); flash attention at the reference's test shapes and at
+every attention shape of the serving paths, full forward and one
+semantic branch (atol 2e-5 in float32, 2e-2 in bfloat16); ``moe_route``
+at the reference's test shapes, qwen2-moe's serving shape, several
+overflowing groups and an underflowing row (expert ids and slots exactly,
+gates within atol 1e-5); ``selective_scan`` at the reference's test
+shapes and falcon-mamba's serving shape in float32 and bfloat16 (rtol and
+atol 1e-5, bitwise repeatable).  Then it drives the main paths, each with
+every kernel's launch count set to 0 just before and read just after:
 
 * the simulator — ``run_grid_batched`` for ``bestfit-rr`` and for the
   ``"mab"`` deploy policy over a 16-cell (8 seeds × λ∈{6, 24}) grid on
   the 50-worker Table-3 fleet, 100 intervals of 30 substeps;
-* serving — ``SplitPlaceEngine`` over TinyLlama-1.1B at full width
-  (22 layers, d=2048, bfloat16, random weights from seed 0), 2 stages /
-  2 branches, batch 4 × 1024 tokens, 20 requests under the reference's
-  tight/loose deadline rule;
+* serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b and
+  falcon-mamba-7b, one after another, each at full width and depth
+  (bfloat16, random weights from seed 0), 2 stages / 2 branches, batch
+  4 × 1024 tokens, 20 requests under the reference's tight/loose deadline
+  rule;
 
 and cross-checks the GPU driver against the committed golden fixture and
-the CPU path, and the GPU model and both serving plans against the CPU
-at a reduced size.
+the CPU path, qwen2-moe's real router logits between the routing kernel
+and its twin, and the three models and both serving plans against the
+CPU at a reduced size.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
 numbers, a ``{"kernels": [...]}`` JSON line and, as the last line,
@@ -34,6 +40,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -68,10 +75,24 @@ FLASH_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
                (2, 80, 80, 4, 2, 32, True, 32),
                (1, 40, 56, 2, 2, 64, False, 0)]
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
-#: the serving path: TinyLlama-1.1B at full width, the engine's plans,
+#: the serving paths: each model at full width, the engine's plans,
 #: batch × seq tokens per request
-SERVE = dict(arch="tinyllama-1.1b", requests=20, batch=4, seq=1024,
-             stages=2, branches=2)
+SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b")
+SERVE = dict(requests=20, batch=4, seq=1024, stages=2, branches=2)
+#: moe_route: the reference's test shapes (tests/test_kernels.py), the
+#: serving shape of qwen2-moe (one group of 4 × 1024 tokens, 60 experts,
+#: top-4), several groups with capacity factor 1.0 (overflowing); (G, gs,
+#: E, k)
+MOE_ROUTE_CASES = [(1, 64, 8, 2), (1, 100, 16, 4), (1, 33, 4, 1),
+                   (1, 4096, 60, 4), (8, 512, 60, 4)]
+MOE_SERVING = (1, 4096, 60, 4)
+GATE_ATOL = 1e-5
+#: selective_scan: the reference's test shapes and falcon-mamba's serving
+#: shape; (b, s, d_in, n)
+SCAN_CASES = [(2, 37, 16, 4), (1, 128, 64, 16), (3, 15, 8, 2)]
+SCAN_SERVING = (4, 1024, 8192, 16)
+SCAN_TOL = 1e-5
+H100_FP32_S = 67e12                # FP32 (non-tensor), same data sheet
 
 
 def log(*a):
@@ -397,26 +418,32 @@ def flash_phase():
         f"(atol {FLASH_ATOL['float32']}), bfloat16 {worst['bfloat16']:.3e} "
         f"(atol {FLASH_ATOL['bfloat16']}), bitwise repeatable")
 
-    cfg = get_config(SERVE["arch"])
-    b, s, hd = SERVE["batch"], SERVE["seq"], cfg.resolved_head_dim
-    shapes = serving_heads(cfg)
+    b, s = SERVE["batch"], SERVE["seq"]
     at = {}
-    for label, hb, kvb in shapes:
-        errs = {}
-        for dtype in ("float32", "bfloat16"):
-            q, k, v = _flash_inputs(rng, b, s, s, hb, kvb, hd, dtype)
-            errs[dtype] = _flash_check(
-                q, k, v, True, 0, dtype,
-                f"flash {dtype} serving shape ({label}, h={hb} kvh={kvb})")
-        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
-        at[label] = (q, k, v, errs, ms)
-        log(f"flash_attention at the serving shape of the {label}: b={b} "
-            f"s={s} h={hb} kvh={kvb} hd={hd} causal: matches the twin (max "
-            f"abs err float32 {errs['float32']:.3e}, bfloat16 "
-            f"{errs['bfloat16']:.3e}); bfloat16 {ms:.4f} ms/call")
-    # the record holds the full forward's shape, in bfloat16
-    label, h, kvh = shapes[0]
-    q, k, v, errs, ms = at[label]
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        if not set(cfg.layer_kinds) & ATTN_KINDS:
+            continue
+        hd = cfg.resolved_head_dim
+        for label, hb, kvb in serving_heads(cfg):
+            errs = {}
+            for dtype in ("float32", "bfloat16"):
+                q, k, v = _flash_inputs(rng, b, s, s, hb, kvb, hd, dtype)
+                errs[dtype] = _flash_check(
+                    q, k, v, True, 0, dtype,
+                    f"flash {dtype} {arch} serving shape ({label}, h={hb} "
+                    f"kvh={kvb} hd={hd})")
+            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
+            at[(arch, label)] = (q, k, v, errs, ms)
+            log(f"flash_attention at {arch}'s serving shape of the {label}: "
+                f"b={b} s={s} h={hb} kvh={kvb} hd={hd} causal: matches the "
+                f"twin (max abs err float32 {errs['float32']:.3e}, bfloat16 "
+                f"{errs['bfloat16']:.3e}); bfloat16 {ms:.4f} ms/call")
+    # the record holds TinyLlama's full forward's shape, in bfloat16
+    arch = SERVE_ARCHS[0]
+    label = serving_heads(get_config(arch))[0][0]
+    q, k, v, errs, ms = at[(arch, label)]
+    h, hd = q.shape[2], q.shape[3]
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -433,7 +460,7 @@ def flash_phase():
                   "src/repro/kernels/flash_attention.py:87",
                   errs["bfloat16"], ms, plain_ms, _nbytes([q, k, v, q]),
                   flops, peak=H100_BF16_S, library_ms=library_ms)
-    log(f"flash_attention at the full forward's shape, bfloat16: "
+    log(f"flash_attention at {arch}'s full forward's shape, bfloat16: "
         f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call, "
         f"scaled_dot_product_attention {library_ms:.4f} ms/call, which "
         f"differs from the kernel by {lib_err:.3e} at most), bound "
@@ -442,18 +469,183 @@ def flash_phase():
     return rec
 
 
+def _route_logits(rng, G, gs, E):
+    """Logits on a grid of 2^-10: exact ties break by index on both sides,
+    and every other gap is far above an ulp of the probabilities."""
+    import torch
+    return torch.from_numpy(np.round(rng.randn(G, gs, E) * 1024) / 1024) \
+        .float().cuda()
+
+
+def _route_check(logits, k, where):
+    """moe_route's kernel vs its twin: ids and slots exactly, gates within
+    GATE_ATOL, two runs bitwise equal; returns the largest gate error."""
+    import torch
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels.ref import moe_route_ref
+    got = moe_route_cuda(logits, k)
+    again = moe_route_cuda(logits, k)
+    want = moe_route_ref(logits, k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("eid", "slot"), got[::2], want[::2]):
+        if a.dtype != torch.int32 or not torch.equal(a, b):
+            raise AssertionError(f"{where}: {name} differs from the twin at "
+                                 f"{int((a != b).sum())} entries")
+    err = float((got[1] - want[1]).abs().max())
+    if not err <= GATE_ATOL:
+        raise AssertionError(f"{where}: gate max abs err {err:.3e} > "
+                             f"{GATE_ATOL}")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{where}: two runs differ")
+    return err
+
+
+def moe_route_phase():
+    """moe_route vs its twin on the card at the reference's test shapes,
+    the serving shape, several overflowing groups and an underflowing row;
+    times the kernel and the twin at the serving shape."""
+    import torch
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels.ref import moe_route_ref
+    rng = np.random.RandomState(0)
+    worst = 0.0
+    for G, gs, E, k in MOE_ROUTE_CASES:
+        logits = _route_logits(rng, G, gs, E)
+        err = _route_check(logits, k, f"moe_route {(G, gs, E, k)}")
+        worst = max(worst, err)
+        if G > 1:
+            # capacity factor 1.0 as the model computes it
+            C = max(int(gs * k / E * 1.0), k)
+            slot = moe_route_cuda(logits, k)[2]
+            dropped = int((slot >= C).sum())
+            if dropped == 0:
+                raise AssertionError("moe_route: the multi-group case "
+                                     "overflows no expert")
+            log(f"moe_route {G} groups of {gs}: {dropped} entries past "
+                f"capacity {C} (cf 1.0), slots as the twin's")
+    under = torch.tensor([[0.0, -200.0, -200.0, -200.0]], device="cuda")
+    _route_check(under, 2, "moe_route underflow")
+    eid = moe_route_cuda(under, 2)[0]
+    if eid.tolist() != [[0, 1]]:
+        raise AssertionError(f"moe_route underflow: experts {eid.tolist()}")
+    log(f"moe_route at {len(MOE_ROUTE_CASES)} shapes and an underflowing row "
+        f"matches the twin: ids and slots exactly, gates max abs err "
+        f"{worst:.3e} (atol {GATE_ATOL}), bitwise repeatable; underflow "
+        f"picks distinct experts {eid.tolist()}")
+    G, gs, E, k = MOE_SERVING
+    logits = _route_logits(rng, G, gs, E)
+    err = _route_check(logits, k, "moe_route serving shape")
+    ms = cuda_ms(lambda: moe_route_cuda(logits, k), 50)
+    plain_ms = cuda_ms(lambda: moe_route_ref(logits, k), 5)
+    out = moe_route_cuda(logits, k)
+    # softmax: exp, sum, divide per logit; top-k: k compares per logit
+    rec = _record("moe_route", "src/repro_torch/kernels/csrc/moe_route.cu",
+                  "src/repro/kernels/moe_route.py:83", err, ms, plain_ms,
+                  _nbytes([logits] + list(out)), (3.0 + k) * logits.numel(),
+                  peak=H100_FP32_S)
+    log(f"moe_route at qwen2-moe's serving shape G={G} gs={gs} E={E} k={k}: "
+        f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); no single PyTorch "
+        f"call computes it")
+    return rec
+
+
+def _scan_inputs(gen, b, s, d, n, dtype):
+    """The reference test's distributions (dA uniform in [0.5, 1), dBx
+    0.1·normal, C normal), drawn on the card from ``gen``."""
+    import torch
+    kw = dict(generator=gen, device="cuda")
+    return ((0.5 + 0.5 * torch.rand((b, s, d, n), **kw)).to(dtype),
+            (0.1 * torch.randn((b, s, d, n), **kw)).to(dtype),
+            torch.randn((b, s, n), **kw).to(dtype))
+
+
+def _scan_check(dA, dBx, C, where):
+    """selective_scan's kernel vs its twin at rtol/atol SCAN_TOL, two runs
+    bitwise equal; returns the largest absolute difference."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    got = selective_scan_cuda(dA, dBx, C)
+    again = selective_scan_cuda(dA, dBx, C)
+    want = selective_scan_ref(dA, dBx, C)
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{where}: y {got.dtype} {tuple(got.shape)}")
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=SCAN_TOL, atol=SCAN_TOL):
+        raise AssertionError(f"{where}: kernel vs twin max abs err "
+                             f"{err:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{where}: two runs differ")
+    return err
+
+
+def selective_scan_phase():
+    """selective_scan vs its twin on the card at the reference's test
+    shapes and falcon-mamba's serving shape, float32 and bfloat16 inputs;
+    times the kernel and the twin at the serving shape in float32."""
+    import torch
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SCAN_CASES:
+            err = _scan_check(*_scan_inputs(gen, *case, dtype),
+                              f"selective_scan {case} {dtype}")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    log(f"selective_scan at the reference's {len(SCAN_CASES)} test shapes "
+        f"matches the twin (rtol/atol {SCAN_TOL}): max abs err float32 "
+        f"{worst[torch.float32]:.3e}, bfloat16 inputs "
+        f"{worst[torch.bfloat16]:.3e}; bitwise repeatable")
+    b, s, d, n = SCAN_SERVING
+    args = _scan_inputs(gen, b, s, d, n, torch.bfloat16)
+    err16 = _scan_check(*args, "selective_scan serving shape bfloat16")
+    ms16 = cuda_ms(lambda: selective_scan_cuda(*args), 10)
+    args = _scan_inputs(gen, b, s, d, n, torch.float32)
+    err = _scan_check(*args, "selective_scan serving shape float32")
+    ms = cuda_ms(lambda: selective_scan_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: selective_scan_ref(*args), 1)
+    y = selective_scan_cuda(*args)
+    nbytes = _nbytes(list(args) + [y])
+    # the recurrence's multiply-add and y's multiply-add per state
+    rec = _record("selective_scan",
+                  "src/repro_torch/kernels/csrc/selective_scan.cu",
+                  "src/repro/kernels/selective_scan.py:61", err, ms,
+                  plain_ms, nbytes, 4.0 * b * s * d * n,
+                  peak=H100_FP32_S)
+    log(f"selective_scan at falcon-mamba's serving shape b={b} s={s} "
+        f"d_in={d} n={n}: matches the twin (max abs err float32 {err:.3e}, "
+        f"bfloat16 inputs {err16:.3e}), bitwise repeatable; float32 "
+        f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call), bfloat16 inputs "
+        f"{ms16:.4f} ms/call; bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}), {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; "
+        f"no single PyTorch call computes it")
+    return rec
+
+
 def _counters():
     from repro_torch.kernels import placement
     from repro_torch.kernels.edge_substep import edge_substep
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.kernels.selective_scan import selective_scan
     return {"edge_substep": edge_substep,
             "bestfit_scan": placement.bestfit_scan,
             "repair_scan": placement.repair_scan,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention,
+            "moe_route": moe_route,
+            "selective_scan": selective_scan}
 
 
 #: the kernels each main path runs
 SIM_KERNELS = ("edge_substep", "bestfit_scan", "repair_scan")
+#: block kinds that run attention, and the serving kernel each kind runs
+#: once per layer per forward
+ATTN_KINDS = {"attn", "attn_moe"}
+LAYER_KERNELS = {"flash_attention": ATTN_KINDS, "moe_route": {"attn_moe"},
+                 "selective_scan": {"mamba"}}
 
 
 def main_path(policy, **kw):
@@ -497,8 +689,18 @@ def main_path(policy, **kw):
     return recs, wall, launches, phase_s
 
 
-def serving_path():
-    """The serving main path: TinyLlama-1.1B at full width through
+def _expected_params(cfg):
+    """Parameters ``init_params`` makes: ``param_count()``, plus each MoE
+    layer's (d, 1) shared-expert gate, which the reference's init makes
+    and its analytic count leaves out."""
+    gates = 0
+    if cfg.moe is not None and cfg.moe.num_shared_experts:
+        gates = cfg.layer_kinds.count("attn_moe") * cfg.d_model
+    return cfg.param_count() + gates
+
+
+def serving_path(arch):
+    """One serving main path: ``arch`` at full width through
     ``SplitPlaceEngine`` (the port's ``launch.serve`` request loop), with
     every kernel's launch count set to 0 just before and read just after;
     returns the launches."""
@@ -507,21 +709,24 @@ def serving_path():
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models.model import forward, init_params
     from repro_torch.serving.plans import branch_forward
-    cfg = get_config(SERVE["arch"])
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                          device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    if n_params != cfg.param_count():
-        raise AssertionError(f"{n_params} parameters, the config counts "
-                             f"{cfg.param_count()}")
-    log(f"serving: {SERVE['arch']} {cfg.num_layers} layers d={cfg.d_model} "
-        f"heads {cfg.num_heads}/{cfg.num_kv_heads} hd={cfg.resolved_head_dim}"
-        f" d_ff={cfg.d_ff} vocab {cfg.vocab_size} {cfg.param_dtype}: "
-        f"{n_params} parameters ({n_bytes / 1e9:.3f} GB) made in "
-        f"{time.perf_counter() - t0:.2f} s")
+    if n_params != _expected_params(cfg):
+        raise AssertionError(f"{arch}: {n_params} parameters, the config "
+                             f"counts {_expected_params(cfg)}")
+    kinds = "/".join(sorted(set(cfg.layer_kinds)))
+    log(f"serving: {arch} {cfg.num_layers} {kinds} layers d={cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} moe={cfg.moe} "
+        f"ssm={cfg.ssm} vocab {cfg.vocab_size} {cfg.param_dtype}: "
+        f"{n_params} parameters (param_count() {cfg.param_count()}, "
+        f"{n_bytes / 1e9:.3f} GB) made in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
     for fn in _counters().values():
         fn.launches = 0
@@ -533,43 +738,50 @@ def serving_path():
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
-    results, L, B = out["results"], cfg.num_layers, SERVE["branches"]
+    results, B = out["results"], SERVE["branches"]
     # warmup (pipe + branches + mono), the two timed plans, then per
     # request its plan and the monolithic reference
-    want = (L + B * L + L) + (L + B * L) + sum(
-        L * (1 if r.plan == 0 else B) + L for r in results)
-    if launches["flash_attention"] != want:
-        raise AssertionError(f"serving: flash_attention launched "
-                             f"{launches['flash_attention']} times, the "
-                             f"path's forwards need {want}")
+    forwards = (1 + B + 1) + (1 + B) + sum(
+        (1 if r.plan == 0 else B) + 1 for r in results)
+    for name in SIM_KERNELS:
+        if launches[name]:
+            raise AssertionError(f"{arch}: {name} launched while serving")
+    for name, kinds in LAYER_KERNELS.items():
+        want = sum(k in kinds for k in cfg.layer_kinds) * forwards
+        if launches[name] != want:
+            raise AssertionError(f"{arch}: {name} launched "
+                                 f"{launches[name]} times, the path's "
+                                 f"{forwards} forwards need {want}")
     for i, r in enumerate(results):
         if not (np.isfinite(r.latency_s) and np.isfinite(r.reward)
                 and 0.0 <= r.fidelity <= 1.0):
-            raise AssertionError(f"serving: request {i}: {r}")
+            raise AssertionError(f"{arch}: request {i}: {r}")
         if r.plan == 0 and r.fidelity != 1.0:
-            raise AssertionError(f"serving: layer-plan fidelity "
+            raise AssertionError(f"{arch}: layer-plan fidelity "
                                  f"{r.fidelity} != 1.0 at request {i}")
     eng = out["engine"]
     if len(eng._replay) < 16:
-        raise AssertionError("serving: DASO never reached its replay gate")
+        raise AssertionError(f"{arch}: DASO never reached its replay gate")
     Q = eng.state.Q[0].cpu().numpy()
     if not np.isfinite(Q).all():
-        raise AssertionError(f"serving: MAB Q not finite: {Q}")
+        raise AssertionError(f"{arch}: MAB Q not finite: {Q}")
     tok = torch.as_tensor(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (SERVE["batch"], SERVE["seq"])).astype(np.int32),
         device="cuda")
+    batch = {"tokens": tok}
     with torch.no_grad():
-        logits = forward(params, {"tokens": tok}, cfg)
+        logits = forward(params, batch, cfg)
     if logits.shape != (SERVE["batch"], SERVE["seq"], cfg.vocab_size) or \
             not torch.isfinite(logits).all():
-        raise AssertionError(f"serving: logits {tuple(logits.shape)} "
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
                              f"finite={bool(torch.isfinite(logits).all())}")
+    del logits
     tokens = SERVE["batch"] * SERVE["seq"]
     by_plan = {p: [r for r in results if r.plan == p] for p in (0, 1)}
     fid = {p: float(np.mean([r.fidelity for r in rs])) if rs else None
            for p, rs in by_plan.items()}
-    log(f"serving main path: {len(results)} requests of {tokens} tokens in "
-        f"{wall:.3f} s wall ({len(results) / wall:.3f} requests/s, "
+    log(f"serving main path {arch}: {len(results)} requests of {tokens} "
+        f"tokens in {wall:.3f} s wall ({len(results) / wall:.3f} requests/s, "
         f"{len(results) * tokens / wall:.1f} tokens/s served, warmup and "
         f"the two timed plan runs included); plan latency layer-pipeline "
         f"{out['t_layer'] * 1e3:.2f} ms ({tokens / out['t_layer']:.1f} "
@@ -579,28 +791,92 @@ def serving_path():
         f"{len(by_plan[1])}); mean fidelity layer {fid[0]} semantic "
         f"{fid[1]}; deadlines met {sum(r.met_deadline for r in results)}/"
         f"{len(results)}; mean reward "
-        f"{np.mean([r.reward for r in results]):.4f}; launches {launches}; "
-        f"final MAB Q {np.round(Q.astype(float), 4).tolist()} N "
+        f"{np.mean([r.reward for r in results]):.4f}; {forwards} forwards, "
+        f"launches {launches}; final MAB Q "
+        f"{np.round(Q.astype(float), 4).tolist()} N "
         f"{eng.state.N[0].cpu().numpy().tolist()}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     # the plans' spread within this run, outside the counted path
-    batch = {"tokens": tok}
     runs = {p: [eng._run(p, batch)[1] * 1e3 for _ in range(5)]
             for p in (0, 1)}
-    log(f"plan runs after serving, ms (semantic per branch): layer "
+    log(f"{arch} plan runs after serving, ms (semantic per branch): layer "
         f"{[round(t, 3) for t in runs[0]]}, semantic "
         f"{[round(t, 3) for t in runs[1]]}")
-    profile_run("one monolithic forward",
+    if cfg.moe is not None:
+        real_routing_check(params, batch, cfg)
+    profile_run(f"{arch}: one monolithic forward",
                 lambda: forward(params, batch, cfg))
-    profile_run(f"one semantic-plan run ({SERVE['branches']} branches)",
-                lambda: branch_forward(params, batch, cfg,
-                                       SERVE["branches"]))
+    if arch == SERVE_ARCHS[0]:
+        profile_run(f"{arch}: one semantic-plan run "
+                    f"({SERVE['branches']} branches)",
+                    lambda: branch_forward(params, batch, cfg,
+                                           SERVE["branches"]))
     return launches
+
+
+def real_routing_check(params, batch, cfg):
+    """moe_route's kernel vs its twin on the router logits of every MoE
+    layer of one forward of the served model.  Logits from real
+    activations are not on a grid, so two probabilities may lie an ulp
+    apart and the two softmaxes may order them differently: every choice
+    that differs must be such a near-tie (twin probabilities within 1e-6
+    relative); where the choices agree, slots must agree exactly and gates
+    within GATE_ATOL."""
+    import torch
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels.ref import moe_route_ref
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import forward
+    captured = []
+    router_logits = moe_mod.router_logits
+
+    def capture(p, x):
+        out = router_logits(p, x)
+        captured.append(out)
+        return out
+
+    moe_mod.router_logits = capture
+    try:
+        with torch.no_grad():
+            forward(params, batch, cfg)
+    finally:
+        moe_mod.router_logits = router_logits
+    k, differ, rows = cfg.moe.top_k, 0, 0
+    for layer, logits in enumerate(captured):
+        got = moe_route_cuda(logits, k)
+        want = moe_route_ref(logits, k)
+        probs = torch.softmax(logits, dim=-1)
+        bad = got[0] != want[0]
+        if bad.any():
+            differ += int(bad.sum())
+            rows += int(bad.any(-1).sum())
+            pk = torch.gather(probs, -1, got[0].long())[bad]
+            pt = torch.gather(probs, -1, want[0].long())[bad]
+            gap = float(((pk - pt).abs() / pt.clamp(min=1e-30)).max())
+            if not gap < 1e-6:
+                raise AssertionError(f"real routing, layer {layer}: a choice "
+                                     f"differs by {gap:.3e} relative")
+        else:
+            if not torch.equal(got[2], want[2]):
+                raise AssertionError(f"real routing, layer {layer}: slots "
+                                     f"differ")
+            err = float((got[1] - want[1]).abs().max())
+            if not err <= GATE_ATOL:
+                raise AssertionError(f"real routing, layer {layer}: gate "
+                                     f"err {err:.3e}")
+    log(f"real routing: {len(captured)} MoE layers of one forward "
+        f"({captured[0].shape[1]} tokens, {cfg.moe.num_experts} experts, "
+        f"top-{k}): {differ} choices in {rows} tokens differ between the "
+        f"kernel and its twin, all near-ties (< 1e-6 relative)")
 
 
 def _family(name):
     if "flash_attention" in name:
         return "attention (flash kernel)"
+    if "route_pass" in name:
+        return "moe routing (moe_route kernel)"
+    if "scan_kernel" in name:
+        return "selective scan (kernel)"
     if any(w in name for w in ("gemm", "nvjet", "cutlass", "xmma")):
         return "matrix products (cuBLAS)"
     return "elementwise and other"
@@ -662,7 +938,7 @@ def _leaves(tree):
 
 
 def model_cross_check():
-    """The model and both plans on the card against the CPU at the
+    """Each serving model and both plans on the card against the CPU at the
     reference's CPU size in float32 (rtol 1e-4 / atol 1e-5, TF32 off on
     both); the layer plan equals the forward bitwise on the card."""
     import torch
@@ -674,34 +950,36 @@ def model_cross_check():
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the cross-check needs "
                              "float32 products")
-    cfg = get_config(SERVE["arch"]).reduced(max_d_model=256, max_layers=4)
-    tok = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, (2, 64)).astype(np.int32))
-    params = {dev: init_params(cfg, torch.Generator().manual_seed(0),
-                               device=dev) for dev in ("cuda", "cpu")}
-    batch = {"cuda": {"tokens": tok.cuda()}, "cpu": {"tokens": tok}}
-    bounds = optimal_stage_bounds(cfg, seq=256, batch=1,
-                                  num_stages=SERVE["stages"])
-    runs = {
-        "forward": lambda d: forward(params[d], batch[d], cfg),
-        "pipeline_forward": lambda d: pipeline_forward(
-            params[d], batch[d], cfg, SERVE["stages"], bounds=bounds),
-        "branch_forward": lambda d: branch_forward(
-            params[d], batch[d], cfg, SERVE["branches"]),
-    }
-    out = {}
-    for name, run in runs.items():
-        with torch.no_grad():
-            out[name] = run("cuda")
-            torch.testing.assert_close(out[name].cpu(), run("cpu"),
-                                       rtol=1e-4, atol=1e-5,
-                                       msg=lambda m: f"{name}: {m}")
-    if not torch.equal(out["pipeline_forward"], out["forward"]):
-        raise AssertionError("pipeline_forward differs from forward on cuda")
-    log("cross-check: the reduced TinyLlama forward, layer plan and "
-        f"{SERVE['branches']}-branch semantic plan on cuda match the cpu "
-        "path at rtol=1e-4 / atol=1e-5; the layer plan equals the forward "
-        "bitwise")
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).reduced(max_d_model=256, max_layers=4)
+        tok = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        params = {dev: init_params(cfg, torch.Generator().manual_seed(0),
+                                   device=dev) for dev in ("cuda", "cpu")}
+        batch = {"cuda": {"tokens": tok.cuda()}, "cpu": {"tokens": tok}}
+        bounds = optimal_stage_bounds(cfg, seq=256, batch=1,
+                                      num_stages=SERVE["stages"])
+        runs = {
+            "forward": lambda d: forward(params[d], batch[d], cfg),
+            "pipeline_forward": lambda d: pipeline_forward(
+                params[d], batch[d], cfg, SERVE["stages"], bounds=bounds),
+            "branch_forward": lambda d: branch_forward(
+                params[d], batch[d], cfg, SERVE["branches"]),
+        }
+        out = {}
+        for name, run in runs.items():
+            with torch.no_grad():
+                out[name] = run("cuda")
+                torch.testing.assert_close(
+                    out[name].cpu(), run("cpu"), rtol=1e-4, atol=1e-5,
+                    msg=lambda m: f"{arch} {name}: {m}")
+        if not torch.equal(out["pipeline_forward"], out["forward"]):
+            raise AssertionError(f"{arch}: pipeline_forward differs from "
+                                 f"forward on cuda")
+        log(f"cross-check: the reduced {arch} forward, layer plan and "
+            f"{SERVE['branches']}-branch semantic plan on cuda match the cpu "
+            "path at rtol=1e-4 / atol=1e-5; the layer plan equals the "
+            "forward bitwise")
 
 
 def cross_checks():
@@ -759,6 +1037,10 @@ def main() -> int:
 
     records = kernel_phase()
     records.append(flash_phase())
+    records.append(moe_route_phase())
+    records.append(selective_scan_phase())
+    gc.collect()
+    torch.cuda.empty_cache()
 
     _, _, launches, _ = main_path("bestfit-rr")
     for rec in records:
@@ -767,10 +1049,15 @@ def main() -> int:
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
 
-    launches = serving_path()
+    totals = {}
+    for arch in SERVE_ARCHS:
+        for name, count in serving_path(arch).items():
+            totals[name] = totals.get(name, 0) + count
+        gc.collect()
+        torch.cuda.empty_cache()
     for rec in records:
         if rec["name"] not in SIM_KERNELS:
-            rec["launches"] = launches[rec["name"]]
+            rec["launches"] = totals[rec["name"]]
 
     cross_checks()
     model_cross_check()

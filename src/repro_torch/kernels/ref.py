@@ -5,7 +5,10 @@ with the same formulas in the same order, batched over an optional
 leading grid axis G.  It is the oracle of the hand-written CUDA kernel
 (``repro_torch.kernels.edge_substep``) and the path a CPU tensor takes.
 ``attention_ref`` is the port of ``repro.kernels.ref.attention_ref``, the
-oracle of ``repro_torch.kernels.flash_attention`` and its CPU path.
+oracle of ``repro_torch.kernels.flash_attention`` and its CPU path;
+``moe_route_ref`` and ``selective_scan_ref`` are the ports of the
+reference's oracles of the same names, the oracles and CPU paths of
+``repro_torch.kernels.moe_route`` and ``repro_torch.kernels.selective_scan``.
 
 Out-of-range stage: the reference gathers each chain's active-stage
 channels with ``take_along_axis``, and JAX's default gather *fills* an
@@ -46,6 +49,65 @@ def attention_ref(q, k, v, causal=True, window=0):
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def topk_distinct(probs, k):
+    """(values, indices) of the k largest entries along the last axis,
+    largest first, the lower index first among equal values: the order of
+    ``lax.top_k``.  k rounds of ``argmax`` (documented to return the first
+    maximum), each masking its pick to -inf, so the k experts are distinct
+    even where probabilities underflow to 0 (``torch.topk`` does not
+    document its order among ties)."""
+    p = probs.clone()
+    vals, idxs = [], []
+    for _ in range(k):
+        i = torch.argmax(p, dim=-1, keepdim=True)
+        vals.append(torch.gather(probs, -1, i))
+        idxs.append(i)
+        p.scatter_(-1, i, float("-inf"))
+    return torch.cat(vals, -1), torch.cat(idxs, -1)
+
+
+def moe_route_ref(logits, top_k):
+    """softmax -> top-k -> first-come slot assignment.
+
+    logits (S, E), or (G, gs, E) for G independent routings; returns
+    (eid int32, gate float32, slot int32), each (S, k) or (G, gs, k).
+    Probabilities are the float32 softmax; the k experts are the k largest
+    probabilities, distinct, the lower index first on ties; gates are the
+    picked probabilities over ``max(sum, 1e-9)``; ``slot`` counts the
+    earlier entries of the same expert in flattened (token, choice) order,
+    per group."""
+    grouped = logits.dim() == 3
+    lg = logits if grouped else logits[None]
+    probs = torch.softmax(lg.float(), dim=-1)
+    gates, eids = topk_distinct(probs, top_k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    G, S, E = lg.shape
+    flat = torch.nn.functional.one_hot(eids.reshape(G, S * top_k), E)
+    pos = torch.cumsum(flat, dim=1) - 1
+    slots = torch.gather(pos, 2, eids.reshape(G, S * top_k, 1))
+    out = (eids.to(torch.int32), gates,
+           slots.reshape(G, S, top_k).to(torch.int32))
+    return out if grouped else tuple(o[0] for o in out)
+
+
+def selective_scan_ref(dA, dBx, C):
+    """Sequential reference of h_t = dA_t h_{t-1} + dBx_t; y_t = <h_t, C_t>.
+
+    dA, dBx (b, s, d_in, n) and C (b, s, n) of any float dtype; the state
+    and y (b, s, d_in) are float32."""
+    b, s, d_in, n = dA.shape
+    h = torch.zeros((b, d_in, n), dtype=torch.float32, device=dA.device)
+    ys = []
+    for t in range(s):
+        h = dA[:, t].float() * h + dBx[:, t].float()
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t].float()))
+    if not ys:
+        return torch.zeros((b, 0, d_in), dtype=torch.float32,
+                           device=dA.device)
+    return torch.stack(ys, dim=1)
+
 
 #: operand order of the fused physics (carries first, then the
 #: interval-static per-task/per-fragment channels, then cluster rows)

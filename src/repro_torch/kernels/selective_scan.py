@@ -1,0 +1,104 @@
+"""Selective scan (Mamba-1): the hand-written CUDA kernel and its dispatcher.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/selective_scan.py::
+selective_scan`` (``pl.pallas_call`` at line 61), and in the model the
+chunked associative scan ``src/repro/models/ssm.py::selective_scan``, which
+computes the same function.
+
+``selective_scan(dA, dBx, C)`` takes dA, dBx (b, s, d_in, n) of one dtype
+(float32 or bfloat16) and C (b, s, n), and returns y (b, s, d_in) float32
+of h_t = dA_t·h_{t-1} + dBx_t, y_t = <h_t, C_t>, h_0 = 0, with the state in
+float32.  A CUDA tensor launches the kernel (``csrc/selective_scan.cu``: one
+thread per (batch row, channel), its n <= 16 states in registers, the
+sequence walked in order); a CPU tensor runs the eager twin
+``ref.selective_scan_ref``.  There is no fallback from one to the other.
+``selective_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import LIBRARIES
+from repro_torch.kernels.ref import selective_scan_ref
+
+#: the kernel keeps at most this many states per channel in registers
+MAX_STATE = 16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(dA, dBx, C):
+    if dA.dim() != 4 or tuple(dBx.shape) != tuple(dA.shape):
+        raise ValueError(f"selective_scan: dA {tuple(dA.shape)} and dBx "
+                         f"{tuple(dBx.shape)} must be one (b, s, d_in, n)")
+    b, s, _, n = dA.shape
+    if tuple(C.shape) != (b, s, n):
+        raise ValueError(f"selective_scan: C {tuple(C.shape)} is not "
+                         f"{(b, s, n)}")
+    if dA.dtype != dBx.dtype:
+        raise ValueError(f"selective_scan: dtypes differ: {dA.dtype}, "
+                         f"{dBx.dtype}")
+    if not (dA.device == dBx.device == C.device):
+        raise ValueError("selective_scan: operands on different devices")
+
+
+_LAUNCHER = []
+
+
+def _launcher():
+    """The library's C entry point, typed once per process."""
+    if not _LAUNCHER:
+        fn = LIBRARIES.get("selective_scan").selective_scan_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        _LAUNCHER.append(fn)
+    return _LAUNCHER[0]
+
+
+def selective_scan_cuda(dA, dBx, C):
+    """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
+    allocated y.  A bfloat16 C is converted to float32 (exactly)."""
+    _check(dA, dBx, C)
+    b, s, d_in, n = dA.shape
+    if dA.dtype not in _DTYPE_CODE:
+        raise ValueError(f"selective_scan: dtype {dA.dtype} is not float32 "
+                         f"or bfloat16")
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"selective_scan: state dim {n} outside "
+                         f"[1, {MAX_STATE}]")
+    for name, t in (("dA", dA), ("dBx", dBx)):
+        if not t.is_contiguous():
+            raise ValueError(f"selective_scan: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"selective_scan: {name} must be 16-byte "
+                             f"aligned")
+    C = C.float().contiguous()
+    y = torch.empty((b, s, d_in), dtype=torch.float32, device=dA.device)
+    if y.numel() == 0:
+        return y
+    fn = _launcher()
+    with torch.cuda.device(dA.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), y.data_ptr(),
+                b, s, d_in, n, _DTYPE_CODE[dA.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan kernel launch failed: CUDA "
+                           f"error {rc}")
+    selective_scan.launches += 1
+    return y
+
+
+def selective_scan(dA, dBx, C):
+    """The scan: the CUDA kernel on CUDA tensors, the eager twin on CPU
+    tensors."""
+    if dA.device.type == "cpu":
+        _check(dA, dBx, C)
+        return selective_scan_ref(dA, dBx, C)
+    if dA.device.type != "cuda":
+        raise ValueError(f"selective_scan: unsupported device {dA.device}")
+    return selective_scan_cuda(dA, dBx, C)
+
+
+selective_scan.launches = 0

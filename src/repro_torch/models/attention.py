@@ -1,4 +1,4 @@
-"""GQA self attention of the dense blocks.
+"""GQA self attention of the dense and MoE blocks.
 
 The port of ``repro.models.attention``'s prefill path.  Weights keep the
 reference's einsum layouts (``wq`` (d, h, hd), ``wk``/``wv`` (d, kvh, hd),

@@ -1,6 +1,6 @@
 """Shared neural building blocks: norm, MLP, rotary position embedding, init.
 
-The port of ``repro.models.layers`` for the attention-only dense blocks.
+The port of ``repro.models.layers`` for the dense, MoE and Mamba blocks.
 Weights keep the reference's layouts (``w_up``/``w_gate`` (d, d_ff),
 ``w_down`` (d_ff, d)); numerics follow it where it fixes them: the norm
 computes in float32 and multiplies by ``1 + weight``, rope angles are
@@ -37,6 +37,11 @@ def rmsnorm(x, weight, eps=1e-6):
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     return (x * (1.0 + weight.float())).to(dt)
+
+
+def softplus(x):
+    """``jax.nn.softplus``, as it computes it: ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def _relu2(x):
@@ -105,3 +110,15 @@ def apply_rope(x, positions, theta=10000.0, fraction=1.0):
     y2 = x2 * cos + x1 * sin
     y = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([y, xp], dim=-1) if rot < hd else y
+
+
+# ------------------------------------------------------ causal conv1d
+
+def causal_conv1d(x, weight, bias):
+    """Depthwise causal conv.  x (b, s, d); weight (k, d); bias (d).
+    Written as the reference writes it, k shifted multiply-adds in the
+    input's dtype (not ``F.conv1d``, which cuDNN may run in TF32)."""
+    k = weight.shape[0]
+    pad = F.pad(x, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + x.shape[1], :] * weight[i] for i in range(k))
+    return out + bias

@@ -1,10 +1,11 @@
-"""Decoder model of the dense attention blocks.
+"""Decoder model of the dense attention, MoE and Mamba blocks.
 
-The port of ``repro.models.model`` for ``"attn"`` blocks: parameters are
-a dict ``{"embed", "final_norm", "head", "blocks"}`` with one dict per
-layer in ``blocks`` (the reference stacks its body periods along a
-leading axis for ``lax.scan``; the port's forward is a plain loop over
-layers, and ``params_from_jax`` unstacks that axis).
+The port of ``repro.models.model`` for ``"attn"``, ``"attn_moe"`` and
+``"mamba"`` blocks: parameters are a dict ``{"embed", "final_norm",
+"head", "blocks"}`` with one dict per layer in ``blocks`` (the reference
+stacks its body periods along a leading axis for ``lax.scan``; the port's
+forward is a plain loop over layers, and ``params_from_jax`` unstacks that
+axis).
 
 Public API:
     init_params(cfg, generator, device)   -> params
@@ -21,14 +22,17 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
                                        mlp_init, rmsnorm)
+
+#: the block kinds the port runs
+PORTED_KINDS = ("attn", "attn_moe", "mamba")
 
 #: what the port does not run yet, and the ROADMAP queue-1 item that
 #: brings it; anything else not ported is item 18
 NOT_PORTED = {
-    "attn_moe": "item 14 (MoE blocks, models/moe.py + moe_route)",
-    "mamba": "item 15 (Mamba blocks, models/ssm.py + selective_scan)",
     "rglru": "item 16 (RG-LRU blocks, models/rglru.py + rglru_scan)",
     "local_attn": "item 16 (the RG-LRU hybrid's local attention)",
     "decode": "item 17 (decode and the KV cache)",
@@ -44,10 +48,10 @@ def _not_ported(what: str):
 
 def check_supported(cfg, batch=None):
     """Raise for a config or batch that needs what the port lacks: block
-    kinds other than ``"attn"``, position schemes other than rope or
+    kinds other than ``PORTED_KINDS``, position schemes other than rope or
     none, and batch entries other than ``tokens``."""
     for kind in cfg.layer_kinds:
-        if kind != "attn":
+        if kind not in PORTED_KINDS:
             raise _not_ported(kind)
     if cfg.pos_emb not in ("rope", "none"):
         raise _not_ported(cfg.pos_emb)
@@ -60,20 +64,34 @@ def check_supported(cfg, batch=None):
 # ------------------------------------------------------------ parameters
 
 def init_block(generator, kind, cfg, device=None):
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         raise _not_ported(kind)
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
-    return {"norm1": torch.zeros((d,), dtype=dtype, device=device),
-            "attn": attn.attn_init(generator, cfg, dtype, device=device),
-            "norm2": torch.zeros((d,), dtype=dtype, device=device),
-            "mlp": mlp_init(generator, d, cfg.d_ff, cfg, dtype,
-                            device=device)}
+
+    def norm():
+        return torch.zeros((d,), dtype=dtype, device=device)
+
+    if kind == "mamba":
+        return {"norm1": norm(),
+                "mamba": ssm_mod.mamba_init(generator, cfg, dtype,
+                                            device=device)}
+    block = {"norm1": norm(),
+             "attn": attn.attn_init(generator, cfg, dtype, device=device),
+             "norm2": norm()}
+    if kind == "attn_moe":
+        block["moe"] = moe_mod.moe_init(generator, cfg, dtype, device=device)
+    else:
+        block["mlp"] = mlp_init(generator, d, cfg.d_ff, cfg, dtype,
+                                device=device)
+    return block
 
 
 def init_params(cfg, generator=None, device="cuda"):
     """Random parameters with the reference's distribution (``dense_init``:
-    normal × 1/√fan_in in float32, cast to ``param_dtype``; norms zero),
+    normal × 1/√fan_in in float32, cast to ``param_dtype``; norms zero;
+    the MoE router and shared gate and Mamba's ``A_log`` and ``D`` stay
+    float32, as the reference keeps them),
     drawn from ``generator`` (default: a CPU generator seeded 0) on its
     own device and placed on ``device``."""
     check_supported(cfg)
@@ -92,15 +110,18 @@ def init_params(cfg, generator=None, device="cuda"):
     return params
 
 
-def _to_tensors(tree, device, dtype):
+def _to_tensors(tree, device):
+    """NumPy leaves as tensors of the same dtype (ml_dtypes' bfloat16 goes
+    through float32, exactly)."""
     if isinstance(tree, dict):
-        return {k: _to_tensors(v, device, dtype) for k, v in tree.items()}
+        return {k: _to_tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_tensors(v, device, dtype) for v in tree]
+        return [_to_tensors(v, device) for v in tree]
     a = np.array(tree)
-    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: exact in f32
-        a = a.astype(np.float32)
-    return torch.from_numpy(a).to(device=device, dtype=dtype)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(a).to(device=device)
 
 
 def _index(tree, i):
@@ -113,8 +134,9 @@ def params_from_jax(tree, cfg, device="cuda"):
     """The reference's parameter pytree (``repro.models.init_params``),
     given as NumPy arrays, as the port's parameters on ``device``: the
     body's leading period axis is unstacked into one dict per layer, in
-    the order prefix, body periods, suffix.  Leaves are cast to
-    ``param_dtype``."""
+    the order prefix, body periods, suffix.  Each leaf keeps its own
+    dtype (the reference keeps the MoE router and shared gate and Mamba's
+    ``A_log`` and ``D`` in float32 under a bfloat16 ``param_dtype``)."""
     check_supported(cfg)
     dev = resolve(device)
     prefix, (pattern, periods), suffix = cfg.scan_segments
@@ -126,7 +148,7 @@ def params_from_jax(tree, cfg, device="cuda"):
     params = {k: tree[k] for k in ("embed", "final_norm", "head")
               if k in tree}
     params["blocks"] = blocks
-    return _to_tensors(params, dev, dtype_of(cfg.param_dtype))
+    return _to_tensors(params, dev)
 
 
 # --------------------------------------------------------------- forward
@@ -144,15 +166,23 @@ def embed_tokens(params, tokens, cfg):
 
 
 def apply_block(kind, p, x, positions, cfg):
-    """One ``"attn"`` block: pre-norm self attention and MLP, each with a
-    residual.  Returns the new residual stream."""
-    if kind != "attn":
+    """One block, each sub-layer pre-norm with a residual: ``"attn"`` is
+    self attention then the MLP, ``"attn_moe"`` self attention then the
+    MoE FFN, ``"mamba"`` the Mamba mixer alone.  Returns the new residual
+    stream."""
+    if kind not in PORTED_KINDS:
         raise _not_ported(kind)
+    if kind == "mamba":
+        return x + ssm_mod.mamba_apply(
+            p["mamba"], rmsnorm(x, p["norm1"], cfg.norm_eps), cfg)
     h, _ = attn.self_attention(p["attn"],
                                rmsnorm(x, p["norm1"], cfg.norm_eps),
                                positions, cfg, window=cfg.sliding_window)
     x = x + h
-    return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps), cfg)
+    xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn_moe":
+        return x + moe_mod.moe_apply(p["moe"], xn, cfg)
+    return x + mlp_apply(p["mlp"], xn, cfg)
 
 
 def lm_head(params, x, cfg):

@@ -13,8 +13,9 @@ The port of ``repro.serving.engine``.  Per request:
      plan's argmax tokens with the monolithic forward), eqs. 3–5, and
      feeds Algorithm 1 and DASO's replay.
 
-Everything runs on ``device`` (CUDA by default; the flash-attention
-kernel on the card, its eager twin on the CPU).  Timing synchronizes the
+Everything runs on ``device`` (CUDA by default), for any model whose
+blocks the port runs (dense attention, MoE or Mamba): the hand-written
+kernels on the card, their eager twins on the CPU.  Timing synchronizes the
 card where the reference calls ``block_until_ready``.
 """
 from __future__ import annotations

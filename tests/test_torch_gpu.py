@@ -180,3 +180,95 @@ def test_serving_path_reduced(cuda):
         assert np.isfinite(r.latency_s) and 0.0 <= r.fidelity <= 1.0
         if r.plan == 0:
             assert r.fidelity == 1.0
+
+
+MOE_ROUTE_CASES = [  # (G, gs, E, k)
+    (1, 64, 8, 2), (1, 100, 16, 4), (1, 33, 4, 1),   # tests/test_kernels.py
+    (1, 4096, 60, 4),                                # qwen2-moe's serving
+    (8, 512, 60, 4),                                 # several groups
+    (3, 77, 1024, 7),                                # the widest E
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_ROUTE_CASES)
+def test_moe_route_matches_twin(cuda, case):
+    """Expert ids and slots exactly, gates within atol 1e-5; logits on a
+    2^-10 grid, so exact ties break by index on both sides and every other
+    gap is far above an ulp."""
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.kernels.ref import moe_route_ref
+    G, gs, E, k = case
+    rng = np.random.RandomState(gs + E)
+    logits = torch.from_numpy(np.round(rng.randn(G, gs, E) * 1024) / 1024) \
+        .float().to(cuda)
+    before = moe_route.launches
+    got = moe_route(logits, k)
+    again = moe_route(logits, k)
+    torch.cuda.synchronize()
+    assert moe_route.launches == before + 2
+    eid, gate, slot = moe_route_ref(logits, k)
+    assert torch.equal(got[0], eid) and torch.equal(got[2], slot)
+    torch.testing.assert_close(got[1], gate, rtol=0.0, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_moe_route_underflow(cuda):
+    from repro_torch.kernels.moe_route import moe_route
+    logits = torch.tensor([[0.0, -200.0, -200.0, -200.0]], device=cuda)
+    eid, gate, slot = moe_route(logits, 2)
+    assert eid.tolist() == [[0, 1]] and slot.tolist() == [[0, 0]]
+    assert gate.tolist() == [[1.0, 0.0]]
+
+
+SCAN_CASES = [  # (b, s, d_in, n)
+    (2, 37, 16, 4), (1, 128, 64, 16), (3, 15, 8, 2),  # tests/test_kernels.py
+    (2, 200, 300, 16),                                # ragged d_in and s
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_matches_twin(cuda, case, dtype):
+    """rtol/atol 1e-5 (the twin's einsum sums the n products in its own
+    order); two runs bitwise equal."""
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    b, s, d, n = case
+    rng = np.random.RandomState(s + d)
+    dA = torch.from_numpy(rng.uniform(0.5, 1.0, (b, s, d, n))).to(cuda, dtype)
+    dBx = torch.from_numpy(rng.randn(b, s, d, n) * 0.1).to(cuda, dtype)
+    C = torch.from_numpy(rng.randn(b, s, n)).to(cuda, dtype)
+    before = selective_scan.launches
+    got = selective_scan(dA, dBx, C)
+    again = selective_scan(dA, dBx, C)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == (b, s, d)
+    torch.testing.assert_close(got, selective_scan_ref(dA, dBx, C),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b"])
+def test_moe_and_mamba_reduced(cuda, arch):
+    """The reduced model (float32) on the card matches the CPU, through
+    its kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models.model import forward, init_params
+    cfg = get_config(arch).reduced(max_d_model=256, max_layers=4)
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    kernel = moe_route if cfg.moe else selective_scan
+    before = kernel.launches
+    got = forward(init_params(cfg, torch.Generator().manual_seed(0),
+                              device=cuda), {"tokens": tok.to(cuda)}, cfg)
+    assert kernel.launches == before + cfg.num_layers
+    want = forward(init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu"), {"tokens": tok}, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)

@@ -22,11 +22,13 @@ from repro.configs import get_config as jget_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
 from repro.serving import plans as jplans
 from repro_torch.configs import get_config
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.serving import plans as tplans
 
 LOGITS = dict(rtol=1e-4, atol=1e-5)
@@ -197,15 +199,82 @@ def test_branch_forward_matches_reference(small):
     assert float((got - mono).abs().max()) > 1e-3     # genuinely approximate
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 14"),
-                                       ("falcon-mamba-7b", "item 15"),
+@pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 17"),
+                                       ("falcon-mamba-7b", "item 17"),
                                        ("recurrentgemma-9b", "item 16"),
                                        ("musicgen-medium", "item 18"),
                                        ("qwen2-vl-7b", "item 18")])
 def test_unported_archs_raise(arch, item):
+    """MoE and Mamba models build on the CPU at the reduced size and raise
+    only for decoding (item 17); the other archs raise at init."""
     cfg = get_config(arch).reduced()
+    if item != "item 17":
+        with pytest.raises(NotImplementedError, match=item):
+            tmodel.init_params(cfg, device="cpu")
+        return
+    params = tmodel.init_params(cfg, device="cpu")
+    # the reference's analytic count leaves out each MoE layer's (d, 1)
+    # shared-expert gate, which its init makes
+    gates = cfg.num_layers * cfg.d_model if cfg.moe else 0
+    assert sum(a.numel() for a in _leaves(params).values()) == \
+        cfg.param_count() + gates
+    tok = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match=item):
-        tmodel.init_params(cfg, device="cpu")
+        tmodel.decode_step(params, tok, None, 0, cfg)
+
+
+#: leaves the reference keeps in float32 whatever ``param_dtype`` says
+FLOAT32_LEAVES = ("router", "shared_gate", "A_log", "D")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b"])
+def test_leaf_dtypes_follow_reference(arch):
+    """Under a bfloat16 ``param_dtype`` the router, shared gate, A_log and
+    D stay float32 and every other leaf is bfloat16: ``params_from_jax``
+    keeps each leaf's dtype and ``init_params`` makes the same tree."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(),
+                               param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16")
+    jparams = jmodel.init_params(jax.random.PRNGKey(2), jcfg)
+    tree = jax.tree.map(np.asarray, jparams)
+    carried = _leaves(tmodel.params_from_jax(tree, cfg, device="cpu"))
+    own = _leaves(tmodel.init_params(cfg, device="cpu"))
+    assert carried.keys() == own.keys()
+    ref = _leaves(tmodel._index(tree["body"], 0))
+    for path, a in carried.items():
+        want = torch.float32 if path.rsplit("/", 1)[-1] in FLOAT32_LEAVES \
+            else torch.bfloat16
+        assert a.dtype == want and own[path].dtype == want, path
+        if path.startswith("/blocks/0/"):
+            r = ref["/b0/" + path[len("/blocks/0/"):]]
+            assert str(r.dtype) == str(want).split(".")[1], path
+            np.testing.assert_array_equal(a.float().numpy(),
+                                          r.astype(np.float32))
+    assert any(p.endswith(FLOAT32_LEAVES) for p in carried)
+
+
+def test_bfloat16_routing_matches_reference():
+    """With bfloat16 weights the router stays float32 on both sides, so the
+    port's routing of a bfloat16 activation picks the reference's
+    experts."""
+    arch = "qwen2-moe-a2.7b"
+    jcfg = dataclasses.replace(jget_config(arch).reduced(),
+                               param_dtype="bfloat16")
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_dtype="bfloat16")
+    jp = jax.tree.map(lambda a: a[0],
+                      jmodel.init_params(jax.random.PRNGKey(3), jcfg)["body"])
+    jp = jp["b0"]["moe"]
+    tp = tmodel._to_tensors(jax.tree.map(np.asarray, jp), "cpu")
+    x = jnp.asarray(np.random.RandomState(4).randn(64, cfg.d_model),
+                    jnp.bfloat16)
+    _, want, _ = jmoe.router_topk(jp, x, jcfg.moe)
+    eid, _, _ = tmoe.moe_route(tmoe.router_logits(
+        tp, torch.from_numpy(np.asarray(x, np.float32)).bfloat16()),
+        cfg.moe.top_k)
+    assert tp["router"].dtype == torch.float32
+    np.testing.assert_array_equal(eid.numpy(), np.asarray(want))
 
 
 def test_unported_batches_raise(small):
