@@ -5,31 +5,36 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the substep physics, the two placement scans, flash attention, MoE
-routing and the selective scan) and holds each against its eager PyTorch
-twin: the simulator kernels on fuzzed slot states and one real main-path
-interval (float64 at rtol=1e-12, bools and ints exact, bitwise identical
-over two runs); flash attention at the reference's test shapes and at
-every attention shape of the serving paths, full forward and one
-semantic branch (atol 2e-5 in float32, 2e-2 in bfloat16); ``moe_route``
-at the reference's test shapes, qwen2-moe's serving shape, several
-overflowing groups and an underflowing row (expert ids and slots exactly,
-gates within atol 1e-5); ``selective_scan`` at the reference's test
+routing, the selective scan and the RG-LRU scan) and holds each against
+its eager PyTorch twin: the simulator kernels on fuzzed slot states and
+one real main-path interval (float64 at rtol=1e-12, bools and ints exact,
+bitwise identical over two runs); flash attention at the reference's test
+shapes, at every attention shape of the serving paths, full forward and
+one semantic branch, and at a 4096-token shape where recurrentgemma's
+2048-token window bites (atol 2e-5 in float32, 2e-2 in bfloat16);
+``moe_route`` at the reference's test shapes, qwen2-moe's serving shape,
+several overflowing groups and an underflowing row (expert ids and slots
+exactly, gates within atol 1e-5); ``selective_scan`` at the reference's test
 shapes and falcon-mamba's serving shape in float32 and bfloat16 (rtol and
-atol 1e-5, bitwise repeatable).  Then it drives the main paths, each with
-every kernel's launch count set to 0 just before and read just after:
+atol 1e-5, bitwise repeatable); ``rglru_scan`` at the reference's test
+shapes and recurrentgemma's serving shape in float32 and bfloat16 (atol
+1e-5 and 3e-2, bitwise repeatable).  Then it drives the main paths, each
+with every kernel's launch count set to 0 just before and read just
+after:
 
 * the simulator — ``run_grid_batched`` for ``bestfit-rr`` and for the
   ``"mab"`` deploy policy over a 16-cell (8 seeds × λ∈{6, 24}) grid on
   the 50-worker Table-3 fleet, 100 intervals of 30 substeps;
-* serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b and
-  falcon-mamba-7b, one after another, each at full width and depth
+* serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
+  falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
+  width and depth
   (bfloat16, random weights from seed 0), 2 stages / 2 branches, batch
   4 × 1024 tokens, 20 requests under the reference's tight/loose deadline
   rule;
 
 and cross-checks the GPU driver against the committed golden fixture and
 the CPU path, qwen2-moe's real router logits between the routing kernel
-and its twin, and the three models and both serving plans against the
+and its twin, and the four models and both serving plans against the
 CPU at a reduced size.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
@@ -77,7 +82,11 @@ FLASH_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving paths: each model at full width, the engine's plans,
 #: batch × seq tokens per request
-SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b")
+SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
+               "recurrentgemma-9b")
+#: flash attention where recurrentgemma's local window bites: (b, s, h,
+#: kvh, hd, window), bfloat16
+FLASH_WINDOWED = (1, 4096, 16, 1, 256, 2048)
 SERVE = dict(requests=20, batch=4, seq=1024, stages=2, branches=2)
 #: moe_route: the reference's test shapes (tests/test_kernels.py), the
 #: serving shape of qwen2-moe (one group of 4 × 1024 tokens, 60 experts,
@@ -93,6 +102,11 @@ SCAN_CASES = [(2, 37, 16, 4), (1, 128, 64, 16), (3, 15, 8, 2)]
 SCAN_SERVING = (4, 1024, 8192, 16)
 SCAN_TOL = 1e-5
 H100_FP32_S = 67e12                # FP32 (non-tensor), same data sheet
+#: rglru_scan: the reference's test shapes and recurrentgemma's serving
+#: shape; (b, s, w), and the reference test's tolerances
+RGLRU_CASES = [(2, 37, 24), (1, 64, 128)]
+RGLRU_SERVING = (4, 1024, 4096)
+RGLRU_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
 def log(*a):
@@ -394,16 +408,15 @@ def serving_heads(cfg):
 
 def flash_phase():
     """Flash attention vs its twin on the card at the reference's test
-    shapes and at every serving shape (the full forward's heads and one
-    semantic branch's), in float32 and bfloat16; times the kernel at each
-    serving shape, and the twin and the library's
-    scaled_dot_product_attention (a yardstick only: the port never calls
-    it) at the full forward's, in bfloat16."""
-    import torch
-    import torch.nn.functional as F
+    shapes, at every serving shape (the full forward's heads and one
+    semantic branch's, with the model's window), in float32 and bfloat16,
+    and at FLASH_WINDOWED in bfloat16; times the kernel at each serving
+    shape, and the twin and the library's scaled_dot_product_attention (a
+    yardstick only: the port never calls it) at TinyLlama's and
+    recurrentgemma's full forward's and at FLASH_WINDOWED, in bfloat16."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models.model import block_window
     rng = np.random.RandomState(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for dtype in ("float32", "bfloat16"):
@@ -422,50 +435,95 @@ def flash_phase():
     at = {}
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
-        if not set(cfg.layer_kinds) & ATTN_KINDS:
+        windows = {block_window(kind, cfg) for kind in cfg.layer_kinds
+                   if kind in ATTN_KINDS}
+        if not windows:
             continue
+        (window,) = windows
         hd = cfg.resolved_head_dim
         for label, hb, kvb in serving_heads(cfg):
             errs = {}
             for dtype in ("float32", "bfloat16"):
                 q, k, v = _flash_inputs(rng, b, s, s, hb, kvb, hd, dtype)
                 errs[dtype] = _flash_check(
-                    q, k, v, True, 0, dtype,
+                    q, k, v, True, window, dtype,
                     f"flash {dtype} {arch} serving shape ({label}, h={hb} "
-                    f"kvh={kvb} hd={hd})")
-            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v), 20)
-            at[(arch, label)] = (q, k, v, errs, ms)
+                    f"kvh={kvb} hd={hd} window={window})")
+            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v,
+                                                      window=window), 20)
+            at[(arch, label)] = (q, k, v, window, errs, ms)
             log(f"flash_attention at {arch}'s serving shape of the {label}: "
-                f"b={b} s={s} h={hb} kvh={kvb} hd={hd} causal: matches the "
-                f"twin (max abs err float32 {errs['float32']:.3e}, bfloat16 "
-                f"{errs['bfloat16']:.3e}); bfloat16 {ms:.4f} ms/call")
-    # the record holds TinyLlama's full forward's shape, in bfloat16
-    arch = SERVE_ARCHS[0]
-    label = serving_heads(get_config(arch))[0][0]
-    q, k, v, errs, ms = at[(arch, label)]
-    h, hd = q.shape[2], q.shape[3]
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
+                f"b={b} s={s} h={hb} kvh={kvb} hd={hd} causal window="
+                f"{window}: matches the twin (max abs err float32 "
+                f"{errs['float32']:.3e}, bfloat16 {errs['bfloat16']:.3e}); "
+                f"bfloat16 {ms:.4f} ms/call")
+    # the record holds TinyLlama's full forward's shape; its "hd256" entry
+    # recurrentgemma's (whose branches run the same 16/1 heads), and
+    # "hd256_windowed" a 4096-token shape where the 2048-token window bites
+    records = {}
+    for arch, key in ((SERVE_ARCHS[0], None),
+                      ("recurrentgemma-9b", "hd256")):
+        label = serving_heads(get_config(arch))[0][0]
+        q, k, v, window, errs, ms = at[(arch, label)]
+        records[key] = _flash_timed(f"{arch}'s full forward's shape", q, k,
+                                    v, window, errs["bfloat16"], ms)
+    b, s, h, kvh, hd, window = FLASH_WINDOWED
+    q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, "bfloat16")
+    err = _flash_check(q, k, v, True, window, "bfloat16",
+                       f"flash bfloat16 {FLASH_WINDOWED} windowed")
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, window=window), 10)
+    records["hd256_windowed"] = _flash_timed(
+        f"a windowed shape b={b} s={s} h={h} kvh={kvh} hd={hd} "
+        f"window={window}", q, k, v, window, err, ms)
+    rec = records.pop(None)
+    for key, sub in records.items():
+        rec[key] = {name: sub[name] for name in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+    return rec
+
+
+def _flash_timed(where, q, k, v, window, err, ms):
+    """The flash record at one bfloat16 shape the kernel was held at: the
+    twin's time and the library's scaled_dot_product_attention's beside the
+    kernel's, and the bound from the visible (query, key) pairs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+    b, s, h, hd = q.shape
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, window=window), 2)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
-    lib_err = float((lib.transpose(1, 2).float()
-                     - flash_attention_cuda(q, k, v).float()).abs().max())
+    if window and window < s:
+        pos = torch.arange(s, device="cuda")
+        lag = pos[:, None] - pos[None, :]
+        lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
+        # visible (query, key) pairs: every query sees min(i + 1, window)
+        pairs = window * (window + 1) / 2 + (s - window) * window
+    else:
+        lib_kw = dict(is_causal=True)
+        pairs = s * s / 2      # the causal half
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                         **lib_kw)
+    lib_err = float((lib.transpose(1, 2).float() - flash_attention_cuda(
+        q, k, v, window=window).float()).abs().max())
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    # causal half of QK^T and PV: 2·b·h·sq·sk·hd, on bf16 tensor cores;
-    # bytes: q, k, v read once and an output of q's size written once
-    flops = 2.0 * b * h * s * s * hd
+        qt, kt, vt, enable_gqa=True, **lib_kw), 10)
+    # QK^T and PV over the visible pairs, on bf16 tensor cores; bytes: q,
+    # k, v read once and an output of q's size written once
+    flops = 4.0 * b * h * hd * pairs
     rec = _record("flash_attention",
                   "src/repro_torch/kernels/csrc/flash_attention.cu",
-                  "src/repro/kernels/flash_attention.py:87",
-                  errs["bfloat16"], ms, plain_ms, _nbytes([q, k, v, q]),
-                  flops, peak=H100_BF16_S, library_ms=library_ms)
-    log(f"flash_attention at {arch}'s full forward's shape, bfloat16: "
-        f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms/call, which "
-        f"differs from the kernel by {lib_err:.3e} at most), bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}), "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+                  "src/repro/kernels/flash_attention.py:87", err, ms,
+                  plain_ms, _nbytes([q, k, v, q]), flops, peak=H100_BF16_S,
+                  library_ms=library_ms)
+    rec["shape"] = {"b": b, "s": s, "h": h, "kvh": k.shape[2], "hd": hd,
+                    "window": window}
+    log(f"flash_attention at {where}, bfloat16: {ms:.4f} ms/call (twin "
+        f"{plain_ms:.4f} ms/call, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms/call, which differs from the kernel by "
+        f"{lib_err:.3e} at most), bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     return rec
 
 
@@ -625,27 +683,85 @@ def selective_scan_phase():
     return rec
 
 
+def rglru_scan_phase():
+    """rglru_scan vs its twin on the card at the reference's test shapes
+    and recurrentgemma's serving shape, float32 and bfloat16 inputs (the
+    reference test's distributions: a in [0.8, 1), bx 0.1·normal); times
+    the kernel and the twin at the serving shape."""
+    import torch
+    from repro_torch.kernels.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_cuda
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    at = {}
+    for dtype in ("float32", "bfloat16"):
+        worst, exact = 0.0, True
+        for shape in RGLRU_CASES + [RGLRU_SERVING]:
+            a = (0.8 + 0.2 * torch.rand(shape, generator=gen, device="cuda")
+                 ).to(getattr(torch, dtype))
+            bx = (0.1 * torch.randn(shape, generator=gen, device="cuda")
+                  ).to(getattr(torch, dtype))
+            got = rglru_scan_cuda(a, bx)
+            again = rglru_scan_cuda(a, bx)
+            want = rglru_scan_ref(a, bx)
+            torch.cuda.synchronize()
+            where = f"rglru_scan {shape} {dtype}"
+            if got.dtype != torch.float32 or got.shape != want.shape:
+                raise AssertionError(f"{where}: h {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            err = float((got - want).abs().max())
+            if not err <= RGLRU_ATOL[dtype]:
+                raise AssertionError(f"{where}: kernel vs twin max abs err "
+                                     f"{err:.3e} > {RGLRU_ATOL[dtype]}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{where}: two runs differ")
+            worst, exact = max(worst, err), exact and torch.equal(got, want)
+        ms = cuda_ms(lambda: rglru_scan_cuda(a, bx), 20)
+        at[dtype] = (a, bx, got, worst, exact, ms)
+        log(f"rglru_scan {dtype} at the reference's {len(RGLRU_CASES)} test "
+            f"shapes and recurrentgemma's serving shape b, s, w = "
+            f"{RGLRU_SERVING}: matches the twin (max abs err {worst:.3e}, "
+            f"atol {RGLRU_ATOL[dtype]}; equal bitwise: {exact}), bitwise "
+            f"repeatable; {ms:.4f} ms/call at the serving shape, "
+            f"{_nbytes([a, bx, got]) / (ms * 1e-3) / 1e12:.3f} TB/s")
+    a, bx, h, worst, exact, ms = at["float32"]
+    plain_ms = cuda_ms(lambda: rglru_scan_ref(a, bx), 1)
+    b, s, w = RGLRU_SERVING
+    # a product and a sum per element
+    rec = _record("rglru_scan", "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan.py:53", worst, ms, plain_ms,
+                  _nbytes([a, bx, h]), 2.0 * b * s * w, peak=H100_FP32_S)
+    rec["bitwise_equal_twin"] = exact
+    rec["ms_bfloat16"] = at["bfloat16"][5]
+    log(f"rglru_scan at recurrentgemma's serving shape, float32: {ms:.4f} "
+        f"ms/call (twin {plain_ms:.4f} ms/call), bfloat16 inputs "
+        f"{rec['ms_bfloat16']:.4f} ms/call; bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}); no single PyTorch call computes it")
+    return rec
+
+
 def _counters():
     from repro_torch.kernels import placement
     from repro_torch.kernels.edge_substep import edge_substep
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_route import moe_route
+    from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.selective_scan import selective_scan
     return {"edge_substep": edge_substep,
             "bestfit_scan": placement.bestfit_scan,
             "repair_scan": placement.repair_scan,
             "flash_attention": flash_attention,
             "moe_route": moe_route,
-            "selective_scan": selective_scan}
+            "selective_scan": selective_scan,
+            "rglru_scan": rglru_scan}
 
 
 #: the kernels each main path runs
 SIM_KERNELS = ("edge_substep", "bestfit_scan", "repair_scan")
 #: block kinds that run attention, and the serving kernel each kind runs
 #: once per layer per forward
-ATTN_KINDS = {"attn", "attn_moe"}
+ATTN_KINDS = {"attn", "attn_moe", "local_attn"}
 LAYER_KERNELS = {"flash_attention": ATTN_KINDS, "moe_route": {"attn_moe"},
-                 "selective_scan": {"mamba"}}
+                 "selective_scan": {"mamba"}, "rglru_scan": {"rglru"}}
 
 
 def main_path(policy, **kw):
@@ -724,7 +840,8 @@ def serving_path(arch):
     log(f"serving: {arch} {cfg.num_layers} {kinds} layers d={cfg.d_model} "
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} "
         f"hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} moe={cfg.moe} "
-        f"ssm={cfg.ssm} vocab {cfg.vocab_size} {cfg.param_dtype}: "
+        f"ssm={cfg.ssm} rglru={cfg.rglru} vocab {cfg.vocab_size} "
+        f"{cfg.param_dtype}: "
         f"{n_params} parameters (param_count() {cfg.param_count()}, "
         f"{n_bytes / 1e9:.3f} GB) made in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
@@ -873,6 +990,8 @@ def real_routing_check(params, batch, cfg):
 def _family(name):
     if "flash_attention" in name:
         return "attention (flash kernel)"
+    if "rglru_kernel" in name:
+        return "rg-lru scan (kernel)"
     if "route_pass" in name:
         return "moe routing (moe_route kernel)"
     if "scan_kernel" in name:
@@ -1039,6 +1158,7 @@ def main() -> int:
     records.append(flash_phase())
     records.append(moe_route_phase())
     records.append(selective_scan_phase())
+    records.append(rglru_scan_phase())
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1051,13 +1171,18 @@ def main() -> int:
 
     totals = {}
     for arch in SERVE_ARCHS:
-        for name, count in serving_path(arch).items():
+        launches = serving_path(arch)
+        for name, count in launches.items():
             totals[name] = totals.get(name, 0) + count
+        if arch == "recurrentgemma-9b":
+            hd256 = launches["flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     for rec in records:
         if rec["name"] not in SIM_KERNELS:
             rec["launches"] = totals[rec["name"]]
+        if rec["name"] == "flash_attention":
+            rec["hd256"]["launches"] = hd256
 
     cross_checks()
     model_cross_check()

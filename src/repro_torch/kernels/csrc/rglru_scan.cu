@@ -1,0 +1,125 @@
+// RG-LRU linear recurrence: h_t = a_t * h_{t-1} + bx_t, elementwise over the
+// width, for float32 or bfloat16 a and bx, with h in float32.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/rglru_scan.py::rglru_scan
+// (pl.pallas_call at :53), and in the model the chunked associative scan
+// src/repro/models/rglru.py::linear_recurrence, which computes the same
+// function.  Contract (repro_torch/kernels/ref.py::rglru_scan_ref's): a and
+// bx (b, s, w) of one dtype, contiguous; h (b, s, w) float32; h_0 = 0.  The
+// TPU kernel pads a with 1 and bx with 0 to whole chunks; here ragged s and w
+// are masked, not padded.
+//
+// Design (a simple first kernel): one thread per (batch row, channel) keeps
+// h in a register and walks the sequence in order, as the TPU kernel's fori
+// loop does over its VMEM-resident chunk; the TPU carried h in VMEM scratch
+// across the sequence-chunk grid axis, here the sequence loop is inside the
+// thread, so nothing carries between CTAs.  Neighbouring threads take
+// neighbouring channels, so each step of a warp reads one contiguous span of
+// 32 values per tensor and writes one of h.  The recurrence itself costs two
+// dependent operations per step; what bounds the kernel is keeping enough
+// bytes in flight with few threads (at recurrentgemma-9b's serving shape
+// only b*w = 16384 threads, ~4 warps per SM, while HBM wants ~15 KB in flight
+// per SM).  So each thread holds two register buffers of U steps of a and bx
+// and loads the next U steps while it consumes the current ones: 2U = 16
+// steps in flight, 128 bytes per thread in float32.  A CTA is one warp, so
+// the 512 CTAs of the serving shape spread evenly over the SMs.  (Of the CTA
+// sizes 32/64/128 and U = 4/8/16 tried on the card, this pair was fastest in
+// float32.)
+//
+// Bound: the function must read a and bx once and write h once; at
+// recurrentgemma-9b's serving shape (b=4, s=1024, w=4096, float32) that is
+// 201 MB, 0.060 ms at 3.35 TB/s; its 2 operations per element (34 MFLOP) are
+// negligible, so it is bound by bytes.  Each step is a product, then a sum,
+// written as __fmul_rn / __fadd_rn so that no build flag contracts them: the
+// kernel rounds as the eager twin and equals it bitwise in float32.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 32;  // channels per CTA
+constexpr int U = 8;         // steps per register buffer
+
+// One value as float32, read once (streaming).  bfloat16 arrives as its 16
+// bits, the high half of the float32 of the same value.
+__device__ __forceinline__ float load_f32(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  const unsigned short bits =
+      __ldcs(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
+// U steps from t0 on, 0 past the end of the sequence.
+template <typename T>
+__device__ __forceinline__ void load_steps(const T* __restrict__ pa,
+                                           const T* __restrict__ pb, int t0,
+                                           int s, size_t stride, float* a,
+                                           float* bx) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = t0 + u;
+    const bool in = t < s;
+    a[u] = in ? load_f32(pa + (size_t)t * stride) : 0.0f;
+    bx[u] = in ? load_f32(pb + (size_t)t * stride) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void run_steps(float& h, const float* a,
+                                          const float* bx, int t0, int s,
+                                          size_t stride,
+                                          float* __restrict__ ph) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (t0 + u < s) {
+      h = __fadd_rn(__fmul_rn(a[u], h), bx[u]);
+      ph[(size_t)(t0 + u) * stride] = h;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    rglru_kernel(const T* __restrict__ a, const T* __restrict__ bx,
+                 float* __restrict__ h_out, int s, int w) {
+  const int ch = blockIdx.x * THREADS + threadIdx.x;
+  if (ch >= w) return;
+  const size_t base = (size_t)blockIdx.y * s * w + ch;
+  const T* pa = a + base;
+  const T* pb = bx + base;
+  float* ph = h_out + base;
+
+  float h = 0.0f;
+  float a0[U], b0[U], a1[U], b1[U];
+  load_steps(pa, pb, 0, s, (size_t)w, a0, b0);
+  for (int t0 = 0; t0 < s; t0 += 2 * U) {
+    load_steps(pa, pb, t0 + U, s, (size_t)w, a1, b1);
+    run_steps(h, a0, b0, t0, s, (size_t)w, ph);
+    load_steps(pa, pb, t0 + 2 * U, s, (size_t)w, a0, b0);
+    run_steps(h, a1, b1, t0 + U, s, (size_t)w, ph);
+  }
+}
+
+template <typename T>
+int launch(const void* a, const void* bx, void* h, int b, int s, int w,
+           cudaStream_t st) {
+  const dim3 grid((w + THREADS - 1) / THREADS, b);
+  rglru_kernel<T><<<grid, THREADS, 0, st>>>(static_cast<const T*>(a),
+                                            static_cast<const T*>(bx),
+                                            static_cast<float*>(h), s, w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16 (a and bx); h is float32.  Returns the
+// launch's CUDA error code.
+extern "C" int rglru_scan_launch(const void* a, const void* bx, void* h,
+                                 int b, int s, int w, int dtype,
+                                 void* stream) {
+  if (b < 1 || b > 65535 || s < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch<float>(a, bx, h, b, s, w, st);
+  if (dtype == 1) return launch<uint16_t>(a, bx, h, b, s, w, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -11,9 +11,10 @@ k, v (b, sk, kvh, hd) of one dtype (float32 or bfloat16) and returns
 ``kv``, positions are ``0..s-1`` (top-left causal alignment when
 sq != sk), scores are scaled by ``hd**-0.5``.  A CUDA tensor launches the
 kernel (``csrc/flash_attention.cu``: one CTA per (b, kv head, q tile),
-one query row per thread, float32 online softmax); a CPU tensor runs the
-eager twin ``ref.attention_ref``.  There is no fallback from one to the
-other.  ``flash_attention.launches`` counts kernel launches.
+one query row per thread, four threads per row at hd=256, float32 online
+softmax); a CPU tensor runs the eager twin ``ref.attention_ref``.  There
+is no fallback from one to the other.  ``flash_attention.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.ref import attention_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
-#: the kernel's CTA size bounds the query heads per kv head
-MAX_GROUP = 128
+HEAD_DIMS = (16, 32, 64, 128, 256)
+#: query rows of the kernel's CTA, per head dim, bound the query heads per
+#: kv head
+MAX_GROUP = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -77,9 +79,9 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    if h // kvh > MAX_GROUP:
+    if h // kvh > MAX_GROUP[hd]:
         raise ValueError(f"flash_attention: {h // kvh} query heads per kv "
-                         f"head > {MAX_GROUP}")
+                         f"head > {MAX_GROUP[hd]} at head dim {hd}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")

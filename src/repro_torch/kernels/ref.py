@@ -6,9 +6,10 @@ leading grid axis G.  It is the oracle of the hand-written CUDA kernel
 (``repro_torch.kernels.edge_substep``) and the path a CPU tensor takes.
 ``attention_ref`` is the port of ``repro.kernels.ref.attention_ref``, the
 oracle of ``repro_torch.kernels.flash_attention`` and its CPU path;
-``moe_route_ref`` and ``selective_scan_ref`` are the ports of the
-reference's oracles of the same names, the oracles and CPU paths of
-``repro_torch.kernels.moe_route`` and ``repro_torch.kernels.selective_scan``.
+``moe_route_ref``, ``selective_scan_ref`` and ``rglru_scan_ref`` are the
+ports of the reference's oracles of the same names, the oracles and CPU
+paths of ``repro_torch.kernels.moe_route``,
+``repro_torch.kernels.selective_scan`` and ``repro_torch.kernels.rglru_scan``.
 
 Out-of-range stage: the reference gathers each chain's active-stage
 channels with ``take_along_axis``, and JAX's default gather *fills* an
@@ -107,6 +108,19 @@ def selective_scan_ref(dA, dBx, C):
         return torch.zeros((b, 0, d_in), dtype=torch.float32,
                            device=dA.device)
     return torch.stack(ys, dim=1)
+
+
+def rglru_scan_ref(a, bx):
+    """Sequential reference of h_t = a_t h_{t-1} + bx_t (elementwise),
+    h_0 = 0.  a, bx (b, s, w) of any float dtype; h (b, s, w) float32.
+    Each step is a product, then a sum, in float32."""
+    b, s, w = a.shape
+    h = torch.zeros((b, w), dtype=torch.float32, device=a.device)
+    out = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    for t in range(s):
+        h = a[:, t].float() * h + bx[:, t].float()
+        out[:, t] = h
+    return out
 
 
 #: operand order of the fused physics (carries first, then the

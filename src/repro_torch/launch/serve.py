@@ -7,7 +7,8 @@ requests, the port of ``repro.launch.serve``'s default (plan) mode.
 serves the full-width model on the card, with random weights from
 ``--seed``.  ``--arch`` names any registered model whose blocks the port
 runs: dense attention (``tinyllama-1.1b``, the default), MoE
-(``qwen2-moe-a2.7b``) or Mamba (``falcon-mamba-7b``).  ``--device cpu``
+(``qwen2-moe-a2.7b``), Mamba (``falcon-mamba-7b``) or the RG-LRU hybrid
+with local attention (``recurrentgemma-9b``).  ``--device cpu``
 runs the eager path on the model cut to the reference's CPU size
 (``reduced(max_d_model=256, max_layers=4)``, as its ``_plan_main``
 always serves).  The reference's ``--stream`` mode (the edge-simulator

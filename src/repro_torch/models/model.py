@@ -1,11 +1,11 @@
-"""Decoder model of the dense attention, MoE and Mamba blocks.
+"""Decoder model of the dense attention, MoE, Mamba and RG-LRU blocks.
 
-The port of ``repro.models.model`` for ``"attn"``, ``"attn_moe"`` and
-``"mamba"`` blocks: parameters are a dict ``{"embed", "final_norm",
-"head", "blocks"}`` with one dict per layer in ``blocks`` (the reference
-stacks its body periods along a leading axis for ``lax.scan``; the port's
-forward is a plain loop over layers, and ``params_from_jax`` unstacks that
-axis).
+The port of ``repro.models.model`` for ``"attn"``, ``"attn_moe"``,
+``"mamba"``, ``"rglru"`` and ``"local_attn"`` blocks: parameters are a
+dict ``{"embed", "final_norm", "head", "blocks"}`` with one dict per
+layer in ``blocks`` (the reference stacks its body periods along a
+leading axis for ``lax.scan``; the port's forward is a plain loop over
+layers, and ``params_from_jax`` unstacks that axis).
 
 Public API:
     init_params(cfg, generator, device)   -> params
@@ -23,18 +23,17 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
                                        mlp_init, rmsnorm)
 
 #: the block kinds the port runs
-PORTED_KINDS = ("attn", "attn_moe", "mamba")
+PORTED_KINDS = ("attn", "attn_moe", "mamba", "rglru", "local_attn")
 
 #: what the port does not run yet, and the ROADMAP queue-1 item that
 #: brings it; anything else not ported is item 18
 NOT_PORTED = {
-    "rglru": "item 16 (RG-LRU blocks, models/rglru.py + rglru_scan)",
-    "local_attn": "item 16 (the RG-LRU hybrid's local attention)",
     "decode": "item 17 (decode and the KV cache)",
     "positions": "item 17 (decode and the KV cache: explicit positions)",
 }
@@ -76,6 +75,13 @@ def init_block(generator, kind, cfg, device=None):
         return {"norm1": norm(),
                 "mamba": ssm_mod.mamba_init(generator, cfg, dtype,
                                             device=device)}
+    if kind == "rglru":
+        return {"norm1": norm(),
+                "rglru": rglru_mod.rglru_init(generator, cfg, dtype,
+                                              device=device),
+                "norm2": norm(),
+                "mlp": mlp_init(generator, d, cfg.d_ff, cfg, dtype,
+                                device=device)}
     block = {"norm1": norm(),
              "attn": attn.attn_init(generator, cfg, dtype, device=device),
              "norm2": norm()}
@@ -90,8 +96,9 @@ def init_block(generator, kind, cfg, device=None):
 def init_params(cfg, generator=None, device="cuda"):
     """Random parameters with the reference's distribution (``dense_init``:
     normal × 1/√fan_in in float32, cast to ``param_dtype``; norms zero;
-    the MoE router and shared gate and Mamba's ``A_log`` and ``D`` stay
-    float32, as the reference keeps them),
+    the MoE router and shared gate, Mamba's ``A_log`` and ``D`` and the
+    RG-LRU's ``b_a``, ``b_i`` and ``Lambda`` stay float32, as the
+    reference keeps them),
     drawn from ``generator`` (default: a CPU generator seeded 0) on its
     own device and placed on ``device``."""
     check_supported(cfg)
@@ -135,8 +142,9 @@ def params_from_jax(tree, cfg, device="cuda"):
     given as NumPy arrays, as the port's parameters on ``device``: the
     body's leading period axis is unstacked into one dict per layer, in
     the order prefix, body periods, suffix.  Each leaf keeps its own
-    dtype (the reference keeps the MoE router and shared gate and Mamba's
-    ``A_log`` and ``D`` in float32 under a bfloat16 ``param_dtype``)."""
+    dtype (the reference keeps the MoE router and shared gate, Mamba's
+    ``A_log`` and ``D`` and the RG-LRU's ``b_a``, ``b_i`` and ``Lambda``
+    in float32 under a bfloat16 ``param_dtype``)."""
     check_supported(cfg)
     dev = resolve(device)
     prefix, (pattern, periods), suffix = cfg.scan_segments
@@ -165,19 +173,35 @@ def embed_tokens(params, tokens, cfg):
     return x.to(dtype_of(cfg.compute_dtype))
 
 
+def block_window(kind, cfg):
+    """The attention window of a block kind: the hybrid's ``local_attn``
+    blocks take the RG-LRU config's local window, the others
+    ``cfg.sliding_window`` (0: none)."""
+    if kind == "local_attn":
+        return cfg.rglru.local_window
+    return cfg.sliding_window
+
+
 def apply_block(kind, p, x, positions, cfg):
-    """One block, each sub-layer pre-norm with a residual: ``"attn"`` is
-    self attention then the MLP, ``"attn_moe"`` self attention then the
-    MoE FFN, ``"mamba"`` the Mamba mixer alone.  Returns the new residual
+    """One block, each sub-layer pre-norm with a residual: ``"attn"`` and
+    ``"local_attn"`` are self attention then the MLP, ``"attn_moe"`` self
+    attention then the MoE FFN, ``"mamba"`` the Mamba mixer alone,
+    ``"rglru"`` the RG-LRU mixer then the MLP.  Returns the new residual
     stream."""
     if kind not in PORTED_KINDS:
         raise _not_ported(kind)
     if kind == "mamba":
         return x + ssm_mod.mamba_apply(
             p["mamba"], rmsnorm(x, p["norm1"], cfg.norm_eps), cfg)
+    if kind == "rglru":
+        x = x + rglru_mod.rglru_apply(
+            p["rglru"], rmsnorm(x, p["norm1"], cfg.norm_eps), cfg)
+        return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
+                             cfg)
     h, _ = attn.self_attention(p["attn"],
                                rmsnorm(x, p["norm1"], cfg.norm_eps),
-                               positions, cfg, window=cfg.sliding_window)
+                               positions, cfg,
+                               window=block_window(kind, cfg))
     x = x + h
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":

@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.moe_route",
               "repro_torch.kernels.selective_scan",
+              "repro_torch.kernels.rglru_scan",
               "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.rglru",
               "repro_torch.configs.tinyllama_1_1b",
               "repro_torch.models.model", "repro_torch.serving.engine",
               "repro_torch.core.daso", "repro_torch.launch.serve"):

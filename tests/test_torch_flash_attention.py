@@ -76,6 +76,30 @@ def test_noncausal_matches_pallas_and_ref():
     _check(jax_side, port_side, "float32", 16, 16, causal=False)
 
 
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_matches_pallas_and_ref(window, dtype):
+    """recurrentgemma-9b's head dim: 4 query heads over one kv head, with
+    and without a window that bites at 40 tokens."""
+    jax_side, port_side = _inputs(7, 1, 40, 40, 4, 1, 256, dtype)
+    _check(jax_side, port_side, dtype, 16, 16, causal=True, window=window)
+
+
+def test_cuda_wrapper_refuses_what_the_kernel_lacks():
+    """The CUDA wrapper's checks come before any launch: a head dim the
+    kernel is not compiled for, and more query heads per kv head than its
+    CTA holds at that head dim (64 rows at hd=256, 128 below)."""
+    from repro_torch.kernels.flash_attention import (MAX_GROUP,
+                                                     flash_attention_cuda)
+    assert MAX_GROUP[256] == 64 and MAX_GROUP[128] == 128
+    q, k = torch.zeros((1, 2, 2, 512)), torch.zeros((1, 2, 1, 512))
+    with pytest.raises(ValueError, match="head dim 512"):
+        flash_attention_cuda(q, k, k)
+    q, k = torch.zeros((1, 2, 128, 256)), torch.zeros((1, 2, 1, 256))
+    with pytest.raises(ValueError, match="128 query heads per kv head > 64"):
+        flash_attention_cuda(q, k, k)
+
+
 def test_row_with_no_visible_key_matches_ref():
     """sq > sk with a window: late rows see no key; the reference's
     softmax over all-masked scores is uniform, so they get mean(v)."""

@@ -124,6 +124,9 @@ FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
     (1, 300, 300, 12, 4, 128, True, 0),
     (1, 257, 257, 32, 4, 64, True, 0),      # TinyLlama's heads, ragged
     (1, 257, 257, 16, 2, 64, True, 0),      # one of its two branches
+    (1, 257, 257, 16, 1, 256, True, 2048),  # recurrentgemma's heads, ragged
+    (2, 80, 80, 4, 2, 256, True, 8),        # hd=256 with a window that bites
+    (1, 33, 77, 2, 2, 256, False, 0),       # hd=256, non-causal, ragged
 ]
 
 
@@ -272,3 +275,67 @@ def test_moe_and_mamba_reduced(cuda, arch):
     want = forward(init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu"), {"tokens": tok}, cfg)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+RGLRU_CASES = [  # (b, s, w)
+    (2, 37, 24), (1, 64, 128),                        # tests/test_kernels.py
+    (3, 100, 300),                                    # ragged s and w
+    (4, 1024, 4096),                                  # recurrentgemma, served
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_matches_twin(cuda, case, dtype):
+    """atol 1e-5 in float32, 3e-2 with bfloat16 inputs
+    (tests/test_kernels.py); the kernel rounds each step as the twin, a
+    product then a sum, so it equals it bitwise; two runs bitwise equal."""
+    from repro_torch.kernels.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    rng = np.random.RandomState(sum(case))
+    a = torch.from_numpy(rng.uniform(0.8, 1.0, case)).to(cuda, dtype)
+    bx = torch.from_numpy(rng.randn(*case) * 0.1).to(cuda, dtype)
+    before = rglru_scan.launches
+    got = rglru_scan(a, bx)
+    again = rglru_scan(a, bx)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == case
+    want = rglru_scan_ref(a, bx)
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got, want, rtol=0.0, atol=tol)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_reduced(cuda):
+    """The reduced recurrentgemma-9b (float32, window 8 at 64 tokens) and
+    both plans on the card match the CPU, through the RG-LRU scan and the
+    flash kernel: one launch per rglru and local_attn layer and forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.plans import branch_forward, pipeline_forward
+    cfg = get_config("recurrentgemma-9b").reduced(max_d_model=256,
+                                                  max_layers=4)
+    tok = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=cuda)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    kinds = cfg.layer_kinds
+    scans, flashes = rglru_scan.launches, flash_attention.launches
+    got = forward(params, {"tokens": tok.to(cuda)}, cfg)
+    assert rglru_scan.launches == scans + kinds.count("rglru")
+    assert flash_attention.launches == flashes + kinds.count("local_attn")
+    want = forward(cpu_params, {"tokens": tok}, cfg)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(pipeline_forward(params, {"tokens": tok.to(cuda)},
+                                        cfg, 2), got)
+    torch.testing.assert_close(
+        branch_forward(params, {"tokens": tok.to(cuda)}, cfg, 2).cpu(),
+        branch_forward(cpu_params, {"tokens": tok}, cfg, 2),
+        rtol=1e-4, atol=1e-5)

@@ -201,12 +201,13 @@ def test_branch_forward_matches_reference(small):
 
 @pytest.mark.parametrize("arch,item", [("qwen2-moe-a2.7b", "item 17"),
                                        ("falcon-mamba-7b", "item 17"),
-                                       ("recurrentgemma-9b", "item 16"),
+                                       ("recurrentgemma-9b", "item 17"),
                                        ("musicgen-medium", "item 18"),
                                        ("qwen2-vl-7b", "item 18")])
 def test_unported_archs_raise(arch, item):
-    """MoE and Mamba models build on the CPU at the reduced size and raise
-    only for decoding (item 17); the other archs raise at init."""
+    """MoE, Mamba and RG-LRU hybrid models build on the CPU at the reduced
+    size and raise only for decoding (item 17); the other archs raise at
+    init."""
     cfg = get_config(arch).reduced()
     if item != "item 17":
         with pytest.raises(NotImplementedError, match=item):
@@ -224,14 +225,17 @@ def test_unported_archs_raise(arch, item):
 
 
 #: leaves the reference keeps in float32 whatever ``param_dtype`` says
-FLOAT32_LEAVES = ("router", "shared_gate", "A_log", "D")
+FLOAT32_LEAVES = ("router", "shared_gate", "A_log", "D", "b_a", "b_i",
+                  "Lambda")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
 def test_leaf_dtypes_follow_reference(arch):
-    """Under a bfloat16 ``param_dtype`` the router, shared gate, A_log and
-    D stay float32 and every other leaf is bfloat16: ``params_from_jax``
-    keeps each leaf's dtype and ``init_params`` makes the same tree."""
+    """Under a bfloat16 ``param_dtype`` the router, shared gate, A_log, D
+    and the RG-LRU's b_a, b_i and Lambda stay float32 and every other leaf
+    is bfloat16: ``params_from_jax`` keeps each leaf's dtype and
+    ``init_params`` makes the same tree."""
     jcfg = dataclasses.replace(jget_config(arch).reduced(),
                                param_dtype="bfloat16")
     cfg = dataclasses.replace(get_config(arch).reduced(),
