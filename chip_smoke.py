@@ -8,10 +8,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 routing, the selective scan and the RG-LRU scan) and holds each against
 its eager PyTorch twin: the simulator kernels on fuzzed slot states and
 one real main-path interval (float64 at rtol=1e-12, bools and ints exact,
-bitwise identical over two runs); flash attention at the reference's test
-shapes, at every attention shape of the serving paths, full forward and
-one semantic branch, and at a 4096-token shape where recurrentgemma's
-2048-token window bites (atol 2e-5 in float32, 2e-2 in bfloat16);
+bitwise identical over two runs); flash attention (bfloat16 on the
+tensor cores, float32 on the CUDA cores) at the reference's test shapes,
+at the tile edges of the bfloat16 kernel, at every attention shape of the
+serving paths, full forward and one semantic branch, and at a 4096-token
+shape where recurrentgemma's 2048-token window bites (atol 2e-5 in
+float32, 2e-2 in bfloat16, bitwise repeatable);
 ``moe_route`` at the reference's test shapes, qwen2-moe's serving shape,
 several overflowing groups and an underflowing row (expert ids and slots
 exactly, gates within atol 1e-5); ``selective_scan`` at the reference's test
@@ -79,6 +81,15 @@ FLASH_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
                (2, 80, 80, 4, 2, 32, True, 8),
                (2, 80, 80, 4, 2, 32, True, 32),
                (1, 40, 56, 2, 2, 64, False, 0)]
+#: tile edges of the bfloat16 tensor-core kernel (tiles of 64 or 128
+#: (position, head) rows, of 64 or 128 keys), same layout
+FLASH_EDGES = [(1, 200, 200, 16, 16, 128, True, 0),
+               (2, 70, 70, 8, 1, 16, True, 0),
+               (1, 130, 130, 4, 4, 32, True, 0),
+               (1, 90, 40, 8, 1, 256, False, 0),
+               (1, 200, 200, 8, 2, 64, True, 5),
+               (1, 20, 20, 128, 1, 64, True, 0),
+               (1, 24, 8, 2, 1, 16, True, 4)]
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving paths: each model at full width, the engine's plans,
 #: batch × seq tokens per request
@@ -180,6 +191,31 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device time of one ``fn()`` from a CUDA graph of ``reps`` calls
+    replayed three times: no host time between launches, for kernels
+    shorter than a Python call's overhead."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 def main_path_interval(n_warm=30):
@@ -406,30 +442,65 @@ def serving_heads(cfg):
              sliced["wk"].shape[1])]
 
 
+def flash_sass_counts():
+    """Tensor-core instructions in the built flash library's SASS
+    (``cuobjdump`` beside ``nvcc``): HMMA for the ``mma.sync`` head dims,
+    HGMMA for the ``wgmma`` ones; fails if either path has none."""
+    from repro_torch.kernels.build import _lib_path, nvcc_path
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, kernel_step
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(_lib_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {"HMMA": sass.count("HMMA"), "HGMMA": sass.count("HGMMA")}
+    steps = {kernel_step(hd) for hd in HEAD_DIMS}
+    for step, name in ((1, "HMMA"), (2, "HGMMA")):
+        if step in steps and counts[name] == 0:
+            raise AssertionError(f"flash_attention: no {name} in the SASS "
+                                 f"of the step-{step} kernels")
+    return counts
+
+
+def _visible_pairs(s, window):
+    """(query, key) pairs a causal s x s attention with ``window`` sees."""
+    if window and window < s:
+        return window * (window + 1) / 2 + (s - window) * window
+    return s * (s + 1) / 2
+
+
 def flash_phase():
     """Flash attention vs its twin on the card at the reference's test
-    shapes, at every serving shape (the full forward's heads and one
-    semantic branch's, with the model's window), in float32 and bfloat16,
-    and at FLASH_WINDOWED in bfloat16; times the kernel at each serving
-    shape, and the twin and the library's scaled_dot_product_attention (a
-    yardstick only: the port never calls it) at TinyLlama's and
-    recurrentgemma's full forward's and at FLASH_WINDOWED, in bfloat16."""
+    shapes and the bfloat16 kernel's tile edges, at every serving shape
+    (the full forward's heads and one semantic branch's, with the model's
+    window), in float32 and bfloat16, and at FLASH_WINDOWED in bfloat16;
+    times the kernel at each serving shape, and the twin and the library's
+    scaled_dot_product_attention (a yardstick only: the port never calls
+    it) at each attention model's full forward's and at FLASH_WINDOWED, in
+    bfloat16.  The kernel and the library call are timed from CUDA graphs
+    (``graph_ms``): at ~0.07 ms a call is as short as the Python call that
+    launches it."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_step)
     from repro_torch.models.model import block_window
+    steps = {hd: kernel_step(hd) for hd in (16, 32, 64, 128, 256)}
+    log(f"flash_attention library SASS: {flash_sass_counts()} tensor-core "
+        f"instructions; bfloat16 step per head dim {steps}")
     rng = np.random.RandomState(0)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    for dtype in ("float32", "bfloat16"):
-        for b, sq, sk, h, kvh, hd, causal, window in FLASH_CASES:
-            q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype)
-            err = _flash_check(q, k, v, causal, window, dtype,
-                               f"flash {dtype} {(b, sq, sk, h, kvh, hd)} "
-                               f"causal={causal} window={window}")
-            worst[dtype] = max(worst[dtype], err)
-    log(f"flash_attention at the reference's {len(FLASH_CASES)} test cases "
-        f"matches the twin: max abs err float32 {worst['float32']:.3e} "
-        f"(atol {FLASH_ATOL['float32']}), bfloat16 {worst['bfloat16']:.3e} "
-        f"(atol {FLASH_ATOL['bfloat16']}), bitwise repeatable")
+    for cases, what in ((FLASH_CASES, "the reference's test cases"),
+                        (FLASH_EDGES, "the bfloat16 kernel's tile edges")):
+        worst = {"float32": 0.0, "bfloat16": 0.0}
+        for dtype in ("float32", "bfloat16"):
+            for b, sq, sk, h, kvh, hd, causal, window in cases:
+                q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype)
+                err = _flash_check(q, k, v, causal, window, dtype,
+                                   f"flash {dtype} {(b, sq, sk, h, kvh, hd)}"
+                                   f" causal={causal} window={window}")
+                worst[dtype] = max(worst[dtype], err)
+        log(f"flash_attention at {what} ({len(cases)}) matches the twin: "
+            f"max abs err float32 {worst['float32']:.3e} (atol "
+            f"{FLASH_ATOL['float32']}), bfloat16 {worst['bfloat16']:.3e} "
+            f"(atol {FLASH_ATOL['bfloat16']}), bitwise repeatable")
 
     b, s = SERVE["batch"], SERVE["seq"]
     at = {}
@@ -449,19 +520,23 @@ def flash_phase():
                     q, k, v, True, window, dtype,
                     f"flash {dtype} {arch} serving shape ({label}, h={hb} "
                     f"kvh={kvb} hd={hd} window={window})")
-            ms = cuda_ms(lambda: flash_attention_cuda(q, k, v,
-                                                      window=window), 20)
+            ms = graph_ms(lambda: flash_attention_cuda(q, k, v,
+                                                       window=window), 20)
             at[(arch, label)] = (q, k, v, window, errs, ms)
+            tflops = 4.0 * b * hb * hd * _visible_pairs(s, window) / (
+                ms * 1e-3) / 1e12
             log(f"flash_attention at {arch}'s serving shape of the {label}: "
                 f"b={b} s={s} h={hb} kvh={kvb} hd={hd} causal window="
                 f"{window}: matches the twin (max abs err float32 "
                 f"{errs['float32']:.3e}, bfloat16 {errs['bfloat16']:.3e}); "
-                f"bfloat16 {ms:.4f} ms/call")
-    # the record holds TinyLlama's full forward's shape; its "hd256" entry
-    # recurrentgemma's (whose branches run the same 16/1 heads), and
-    # "hd256_windowed" a 4096-token shape where the 2048-token window bites
+                f"bfloat16 {ms:.4f} ms/call, {tflops:.1f} TFLOP/s, "
+                f"tensor-core step {kernel_step(hd)}")
+    # the record holds TinyLlama's full forward's shape; its "hd128" entry
+    # qwen2-moe's, "hd256" recurrentgemma's (whose branches run the same
+    # 16/1 heads), and "hd256_windowed" a 4096-token shape where the
+    # 2048-token window bites
     records = {}
-    for arch, key in ((SERVE_ARCHS[0], None),
+    for arch, key in ((SERVE_ARCHS[0], None), ("qwen2-moe-a2.7b", "hd128"),
                       ("recurrentgemma-9b", "hd256")):
         label = serving_heads(get_config(arch))[0][0]
         q, k, v, window, errs, ms = at[(arch, label)]
@@ -471,15 +546,15 @@ def flash_phase():
     q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, "bfloat16")
     err = _flash_check(q, k, v, True, window, "bfloat16",
                        f"flash bfloat16 {FLASH_WINDOWED} windowed")
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, window=window), 10)
+    ms = graph_ms(lambda: flash_attention_cuda(q, k, v, window=window), 10)
     records["hd256_windowed"] = _flash_timed(
         f"a windowed shape b={b} s={s} h={h} kvh={kvh} hd={hd} "
         f"window={window}", q, k, v, window, err, ms)
     rec = records.pop(None)
     for key, sub in records.items():
         rec[key] = {name: sub[name] for name in (
-            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}
+            "shape", "step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
     return rec
 
 
@@ -489,7 +564,8 @@ def _flash_timed(where, q, k, v, window, err, ms):
     kernel's, and the bound from the visible (query, key) pairs."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_step)
     from repro_torch.kernels.ref import attention_ref
     b, s, h, hd = q.shape
     plain_ms = cuda_ms(lambda: attention_ref(q, k, v, window=window), 2)
@@ -498,16 +574,15 @@ def _flash_timed(where, q, k, v, window, err, ms):
         pos = torch.arange(s, device="cuda")
         lag = pos[:, None] - pos[None, :]
         lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
-        # visible (query, key) pairs: every query sees min(i + 1, window)
-        pairs = window * (window + 1) / 2 + (s - window) * window
     else:
         lib_kw = dict(is_causal=True)
-        pairs = s * s / 2      # the causal half
+    # visible (query, key) pairs: every query sees min(i + 1, window)
+    pairs = _visible_pairs(s, window)
     lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                          **lib_kw)
     lib_err = float((lib.transpose(1, 2).float() - flash_attention_cuda(
         q, k, v, window=window).float()).abs().max())
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, **lib_kw), 10)
     # QK^T and PV over the visible pairs, on bf16 tensor cores; bytes: q,
     # k, v read once and an output of q's size written once
@@ -519,7 +594,9 @@ def _flash_timed(where, q, k, v, window, err, ms):
                   library_ms=library_ms)
     rec["shape"] = {"b": b, "s": s, "h": h, "kvh": k.shape[2], "hd": hd,
                     "window": window}
-    log(f"flash_attention at {where}, bfloat16: {ms:.4f} ms/call (twin "
+    rec["step"] = kernel_step(hd)
+    log(f"flash_attention at {where}, bfloat16, tensor-core step "
+        f"{rec['step']}: {ms:.4f} ms/call (twin "
         f"{plain_ms:.4f} ms/call, scaled_dot_product_attention "
         f"{library_ms:.4f} ms/call, which differs from the kernel by "
         f"{lib_err:.3e} at most), bound {rec['bound_ms']:.5f} ms "
@@ -1169,20 +1246,21 @@ def main() -> int:
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
 
-    totals = {}
+    totals, flash_by_arch = {}, {}
     for arch in SERVE_ARCHS:
         launches = serving_path(arch)
         for name, count in launches.items():
             totals[name] = totals.get(name, 0) + count
-        if arch == "recurrentgemma-9b":
-            hd256 = launches["flash_attention"]
+        if arch in ("qwen2-moe-a2.7b", "recurrentgemma-9b"):
+            flash_by_arch[arch] = launches["flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     for rec in records:
         if rec["name"] not in SIM_KERNELS:
             rec["launches"] = totals[rec["name"]]
         if rec["name"] == "flash_attention":
-            rec["hd256"]["launches"] = hd256
+            rec["hd128"]["launches"] = flash_by_arch["qwen2-moe-a2.7b"]
+            rec["hd256"]["launches"] = flash_by_arch["recurrentgemma-9b"]
 
     cross_checks()
     model_cross_check()

@@ -1,5 +1,6 @@
 // Causal / sliding-window / non-causal GQA attention with an online softmax,
-// for float32 or bfloat16 q, k, v, computed in float32.
+// for float32 or bfloat16 q, k, v, with a float32 running max, denominator
+// and accumulator.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (pl.pallas_call at :87).  Contract (that kernel's and
@@ -8,46 +9,65 @@
 // (g = h / kvh) reads kv head kv; positions are 0..s-1 on both sides, so the
 // causal mask is top-left aligned when sq != sk; key j is visible to query i
 // when (!causal || i >= j) && (window <= 0 || i - j < window); scores are
-// scaled by hd^-0.5; the running max, denominator and accumulator are
-// float32; the output (b, sq, h, hd) has q's dtype.  A row that sees no key
-// gets the reference's answer for that case (its softmax over all-masked
-// scores is uniform): the mean of v over all sk keys.
+// scaled by hd^-0.5; the output (b, sq, h, hd) has q's dtype.  A row that
+// sees no key gets the reference's answer for that case (its softmax over
+// all-masked scores is uniform): the mean of v over all sk keys.  One launch
+// per call, no atomics: two calls give the same bits.
 //
-// Design (a simple first kernel, no tensor cores): one CTA per (batch, kv
-// head, q tile).  The q tile holds bq = ROWS / g query positions times the g
-// query heads that share the kv head, so every K/V tile is read from device
-// memory once per kv head and serves all g heads.  Up to hd=128 a query row
-// belongs to one thread (ROWS = 128 threads); at hd=256 the row's 512
-// float32 registers (q and accumulator) would not fit in one thread's 255,
-// so SPLIT = 4 threads of one warp share a row, each holding 64 of its
-// dims (ROWS = 64 rows of 256 threads); their partial dot products are
-// joined with __shfl_xor_sync, whose butterfly gives all four the same sum
-// bitwise, so they keep one running max and denominator.  A thread's dims
-// are interleaved float4 chunks (chunk c*SPLIT + part), and the four threads
-// of a row sit 8 lanes apart: each quarter-warp reads one 16-byte word of a
-// K/V row (a broadcast) and the four quarter-warps adjacent words (no bank
-// conflict); on the card this placement beat neighbouring lanes, and four
-// threads per row beat two (spills) and eight (more shuffles).  The
-// q tile is staged through shared memory (coalesced) into registers; K/V
-// tiles of BK keys are converted to float32 into shared memory and read back
-// as broadcasts.  Each thread keeps its row's running max, denominator and
-// accumulators in registers.  Tiles wholly past the causal diagonal of the q
-// tile, and wholly before its sliding window, are never loaded.
+// Two kernels, chosen by dtype (flash_attention_launch at the end):
+//
+// bfloat16: flash_attention_mma_kernel, on the tensor cores.  One CTA of
+// WARPS = 4 or 8 warps (16 rows each) per (batch, kv head, tile of BM = 16
+// WARPS rows).  A row is a (query position, query head) pair of the kv
+// head, numbered position * g + head, so a tile holds BM / g positions of
+// all g heads (or, for g > BM, part of one position's heads): every K/V
+// tile is read once per kv head and serves all g heads, and causality and
+// the window are masked per row by its position.  Q, K and V stay bf16 in
+// shared memory; K/V tiles of BN keys go through a ring of STAGES cp.async
+// buffers, so the next tiles load while this one computes.  S = Q K^T and
+// O += P V take bf16 operands and float32 accumulators, by one of two
+// products (MmaTile<hd>::STEP, chosen per head dim on the card by
+// tools/kernel_variants.py):
+//   STEP 1, mma.sync.m16n8k16 (HMMA) per warp: rows padded by 16 bytes so
+//     that ldmatrix (ldmatrix.trans for V, the B operand of P V) reads
+//     eight rows from eight distinct bank groups; up to hd=128 a warp
+//     keeps its Q fragments in registers, at hd=256 it reads them again
+//     per key tile;
+//   STEP 2, wgmma.m64nNk16 (HGMMA) per warpgroup of four warps: Q, K and V
+//     in wgmma's 128-byte-swizzled layout; Q K^T with both operands from
+//     shared memory (K-major), P V with P from registers and V from shared
+//     memory (MN-major, the transpose bit); at hd=256 the 64 x 256 float32
+//     accumulator is 128 registers per thread.
+// After the online-softmax update (the row max and sum joined across the
+// four lanes of a quad by shuffles; p = 2^(s * scale * log2 e - max) by one
+// fma and one ex2; the accumulator's rescale skipped when no row of the warp
+// moved its max) each warp repacks its S accumulator into bf16 A fragments
+// of P in registers, as FlashAttention-2 does: P is rounded to bf16 before
+// the P V product (the denominator sums the float32 p).  Tiles wholly past
+// the causal diagonal of the tile's last row, and wholly before the window
+// of its first row, are never loaded; the CTAs with the most key tiles are
+// launched first.  The output is staged through shared memory and written
+// in 16-byte rows.
+//
+// float32: flash_attention_kernel, on the CUDA cores (TF32 tensor cores
+// cannot hold the float32 tolerance of 2e-5), for the CPU-size float32
+// cross-checks only.  One CTA per (batch, kv head, q tile) packed as above;
+// up to hd=128 a query row belongs to one thread (ROWS = 128 threads); at
+// hd=256 SPLIT = 4 threads of one warp share a row, 64 dims each, joining
+// their partial dot products with __shfl_xor_sync (a butterfly, so all four
+// hold the same sum bitwise); K/V tiles of BK keys are staged in shared
+// memory and read back as broadcasts.  All products are fmaf(); the build's
+// -fmad=false leaves the other arithmetic uncontracted.
 //
 // Bound: for TinyLlama-1.1B's prefill shape (b=4, sq=sk=1024, h=32, kvh=4,
 // hd=64, bf16) the causal half of QK^T and PV is 2*b*h*sq*sk*hd = 17.2 GFLOP
 // and the function must move 37.7 MB (q, k, v read once, o written once), so
-// at 989 TFLOP/s bf16 (tensor cores) and 3.35 TB/s it is compute-bound at
-// ~0.017 ms; at recurrentgemma-9b's (b=4, s=1024, h=16, kvh=1, hd=256) it is
-// 34.4 GFLOP, ~0.035 ms.  This kernel runs on the CUDA cores in float32 (67
-// TFLOP/s peak) with four FMAs per shared-memory load, and hd=64 takes 251
-// registers (two CTAs per SM), so it is bound by instruction throughput and
-// shared-memory bandwidth: chip_smoke.py measured 1.31 ms per call at
-// TinyLlama's shape and 2.6 ms at recurrentgemma's on an NVIDIA H100 80GB
-// HBM3 with a 700 W power limit (PERF.md).  The tensor-core (wgmma/TMA)
-// version is later work (ROADMAP queue 2).  All
-// products are written as fmaf(); the build's -fmad=false leaves the other
-// arithmetic uncontracted.
+// at 989 TFLOP/s bf16 (tensor cores, with wgmma) and 3.35 TB/s it is
+// compute-bound at ~0.017 ms; at recurrentgemma-9b's (b=4, s=1024, h=16,
+// kvh=1, hd=256) it is 34.4 GFLOP, ~0.035 ms.  Each K/V tile waits for its
+// products and each product for the softmax (no warp specialisation, no
+// TMA), so the kernel reaches a part of that rate; the times on an NVIDIA
+// H100 are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,6 +75,10 @@
 #include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------- float32
 
 constexpr int BK = 32;  // keys per K/V tile
 
@@ -68,38 +92,17 @@ struct Tile {
   static_assert(DH % 4 == 0, "a thread's dims are whole float4 chunks");
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
 template <int HD>
 constexpr int smem_bytes() {
   return (Tile<HD>::ROWS * (HD + 1) + 2 * BK * HD) * (int)sizeof(float);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Tile<HD>::THREADS)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int sq,
-                           int sk, int h, int kvh, int bq, int causal,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int sq, int sk, int h, int kvh, int bq, int causal,
                            int window, float scale) {
   constexpr int THREADS = Tile<HD>::THREADS;
   constexpr int SPLIT = Tile<HD>::SPLIT;
@@ -123,7 +126,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
     const int qi = e / row_elems;
     const int rest = e - qi * row_elems;  // gi * HD + d
     const size_t src = (((size_t)bi * sq + q0 + qi) * h + kv * g) * HD + rest;
-    qs[(qi * g + rest / HD) * (HD + 1) + rest % HD] = to_f32(q[src]);
+    qs[(qi * g + rest / HD) * (HD + 1) + rest % HD] = q[src];
   }
   __syncthreads();
 
@@ -170,8 +173,8 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
       if (j < nk) {
         const size_t src =
             (((size_t)bi * sk + k0 + j) * kvh + kv) * HD + (e - j * HD);
-        kx = to_f32(k[src]);
-        vx = to_f32(v[src]);
+        kx = k[src];
+        vx = v[src];
       }
       ks[e] = kx;
       vs[e] = vx;
@@ -227,13 +230,13 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   }
 
   if (!active) return;
-  T* dst = o + (((size_t)bi * sq + qpos) * h + kv * g + gi) * HD;
+  float* dst = o + (((size_t)bi * sq + qpos) * h + kv * g + gi) * HD;
   if (l > 0.f) {
 #pragma unroll
     for (int c = 0; c < DH / 4; ++c)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        dst[4 * (c * SPLIT + part) + i] = from_f32<T>(acc[4 * c + i] / l);
+        dst[4 * (c * SPLIT + part) + i] = acc[4 * c + i] / l;
     return;
   }
   // no visible key: uniform weights over all sk keys, as the reference
@@ -242,75 +245,761 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
       const int d = 4 * (c * SPLIT + part) + i;
       float sum = 0.f;
       for (int j = 0; j < sk; ++j)
-        sum += to_f32(v[(((size_t)bi * sk + j) * kvh + kv) * HD + d]);
-      dst[d] = from_f32<T>(sk > 0 ? sum / (float)sk : 0.f);
+        sum += v[(((size_t)bi * sk + j) * kvh + kv) * HD + d];
+      dst[d] = sk > 0 ? sum / (float)sk : 0.f;
     }
   }
 }
 
+// --------------------------------------------------------------- bfloat16
+
+// Warps per CTA (16 rows each; a warpgroup of four runs a wgmma over its
+// 64 rows), keys per K/V tile, cp.async ring depth, and the products of a
+// head dim: STEP 1 is mma.sync, STEP 2 wgmma (head dims that are whole
+// 128-byte rows).  At hd 64/128/256 the values are the fastest of
+// tools/kernel_variants.py's sweep at the serving shapes on an H100.
+template <int HD>
+struct MmaTile;
+template <>
+struct MmaTile<16> {
+  static constexpr int WARPS = 4, BN = 64, STAGES = 2, STEP = 1;
+};
+template <>
+struct MmaTile<32> {
+  static constexpr int WARPS = 4, BN = 64, STAGES = 2, STEP = 1;
+};
+template <>
+struct MmaTile<64> {
+  static constexpr int WARPS = 4, BN = 64, STAGES = 2, STEP = 2;
+};
+template <>
+struct MmaTile<128> {
+  static constexpr int WARPS = 8, BN = 128, STAGES = 2, STEP = 2;
+};
+template <>
+struct MmaTile<256> {
+  static constexpr int WARPS = 8, BN = 64, STAGES = 2, STEP = 2;
+};
+
+// Shared-memory layout of a [ROWS x HD] bf16 operand, in elements.
+// STEP 1: rows padded by 16 bytes, so the eight rows an ldmatrix reads at
+// one column sit in eight distinct 16-byte bank groups.  STEP 2: wgmma's
+// 128-byte-swizzled canonical layout: the operand is cut into HD / 64
+// column blocks of ROWS rows of 128 bytes, and the 16-byte chunk c of row r
+// is stored at chunk c ^ (r % 8) of its row.
+template <int HD, int STEP>
+struct Layout {
+  template <int ROWS>
+  __host__ __device__ static constexpr int size() {
+    return STEP == 1 ? ROWS * (HD + 8) : ROWS * HD;
+  }
+  // element offset of the 16-byte chunk c (elements 8c .. 8c+7) of row r
+  template <int ROWS>
+  static __device__ __forceinline__ int chunk(int r, int c) {
+    if constexpr (STEP == 1)
+      return r * (HD + 8) + c * 8;
+    else
+      return (c >> 3) * ROWS * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+  }
+};
+
+template <int HD>
+constexpr int mma_smem_bytes() {
+  constexpr int STEP = MmaTile<HD>::STEP;
+  constexpr int ROWS =
+      16 * MmaTile<HD>::WARPS + 2 * MmaTile<HD>::STAGES * MmaTile<HD>::BN;
+  // STEP 2 aligns the base to a 1024-byte swizzle atom itself
+  return (STEP == 1 ? ROWS * (HD + 8) : ROWS * HD + 512) * (int)sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: -inf -> 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders the compiler's later uses of wgmma accumulators after the
+// wait_group that completes them (the wgmma writes them asynchronously)
+template <int N>
+__device__ __forceinline__ void fence_operands(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// makes this thread's completed cp.async writes to shared memory visible to
+// wgmma, which reads through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (>> 4), layout type 1 (128B)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fff) |
+         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
+}
+
+// wgmma.m64nNk16, bf16 in, f32 accumulators d[N / 8][4] in the layout of
+// mma.m16n8's C per warp (warp w holds rows 16w .. 16w+15).  wgmma_ss:
+// A and B from shared memory, both K-major; D = A B, or D += A B when
+// accumulate.  wgmma_rs: A from registers (mma.m16n8k16's A fragment per
+// warp), B from shared memory MN-major (transposed); D += A B.
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[4][4],
+                                         uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4],
+                                         uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4],
+                                         uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Fragment layouts of mma.m16n8k16 (PTX ISA), lane = 4 * grp + t:
+//   A a0 (row grp, cols 2t..2t+1), a1 (row grp+8, same cols), a2 (row grp,
+//     cols 2t+8..), a3 (row grp+8, cols 2t+8..);
+//   B b0 (k 2t..2t+1, col grp), b1 (k 2t+8.., col grp);
+//   C c0 c1 (row grp, cols 2t, 2t+1), c2 c3 (row grp+8, same cols).
+// So the thread holds rows grp and grp+8 of its warp's 16, and the score
+// of S's n-block nb at keys 8 nb + 2t (+1) is s[nb][0..1] (row grp) and
+// s[nb][2..3] (row grp+8); the A fragment of P for keys 16 kb.. 16 kb+15
+// is {s[2kb][0..1], s[2kb][2..3], s[2kb+1][0..1], s[2kb+1][2..3]}.  wgmma's
+// accumulators and register A operand have the same layout per warp.
+template <int HD>
+__global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
+    flash_attention_mma_kernel(const bf16* __restrict__ q,
+                               const bf16* __restrict__ k,
+                               const bf16* __restrict__ v,
+                               bf16* __restrict__ o, int sq, int sk, int h,
+                               int kvh, int causal, int window,
+                               float scale_log2) {
+  constexpr int BM = 16 * MmaTile<HD>::WARPS;  // rows per CTA
+  constexpr int THREADS = 32 * MmaTile<HD>::WARPS;
+  constexpr int BN = MmaTile<HD>::BN;
+  constexpr int STAGES = MmaTile<HD>::STAGES;
+  constexpr int STEP = MmaTile<HD>::STEP;
+  using L = Layout<HD, STEP>;
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  constexpr bool Q_IN_REGS = STEP == 1 && HD <= 128;
+  static_assert(BN % 16 == 0 && HD % 16 == 0, "whole mma tiles");
+  static_assert(STEP == 1 || (HD % 64 == 0 && BN % 32 == 0 && BM % 64 == 0),
+                "wgmma operands are whole 128-byte rows and warpgroups");
+  extern __shared__ uint4 smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  if constexpr (STEP == 2)  // swizzle atoms start at 1024-byte boundaries
+    qs += ((1024 - (smem_u32(qs) & 1023)) & 1023) / sizeof(bf16);
+  bf16* ks = qs + L::template size<BM>();            // [STAGES] K tiles
+  bf16* vs = ks + STAGES * L::template size<BN>();   // [STAGES] V tiles
+
+  const int g = h / kvh;
+  // one CTA per (row tile, batch, kv head), the row tile slowest and
+  // counted down, so the CTAs with the most key tiles start first
+  const int rows = sq * g;  // (position, head) rows of this kv head
+  const int tiles = (rows + BM - 1) / BM;
+  const int per_tile = gridDim.x / tiles;  // b * kvh
+  const int kv = blockIdx.x % kvh;
+  const int bi = (blockIdx.x % per_tile) / kvh;
+  const int r0 = (tiles - 1 - (int)(blockIdx.x / per_tile)) * BM;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+
+  // Q tile, row r0 + r = position * g + head
+  for (int c = tid; c < BM * CH; c += THREADS) {
+    const int r = c / CH;
+    const int ch = c - r * CH;
+    const int R = r0 + r;
+    const bool ok = R < rows;
+    const int pos = ok ? R / g : 0;
+    const int gi = ok ? R - pos * g : 0;
+    cp_async16(smem_u32(qs + L::template chunk<BM>(r, ch)),
+               q + (((size_t)bi * sq + pos) * h + kv * g + gi) * HD + ch * 8,
+               ok);
+  }
+
+  // keys any row of this tile can see
+  const int pos_first = r0 / g;
+  const int pos_last = (min(r0 + BM, rows) - 1) / g;
+  int lo = window > 0 ? max(0, pos_first - window + 1) : 0;
+  lo = lo / BN * BN;
+  const int hi = causal ? min(sk, pos_last + 1) : sk;
+  const int ntiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
+
+  auto load_kv = [&](int t) {
+    const int k0 = lo + t * BN;
+    bf16* kd = ks + (t % STAGES) * L::template size<BN>();
+    bf16* vd = vs + (t % STAGES) * L::template size<BN>();
+    for (int c = tid; c < BN * CH; c += THREADS) {
+      const int j = c / CH;
+      const int ch = c - j * CH;
+      const bool ok = k0 + j < sk;  // zeros past the end: P V stays finite
+      const size_t off =
+          (((size_t)bi * sk + (ok ? k0 + j : 0)) * kvh + kv) * HD + ch * 8;
+      const int at = L::template chunk<BN>(j, ch);
+      cp_async16(smem_u32(kd + at), k + off, ok);
+      cp_async16(smem_u32(vd + at), v + off, ok);
+    }
+  };
+
+  // group 0 holds Q and K/V tile 0; group t holds tile t
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const int grp = lane >> 2;
+  const int t4 = lane & 3;
+  const int wr = warp * 16;  // the warp's first row in the tile
+  int pos_row[2];            // positions of the thread's rows grp, grp + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) pos_row[i] = (r0 + wr + grp + 8 * i) / g;
+
+  float oacc[HD / 8][4];
+#pragma unroll
+  for (int db = 0; db < HD / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[db][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  // mask tile t's scores, online softmax: m is the row max of the raw
+  // scores, and p = 2^(s * scale_log2 - m * scale_log2) is one fma and one
+  // ex2; leaves p in s and rescales l and O
+  auto softmax = [&](float (&s)[BN / 8][4], int t) {
+    const int k0 = lo + t * BN;
+    if (!(k0 + BN <= sk && (!causal || k0 + BN - 1 <= pos_first) &&
+          (window <= 0 || pos_last - k0 < window))) {
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nb * 8 + 2 * t4 + (e & 1);
+          const int pos = pos_row[e >> 1];
+          if (!(key < sk && (!causal || key <= pos) &&
+                (window <= 0 || pos - key < window)))
+            s[nb][e] = -INFINITY;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[nb][e]);
+    float corr[2], base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      // nothing seen yet: base 0, so masked p and corr are 2^-inf = 0
+      base[i] = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+      corr[i] = ex2(__fmaf_rn(m[i], scale_log2, -base[i]));
+      m[i] = m_new;
+      l[i] *= corr[i];
+    }
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(__fmaf_rn(s[nb][e], scale_log2, -base[e >> 1]));
+        s[nb][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+    // the row max rarely moves once many keys are seen: skip the rescale
+    // when it moved in no row of the warp
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int db = 0; db < HD / 8; ++db) {
+        oacc[db][0] *= corr[0];
+        oacc[db][1] *= corr[0];
+        oacc[db][2] *= corr[1];
+        oacc[db][3] *= corr[1];
+      }
+    }
+  };
+
+  // P in bf16 from the S accumulator: the A fragments of P V
+  auto pack_p = [](const float (&s)[BN / 8][4], uint32_t (&pf)[BN / 16][4]) {
+#pragma unroll
+    for (int kb = 0; kb < BN / 16; ++kb) {
+      pf[kb][0] = pack_bf16(s[2 * kb][0], s[2 * kb][1]);
+      pf[kb][1] = pack_bf16(s[2 * kb][2], s[2 * kb][3]);
+      pf[kb][2] = pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]);
+      pf[kb][3] = pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3]);
+    }
+  };
+
+  if constexpr (STEP == 1) {
+    // ldmatrix row addresses: A of Q (rows lane & 15, cols (lane >> 4) * 8);
+    // B of K^T (keys (lane & 7) + (lane >> 4) * 8, dims ((lane >> 3) & 1) *
+    // 8), two n-blocks per x4; B of V with .trans (keys (lane & 7) +
+    // ((lane >> 3) & 1) * 8, dims (lane >> 4) * 8), two d-blocks per x4
+    const uint32_t q_addr =
+        smem_u32(qs + (wr + (lane & 15)) * (HD + 8) + (lane >> 4) * 8);
+    const int k_off =
+        ((lane & 7) + ((lane >> 4) << 3)) * (HD + 8) + ((lane >> 3) & 1) * 8;
+    const int v_off =
+        ((lane & 7) + (((lane >> 3) & 1) << 3)) * (HD + 8) + (lane >> 4) * 8;
+    uint32_t qf[Q_IN_REGS ? HD / 16 : 1][4];
+    for (int t = 0; t < ntiles; ++t) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1
+      if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
+      cp_async_commit();
+      if (Q_IN_REGS && t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < (Q_IN_REGS ? HD / 16 : 1); ++kk)
+          ldsm_x4(qf[kk], q_addr + kk * 32);
+      }
+      const int slot = t % STAGES;
+      const uint32_t k_base = smem_u32(ks + slot * L::template size<BN>() +
+                                       k_off);
+      const uint32_t v_base = smem_u32(vs + slot * L::template size<BN>() +
+                                       v_off);
+
+      // S = Q K^T
+      float s[BN / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4];
+        if (Q_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[Q_IN_REGS ? kk : 0][e];
+        } else {
+          ldsm_x4(a, q_addr + kk * 32);
+        }
+#pragma unroll
+        for (int nb = 0; nb < BN / 8; nb += 2) {
+          uint32_t b[4];
+          ldsm_x4(b, k_base + (nb * 8 * (HD + 8) + kk * 16) * 2);
+          mma_bf16(s[nb], a, b[0], b[1]);
+          mma_bf16(s[nb + 1], a, b[2], b[3]);
+        }
+      }
+      softmax(s, t);
+
+      // O += P V
+      uint32_t pf[BN / 16][4];
+      pack_p(s, pf);
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb) {
+#pragma unroll
+        for (int db = 0; db < HD / 8; db += 2) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, v_base + (kb * 16 * (HD + 8) + db * 8) * 2);
+          mma_bf16(oacc[db], pf[kb], b[0], b[1]);
+          mma_bf16(oacc[db + 1], pf[kb], b[2], b[3]);
+        }
+      }
+    }
+  } else {
+    // the warpgroup's 64 rows of Q (BM x HD) and K (BN x HD), K-major: a
+    // k-step of 16 dims is 32 bytes into a 128-byte row, 8-row groups 1024
+    // bytes apart; V (BN x HD) MN-major: 16 keys are 2048 bytes, 8-key
+    // groups 1024 bytes apart, 64-dim column blocks BN * 128 bytes apart
+    const uint32_t qa = smem_u32(qs) + (warp >> 2) * 64 * 128;
+    for (int t = 0; t < ntiles; ++t) {
+      cp_async_wait<STAGES - 2>();
+      fence_proxy_async();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1
+      if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
+      cp_async_commit();
+      const uint32_t ka = smem_u32(ks + (t % STAGES) * L::template size<BN>());
+      const uint32_t va = smem_u32(vs + (t % STAGES) * L::template size<BN>());
+
+      float s[BN / 8][4];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(s, wgmma_desc(qa + (kk >> 2) * BM * 128 + (kk & 3) * 32,
+                               16, 1024),
+                 wgmma_desc(ka + (kk >> 2) * BN * 128 + (kk & 3) * 32, 16,
+                            1024),
+                 kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+      softmax(s, t);
+
+      uint32_t pf[BN / 16][4];
+      pack_p(s, pf);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < BN / 16; ++kb)
+        wgmma_rs(oacc, pf[kb], wgmma_desc(va + kb * 2048, BN * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(oacc);
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: O / l in bf16 into the warp's own rows of the Q buffer, then
+  // 16-byte rows to device memory
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = wr + grp + 8 * i;
+    const int R = r0 + r;
+    if (l[i] > 0.f) {
+      const float inv = 1.f / l[i];
+#pragma unroll
+      for (int db = 0; db < HD / 8; ++db)
+        *reinterpret_cast<uint32_t*>(qs + L::template chunk<BM>(r, db) +
+                                     2 * t4) =
+            pack_bf16(oacc[db][2 * i] * inv, oacc[db][2 * i + 1] * inv);
+    } else if (R < rows) {
+      // no visible key: uniform weights over all sk keys, as the reference
+      for (int db = 0; db < HD / 8; ++db) {
+        float sum0 = 0.f, sum1 = 0.f;
+        for (int j = 0; j < sk; ++j) {
+          const bf16* vr =
+              v + (((size_t)bi * sk + j) * kvh + kv) * HD + db * 8 + 2 * t4;
+          sum0 += __bfloat162float(vr[0]);
+          sum1 += __bfloat162float(vr[1]);
+        }
+        const float inv = sk > 0 ? 1.f / (float)sk : 0.f;
+        *reinterpret_cast<uint32_t*>(qs + L::template chunk<BM>(r, db) +
+                                     2 * t4) =
+            pack_bf16(sum0 * inv, sum1 * inv);
+      }
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = wr + c / CH;
+    const int ch = c % CH;
+    const int R = r0 + r;
+    if (R >= rows) continue;
+    const int pos = R / g;
+    const int gi = R - pos * g;
+    *reinterpret_cast<uint4*>(
+        o + (((size_t)bi * sq + pos) * h + kv * g + gi) * HD + ch * 8) =
+        *reinterpret_cast<const uint4*>(qs + L::template chunk<BM>(r, ch));
+  }
+}
+
+// ------------------------------------------------------------ launchers
+
 constexpr int MAX_DEVICES = 64;
 
-// Raises the kernel's dynamic shared-memory limit past the 48 KB default,
-// once per instantiation and device (the attribute is per device).
-template <typename T, int HD>
+// Raises a kernel's dynamic shared-memory limit past the 48 KB default,
+// once per kernel and device (the attribute is per device).
+template <auto KERNEL>
 cudaError_t allow_smem(int bytes) {
   static bool done[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+  err = cudaFuncSetAttribute(KERNEL,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kvh, int causal, int window,
-           cudaStream_t stream) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
+               int sq, int sk, int h, int kvh, int causal, int window,
+               cudaStream_t stream) {
   const int g = h / kvh;
   if (g > Tile<HD>::ROWS) return (int)cudaErrorInvalidValue;
   const int bq = Tile<HD>::ROWS / g;
   const int bytes = smem_bytes<HD>();
-  const cudaError_t err = allow_smem<T, HD>(bytes);
+  const cudaError_t err = allow_smem<flash_attention_kernel<HD>>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + bq - 1) / bq, kvh, b);
-  flash_attention_kernel<T, HD><<<grid, Tile<HD>::THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, sq, sk, h, kvh, bq,
-      causal, window, 1.0f / sqrtf((float)HD));
+  flash_attention_kernel<HD><<<grid, Tile<HD>::THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk, h,
+      kvh, bq, causal, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int h, int kvh, int hd, int causal,
-                int window, cudaStream_t stream) {
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
+                int sq, int sk, int h, int kvh, int causal, int window,
+                cudaStream_t stream) {
+  constexpr int BM = 16 * MmaTile<HD>::WARPS;
+  const long long rows = (long long)sq * (h / kvh);
+  if (rows > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
+  const int bytes = mma_smem_bytes<HD>();
+  const cudaError_t err = allow_smem<flash_attention_mma_kernel<HD>>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long ctas = (rows + BM - 1) / BM * b * kvh;
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas);
+  flash_attention_mma_kernel<HD><<<grid, 32 * MmaTile<HD>::WARPS, bytes,
+                                   stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq, sk, h,
+      kvh, causal, window, 1.4426950408889634f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+typedef int (*Launcher)(const void*, const void*, const void*, void*, int,
+                        int, int, int, int, int, int, cudaStream_t);
+
+// the launcher of head dim hd for one dtype, or null
+Launcher f32_launcher(int hd) {
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, b, sq, sk, h, kvh, causal, window,
-                           stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, sq, sk, h, kvh, causal, window,
-                           stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b, sq, sk, h, kvh, causal, window,
-                           stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, sq, sk, h, kvh, causal, window,
-                            stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, b, sq, sk, h, kvh, causal, window,
-                            stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return launch_f32<16>;
+    case 32: return launch_f32<32>;
+    case 64: return launch_f32<64>;
+    case 128: return launch_f32<128>;
+    case 256: return launch_f32<256>;
+    default: return nullptr;
+  }
+}
+
+Launcher bf16_launcher(int hd) {
+  switch (hd) {
+    case 16: return launch_bf16<16>;
+    case 32: return launch_bf16<32>;
+    case 64: return launch_bf16<64>;
+    case 128: return launch_bf16<128>;
+    case 256: return launch_bf16<256>;
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's CUDA error code.
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
+// kernel).  Returns the launch's CUDA error code.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int sk, int h, int kvh, int hd,
@@ -319,12 +1008,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (b < 1 || sq < 1 || sk < 0 || kvh < 1 || h % kvh != 0 ||
       b > 65535 || kvh > 65535)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                              window, st);
-  if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, hd,
-                                      causal, window, st);
-  return (int)cudaErrorInvalidValue;
+  Launcher fn = dtype == 0 ? f32_launcher(hd)
+                : dtype == 1 ? bf16_launcher(hd)
+                             : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, o, b, sq, sk, h, kvh, causal, window,
+            (cudaStream_t)stream);
+}
+
+// Which tensor-core products serve bfloat16 at head dim hd: 1 = mma.sync,
+// 2 = wgmma; 0 for a head dim the kernel lacks.
+extern "C" int flash_attention_bf16_step(int hd) {
+  switch (hd) {
+    case 16: return MmaTile<16>::STEP;
+    case 32: return MmaTile<32>::STEP;
+    case 64: return MmaTile<64>::STEP;
+    case 128: return MmaTile<128>::STEP;
+    case 256: return MmaTile<256>::STEP;
+    default: return 0;
+  }
 }

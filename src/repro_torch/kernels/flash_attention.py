@@ -9,11 +9,15 @@ jnp twins ``full_attention`` / ``blockwise_attention`` of
 k, v (b, sk, kvh, hd) of one dtype (float32 or bfloat16) and returns
 (b, sq, h, hd) in q's dtype; query head ``kv*g + gi`` reads kv head
 ``kv``, positions are ``0..s-1`` (top-left causal alignment when
-sq != sk), scores are scaled by ``hd**-0.5``.  A CUDA tensor launches the
-kernel (``csrc/flash_attention.cu``: one CTA per (b, kv head, q tile),
-one query row per thread, four threads per row at hd=256, float32 online
-softmax); a CPU tensor runs the eager twin ``ref.attention_ref``.  There
-is no fallback from one to the other.  ``flash_attention.launches``
+sq != sk), scores are scaled by ``hd**-0.5``.  A CUDA tensor launches a
+kernel of ``csrc/flash_attention.cu``, one per dtype: bfloat16 runs on the
+tensor cores (bf16 operands, float32 accumulators, 16 rows of (position,
+head) pairs per warp, P rounded to bf16 before the P V product; ``wgmma``
+at head dims 64, 128 and 256, ``mma.sync`` at 16 and 32, as
+``kernel_step`` reports); float32 runs on the CUDA cores (one query row
+per thread, four threads per row at hd=256), for the float32
+cross-checks.  A CPU tensor runs the eager twin ``ref.attention_ref``.
+There is no fallback from one to another.  ``flash_attention.launches``
 counts kernel launches.
 """
 from __future__ import annotations
@@ -27,8 +31,8 @@ from repro_torch.kernels.ref import attention_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: query rows of the kernel's CTA, per head dim, bound the query heads per
-#: kv head
+#: query rows of the float32 kernel's CTA, per head dim, bound its query
+#: heads per kv head; the bfloat16 kernel takes any group
 MAX_GROUP = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +57,12 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v are on different devices")
 
 
+def max_group(dtype, hd):
+    """Most query heads per kv head the kernel of ``dtype`` takes at head
+    dim ``hd``; None where any number goes."""
+    return MAX_GROUP[hd] if dtype == torch.float32 else None
+
+
 _LAUNCHER = []
 
 
@@ -67,6 +77,15 @@ def _launcher():
     return _LAUNCHER[0]
 
 
+def kernel_step(hd):
+    """Which tensor-core kernel serves bfloat16 at head dim ``hd``: 1 for
+    ``mma.sync``, 2 for ``wgmma`` (read from the built library)."""
+    fn = LIBRARIES.get("flash_attention").flash_attention_bf16_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(hd)
+
+
 def flash_attention_cuda(q, k, v, causal=True, window=0):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
     allocated output."""
@@ -79,12 +98,17 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in "
                          f"{HEAD_DIMS}")
-    if h // kvh > MAX_GROUP[hd]:
+    limit = max_group(q.dtype, hd)
+    if limit is not None and h // kvh > limit:
         raise ValueError(f"flash_attention: {h // kvh} query heads per kv "
-                         f"head > {MAX_GROUP[hd]} at head dim {hd}")
+                         f"head > {limit} at head dim {hd} in {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+        # the bfloat16 kernel copies 16-byte rows with cp.async
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
     out = torch.empty_like(q)
     if b == 0 or sq == 0:
         return out

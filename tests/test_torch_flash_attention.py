@@ -87,17 +87,89 @@ def test_head_dim_256_matches_pallas_and_ref(window, dtype):
 
 def test_cuda_wrapper_refuses_what_the_kernel_lacks():
     """The CUDA wrapper's checks come before any launch: a head dim the
-    kernel is not compiled for, and more query heads per kv head than its
-    CTA holds at that head dim (64 rows at hd=256, 128 below)."""
+    kernels are not compiled for; in float32, more query heads per kv head
+    than the CUDA-core kernel's CTA holds at that head dim (64 rows at
+    hd=256, 128 below), while the bfloat16 tensor-core kernel takes any
+    group; and, in bfloat16, an operand that is not 16-byte aligned (the
+    kernel copies 16-byte rows)."""
     from repro_torch.kernels.flash_attention import (MAX_GROUP,
-                                                     flash_attention_cuda)
+                                                     flash_attention_cuda,
+                                                     max_group)
     assert MAX_GROUP[256] == 64 and MAX_GROUP[128] == 128
-    q, k = torch.zeros((1, 2, 2, 512)), torch.zeros((1, 2, 1, 512))
-    with pytest.raises(ValueError, match="head dim 512"):
-        flash_attention_cuda(q, k, k)
+    assert max_group(torch.float32, 256) == 64
+    assert all(max_group(torch.bfloat16, hd) is None for hd in MAX_GROUP)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((1, 2, 2, 512), dtype=dtype)
+        k = torch.zeros((1, 2, 1, 512), dtype=dtype)
+        with pytest.raises(ValueError, match="head dim 512"):
+            flash_attention_cuda(q, k, k)
     q, k = torch.zeros((1, 2, 128, 256)), torch.zeros((1, 2, 1, 256))
     with pytest.raises(ValueError, match="128 query heads per kv head > 64"):
         flash_attention_cuda(q, k, k)
+    flat = torch.zeros(2 * 2 * 64 + 1, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 2, 2, 64)
+    k = torch.zeros((1, 2, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        flash_attention_cuda(q, k, k)
+
+
+def _tiled_bf16_attention(q, k, v, causal, window, bn):
+    """The bfloat16 tensor-core kernel's numerics, eagerly: float32 scores
+    of the bf16 q and k, an online softmax over tiles of ``bn`` keys with
+    float32 running max and denominator (of the unrounded p), P rounded to
+    bf16 before the P V product, float32 accumulation, the output rounded
+    to bf16 once; a row that sees no key gets mean(v)."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf = q.float().reshape(b, sq, kvh, g, hd)
+    kf, vf = k.float(), v.float()
+    m = torch.full((b, kvh, g, sq), float("-inf"))
+    l = torch.zeros((b, kvh, g, sq))
+    o = torch.zeros((b, kvh, g, sq, hd))
+    qp = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, bn):
+        kt, vt = kf[:, k0:k0 + bn], vf[:, k0:k0 + bn]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kt) * hd ** -0.5
+        kp = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = torch.ones((sq, kt.shape[1]), dtype=torch.bool)
+        if causal:
+            mask &= qp >= kp
+        if window:
+            mask &= (qp - kp) < window
+        s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        corr = torch.exp(m - base)
+        p = torch.exp(s - base[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.bfloat16().float(), vt)
+        m = m_new
+    mean_v = vf.mean(1)[:, :, None, None, :]            # (b, kvh, 1, 1, hd)
+    out = torch.where(l[..., None] > 0, o / l[..., None].clamp_min(1e-30),
+                      mean_v)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).bfloat16()
+
+
+@pytest.mark.parametrize("case", [
+    (96, 16, 1, 256, 64, 0),      # recurrentgemma's 16/1 heads at hd=256
+    (96, 16, 1, 256, 64, 40),     # with a window that bites
+    (160, 4, 4, 128, 128, 0),     # qwen2-moe's g=1 at hd=128, ragged tile
+])
+def test_bf16_tensor_core_numerics_within_tolerance(case):
+    """The tolerance budget the card relies on: the kernel's tiled online
+    softmax with P rounded to bf16 stays within the bfloat16 atol 2e-2 of
+    the reference's attention_ref and of the Pallas kernel (interpret
+    mode) at a serving-like head dim and group, reduced sequence."""
+    s, h, kvh, hd, bn, window = case
+    jax_side, port_side = _inputs(8, 1, s, s, h, kvh, hd, "bfloat16")
+    got = _tiled_bf16_attention(*port_side, True, window, bn)
+    pallas = pallas_flash(*jax_side, causal=True, window=window,
+                          q_block=16, kv_block=16)
+    want = jref.attention_ref(*jax_side, causal=True, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=TOL["bfloat16"])
+    np.testing.assert_allclose(_f32(got), _f32(pallas), atol=TOL["bfloat16"])
 
 
 def test_row_with_no_visible_key_matches_ref():

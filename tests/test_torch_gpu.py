@@ -127,6 +127,14 @@ FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
     (1, 257, 257, 16, 1, 256, True, 2048),  # recurrentgemma's heads, ragged
     (2, 80, 80, 4, 2, 256, True, 8),        # hd=256 with a window that bites
     (1, 33, 77, 2, 2, 256, False, 0),       # hd=256, non-causal, ragged
+    # tile edges of the bfloat16 tensor-core kernel (tiles of 64 or 128
+    # (position, head) rows, of 64 or 128 keys)
+    (1, 200, 200, 16, 16, 128, True, 0),    # hd=128 16/16, ragged s
+    (2, 70, 70, 8, 1, 16, True, 0),         # hd=16, one k-step, g=8
+    (1, 130, 130, 4, 4, 32, True, 0),       # hd=32, two k-steps, ragged
+    (1, 90, 40, 8, 1, 256, False, 0),       # hd=256, sq > sk, non-causal
+    (1, 200, 200, 8, 2, 64, True, 5),       # a window inside one key tile
+    (1, 20, 20, 128, 1, 64, True, 0),       # g=128: a position spans 2 tiles
 ]
 
 

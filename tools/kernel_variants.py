@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
 """Time variants of two CUDA kernels of the port side by side on one GPU.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py
+    PYTHONPATH=src python3 tools/kernel_variants.py [flash|rglru [NAME ...]]
 
 Builds text variants of ``csrc/rglru_scan.cu`` (CTA size 32/64/128 ×
-steps per register buffer 4/8/16) and of ``csrc/flash_attention.cu`` at
-head dim 256 (threads per query row 2/4/8, and the row's threads on
-neighbouring lanes instead of 8 lanes apart), each with the port's nvcc
-flags, into ``kernels/_build/variants/``; checks each against the eager
-twin and times it with CUDA events at recurrentgemma-9b's serving shapes
-(rglru_scan: b=4, s=1024, w=4096, float32 and bfloat16; flash: b=4,
-s=1024, 16 query heads over 1 kv head, window 2048, bfloat16).  The
-committed sources are the variants named ``t32_u8`` and ``split4``.
-Prints the card, one line per variant and round (two rounds, in turns),
-and a JSON line of the medians.  Exits non-zero without a GPU or when a
-variant disagrees with the twin.
+steps per register buffer 4/8/16) and of the bfloat16 tensor-core kernel
+of ``csrc/flash_attention.cu`` at each serving head dim (its
+``MmaTile<hd>``: products by ``mma.sync`` (step 1) or ``wgmma`` (step 2),
+4 to 16 warps per CTA, 64 or 128 keys per K/V tile (32 or 64 at hd=256),
+a cp.async ring of 2 or 3 stages), each with the port's nvcc flags, into
+``kernels/_build/variants/``; checks each against the eager twin and
+times it with CUDA events at the serving shapes (rglru_scan:
+recurrentgemma-9b's b=4, s=1024, w=4096, float32 and bfloat16; flash,
+bfloat16, b=4, s=1024, causal: TinyLlama-1.1B's 32/4 heads at hd=64,
+qwen2-moe-a2.7b's 16/16 at hd=128, recurrentgemma-9b's 16/1 at hd=256
+with window 2048; each flash variant is also held against the twin at
+ragged and windowed shapes of its head dim).  The committed rglru source
+is the variant ``t32_u8``; the committed ``MmaTile`` values name the
+flash variant chosen per head dim.  Prints the card, one line per variant
+and round (two rounds, in turns), and a JSON line of the medians.  An
+argument limits the run to one kernel, and further ones to the variants
+whose names contain one of them.  Exits non-zero without a GPU or
+when a variant disagrees with the twin.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -28,6 +36,36 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+
+
+#: bfloat16 flash variants per serving head dim: (step, warps per CTA,
+#: keys per K/V tile, cp.async stages), those that fit the 227 KB of
+#: shared memory
+SMEM_LIMIT = 232448
+
+
+#: warps per CTA tried per head dim: the wgmma accumulators of larger
+#: CTAs do not fit the 64K registers of an SM at hd 128 and 256
+WARPS = {64: (4, 8, 12, 16), 128: (4, 8, 12), 256: (4, 8)}
+
+
+def _smem(hd, step, warps, bn, stages):
+    rows = 16 * warps + 2 * stages * bn
+    return 2 * (rows * (hd + 8) if step == 1 else rows * hd + 512)
+
+
+FLASH_OPTIONS = {hd: [o for o in (
+    [(1, 4, bn, 2) for bn in ((32, 64) if hd == 256 else (64, 128))]
+    + [(2, w, bn, st) for w in WARPS[hd]
+       for bn in ((32, 64) if hd == 256 else (64, 128)) for st in (2, 3)])
+    if _smem(hd, *o) <= SMEM_LIMIT] for hd in (64, 128, 256)}
+#: the serving shape timed per head dim: (b, s, h, kvh, window), causal
+FLASH_SERVING = {64: (4, 1024, 32, 4, 0), 128: (4, 1024, 16, 16, 0),
+                 256: (4, 1024, 16, 1, 2048)}
+#: shapes each variant is also held at: (b, sq, sk, h, kvh, causal, window)
+FLASH_EDGES = [(1, 200, 200, 8, 2, True, 0), (1, 200, 200, 16, 16, True, 5),
+               (1, 90, 40, 8, 1, False, 0), (2, 70, 70, 16, 1, True, 0),
+               (1, 24, 8, 2, 1, True, 4), (1, 20, 20, 128, 1, True, 0)]
 
 
 def _sub(src, pairs):
@@ -50,17 +88,18 @@ def variants(csrc):
                  f"constexpr int THREADS = {threads};"),
                 ("constexpr int U = 8;", f"constexpr int U = {u};")]),
                 "rglru")
-    split = "static constexpr int SPLIT = HD > 128 ? 4 : 1;"
-    for n in (2, 4, 8):
-        out[f"flash_split{n}"] = (_sub(fa, [(split, split.replace(
-            "? 4", f"? {n}"))]), "flash")
-    out["flash_split4_adjacent"] = (_sub(fa, [
-        ("  const int row = (tid >> 5) * WROWS + lane % WROWS;\n"
-         "  const int part = lane / WROWS;",
-         "  const int row = tid / SPLIT;\n"
-         "  const int part = tid - row * SPLIT;"),
-        ("__shfl_xor_sync(0xffffffffu, dot, off * WROWS)",
-         "__shfl_xor_sync(0xffffffffu, dot, off)")]), "flash")
+    for hd, options in FLASH_OPTIONS.items():
+        line = re.search(rf"struct MmaTile<{hd}> {{\n  static constexpr int "
+                         rf"WARPS = \d+, BN = \d+, STAGES = \d+, STEP = "
+                         rf"\d+;", fa)
+        if line is None:
+            raise AssertionError(f"MmaTile<{hd}> not found")
+        for step, warps, bn, stages in options:
+            out[f"flash_hd{hd}_step{step}_w{warps}_bn{bn}_st{stages}"] = (
+                fa.replace(line.group(0), (
+                    f"struct MmaTile<{hd}> {{\n  static constexpr int WARPS "
+                    f"= {warps}, BN = {bn}, STAGES = {stages}, STEP = "
+                    f"{step};")), f"flash{hd}")
     return out
 
 
@@ -83,6 +122,15 @@ def build(names_sources, out_dir):
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n"
                                f"{log}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+        # ptxas -v: registers and spills of the variant's kernel
+        hd = re.search(r"flash_hd(\d+)_", name)
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif entry and ("Used" in line or "spill" in line) and (
+                    hd is None or f"mma_kernelILi{hd.group(1)}E" in entry):
+                print(f"{name}: {line.strip()}", flush=True)
     return libs
 
 
@@ -100,10 +148,31 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _flash_launcher(lib):
+    fn = lib.flash_attention_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    return fn
+
+
+def _flash_call(fn, name, q, k, v, o, causal, window, stream):
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq,
+            sk, h, kvh, hd, int(causal), window, 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 2
+    only = sys.argv[1] if len(sys.argv) > 1 else None
+    if only not in (None, "flash", "rglru"):
+        print(f"kernel_variants: unknown kernel {only!r}", file=sys.stderr)
         return 2
     from repro_torch.kernels.build import BUILD_DIR, CSRC
     from repro_torch.kernels.ref import attention_ref, rglru_scan_ref
@@ -112,7 +181,10 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
-    table = variants(CSRC)
+    names = sys.argv[2:]
+    table = {n: sk for n, sk in variants(CSRC).items()
+             if (only is None or sk[1].startswith(only))
+             and (not names or any(part in n for part in names))}
     libs = build({n: src for n, (src, _) in table.items()},
                  str(BUILD_DIR / "variants"))
     stream = torch.cuda.current_stream().cuda_stream
@@ -120,7 +192,10 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (4, 1024, 4096)
+    rglru = [n for n, (_, k) in table.items() if k == "rglru"]
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        if not rglru:
+            break
         a = (0.8 + 0.2 * torch.rand(shape, generator=gen, device="cuda")
              ).to(dtype)
         bx = (0.1 * torch.randn(shape, generator=gen, device="cuda")
@@ -128,7 +203,7 @@ def main() -> int:
         want = rglru_scan_ref(a, bx)
         h = torch.empty(shape, device="cuda")
         for rnd in range(2):
-            for name in (n for n, (_, k) in table.items() if k == "rglru"):
+            for name in rglru:
                 fn = libs[name].rglru_scan_launch
                 fn.restype = ctypes.c_int
                 fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
@@ -151,31 +226,48 @@ def main() -> int:
                       f"the twin", flush=True)
 
     rng = np.random.RandomState(0)
-    b, s, h_, kvh, hd, window = 4, 1024, 16, 1, 256, 2048
-    q, k, v = (torch.from_numpy(rng.randn(b, s, n, hd).astype(np.float32))
-               .to("cuda", torch.bfloat16) for n in (h_, kvh, kvh))
-    want = attention_ref(q, k, v, window=window).float()
-    o = torch.empty_like(q)
-    for rnd in range(2):
-        for name in (n for n, (_, kind) in table.items() if kind == "flash"):
-            fn = libs[name].flash_attention_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-                + [ctypes.c_void_p]
 
-            def call():
-                rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), b, s, s, h_, kvh, hd, 1, window, 1,
-                        stream)
-                if rc != 0:
-                    raise RuntimeError(f"{name}: CUDA error {rc}")
-            ms = cuda_ms(call, 5)
-            err = float((o.float() - want).abs().max())
-            if not err <= 2e-2:
-                raise AssertionError(f"{name}: max abs err {err:.3e}")
-            times.setdefault(name, []).append(ms)
-            print(f"round {rnd} {name}: {ms:.4f} ms/call, max abs err "
-                  f"{err:.3e}", flush=True)
+    def inputs(b, sq, sk, h_, kvh, hd):
+        return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .to("cuda", torch.bfloat16)
+                for shape in ((b, sq, h_, hd), (b, sk, kvh, hd),
+                              (b, sk, kvh, hd))]
+
+    for hd, (b, s, h_, kvh, window) in FLASH_SERVING.items():
+        names = [n for n, (_, kind) in table.items()
+                 if kind == f"flash{hd}"]
+        for name in names:
+            fn = _flash_launcher(libs[name])
+            for bb, sq, sk, hh, kk, causal, w in FLASH_EDGES:
+                q, k, v = inputs(bb, sq, sk, hh, kk, hd)
+                o, again = torch.empty_like(q), torch.empty_like(q)
+                _flash_call(fn, name, q, k, v, o, causal, w, stream)
+                _flash_call(fn, name, q, k, v, again, causal, w, stream)
+                want = attention_ref(q, k, v, causal=causal, window=w)
+                err = float((o.float() - want.float()).abs().max())
+                if not err <= 2e-2 or not torch.equal(o, again):
+                    raise AssertionError(
+                        f"{name} at {(bb, sq, sk, hh, kk, causal, w)}: max "
+                        f"abs err {err:.3e}, repeatable "
+                        f"{torch.equal(o, again)}")
+        q, k, v = inputs(b, s, s, h_, kvh, hd)
+        want = attention_ref(q, k, v, window=window).float()
+        o = torch.empty_like(q)
+        pairs = s * (s + 1) / 2 if not window or window >= s else \
+            window * (window + 1) / 2 + (s - window) * window
+        for rnd in range(2):
+            for name in names:
+                fn = _flash_launcher(libs[name])
+                ms = cuda_ms(lambda: _flash_call(fn, name, q, k, v, o, True,
+                                                 window, stream), 20)
+                err = float((o.float() - want).abs().max())
+                if not err <= 2e-2:
+                    raise AssertionError(f"{name}: max abs err {err:.3e}")
+                times.setdefault(name, []).append(ms)
+                tflops = 4.0 * b * h_ * hd * pairs / (ms * 1e-3) / 1e12
+                print(f"round {rnd} {name}: {ms:.4f} ms/call, "
+                      f"{tflops:.1f} TFLOP/s, max abs err {err:.3e}",
+                      flush=True)
     print(f"card: {card}")
     print(json.dumps({"median_ms": {n: float(np.median(t))
                                     for n, t in times.items()}}))
