@@ -6,9 +6,14 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the substep physics, the two placement scans, flash attention, MoE
 routing, the selective scan and the RG-LRU scan) and holds each against
-its eager PyTorch twin: the simulator kernels on fuzzed slot states and
-one real main-path interval (float64 at rtol=1e-12, bools and ints exact,
-bitwise identical over two runs); flash attention (bfloat16 on the
+its eager PyTorch twin: the simulator kernels on fuzzed slot states, at
+the shapes of ``tests/test_torch_gpu.py`` (``edge_substep`` at K not a
+multiple of its cluster, K below it, G=33, n=1 and 128, no substep,
+K=20000 past its shared memory, out-of-range stages; the repair at
+trip-0 cells beside long walks, every fragment infeasible, a mid-row
+failure and chunk-boundary trips) and one real main-path interval,
+timed there from CUDA graphs (float64 at rtol=1e-12, bools and ints
+exact, bitwise identical over two runs); flash attention (bfloat16 on the
 tensor cores, float32 on the CUDA cores) at the reference's test shapes,
 at the tile edges of the bfloat16 kernel, at every attention shape of the
 serving paths, full forward and one semantic branch, and at a 4096-token
@@ -34,7 +39,9 @@ after:
   4 × 1024 tokens, 20 requests under the reference's tight/loose deadline
   rule;
 
-and cross-checks the GPU driver against the committed golden fixture and
+profiles one more ``bestfit-rr`` run for each simulator kernel's summed
+device time, and cross-checks the GPU driver against the committed golden
+fixture and
 the CPU path, qwen2-moe's real router logits between the routing kernel
 and its twin, and the four models and both serving plans against the
 CPU at a reduced size.
@@ -120,6 +127,16 @@ RGLRU_SERVING = (4, 1024, 4096)
 RGLRU_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
+#: edge_substep shapes beside the fuzz and the main-path interval (as in
+#: tests/test_torch_gpu.py): (K, F, n, G, substeps); K not a multiple of
+#: the cluster, K below it, more clusters than the card runs at once, one
+#: and 128 workers, no substep, and K=20000, whose carries do not fit a
+#: cluster's shared memory
+SUBSTEP_SHAPES = [(301, 8, 50, 3, 7), (5, 4, 6, 2, 7), (40, 8, 50, 33, 5),
+                  (60, 4, 1, 2, 7), (300, 8, 128, 2, 7), (64, 8, 50, 2, 0),
+                  (20000, 8, 50, 1, 5)]
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -149,6 +166,57 @@ def fuzz_inputs(rng, K=12, F=4, N=6):
             rng.uniform(0.0, 10.0, K), rng.randint(0, 3, K).astype(np.int32),
             rng.uniform(0.3, 1.0, N), rng.uniform(2e3, 8e3, N),
             rng.uniform(4.0, 16.0, N), rng.uniform(100.0, 1000.0, N)]
+
+
+def fuzz_grid(seed, K, F, N, G):
+    """G fuzzed cells stacked on a grid axis, sharing cell 0's cluster rows
+    (mips, cap, net_bw: the last three operands)."""
+    rng = np.random.RandomState(seed)
+    cells = [fuzz_inputs(rng, K, F, N) for _ in range(G)]
+    return [np.stack([c[i] for c in cells]) if i < 20 else cells[0][i]
+            for i in range(23)]
+
+
+def repair_fuzz(rng, G, K, F, n, trip, cap_lo, cap_hi):
+    """Operands of repair_scan for G cells (tests/_torch_ref.repair_fuzz):
+    each row of ``order`` a permutation, requests in [-2, n + 2), chain
+    stages in [0, F], fragment RAM of 0.1-4 against capacities in
+    [cap_lo, cap_hi)."""
+    order = np.stack([rng.permutation(K) for _ in range(G)]).astype(np.int64)
+    return [order, np.asarray(trip, dtype=np.int64), rng.rand(G, K) < 0.8,
+            rng.rand(G, K, F) < 0.3, rng.rand(G, K) < 0.4,
+            rng.randint(0, F + 1, (G, K)).astype(np.int32),
+            rng.randint(-2, n + 2, (G, K, F)).astype(np.int32),
+            rng.uniform(0.1, 4.0, (G, K, F)), rng.uniform(cap_lo, cap_hi, n),
+            rng.randint(-1, n, (G, K, F)).astype(np.int32),
+            rng.rand(G, K) < 0.5]
+
+
+def repair_cases(chunk):
+    """The repair shapes of tests/test_torch_gpu.py: trip-0 cells beside
+    long walks, every fragment infeasible, a task that fails mid-row and
+    keeps the RAM it took, and trips one below, at and one above chunk
+    boundaries."""
+    rng = np.random.RandomState
+    cases = {
+        "trip-0 and long walks": repair_fuzz(
+            rng(0), 6, 1000, 8, 50, [0, 900, 0, 1000, 5, 0], 40.0, 120.0),
+        "every fragment infeasible": repair_fuzz(
+            rng(1), 2, 300, 8, 50, [300, 300], 0.01, 0.05),
+        "mid-row failure": [
+            np.array([[0, 1]], dtype=np.int64), np.array([2], dtype=np.int64),
+            np.ones((1, 2), dtype=bool),
+            np.array([[[False, False, False], [False, True, True]]]),
+            np.zeros((1, 2), dtype=bool), np.zeros((1, 2), dtype=np.int32),
+            np.zeros((1, 2, 3), dtype=np.int32),
+            np.array([[[6.0, 6.0, 20.0], [4.5, 1.0, 1.0]]]),
+            np.array([10.0, 10.0]), np.zeros((1, 2, 3), dtype=np.int32),
+            np.zeros((1, 2), dtype=bool)]}
+    for d in (-1, 0, 1):
+        cases[f"chunk boundary {d:+d}"] = repair_fuzz(
+            rng(2 + d), 3, 4 * chunk, 8, 50,
+            [2 * chunk + d, chunk + d, 3 * chunk + d], 30.0, 80.0)
+    return cases
 
 
 def compare(outs_k, outs_r, names, where):
@@ -295,13 +363,21 @@ def _nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _sim_ms(fn, reps):
+    """(CUDA-graph ms, CUDA-event ms) of one simulator kernel call: the
+    graph time has no host time between launches; the event time around
+    plain wrapper calls includes it."""
+    return graph_ms(fn, reps), cuda_ms(fn, reps)
+
+
 def kernel_phase():
     """Every kernel of the main path vs its twin on the card; returns the
     kernel records."""
     import torch
     from repro_torch.kernels import placement
     from repro_torch.kernels.edge_substep import (OUT_NAMES, edge_substep,
-                                                  edge_substep_cuda)
+                                                  edge_substep_cuda,
+                                                  edge_substep_plan)
     from repro_torch.kernels.ref import edge_substep_ref
     dev = torch.device("cuda")
     kw = dict(substeps=7, dt=1.5, swap_slowdown=0.5, nic_cap=50.0)
@@ -317,6 +393,55 @@ def kernel_phase():
             raise AssertionError(f"fuzz seed {seed}: two runs differ")
     log("edge_substep fuzz: 8 seeds K=12 F=4 N=6 substeps=7 match the twin "
         f"(rtol={RTOL}), bitwise repeatable")
+    for K, F, N, G, steps in SUBSTEP_SHAPES:
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in fuzz_grid(7, K, F, N, G)]
+        kws = dict(kw, substeps=steps)
+        k1 = edge_substep(*args, **kws)
+        k2 = edge_substep(*args, **kws)
+        torch.cuda.synchronize()
+        compare(k1, edge_substep_ref(*args, **kws), OUT_NAMES,
+                f"edge_substep K={K} F={F} n={N} G={G} substeps={steps}")
+        if not bitwise_equal(k1, k2):
+            raise AssertionError(f"edge_substep K={K}: two runs differ")
+        log(f"edge_substep at K={K} F={F} n={N} G={G} substeps={steps} "
+            f"({edge_substep_plan(G, K, F)}): matches the twin, bitwise "
+            f"repeatable")
+    # fill semantics of an out-of-range stage on live chains, on a grid
+    for seed in range(4):
+        a = fuzz_grid(40 + seed, 48, 4, 6, 3)
+        rows = np.arange(0, 48, 3)
+        a[13][:, rows] = True            # placed
+        a[12][:, rows] = True            # chain
+        a[4][:, rows] = False            # task_done
+        a[3][:, rows] = 4                # stage == F
+        a[1][:, rows, 0] = False         # done
+        a[8][:, rows, 0] = 1             # worker
+        a[0][:, rows, 0] = 5.0           # instr
+        a[2][:, rows, :] = 3.0           # transfer
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in a]
+        k1 = edge_substep(*args, **kw)
+        k2 = edge_substep(*args, **kw)
+        compare(k1, edge_substep_ref(*args, **kw), OUT_NAMES,
+                f"out-of-range stage seed {seed}")
+        if not bitwise_equal(k1, k2):
+            raise AssertionError("out-of-range stage: two runs differ")
+    log("edge_substep with stage == F on live chains (4 seeds, G=3): "
+        "matches the twin, bitwise repeatable")
+
+    rplan = placement.repair_scan_plan(8)
+    for where, ops in repair_cases(rplan["chunk"]).items():
+        ops = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in ops]
+        r1 = placement.repair_scan(*ops)
+        r2 = placement.repair_scan(*ops)
+        compare(r1, placement.repair_scan_ref(*ops), ["worker", "placed"],
+                f"repair_scan {where}")
+        if not bitwise_equal(r1, r2):
+            raise AssertionError(f"repair_scan {where}: two runs differ")
+    log(f"repair_scan ({rplan}) at trip-0 cells beside long walks, every "
+        "fragment infeasible, a mid-row failure and trips at chunk "
+        "boundaries +-1: equals the twin exactly, bitwise repeatable")
 
     bestfit, repair, args, kw = main_path_interval()
     G, K, F = args[8].shape
@@ -333,16 +458,21 @@ def kernel_phase():
     if not torch.equal(b1, b2):
         raise AssertionError("bestfit_scan: two runs differ")
     steps = int(bestfit[1].sum())
-    ms = cuda_ms(lambda: placement.bestfit_scan(*bestfit), 10)
+    ms, ev_ms = _sim_ms(lambda: placement.bestfit_scan(*bestfit), 10)
     plain_ms = cuda_ms(lambda: placement.bestfit_scan_ref(*bestfit), 1)
+    longest = int(bestfit[1].max())
     log(f"bestfit_scan at a main-path interval: G={G} K={K} F={F} n={n}, "
-        f"{int(bestfit[1].max())} fragments in the longest cell ({steps} "
-        f"over the grid): matches the twin exactly; {ms:.4f} ms/call (twin "
-        f"{plain_ms:.4f} ms/call)")
-    records.append(_record(
+        f"{longest} fragments in the longest cell ({steps} over the grid): "
+        f"matches the twin exactly; {ms:.4f} ms/call from CUDA graphs "
+        f"({ev_ms:.4f} with CUDA events around wrapper calls; "
+        f"{ms * 1e6 / max(longest, 1):.1f} ns per step of the longest "
+        f"cell); twin {plain_ms:.4f} ms/call")
+    rec = _record(
         "bestfit_scan", "src/repro_torch/kernels/csrc/placement.cu",
         "src/repro/env/jaxsim/kernels.py:202", 0.0, ms, plain_ms,
-        _nbytes(list(bestfit[3:8])) + steps * (8 + 8 + 4), 0.0))
+        _nbytes(list(bestfit[3:8])) + steps * (8 + 8 + 4), 0.0)
+    rec["event_ms"] = ev_ms
+    records.append(rec)
 
     # repair scan: each walked slot reads its task row and fragment rows
     # and writes its workers and placed flag
@@ -354,17 +484,27 @@ def kernel_phase():
     if not bitwise_equal(r1, r2):
         raise AssertionError("repair_scan: two runs differ")
     walked = int(repair[1].sum())
-    ms = cuda_ms(lambda: placement.repair_scan(*repair), 10)
+    longest = int(repair[1].max())
+    ms, ev_ms = _sim_ms(lambda: placement.repair_scan(*repair), 10)
     plain_ms = cuda_ms(lambda: placement.repair_scan_ref(*repair), 1)
-    log(f"repair_scan at a main-path interval: {int(repair[1].max())} slots "
+    log(f"repair_scan at a main-path interval ({rplan}): {longest} slots "
         f"in the longest cell ({walked} over the grid): matches the twin "
-        f"exactly; {ms:.4f} ms/call (twin {plain_ms:.4f} ms/call)")
-    records.append(_record(
+        f"exactly, bitwise repeatable; {ms:.4f} ms/call from CUDA graphs "
+        f"({ev_ms:.4f} with CUDA events around wrapper calls), "
+        f"{ms * 1e6 / max(longest, 1):.1f} ns per walked slot of the "
+        f"longest cell; twin {plain_ms:.4f} ms/call")
+    rec = _record(
         "repair_scan", "src/repro_torch/kernels/csrc/placement.cu",
         "src/repro/env/jaxsim/kernels.py:271", 0.0, ms, plain_ms,
-        walked * (8 + 1 + 1 + 4 + 1 + F * (1 + 4 + 8 + 4)) + n * 8, 0.0))
+        walked * (8 + 1 + 1 + 4 + 1 + F * (1 + 4 + 8 + 4)) + n * 8, 0.0)
+    rec["event_ms"] = ev_ms
+    records.append(rec)
 
     # substep physics
+    plan = edge_substep_plan(G, K, F)
+    if plan["cluster"] < 2 or not plan["on_chip"]:
+        raise AssertionError(f"edge_substep at the main-path interval is "
+                             f"not launched as clusters on chip: {plan}")
     k1 = edge_substep_cuda(*args, **kw)
     k2 = edge_substep_cuda(*args, **kw)
     ref = edge_substep_ref(*args, **kw)
@@ -373,7 +513,7 @@ def kernel_phase():
     if not bitwise_equal(k1, k2):
         raise AssertionError("main-path interval: two runs differ")
     live = int((~args[1]).sum())
-    ms = cuda_ms(lambda: edge_substep_cuda(*args, **kw), 20)
+    ms, ev_ms = _sim_ms(lambda: edge_substep_cuda(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: edge_substep_ref(*args, **kw), 3)
     # FP64 work this interval needs: ~8 operations per live fragment per
     # substep (census add, rate, burn-down, compare)
@@ -382,11 +522,19 @@ def kernel_phase():
                   "src/repro/kernels/edge_substep.py:192", err, ms,
                   plain_ms, _nbytes(list(args) + list(k1)),
                   8.0 * live * kw["substeps"])
+    rec["event_ms"] = ev_ms
+    rec["cluster"] = plan
     log(f"edge_substep at a main-path interval: G={G} K={K} F={F} n={n} "
-        f"substeps={kw['substeps']}, {live} live fragments: matches the "
-        f"twin (max abs err {err:.3e}), bitwise repeatable; {ms:.4f} "
-        f"ms/call (twin {plain_ms:.4f} ms/call), bound {rec['bound_ms']:.5f}"
-        f" ms ({rec['bound_by']})")
+        f"substeps={kw['substeps']}, {live} live fragments; clusters of "
+        f"{plan['cluster']} CTAs x {plan['threads']} threads, "
+        f"{plan['smem_bytes']} bytes of dynamic shared memory per CTA "
+        f"(carries on chip: {plan['on_chip']}), "
+        f"{plan['max_active_clusters']} clusters at once on the card: "
+        f"matches the twin (max abs err {err:.3e}), bitwise repeatable; "
+        f"{ms:.4f} ms/call from CUDA graphs ({ev_ms:.4f} with CUDA events "
+        f"around wrapper calls), {ms * 1e3 / kw['substeps']:.3f} us per "
+        f"substep; twin {plain_ms:.4f} ms/call; bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     records.append(rec)
     return records
 
@@ -882,6 +1030,52 @@ def main_path(policy, **kw):
     return recs, wall, launches, phase_s
 
 
+#: each simulator kernel's name in the profiler's records
+SIM_SYMBOLS = {"edge_substep": "edge_substep_kernel",
+               "bestfit_scan": "bestfit_kernel",
+               "repair_scan": "repair_kernel"}
+
+
+def sim_profile(policy):
+    """One more main-path run under torch.profiler (CUPTI): each simulator
+    kernel's summed device time and launches in the run, and the device
+    time of every kernel of the run; {} if the profiler recorded none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.experiments import run_grid_batched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_grid_batched(policy, **MAIN, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sums = {name: [0.0, 0] for name in SIM_SYMBOLS}
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        busy += us / 1e3
+        for name, sym in SIM_SYMBOLS.items():
+            if sym in ev.key:
+                sums[name][0] += us / 1e3
+                sums[name][1] += ev.count
+    if busy == 0.0:
+        log(f"profile of a {policy} main-path run: the profiler recorded no "
+            "device time (not measured)")
+        return {}
+    log(f"profile of a {policy} main-path run (G=16 T=100 substeps=30): "
+        f"wall {wall:.3f} s under the profiler, device busy {busy:.2f} ms; "
+        + "; ".join(f"{name} {ms:.3f} ms in {count} launches "
+                    f"({ms / max(count, 1):.4f} ms each)"
+                    for name, (ms, count) in sums.items())
+        + f"; other kernels {busy - sum(v[0] for v in sums.values()):.2f} ms")
+    return sums
+
+
 def _expected_params(cfg):
     """Parameters ``init_params`` makes: ``param_count()``, plus each MoE
     layer's (d, 1) shared-expert gate, which the reference's init makes
@@ -1240,9 +1434,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _, _, launches, _ = main_path("bestfit-rr")
+    device = sim_profile("bestfit-rr")
     for rec in records:
         if rec["name"] in SIM_KERNELS:
             rec["launches"] = launches[rec["name"]]
+            if device:
+                rec["device_ms_per_run"] = device[rec["name"]][0]
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
 

@@ -6,24 +6,38 @@
 // loop at :202; apply_requests, loop at :271).  Their eager PyTorch twins
 // (repro_torch/kernels/placement.py) run one Python iteration per fragment,
 // ~20 tiny launches each, which dominates an interval once the fleet is
-// loaded (thousands of iterations).  Here each cell's whole scan is one warp.
+// loaded (thousands of iterations).  Here each cell's whole scan is one CTA.
 //
-// Design: one 32-thread block per grid cell.  The per-worker state (n <=
-// MAX_N floats: free RAM, load and score for BestFit; RAM in use for the
-// repair) lives in shared memory.  Every lane runs the scalar logic of the
-// scan redundantly on broadcast reads, so branches stay warp-uniform; lane 0
-// alone writes, then __syncwarp().  Each argmax over workers is a warp
-// reduction that keeps the first maximum (torch.argmax / jnp.argmax).  Each
-// cell stops at its own trip count, read on the device, so the host never
-// waits for it.  Compiled with -fmad=false: the score arithmetic rounds like
-// the eager twin, operation by operation.
+// Both keep the per-worker state (n <= MAX_N doubles: free RAM, load and
+// score for BestFit; RAM in use for the repair) in shared memory.  Every
+// lane of the walking warp runs the scalar logic of the scan redundantly on
+// broadcast reads, so branches stay warp-uniform; lane 0 alone stores.  Each
+// argmax over workers is a warp reduction that keeps the first maximum
+// (torch.argmax / jnp.argmax).  Each cell stops at its own trip count, read
+// on the device, so the host never waits for it.  Compiled with -fmad=false:
+// the arithmetic rounds like the eager twin, operation by operation, and
+// each worker's RAM receives its additions in the twin's admission order, so
+// both kernels equal their twins bit for bit.
 //
-// Bound: the scans are sequential chains of dependent loads and warp
-// reductions; the bytes they must move (tens of KB per cell) take well under
-// a microsecond at 3.35 TB/s.  Latency per step bounds them: chip_smoke.py
-// measured 0.63 ms (BestFit, 779 steps in the longest cell) and 1.07 ms
-// (repair, 683 slots) per call on the G=16 main-path grid on an NVIDIA H100
-// 80GB HBM3 with a 700 W power limit (PERF.md).
+// BestFit: one 32-thread block per cell; each step reads its fragment from
+// global memory, then runs a warp argmax of the masked scores.
+//
+// Repair (see repair_kernel): the walk's inputs are known before it starts,
+// so three gathering warps copy the walked slots' records into shared memory
+// a chunk ahead of the walking warp, which reads shared memory and registers
+// only.  The common feasible step is a compare and an add on one worker's
+// RAM; the headroom argmax runs only on the infeasible path, and its result
+// is cached while no admission can have moved it.
+//
+// Bound: the scans are sequential chains; the bytes they must move (tens of
+// KB per cell) take well under a microsecond at 3.35 TB/s.  Latency per step
+// bounds them: per BestFit step a global load chain and a warp argmax, per
+// repair record a chain of shared-memory loads, a float64 add and compare
+// and a branch.  chip_smoke.py measured, from CUDA graphs on the G=16
+// main-path grid on an NVIDIA H100 80GB HBM3 with a 700 W power limit,
+// 0.614 ms per BestFit call (779 steps in the longest cell) and 0.264 ms
+// per repair call (683 slots, 387 ns per slot; the earlier design, one warp
+// walking the operands in global memory, took 1.067-1.093 ms) (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,64 +113,266 @@ bestfit_kernel(const int64_t* pos, const int64_t* n_new, int P,
   }
 }
 
-__global__ void __launch_bounds__(32)
+// ---------------------------------------------------------------- repair
+//
+// One CTA per cell: warp 0 walks, the other REPAIR_WARPS - 1 warps gather.
+// The walk's inputs are all known before it starts; only the per-worker RAM
+// in use (s_used) and the slot's ok flag carry from one step to the next.
+// So the gathering warps copy the walked slots' records into shared memory,
+// a chunk of up to REPAIR_CHUNK slots at a time, into a two-buffer ring
+// (named barriers FULL/EMPTY per buffer), while warp 0 walks the previous
+// chunk from shared memory and registers alone.  Records are compacted: a
+// slot that is not alive, and a fragment that is done, cannot act, so
+// neither is kept; each kept slot keeps its index and the end of its
+// fragment records (the slot boundary), which the failure rule needs.  Lane
+// 0 stores each worker and placed flag as the walk makes it: nothing in the
+// walk reads them back, stores do not stall it, and one thread storing in
+// walk order keeps the last write of a slot the one that counts.  A chunk
+// holds fewer slots when F is wide; F past ~8500 (one slot per buffer) is
+// refused with cudaErrorInvalidValue.
+
+constexpr int REPAIR_WARPS = 4;             // warp 0 walks, the rest gather
+constexpr int REPAIR_CHUNK = 64;            // slots per chunk (fewer if F is wide)
+constexpr int RTHREADS = REPAIR_WARPS * 32;
+constexpr int GTHREADS = RTHREADS - 32;     // gathering threads
+constexpr int GWARPS = REPAIR_WARPS - 1;
+constexpr int BAR_FULL = 1;                 // + buffer: chunk gathered
+constexpr int BAR_EMPTY = 3;                // + buffer: chunk walked
+constexpr int BAR_GATHER = 5;               // among the gathering warps
+constexpr size_t REPAIR_SMEM_LIMIT = 200 * 1024;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// One chunk buffer: a fragment record is the RAM it asks for and a code
+// word (clamped requested worker | holds RAM << 7 | f << 8); a slot record
+// is the slot and the end of its fragment records.
+struct Chunk {
+  double* rm;        // [ch * F]
+  int32_t* code;     // [ch * F]
+  int32_t* slot;     // [ch] kept slots, in walk order
+  int32_t* end;      // [ch] end of each kept slot's fragment records
+  int32_t* tslot;    // [ch] gather scratch: the slot at each walk step
+  int32_t* tcnt;     // [ch] gather scratch: acting fragments, -1 if not alive
+  int32_t* nslot;    // [1] kept slots in the chunk
+};
+
+__host__ __device__ inline size_t chunk_bytes(int ch, int F) {
+  const size_t b = (size_t)ch * F * 12 + (size_t)ch * 16 + 4;
+  return (b + 15) & ~(size_t)15;
+}
+
+// slots per chunk for F fragments per slot: two buffers fit the limit
+inline int repair_chunk(int F) {
+  const size_t per_slot = (size_t)F * 12 + 16;
+  const size_t fit = (REPAIR_SMEM_LIMIT / 2 - 32) / per_slot;
+  return (int)(fit < (size_t)REPAIR_CHUNK ? fit : REPAIR_CHUNK);
+}
+
+__device__ inline Chunk chunk_at(unsigned char* base, int ch, int F) {
+  Chunk c;
+  const size_t nr = (size_t)ch * F;
+  c.rm = (double*)base;
+  c.code = (int32_t*)(base + nr * 8);
+  c.slot = c.code + nr;
+  c.end = c.slot + ch;
+  c.tslot = c.end + ch;
+  c.tcnt = c.tslot + ch;
+  c.nslot = c.tcnt + ch;
+  return c;
+}
+
+// Gather walk steps [i0, i0 + cnt) of one cell into `c` (gathering
+// threads only; gt in [0, GTHREADS)).  Each thread takes a contiguous run
+// of steps, so an exclusive scan in thread order keeps the walk order.
+__device__ void gather_chunk(const Chunk& c, int gt, int cnt,
+                             const int64_t* order, const uint8_t* alive,
+                             const uint8_t* done, const uint8_t* chain,
+                             const int32_t* stage, const int32_t* req,
+                             const double* ram, int F, int n,
+                             int (*scan)[2]) {
+  const int per = (cnt + GTHREADS - 1) / GTHREADS;
+  const int q0 = min(gt * per, cnt), q1 = min(q0 + per, cnt);
+  int ns = 0, nr = 0;
+  for (int q = q0; q < q1; ++q) {
+    const int slot = (int)order[q];
+    int a = -1;
+    if (alive[slot]) {
+      const uint8_t* d = done + (size_t)slot * F;
+      a = 0;
+      for (int f = 0; f < F; ++f) a += !d[f];
+      ++ns;
+      nr += a;
+    }
+    c.tslot[q] = slot;
+    c.tcnt[q] = a;
+  }
+  const int lane = gt & 31, wp = gt >> 5;
+  int is = ns, ir = nr;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int s = __shfl_up_sync(FULL, is, off);
+    const int r = __shfl_up_sync(FULL, ir, off);
+    if (lane >= off) {
+      is += s;
+      ir += r;
+    }
+  }
+  if (lane == 31) {
+    scan[wp][0] = is;
+    scan[wp][1] = ir;
+  }
+  bar_sync(BAR_GATHER, GTHREADS);
+  int so = is - ns, ro = ir - nr, total = 0;
+  for (int w = 0; w < GWARPS; ++w) {
+    if (w < wp) {
+      so += scan[w][0];
+      ro += scan[w][1];
+    }
+    total += scan[w][0];
+  }
+  if (gt == 0) *c.nslot = total;
+  for (int q = q0; q < q1; ++q) {
+    if (c.tcnt[q] < 0) continue;
+    const int slot = c.tslot[q];
+    const size_t row = (size_t)slot * F;
+    const bool ch = chain[slot];
+    const int st = stage[slot];
+    for (int f = 0; f < F; ++f) {
+      if (done[row + f]) continue;
+      int w = req[row + f];
+      w = w < 0 ? 0 : (w > n - 1 ? n - 1 : w);
+      const int holds = (!ch || f == st) ? 1 : 0;
+      c.code[ro] = w | (holds << 7) | (f << 8);
+      c.rm[ro] = ram[row + f];
+      ++ro;
+    }
+    c.slot[so] = slot;
+    c.end[so] = ro;
+    ++so;
+  }
+}
+
+// first maximum of cap - used over the warp (the torch.argmax rule); every
+// lane returns it, and its headroom in *h
+__device__ __forceinline__ int headroom_argmax(const double* used,
+                                               const double* cap, int n,
+                                               double* h) {
+  const int lane = threadIdx.x & 31;
+  double best = -INFINITY;
+  int idx = 0x7fffffff;
+  for (int w = lane; w < n; w += 32) {
+    const double x = cap[w] - used[w];
+    if (x > best || idx == 0x7fffffff) {
+      best = x;
+      idx = w;
+    }
+  }
+  double m = best;
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmax(m, __shfl_xor_sync(FULL, m, off));
+  const unsigned mine =
+      (idx != 0x7fffffff && best == m) ? (unsigned)idx : 0xffffffffu;
+  unsigned c = __reduce_min_sync(FULL, mine);
+  if (c == 0xffffffffu) c = 0;
+  *h = cap[c] - used[c];
+  return (int)c;
+}
+
+__global__ void __launch_bounds__(RTHREADS)
 repair_kernel(const int64_t* order, const int64_t* trip, int K, int F,
               const uint8_t* alive, const uint8_t* done, const uint8_t* chain,
               const int32_t* stage, const int32_t* req, const double* ram,
-              const double* cap, int32_t* worker2, uint8_t* placed, int n) {
-  __shared__ double s_used[MAX_N], s_cap[MAX_N], s_head[MAX_N];
+              const double* cap, int32_t* worker2, uint8_t* placed, int n,
+              int ch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ double s_used[MAX_N], s_cap[MAX_N];
+  __shared__ int s_scan[2][GWARPS][2];
   const int g = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const size_t kf = (size_t)g * K * F;
+  const size_t k0 = (size_t)g * K;
+  const int64_t t64 = trip[g] < K ? trip[g] : K;
+  const int trips = t64 > 0 ? (int)t64 : 0;
+  const int nchunk = (trips + ch - 1) / ch;
+  const size_t cbytes = chunk_bytes(ch, F);
+
+  if (tid >= 32) {
+    // gather: chunk c into buffer c & 1, once the walk of chunk c - 2 left it
+    const int gt = tid - 32;
+    for (int c = 0; c < nchunk; ++c) {
+      const int b = c & 1;
+      if (c >= 2) bar_sync(BAR_EMPTY + b, RTHREADS);
+      const int i0 = c * ch;
+      gather_chunk(chunk_at(smem + b * cbytes, ch, F), gt,
+                   min(ch, trips - i0), order + k0 + i0,
+                   alive + k0, done + kf, chain + k0, stage + k0, req + kf,
+                   ram + kf, F, n, s_scan[b]);
+      bar_arrive(BAR_FULL + b, RTHREADS);
+    }
+    return;
+  }
+
+  // walk: every lane runs the scalar logic on broadcast shared-memory
+  // reads (warp-uniform branches); lane 0 alone stores, in walk order
+  const int lane = tid;
   for (int w = lane; w < n; w += 32) {
     s_used[w] = 0.0;
     s_cap[w] = cap[w];
   }
   __syncwarp();
-  const size_t kf = (size_t)g * K * F;
-  const size_t k0 = (size_t)g * K;
-  const int64_t trips = trip[g] < K ? trip[g] : K;
-  for (int64_t i = 0; i < trips; ++i) {
-    const int64_t slot = order[k0 + i];
-    const bool pb = alive[k0 + slot];
-    const bool ch = chain[k0 + slot];
-    const int st = stage[k0 + slot];
-    const size_t row = kf + (size_t)slot * F;
-    bool ok = true;
-    for (int f = 0; f < F; ++f) {
-      const bool act = pb && !done[row + f] && ok;
-      if (!act) continue;
-      const bool holds = !ch || f == st;
-      int w = req[row + f];
-      w = w < 0 ? 0 : (w > n - 1 ? n - 1 : w);
-      const double rm = ram[row + f];
-      const bool infeas = holds && (s_used[w] + rm > s_cap[w]);
-      int w2 = w;
-      bool admit = true;
-      if (infeas) {
-        for (int v = lane; v < n; v += 32) s_head[v] = s_cap[v] - s_used[v];
-        __syncwarp();
-        const int cand = warp_argmax(s_head, n);
-        const bool fb_ok = s_head[cand] >= rm;
-        __syncwarp();
-        if (fb_ok) {
-          w2 = cand;
-        } else {
-          admit = false;
-          ok = false;
+  // cached first maximum of the headroom and its value: it stays the first
+  // maximum while no admission lowered its headroom and none raised another
+  // worker's (an admission of RAM >= 0 only lowers one)
+  int cand = -1;
+  double hc = 0.0;
+  bool dirty = false;
+  for (int c = 0; c < nchunk; ++c) {
+    const int b = c & 1;
+    bar_sync(BAR_FULL + b, RTHREADS);
+    const Chunk cb = chunk_at(smem + b * cbytes, ch, F);
+    const int ns = *cb.nslot;
+    int r = 0;
+    for (int s = 0; s < ns; ++s) {
+      const int slot = cb.slot[s];
+      const int r1 = cb.end[s];
+      int32_t* w2row = worker2 + kf + (size_t)slot * F;
+      bool ok = true;
+      for (; r < r1; ++r) {
+        const int code = cb.code[r];
+        const double rm = cb.rm[r];
+        int w = code & 127;
+        if (code & 128) {
+          double u = s_used[w];
+          if (u + rm > s_cap[w]) {
+            if (cand < 0 || dirty || s_cap[cand] - s_used[cand] != hc) {
+              cand = headroom_argmax(s_used, s_cap, n, &hc);
+              dirty = false;
+            }
+            if (!(hc >= rm)) {
+              ok = false;
+              break;
+            }
+            w = cand;
+            u = s_used[cand];
+          }
+          s_used[w] = u + rm;
+          dirty = dirty || !(rm >= 0.0);
         }
+        if (lane == 0) w2row[code >> 8] = w;
       }
-      if (admit) {
-        if (lane == 0) {
-          worker2[row + f] = w2;
-          if (holds) s_used[w2] = s_used[w2] + rm;
-        }
-        __syncwarp();
+      if (!ok) {
+        if (lane == 0)
+          for (int f = 0; f < F; ++f) w2row[f] = -1;
+        r = r1;
       }
+      if (lane == 0) placed[k0 + slot] = ok;
     }
-    if (pb && !ok && lane == 0)
-      for (int f = 0; f < F; ++f) worker2[row + f] = -1;
-    if (pb && lane == 0) placed[k0 + slot] = ok;
-    __syncwarp();
+    if (c + 2 < nchunk) bar_arrive(BAR_EMPTY + b, RTHREADS);
   }
 }
 
@@ -184,12 +400,30 @@ extern "C" int repair_scan_launch(const void* order, const void* trip, int G,
                                   const void* ram, const void* cap,
                                   void* worker2, void* placed, int n,
                                   void* stream) {
-  if (n < 1 || n > MAX_N || G < 1 || K < 1 || F < 1)
+  if (n < 1 || n > MAX_N || G < 1 || K < 1 || F < 1 || F >= (1 << 23))
     return (int)cudaErrorInvalidValue;
-  repair_kernel<<<G, 32, 0, (cudaStream_t)stream>>>(
+  const int ch = repair_chunk(F);
+  if (ch < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * chunk_bytes(ch, F);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        repair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  repair_kernel<<<G, RTHREADS, smem, (cudaStream_t)stream>>>(
       (const int64_t*)order, (const int64_t*)trip, K, F,
       (const uint8_t*)alive, (const uint8_t*)done, (const uint8_t*)chain,
       (const int32_t*)stage, (const int32_t*)req, (const double*)ram,
-      (const double*)cap, (int32_t*)worker2, (uint8_t*)placed, n);
+      (const double*)cap, (int32_t*)worker2, (uint8_t*)placed, n, ch);
   return (int)cudaGetLastError();
+}
+
+// walk layout for F fragments per slot: out = {warps per CTA, slots per
+// chunk, dynamic shared memory bytes}
+extern "C" void repair_scan_plan(int F, int* out) {
+  const int ch = repair_chunk(F);
+  out[0] = REPAIR_WARPS;
+  out[1] = ch;
+  out[2] = ch < 1 ? 0 : (int)(2 * chunk_bytes(ch, F));
 }

@@ -7,10 +7,12 @@ the operands in ``CARRY_NAMES + STATIC_NAMES`` order and returns the
 operand except the shared cluster rows ``mips``/``cap``/``net_bw``.
 
 Dispatch is by the tensors' device: a CUDA tensor launches the kernel
-(``csrc/edge_substep.cu``, one CTA per grid cell, the substep loop inside
-the kernel), a CPU tensor runs the eager twin ``ref.edge_substep_ref``.
-There is no fallback from one to the other.  ``edge_substep.launches``
-counts kernel launches.
+(``csrc/edge_substep.cu``, a thread-block cluster per grid cell, the
+substep loop inside the kernel), a CPU tensor runs the eager twin
+``ref.edge_substep_ref``.  There is no fallback from one to the other: a
+launch the card refuses raises with its CUDA error.
+``edge_substep.launches`` counts kernel launches; ``edge_substep_plan``
+reports the launch shape the kernel takes for a grid.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.kernels.ref import (CARRY_NAMES, OUT_NAMES, SHARED_NAMES,
                                      STATIC_NAMES, edge_substep_ref)
 
 __all__ = ["CARRY_NAMES", "STATIC_NAMES", "OUT_NAMES", "edge_substep",
-           "edge_substep_cuda"]
+           "edge_substep_cuda", "edge_substep_plan"]
 
 f8, i4, b1 = torch.float64, torch.int32, torch.bool
 
@@ -94,9 +96,35 @@ def edge_substep_cuda(*args, substeps: int, dt: float, swap_slowdown: float,
                 float(swap_slowdown), float(nic_cap), stream)
     if rc != 0:
         raise RuntimeError(f"edge_substep kernel launch failed: CUDA error "
-                           f"{rc}")
+                           f"{rc} ({_error_string(lib, rc)})")
     edge_substep.launches += 1
     return outs
+
+
+def _error_string(lib, rc):
+    fn = lib.edge_substep_error_string
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    return fn(rc).decode()
+
+
+def edge_substep_plan(G: int, K: int, F: int) -> dict:
+    """The kernel's launch shape for G cells of K tasks and F fragments
+    (builds the library on first use; needs a CUDA device): CTAs per
+    cluster, threads per CTA, dynamic shared memory per CTA, whether the
+    carries stay on chip, and how many clusters the card runs at once."""
+    lib = LIBRARIES.get("edge_substep")
+    fn = lib.edge_substep_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 5)()
+    rc = fn(G, K, F, out)
+    if rc != 0:
+        raise RuntimeError(f"edge_substep_plan: CUDA error {rc} "
+                           f"({_error_string(lib, rc)})")
+    return {"cluster": out[0], "threads": out[1], "smem_bytes": out[2],
+            "on_chip": bool(out[3]), "max_active_clusters": out[4]}
 
 
 def edge_substep(instr, done, transfer, stage, task_done, resp, now,

@@ -6,10 +6,12 @@ admission order and repairs RAM-infeasible requests.  Both are greedy
 sequences (each step sees the previous steps' RAM), batched over grid
 cells, and each cell stops at its own trip count.
 
-On CUDA tensors each runs its kernel in ``csrc/placement.cu`` (one warp
-per cell, no host round trip); on CPU tensors the eager twins below run,
-one Python iteration per step to the grid's largest trip count, masking
-each cell's steps past its own.  ``bestfit_scan.launches`` and
+On CUDA tensors each runs its kernel in ``csrc/placement.cu`` (a CTA per
+cell, no host round trip: BestFit walks with one warp; the repair gathers
+the walked slots into shared memory with three warps while a fourth walks
+them, ``repair_scan_plan`` gives the layout); on CPU tensors the eager
+twins below run, one Python iteration per step to the grid's largest trip
+count, masking each cell's steps past its own.  ``bestfit_scan.launches`` and
 ``repair_scan.launches`` count kernel launches.  In the JAX reference
 these are the ``lax.fori_loop`` bodies of ``repro.env.jaxsim.kernels
 .bestfit_requests`` and ``.apply_requests``.
@@ -227,3 +229,16 @@ def repair_scan_cuda(order, trip, alive, done, chain, stage, req, ram, cap,
 
 
 repair_scan.launches = 0
+
+
+def repair_scan_plan(F: int) -> dict:
+    """The repair kernel's layout for F fragments per slot (builds the
+    library on first use): warps per CTA (one walks, the others gather),
+    slots per gathered chunk, dynamic shared memory per CTA (two chunk
+    buffers)."""
+    fn = LIBRARIES.get("placement").repair_scan_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 3)()
+    fn(F, out)
+    return {"warps": out[0], "chunk": out[1], "smem_bytes": out[2]}

@@ -103,3 +103,25 @@ def substep_fuzz(rng: np.random.RandomState, k: int = 12, f: int = 4,
         cap=rng.uniform(4.0, 16.0, n),
         net_bw=rng.uniform(100.0, 1000.0, n),
     )
+
+
+def repair_fuzz(rng: np.random.RandomState, g: int, k: int, f: int, n: int,
+                trip=None, cap_lo: float = 2.0, cap_hi: float = 12.0):
+    """Operands of ``placement.repair_scan`` for g cells of k slots, f
+    fragments and n workers, as numpy arrays in operand order: each row of
+    ``order`` a permutation of the slots, ``trip`` (g,) drawn in [0, k]
+    unless given, requests in [-2, n + 2) (the kernel clamps them), chain
+    stages in [0, f] and fragment RAM of 0.1–4 against capacities in
+    [cap_lo, cap_hi), so that fallbacks and failed tasks occur."""
+    order = np.stack([rng.permutation(k) for _ in range(g)]).astype(np.int64)
+    if trip is None:
+        trip = rng.randint(0, k + 1, g)
+    return (order, np.asarray(trip, dtype=np.int64),
+            rng.rand(g, k) < 0.8, rng.rand(g, k, f) < 0.3,
+            rng.rand(g, k) < 0.4,
+            rng.randint(0, f + 1, (g, k)).astype(np.int32),
+            rng.randint(-2, n + 2, (g, k, f)).astype(np.int32),
+            rng.uniform(0.1, 4.0, (g, k, f)),
+            rng.uniform(cap_lo, cap_hi, n),
+            rng.randint(-1, n, (g, k, f)).astype(np.int32),
+            rng.rand(g, k) < 0.5)

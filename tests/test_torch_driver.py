@@ -8,6 +8,11 @@
     fleet with a tenth of its RAM (where the feasibility repair walks the
     live slots every interval); the reference runs in a child interpreter
     (``_torch_ref``);
+  * single traces match the EdgeSim oracle (the reference's host
+    simulator replayed through the same compiled trace,
+    ``repro.env.jaxsim.reference.replay_trace_edgesim``) at the North
+    star's rtol=1e-4 on the three cases of ``tests/test_jaxsim_parity.py``:
+    BestFit at two λ, RAM pressure, layer chains;
   * a grid equals its cells run one by one;
   * ``run_grid_batched`` returns one record per (λ, seed) cell and
     refuses what is not ported yet.
@@ -81,6 +86,55 @@ with open(OUT, "w") as f:
 """, out)
     with open(out) as f:
         return json.load(f)
+
+
+#: the cases of tests/test_jaxsim_parity.py, at its own sizes: name ->
+#: (policy, λ, seed, ram_scale, n_intervals, substeps)
+EDGESIM_CASES = {"bestfit-lam4": ("bestfit-rr", 4.0, 0, 1.0, 20, 10),
+                 "bestfit-lam9": ("bestfit-rr", 9.0, 0, 1.0, 20, 10),
+                 "ram-pressure": ("mc", 14.0, 2, 0.35, 12, 8),
+                 "layer-chains": ("bestfit-layer", 8.0, 3, 1.0, 15, 10)}
+EDGESIM_RTOL, EDGESIM_ATOL = 1e-4, 1e-9
+
+
+@pytest.fixture(scope="module")
+def edgesim(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_edgesim") / "summaries.json"
+    run_reference(f"""
+import json
+from repro.env.cluster import make_cluster
+from repro.env.jaxsim import (compile_trace, make_static_decider,
+                              replay_trace_edgesim)
+res = {{}}
+for name, (pol, lam, seed, scale, T, S) in {EDGESIM_CASES!r}.items():
+    cl = make_cluster(ram_scale=scale)
+    tr = compile_trace(make_static_decider(pol), lam=lam, seed=seed,
+                       n_intervals=T, substeps=S, cluster=cl)
+    res[name] = replay_trace_edgesim(tr, cluster=cl)
+with open(OUT, "w") as f:
+    json.dump(res, f)
+""", out)
+    with open(out) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("case", sorted(EDGESIM_CASES))
+def test_trace_matches_edgesim_oracle(edgesim, case):
+    policy, lam, seed, scale, T, S = EDGESIM_CASES[case]
+    cluster = make_cluster(ram_scale=scale)
+    tr = compile_trace(make_static_decider(policy), lam=lam, seed=seed,
+                       n_intervals=T, substeps=S, cluster=cluster)
+    got = run_trace_arrays(tr, cluster=cluster, device="cpu")
+    want = edgesim[case]
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert np.isclose(got[k], v, rtol=EDGESIM_RTOL, atol=EDGESIM_ATOL), \
+            f"{case} {k}: edgesim={v!r} port={got[k]!r}"
+    assert got["tasks_completed"] > 0 and got["dropped_tasks"] == 0
+    if case == "ram-pressure":
+        assert want["wait_intervals"] > 0     # the repair failed tasks
+    if case == "layer-chains":
+        assert want["layer_fraction"] == 1.0
 
 
 def test_golden_static_bestfit_rr():

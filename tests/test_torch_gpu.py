@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ref import substep_fuzz
+from _torch_ref import repair_fuzz, substep_fuzz
 from repro_torch.kernels.edge_substep import OUT_NAMES, edge_substep
 from repro_torch.kernels.ref import (CARRY_NAMES, SHARED_NAMES, STATIC_NAMES,
                                      edge_substep_ref)
@@ -110,6 +110,138 @@ def test_placement_kernels_match_twins(cuda):
             state, acc, trace["bw_mult"][:, t], cl, 4, 75.0, 300.0, 0.5)
         state["alive"] = state["alive"] & ~state["task_done"]
     assert walked > 0
+
+
+def _substep_case(cuda, seed, substeps, **shape):
+    """The kernel and the twin on one fuzzed grid: float64 at rtol=1e-12,
+    bools and ints exact, and two launches bitwise identical."""
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in _inputs(seed, **shape)]
+    kw = dict(KW, substeps=substeps)
+    got = edge_substep(*args, **kw)
+    again = edge_substep(*args, **kw)
+    torch.cuda.synchronize()
+    _check(got, edge_substep_ref(*args, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return args
+
+
+#: edge_substep shapes beside the fuzz: (k, f, n, grid, substeps); K not a
+#: multiple of the cluster, K below it, more clusters than one wave of the
+#: card, one and 128 workers, no substep
+SUBSTEP_SHAPES = [(301, 8, 50, 3, 7), (5, 4, 6, 2, 7), (40, 8, 50, 33, 5),
+                  (60, 4, 1, 2, 7), (300, 8, 128, 2, 7), (64, 8, 50, 2, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SUBSTEP_SHAPES)
+def test_substep_shapes_match_twin(cuda, shape):
+    from repro_torch.kernels.edge_substep import edge_substep_plan
+    k, f, n, grid, substeps = shape
+    plan = edge_substep_plan(grid, k, f)
+    assert plan["on_chip"] and plan["max_active_clusters"] > 0
+    _substep_case(cuda, 7, substeps, k=k, f=f, n=n, grid=grid)
+
+
+@pytest.mark.gpu
+def test_substep_past_shared_memory_matches_twin(cuda):
+    """G=1, K=20000: one CTA's share of the tasks does not fit shared
+    memory, so the carries stay in global memory; same kernel, same
+    results."""
+    from repro_torch.kernels.edge_substep import edge_substep_plan
+    plan = edge_substep_plan(1, 20000, 8)
+    assert not plan["on_chip"] and plan["cluster"] >= 1
+    _substep_case(cuda, 11, 5, k=20000, f=8, n=50, grid=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(4))
+def test_substep_out_of_range_stage_matches_twin(cuda, seed):
+    """stage == F on placed, unfinished chains with undone columns (the
+    fill semantics of ``tests/test_torch_edge_substep.py``), on a grid."""
+    names = CARRY_NAMES + STATIC_NAMES
+    args = [np.array(a) for a in _inputs(40 + seed, k=48, f=4, n=6, grid=3)]
+    named = dict(zip(names, args))
+    rows = np.arange(0, 48, 3)
+    named["chain"][:, rows] = True
+    named["placed"][:, rows] = True
+    named["task_done"][:, rows] = False
+    named["stage"][:, rows] = 4
+    named["done"][:, rows, 0] = False
+    named["worker"][:, rows, 0] = 1
+    named["instr"][:, rows, 0] = 5.0
+    named["transfer"][:, rows, :] = 3.0
+    args = [torch.from_numpy(np.ascontiguousarray(named[k])).to(cuda)
+            for k in names]
+    got = edge_substep(*args, **KW)
+    again = edge_substep(*args, **KW)
+    _check(got, edge_substep_ref(*args, **KW))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _repair_case(cuda, ops):
+    """The repair kernel against its twin: exactly equal, and two launches
+    identical; returns the kernel's (worker, placed)."""
+    from repro_torch.kernels import placement
+    ops = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in ops]
+    got = placement.repair_scan(*ops)
+    again = placement.repair_scan(*ops)
+    want = placement.repair_scan_ref(*ops)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    return got
+
+
+@pytest.mark.gpu
+def test_repair_mixes_trip_zero_and_long_walks(cuda):
+    trip = [0, 900, 0, 1000, 5, 0]
+    _repair_case(cuda, repair_fuzz(np.random.RandomState(0), 6, 1000, 8, 50,
+                                   trip=trip, cap_lo=40.0, cap_hi=120.0))
+
+
+@pytest.mark.gpu
+def test_repair_every_fragment_infeasible(cuda):
+    ops = repair_fuzz(np.random.RandomState(1), 2, 300, 8, 50, trip=[300,
+                      300], cap_lo=0.01, cap_hi=0.05)
+    worker, placed = _repair_case(cuda, ops)
+    walked = ops[2] & (~ops[3]).any(axis=2)      # alive, some fragment acts
+    holds = (~ops[4])[..., None] | (np.arange(8) == ops[5][..., None])
+    fails = walked & ((~ops[3]) & holds).any(axis=2)
+    assert fails.any() and not placed.cpu().numpy()[fails].any()
+
+
+@pytest.mark.gpu
+def test_repair_fails_mid_row_and_keeps_ram(cuda):
+    """Slot 0's third fragment fits nowhere: the task fails (workers -1),
+    but the RAM its first two fragments took stays taken, so slot 1, which
+    would fit an empty worker, fails too."""
+    order = np.array([[0, 1]], dtype=np.int64)
+    trip = np.array([2], dtype=np.int64)
+    alive = np.ones((1, 2), dtype=bool)
+    done = np.array([[[False, False, False], [False, True, True]]])
+    chain = np.zeros((1, 2), dtype=bool)
+    stage = np.zeros((1, 2), dtype=np.int32)
+    req = np.zeros((1, 2, 3), dtype=np.int32)
+    ram = np.array([[[6.0, 6.0, 20.0], [4.5, 1.0, 1.0]]])
+    cap = np.array([10.0, 10.0])
+    worker2 = req.copy()
+    placed = np.zeros((1, 2), dtype=bool)
+    worker, placed = _repair_case(cuda, (order, trip, alive, done, chain,
+                                         stage, req, ram, cap, worker2,
+                                         placed))
+    assert worker.cpu().tolist() == [[[-1, -1, -1], [-1, -1, -1]]]
+    assert placed.cpu().tolist() == [[False, False]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("delta", (-1, 0, 1))
+def test_repair_chunk_boundary_trips(cuda, delta):
+    from repro_torch.kernels import placement
+    chunk = placement.repair_scan_plan(8)["chunk"]
+    trips = [2 * chunk + delta, chunk + delta, 3 * chunk + delta]
+    _repair_case(cuda, repair_fuzz(np.random.RandomState(2 + delta), 3,
+                                   4 * chunk, 8, 50, trip=trips,
+                                   cap_lo=30.0, cap_hi=80.0))
 
 
 FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)

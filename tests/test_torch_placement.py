@@ -7,12 +7,20 @@ first-maximum BestFit choices with RAM-aware score updates, the repair's
 most-headroom fallback and whole-task failure, and per-cell trip counts
 under grid batching.  The CUDA kernels are held against these twins in
 ``test_torch_gpu.py`` and by ``chip_smoke.py``.
+
+The repair kernel does not walk the operands as the twin does: it gathers
+the walked slots into compacted records a chunk at a time, then walks the
+records with a cached headroom argmax.  ``_gather_walk`` below is a plain
+emulation of that order, held bitwise against the twin here, where the
+kernel itself cannot run.
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
+from _torch_ref import repair_fuzz
 from repro_torch.kernels import placement
 
 f8, i4, i8 = torch.float64, torch.int32, torch.int64
@@ -132,3 +140,154 @@ def test_kernel_wrappers_reject_bad_operands():
         placement.repair_scan_cuda(order, torch.tensor([3]), alive, done,
                                    chain, stage, req, ram.float(), cap, w2,
                                    placed)
+
+
+# ------------------------------------------- the repair kernel's walk order
+
+
+def _gather_walk(order, trip, alive, done, chain, stage, req, ram, cap,
+                 worker2, placed, chunk, stats=None):
+    """Plain emulation of ``repair_kernel`` in ``csrc/placement.cu``.
+
+    Per cell, the walk steps are taken ``chunk`` at a time.  Gather: a
+    slot that is not alive is dropped; each kept slot gives one record
+    per fragment that is not done (clamped requested worker, whether it
+    holds RAM, its column, its RAM) and a slot-boundary mark (the end of
+    its records).  Walk: the records alone, with the per-worker RAM in
+    use and a cached first maximum of the headroom that is recomputed
+    only when an admission may have moved it.  The kernel stores each
+    result as the walk makes it; nothing in the walk reads them, so here
+    a chunk's writes are collected and applied at its end, in walk
+    order, which leaves the same tensors.  ``stats`` counts fallbacks,
+    failed tasks, argmax recomputes and reuses."""
+    G, K, F = req.shape
+    n = cap.shape[0]
+    order, trip, alive, done, chain, stage, req, ram = (
+        t.numpy() for t in (order, trip, alive, done, chain, stage, req,
+                            ram))
+    capl = cap.tolist()
+    w2, pl = worker2.clone().numpy(), placed.clone().numpy()
+    st = stats if stats is not None else {}
+    for key in ("fallback", "failed", "argmax", "reused"):
+        st.setdefault(key, 0)
+    for g in range(G):
+        trips = max(0, min(int(trip[g]), K))
+        used = [0.0] * n
+        cand, hc, dirty = -1, 0.0, False
+        for i0 in range(0, trips, chunk):
+            slots, ends, recs = [], [], []
+            for i in range(i0, min(i0 + chunk, trips)):
+                slot = int(order[g, i])
+                if not alive[g, slot]:
+                    continue
+                ch, sg = bool(chain[g, slot]), int(stage[g, slot])
+                for f in range(F):
+                    if not done[g, slot, f]:
+                        w = min(max(int(req[g, slot, f]), 0), n - 1)
+                        recs.append((w, not ch or f == sg, f,
+                                     float(ram[g, slot, f])))
+                slots.append(slot)
+                ends.append(len(recs))
+            writes, r = [], 0
+            for slot, end in zip(slots, ends):
+                ok = True
+                while r < end:
+                    w, holds, f, rm = recs[r]
+                    if holds:
+                        u = used[w]
+                        if u + rm > capl[w]:
+                            if cand < 0 or dirty or \
+                                    capl[cand] - used[cand] != hc:
+                                head = [capl[v] - used[v] for v in range(n)]
+                                cand = max(range(n),
+                                           key=lambda v: (head[v], -v))
+                                hc, dirty = head[cand], False
+                                st["argmax"] += 1
+                            else:
+                                st["reused"] += 1
+                            if not hc >= rm:
+                                ok = False
+                                break
+                            w, u = cand, used[cand]
+                            st["fallback"] += 1
+                        used[w] = u + rm
+                        dirty = dirty or not rm >= 0.0
+                    writes.append((slot, f, w))
+                    r += 1
+                if not ok:
+                    writes.extend((slot, f, -1) for f in range(F))
+                    r = end
+                    st["failed"] += 1
+                writes.append((slot, None, ok))
+            for slot, f, v in writes:
+                if f is None:
+                    pl[g, slot] = v
+                else:
+                    w2[g, slot, f] = v
+    return torch.from_numpy(w2), torch.from_numpy(pl)
+
+
+def _fuzz_ops(seed):
+    rng = np.random.RandomState(seed)
+    g, k, f, n = (rng.randint(1, 4), rng.randint(1, 80), rng.randint(1, 9),
+                  rng.randint(1, 12))
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in repair_fuzz(rng, g, k, f, n)]
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_gather_walk_matches_twin_fuzzed(seed):
+    ops = _fuzz_ops(seed)
+    want = placement.repair_scan_ref(*ops)
+    for chunk in (1, 3, 64):
+        got = _gather_walk(*ops, chunk)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), chunk
+
+
+def test_gather_walk_fuzz_reaches_every_path():
+    """The fuzz above takes fallbacks, fails tasks, and both recomputes
+    and reuses the cached headroom argmax."""
+    stats = {}
+    for seed in range(6):
+        _gather_walk(*_fuzz_ops(seed), 3, stats)
+    assert min(stats.values()) > 0, stats
+
+
+def test_gather_walk_matches_twin_on_real_intervals():
+    """Every interval of the small tenth-RAM grid that
+    ``test_placement_kernels_match_twins`` runs on the card, here on the
+    CPU: the emulation equals the twin at chunks of 1, 7 and 64 slots."""
+    from repro_torch.env.cluster import make_cluster
+    from repro_torch.env.torchsim import driver, engines, kernels
+    from repro_torch.env.torchsim.arrays import (ClusterArrays,
+                                                 compile_trace,
+                                                 default_capacity,
+                                                 stack_traces, to_device)
+    from repro_torch.env.torchsim.policies import make_static_decider
+    cpu = torch.device("cpu")
+    cluster = make_cluster(ram_scale=0.1)
+    traces = [compile_trace(make_static_decider("bestfit-rr"), lam=8.0,
+                            seed=s, n_intervals=6, substeps=4,
+                            cluster=cluster) for s in range(3)]
+    trace = to_device(stack_traces(traces), cpu)
+    cl = to_device(ClusterArrays.from_cluster(cluster).as_dict(), cpu)
+    G, F, n = len(traces), trace["instr"].shape[-1], cl["ram"].shape[0]
+    state = kernels.init_state(G, default_capacity(traces), F, n, cpu)
+    acc = driver._init_acc(G, n, cpu)
+    walked = 0
+    for t in range(6):
+        arr, _ = engines.StaticEngine().decide({}, trace, t)
+        state = kernels.admit(state, arr)
+        req = placement.bestfit_scan(*kernels.bestfit_operands(state, cl))
+        ops = kernels.repair_operands(state, cl, req)
+        want = placement.repair_scan_ref(*ops)
+        for chunk in (1, 7, 64):
+            got = _gather_walk(*ops, chunk)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+                (t, chunk)
+        walked += int(ops[1].sum())
+        state = kernels.apply_requests(state, cl, req)
+        state, acc, _ = driver._interval_physics(
+            state, acc, trace["bw_mult"][:, t], cl, 4, 75.0, 300.0, 0.5)
+        state["alive"] = state["alive"] & ~state["task_done"]
+    assert walked > 0

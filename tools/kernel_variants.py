@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time variants of two CUDA kernels of the port side by side on one GPU.
+"""Time variants of the port's CUDA kernels side by side on one GPU.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py [flash|rglru [NAME ...]]
+    PYTHONPATH=src python3 tools/kernel_variants.py [flash|rglru|sim [NAME ...]]
 
 Builds text variants of ``csrc/rglru_scan.cu`` (CTA size 32/64/128 ×
 steps per register buffer 4/8/16) and of the bfloat16 tensor-core kernel
@@ -22,6 +22,19 @@ and round (two rounds, in turns), and a JSON line of the medians.  An
 argument limits the run to one kernel, and further ones to the variants
 whose names contain one of them.  Exits non-zero without a GPU or
 when a variant disagrees with the twin.
+
+``sim`` builds variants of the two simulator kernels and times them at
+one real interval of the main-path grid (``chip_smoke.main_path_interval``:
+G=16, K=2464, F=8, n=50, 30 substeps) from CUDA graphs, in turns, holding
+each against its twin (``edge_substep`` at rtol=1e-12 with bools and ints
+exact, ``repair_scan`` exactly): ``csrc/edge_substep.cu`` with 1, 2, 4, 8
+and 16 CTAs per cluster (16 is a non-portable cluster size) and 128 or
+256 threads per CTA, and the repair of ``csrc/placement.cu`` with 2, 4 or
+8 warps per CTA and 32 to 256 slots per gathered chunk.  The committed
+values name the fastest.  It also times the committed ``edge_substep`` at
+0, 1 and 30 substeps (the cost of one substep) and builds a profiling
+copy of it that stamps ``clock64()`` at each phase of each substep, and
+prints the mean cycles per phase for rank 0 and the last rank of cell 0.
 """
 from __future__ import annotations
 
@@ -76,11 +89,73 @@ def _sub(src, pairs):
     return src
 
 
+#: the profiling copy of edge_substep.cu: clock64() stamps of thread 0 of
+#: each CTA of cell 0, per substep (row step + 1) before the census (0),
+#: after its CTA barrier (1), after the cluster barrier (2), after the
+#: next CTA barrier (3) and after the burn-down and its barrier (4); in row
+#: 0 at entry (5),
+#: before the substep loop (6) and before the last cluster barrier (7)
+PROF_STEPS = 64
+PROF_HEAD = f"""
+__device__ long long prof_stamps[16 * {PROF_STEPS + 1} * 8];
+extern "C" int prof_read(long long* out) {{
+  return (int)cudaMemcpyFromSymbol(out, prof_stamps, sizeof(prof_stamps));
+}}
+"""
+_ENTRY = ("  const int g = blockIdx.x / CLUSTER;\n"
+          "  const int tid = threadIdx.x;\n")
+
+
+def _stamp(phase, indent):
+    row = "0" if phase >= 5 else f"(step < {PROF_STEPS} ? step + 1 : 0)"
+    return (f"{indent}if (g == 0 && tid == 0) prof_stamps[(rank * "
+            f"{PROF_STEPS + 1} + {row}) * 8 + {phase}] = clock64();\n")
+
+
+def _profiled(src):
+    src = src.replace("namespace {", PROF_HEAD + "\nnamespace {", 1)
+    edits = [(_ENTRY, _ENTRY + _stamp(5, "  "))]
+    for phase, mark in enumerate(("    // ---- 1. census",
+                                  "    // ---- 2. this CTA's",
+                                  "    // ---- 3. the cell's",
+                                  "    // ---- 4. burn-down")):
+        edits.append((mark, _stamp(phase, "    ") + mark))
+    end = "    now_s = now_s + dt;\n  }"
+    edits.append((end, "    now_s = now_s + dt;\n" + _stamp(4, "    ")
+                  + "  }"))
+    for phase, mark in ((6, "  double now_s = p.now[g];"),
+                        (7, "  // no CTA leaves while")):
+        edits.append((mark, _stamp(phase, "  ") + mark))
+    return _sub(src, edits)
+
+
+def sim_variants(csrc):
+    """{name: (source, kind)} of the simulator kernels' variants."""
+    es = (csrc / "edge_substep.cu").read_text()
+    pc = (csrc / "placement.cu").read_text()
+    out = {}
+    for c in (1, 2, 4, 8, 16):
+        for t in (128, 256):
+            out[f"sim_edge_c{c}_t{t}"] = (_sub(es, [
+                ("constexpr int CLUSTER = 8;", f"constexpr int CLUSTER = {c};"),
+                ("constexpr int THREADS = 256;",
+                 f"constexpr int THREADS = {t};")]), "sim_edge")
+    out["sim_edge_prof"] = (_profiled(es), "sim_prof")
+    for w in (2, 4, 8):
+        for ch in (32, 64, 128, 256):
+            out[f"sim_repair_w{w}_ch{ch}"] = (_sub(pc, [
+                ("constexpr int REPAIR_WARPS = 4;",
+                 f"constexpr int REPAIR_WARPS = {w};"),
+                ("constexpr int REPAIR_CHUNK = 64;",
+                 f"constexpr int REPAIR_CHUNK = {ch};")]), "sim_repair")
+    return out
+
+
 def variants(csrc):
     """{name: (source, kernel)} of every variant."""
     rg = (csrc / "rglru_scan.cu").read_text()
     fa = (csrc / "flash_attention.cu").read_text()
-    out = {}
+    out = sim_variants(csrc)
     for threads in (32, 64, 128):
         for u in (4, 8, 16):
             out[f"rglru_t{threads}_u{u}"] = (_sub(rg, [
@@ -165,13 +240,142 @@ def _flash_call(fn, name, q, k, v, o, causal, window, stream):
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
+def _edge_launcher(lib):
+    fn = lib.edge_substep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                   ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+    return fn
+
+
+def _edge_call(fn, name, args, outs, kw):
+    import torch
+    G, K, F = args[8].shape
+    n = args[20].shape[0]
+    ptrs = (ctypes.c_void_p * (len(args) + len(outs)))(
+        *[t.data_ptr() for t in args], *[t.data_ptr() for t in outs])
+    rc = fn(ptrs, G, K, F, n, kw["substeps"], kw["dt"], kw["swap_slowdown"],
+            kw["nic_cap"], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def _repair_call(lib, name, ops, worker2, placed):
+    import torch
+    fn = lib.repair_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+                       ctypes.c_int, ctypes.c_void_p]
+    G, K, F = ops[6].shape
+    rc = fn(ops[0].data_ptr(), ops[1].data_ptr(), G, K, F,
+            *[t.data_ptr() for t in ops[2:9]], worker2.data_ptr(),
+            placed.data_ptr(), ops[8].shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def sim_main(table, libs, times):
+    """Time the simulator kernels' variants at a main-path interval."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels import placement
+    from repro_torch.kernels.edge_substep import OUT_NAMES, edge_substep_cuda
+    from repro_torch.kernels.ref import edge_substep_ref
+    kinds = {kind: [n for n, (_, k) in table.items() if k == kind]
+             for kind in ("sim_edge", "sim_prof", "sim_repair")}
+    if not any(kinds.values()):
+        return
+    _, repair, args, kw = chip_smoke.main_path_interval()
+    G, K, F = args[8].shape
+    print(f"sim: main-path interval G={G} K={K} F={F} "
+          f"n={args[20].shape[0]} substeps={kw['substeps']}, "
+          f"{int(repair[1].max())} repair slots in the longest cell",
+          flush=True)
+    want = edge_substep_ref(*args, **kw)
+    outs = [torch.empty_like(w) for w in want]
+    for name in kinds["sim_edge"]:
+        fn = _edge_launcher(libs[name])
+        _edge_call(fn, name, args, outs, kw)
+        again = [torch.empty_like(w) for w in want]
+        _edge_call(fn, name, args, again, kw)
+        torch.cuda.synchronize()
+        chip_smoke.compare(outs, want, OUT_NAMES, name)
+        if not chip_smoke.bitwise_equal(outs, again):
+            raise AssertionError(f"{name}: two runs differ")
+    rwant = placement.repair_scan_ref(*repair)
+    for name in kinds["sim_repair"]:
+        w2, pl = repair[9].clone(), repair[10].clone()
+        _repair_call(libs[name], name, repair, w2, pl)
+        torch.cuda.synchronize()
+        if not (torch.equal(w2, rwant[0]) and torch.equal(pl, rwant[1])):
+            raise AssertionError(f"{name}: differs from the twin")
+    for rnd in range(2):
+        for name in kinds["sim_edge"]:
+            fn = _edge_launcher(libs[name])
+            ms = chip_smoke.graph_ms(
+                lambda: _edge_call(fn, name, args, outs, kw), 20)
+            times.setdefault(name, []).append(ms)
+            print(f"round {rnd} {name}: {ms:.5f} ms/call, "
+                  f"{ms * 1e3 / kw['substeps']:.3f} us/substep, equal to "
+                  f"the twin", flush=True)
+        for name in kinds["sim_repair"]:
+            w2, pl = repair[9].clone(), repair[10].clone()
+            ms = chip_smoke.graph_ms(
+                lambda: _repair_call(libs[name], name, repair, w2, pl), 20)
+            times.setdefault(name, []).append(ms)
+            print(f"round {rnd} {name}: {ms:.5f} ms/call, "
+                  f"{ms * 1e6 / int(repair[1].max()):.1f} ns per slot of "
+                  f"the longest walk, equal to the twin", flush=True)
+    if kinds["sim_edge"]:
+        per = {}
+        for steps in (0, 1, kw["substeps"]):
+            kws = dict(kw, substeps=steps)
+            per[steps] = chip_smoke.graph_ms(
+                lambda: edge_substep_cuda(*args, **kws), 20)
+        one = (per[kw["substeps"]] - per[1]) / (kw["substeps"] - 1)
+        print(f"committed edge_substep: {per[0]:.5f} ms at 0 substeps, "
+              f"{per[1]:.5f} at 1, {per[kw['substeps']]:.5f} at "
+              f"{kw['substeps']}: {one * 1e3:.3f} us per further substep",
+              flush=True)
+    for name in kinds["sim_prof"]:
+        fn = _edge_launcher(libs[name])
+        _edge_call(fn, name, args, outs, kw)
+        torch.cuda.synchronize()
+        chip_smoke.compare(outs, want, OUT_NAMES, name)
+        read = libs[name].prof_read
+        read.restype = ctypes.c_int
+        read.argtypes = [ctypes.c_void_p]
+        stamps = np.zeros(16 * (PROF_STEPS + 1) * 8, dtype=np.int64)
+        if read(stamps.ctypes.data) != 0:
+            raise RuntimeError(f"{name}: prof_read failed")
+        stamps = stamps.reshape(16, PROF_STEPS + 1, 8)
+        c = int(re.search(r"constexpr int CLUSTER = (\d+);",
+                          table[name][0]).group(1))
+        steps = min(kw["substeps"], PROF_STEPS)
+        for rank in sorted({0, c - 1}):
+            st = stamps[rank]
+            body = st[1:steps + 1]
+            ph = [float(np.mean(body[:, j + 1] - body[:, j]))
+                  for j in range(4)]
+            print(f"{name} cell 0 rank {rank}: set-up "
+                  f"{st[0, 6] - st[0, 5]} cycles; per substep (mean of "
+                  f"{steps}) census {ph[0]:.0f}, CTA partials + cluster "
+                  f"barrier {ph[1]:.0f}, cluster totals + CTA barrier "
+                  f"{ph[2]:.0f}, burn-down + CTA barrier {ph[3]:.0f} cycles; loop "
+                  f"{st[0, 7] - st[0, 6]} cycles to the end", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     only = sys.argv[1] if len(sys.argv) > 1 else None
-    if only not in (None, "flash", "rglru"):
+    if only not in (None, "flash", "rglru", "sim"):
         print(f"kernel_variants: unknown kernel {only!r}", file=sys.stderr)
         return 2
     from repro_torch.kernels.build import BUILD_DIR, CSRC
@@ -189,6 +393,7 @@ def main() -> int:
                  str(BUILD_DIR / "variants"))
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
+    sim_main(table, libs, times)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (4, 1024, 4096)
