@@ -11,17 +11,22 @@ the shapes of ``tests/test_torch_gpu.py`` (``edge_substep`` at K not a
 multiple of its cluster, K below it, G=33, n=1 and 128, no substep,
 K=20000 past its shared memory, out-of-range stages; the repair at
 trip-0 cells beside long walks, every fragment infeasible, a mid-row
-failure and chunk-boundary trips) and one real main-path interval,
-timed there from CUDA graphs (float64 at rtol=1e-12, bools and ints
-exact, bitwise identical over two runs); flash attention (bfloat16 on the
+failure and chunk-boundary trips; BestFit at 1 to 128 workers with and
+without ties, -0.0 before +0.0, steps no worker fits and trips at its
+staging chunk's boundaries) and one real main-path interval, timed
+there from CUDA graphs (float64 at rtol=1e-12, bools and ints exact,
+bitwise identical over two runs; BestFit also at the run's longest walk);
+flash attention (bfloat16 on the
 tensor cores, float32 on the CUDA cores) at the reference's test shapes,
 at the tile edges of the bfloat16 kernel, at every attention shape of the
 serving paths, full forward and one semantic branch, and at a 4096-token
 shape where recurrentgemma's 2048-token window bites (atol 2e-5 in
 float32, 2e-2 in bfloat16, bitwise repeatable);
-``moe_route`` at the reference's test shapes, qwen2-moe's serving shape,
-several overflowing groups and an underflowing row (expert ids and slots
-exactly, gates within atol 1e-5); ``selective_scan`` at the reference's test
+``moe_route`` at the reference's test shapes, qwen2-moe's serving shape
+(timed from CUDA graphs, CUDA events beside), several overflowing groups,
+ragged groups, the widest E, more tiles than one wave, a multi-window
+look-back and an underflowing row (expert ids and slots exactly, gates
+within atol 1e-5); ``selective_scan`` at the reference's test
 shapes and falcon-mamba's serving shape in float32 and bfloat16 (rtol and
 atol 1e-5, bitwise repeatable); ``rglru_scan`` at the reference's test
 shapes and recurrentgemma's serving shape in float32 and bfloat16 (atol
@@ -108,11 +113,16 @@ FLASH_WINDOWED = (1, 4096, 16, 1, 256, 2048)
 SERVE = dict(requests=20, batch=4, seq=1024, stages=2, branches=2)
 #: moe_route: the reference's test shapes (tests/test_kernels.py), the
 #: serving shape of qwen2-moe (one group of 4 × 1024 tokens, 60 experts,
-#: top-4), several groups with capacity factor 1.0 (overflowing); (G, gs,
-#: E, k)
+#: top-4), several groups with capacity factor 1.0 (overflowing), groups
+#: whose tokens are not a multiple of the kernel's tile, the widest E, more
+#: tiles than the card holds at once (tiles taken by ticket) and more
+#: predecessors than a CTA has threads (a look-back of several windows);
+#: (G, gs, E, k)
 MOE_ROUTE_CASES = [(1, 64, 8, 2), (1, 100, 16, 4), (1, 33, 4, 1),
-                   (1, 4096, 60, 4), (8, 512, 60, 4)]
+                   (1, 4096, 60, 4), (8, 512, 60, 4), (2, 150, 60, 4),
+                   (3, 77, 1024, 7), (128, 512, 60, 4), (1, 20000, 4, 2)]
 MOE_SERVING = (1, 4096, 60, 4)
+MOE_OVERFLOW = (8, 512, 60, 4)
 GATE_ATOL = 1e-5
 #: selective_scan: the reference's test shapes and falcon-mamba's serving
 #: shape; (b, s, d_in, n)
@@ -219,6 +229,61 @@ def repair_cases(chunk):
     return cases
 
 
+def bestfit_fuzz(rng, G, K, F, n, n_new=None, ties=False):
+    """Operands of bestfit_scan for G cells of K slots, F fragments and n
+    workers, as numpy arrays in operand order: each row of ``pos`` a
+    permutation of the K·F fragments, ``n_new`` (G,) drawn in [0, K·F]
+    unless given, fragment RAM of 0.1-4 against capacities of 4-16 with
+    part of them in use, integer loads and scores from the placement's
+    formula.  ``ties`` draws RAM, capacities, use and the static term from
+    a few values, so equal scores and equal masks are common, and some
+    fragments (20) fit no worker.  The port's tests draw from it too."""
+    P = K * F
+    pos = np.stack([rng.permutation(P) for _ in range(G)]).astype(np.int64)
+    if n_new is None:
+        n_new = rng.randint(0, P + 1, G)
+    if ties:
+        ram = rng.choice([0.5, 1.0, 2.0, 4.0, 20.0], (G, K, F))
+        cap = rng.choice([8.0, 16.0], n)
+        static = 0.3 * rng.choice([0.5, 1.0], n)
+        used = cap * rng.choice([0.0, 0.5], (G, n))
+    else:
+        ram = rng.uniform(0.1, 4.0, (G, K, F))
+        cap = rng.uniform(4.0, 16.0, n)
+        static = 0.3 * rng.uniform(0.25, 1.0, n)
+        used = cap * rng.uniform(0.0, 0.9, (G, n))
+    load0 = rng.randint(0, 5, (G, n)).astype(np.float64)
+    free0 = cap - used
+    return [pos, np.asarray(n_new, dtype=np.int64), ram, free0, load0,
+            -load0 + static + 0.1 * free0 / cap, static, cap,
+            rng.randint(-1, n, (G, K, F)).astype(np.int32)]
+
+
+def bestfit_cases():
+    """The BestFit shapes, which tests/test_torch_gpu.py takes from here:
+    n of 1, 31-33, 50 and 128 workers with and without ties, -0.0 against
+    +0.0, steps where no worker fits, and trips of 0 and at the 32-step
+    staging chunk's boundaries +-1 beside other trips in one grid."""
+    rng = np.random.RandomState
+    cases = {}
+    for n in (1, 31, 32, 33, 50, 128):
+        for ties in (False, True):
+            cases[f"n={n} ties={ties}"] = bestfit_fuzz(
+                rng(n + 1000 * ties), 3, 40, 4, n, [160, 97, 33], ties)
+    zeros = bestfit_fuzz(rng(5), 1, 4, 2, 40, [1])
+    zeros[5][:] = -1.0
+    zeros[5][0, 3], zeros[5][0, 35] = -0.0, 0.0
+    zeros[3][:] = 100.0
+    cases["-0.0 before +0.0"] = zeros
+    masked = bestfit_fuzz(rng(7), 2, 6, 3, 50, [18, 5])
+    masked[2][:] = 1e6
+    cases["no worker fits"] = masked
+    for trips in (0, 31, 32, 33, 63, 64, 65):
+        cases[f"trips {trips}"] = bestfit_fuzz(
+            rng(100 + trips), 3, 20, 5, 50, [trips, 70 - trips // 2, 0])
+    return cases
+
+
 def compare(outs_k, outs_r, names, where):
     """Kernel vs twin: floats at RTOL (atol 0), bools and ints exact;
     returns the largest absolute float difference, or raises naming every
@@ -286,12 +351,14 @@ def graph_ms(fn, reps):
     return ms
 
 
-def main_path_interval(n_warm=30):
+def main_path_interval(n_warm=30, walks=None):
     """The kernels' operands at one real interval of the main-path grid
     (bestfit-rr, G=16, K=default_capacity): the program's stages run for
     ``n_warm`` intervals (by then the λ=24 cells are overloaded and their
     RAM repair walks hundreds of slots), then the next interval's BestFit
-    scan, repair scan and physics operands are returned."""
+    scan, repair scan and physics operands are returned.  ``walks``, a
+    list, receives the longest cell's BestFit walk at every interval up to
+    and including that one."""
     import torch
     from repro_torch.env.cluster import NIC_CAP_MB, make_cluster
     from repro_torch.env.torchsim import driver, engines, kernels
@@ -318,6 +385,8 @@ def main_path_interval(n_warm=30):
     for t in range(n_warm + 1):
         arr, _ = eng.decide({}, trace, t)
         state = kernels.admit(state, arr)
+        if walks is not None:
+            walks.append(int(kernels.bestfit_operands(state, cl)[1].max()))
         if t == n_warm:
             break
         state = kernels.place(state, cl)
@@ -343,6 +412,15 @@ def main_path_interval(n_warm=30):
     kw = dict(substeps=t0.substeps, dt=dt, swap_slowdown=0.5,
               nic_cap=NIC_CAP_MB)
     return bestfit, repair, physics, kw
+
+
+def longest_walk_interval():
+    """The interval of the main-path grid whose longest cell walks the most
+    BestFit steps, and that walk."""
+    walks = []
+    main_path_interval(MAIN["n_intervals"] - 1, walks)
+    t = int(np.argmax(walks))
+    return t, walks[t]
 
 
 def _record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
@@ -443,6 +521,19 @@ def kernel_phase():
         "fragment infeasible, a mid-row failure and trips at chunk "
         "boundaries +-1: equals the twin exactly, bitwise repeatable")
 
+    for where, ops in bestfit_cases().items():
+        ops = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in ops]
+        b1 = placement.bestfit_scan(*ops)
+        b2 = placement.bestfit_scan(*ops)
+        compare([b1], [placement.bestfit_scan_ref(*ops)], ["req"],
+                f"bestfit_scan {where}")
+        if not torch.equal(b1, b2):
+            raise AssertionError(f"bestfit_scan {where}: two runs differ")
+    log("bestfit_scan at n=1/31/32/33/50/128 with and without ties, -0.0 "
+        "before +0.0, no worker fitting and trips at the staging chunk's "
+        "boundaries +-1: equals the twin exactly, bitwise repeatable")
+
     bestfit, repair, args, kw = main_path_interval()
     G, K, F = args[8].shape
     n = args[20].shape[0]
@@ -450,28 +541,41 @@ def kernel_phase():
 
     # BestFit scan: each step reads a fragment's RAM and index and writes
     # its worker; the per-worker rows are read and written once
-    b1 = placement.bestfit_scan(*bestfit)
-    b2 = placement.bestfit_scan(*bestfit)
-    bref = placement.bestfit_scan_ref(*bestfit)
-    torch.cuda.synchronize()
-    compare([b1], [bref], ["req"], "bestfit_scan")
-    if not torch.equal(b1, b2):
-        raise AssertionError("bestfit_scan: two runs differ")
+    def bestfit_timed(ops, where):
+        b1 = placement.bestfit_scan(*ops)
+        b2 = placement.bestfit_scan(*ops)
+        bref = placement.bestfit_scan_ref(*ops)
+        torch.cuda.synchronize()
+        compare([b1], [bref], ["req"], f"bestfit_scan {where}")
+        if not torch.equal(b1, b2):
+            raise AssertionError(f"bestfit_scan {where}: two runs differ")
+        ms, ev_ms = _sim_ms(lambda: placement.bestfit_scan(*ops), 10)
+        longest = int(ops[1].max())
+        log(f"bestfit_scan at {where}: G={G} K={K} F={F} n={n}, {longest} "
+            f"fragments in the longest cell ({int(ops[1].sum())} over the "
+            f"grid): matches the twin exactly, bitwise repeatable; "
+            f"{ms:.4f} ms/call from CUDA graphs ({ev_ms:.4f} with CUDA "
+            f"events around wrapper calls; {ms * 1e6 / max(longest, 1):.1f} "
+            f"ns per step of the longest cell)")
+        return ms, ev_ms, longest
+
+    ms, ev_ms, longest = bestfit_timed(bestfit, "main-path interval 30")
     steps = int(bestfit[1].sum())
-    ms, ev_ms = _sim_ms(lambda: placement.bestfit_scan(*bestfit), 10)
     plain_ms = cuda_ms(lambda: placement.bestfit_scan_ref(*bestfit), 1)
-    longest = int(bestfit[1].max())
-    log(f"bestfit_scan at a main-path interval: G={G} K={K} F={F} n={n}, "
-        f"{longest} fragments in the longest cell ({steps} over the grid): "
-        f"matches the twin exactly; {ms:.4f} ms/call from CUDA graphs "
-        f"({ev_ms:.4f} with CUDA events around wrapper calls; "
-        f"{ms * 1e6 / max(longest, 1):.1f} ns per step of the longest "
-        f"cell); twin {plain_ms:.4f} ms/call")
+    late, _ = longest_walk_interval()
+    late_ms, late_ev, late_walk = bestfit_timed(
+        main_path_interval(late)[0], f"main-path interval {late} (the "
+        f"longest walk of the run)")
+    log(f"bestfit_scan twin at interval 30: {plain_ms:.4f} ms/call")
     rec = _record(
         "bestfit_scan", "src/repro_torch/kernels/csrc/placement.cu",
         "src/repro/env/jaxsim/kernels.py:202", 0.0, ms, plain_ms,
         _nbytes(list(bestfit[3:8])) + steps * (8 + 8 + 4), 0.0)
     rec["event_ms"] = ev_ms
+    rec["ns_per_step"] = ms * 1e6 / max(longest, 1)
+    rec["late"] = {"interval": late, "longest": late_walk, "ms": late_ms,
+                   "event_ms": late_ev,
+                   "ns_per_step": late_ms * 1e6 / max(late_walk, 1)}
     records.append(rec)
 
     # repair scan: each walked slot reads its task row and fragment rows
@@ -788,7 +892,7 @@ def moe_route_phase():
     the serving shape, several overflowing groups and an underflowing row;
     times the kernel and the twin at the serving shape."""
     import torch
-    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels.moe_route import moe_route_cuda, moe_route_plan
     from repro_torch.kernels.ref import moe_route_ref
     rng = np.random.RandomState(0)
     worst = 0.0
@@ -796,7 +900,7 @@ def moe_route_phase():
         logits = _route_logits(rng, G, gs, E)
         err = _route_check(logits, k, f"moe_route {(G, gs, E, k)}")
         worst = max(worst, err)
-        if G > 1:
+        if (G, gs, E, k) == MOE_OVERFLOW:
             # capacity factor 1.0 as the model computes it
             C = max(int(gs * k / E * 1.0), k)
             slot = moe_route_cuda(logits, k)[2]
@@ -818,7 +922,10 @@ def moe_route_phase():
     G, gs, E, k = MOE_SERVING
     logits = _route_logits(rng, G, gs, E)
     err = _route_check(logits, k, "moe_route serving shape")
-    ms = cuda_ms(lambda: moe_route_cuda(logits, k), 50)
+    # a call is as short as the Python wrapper: the graph time is the
+    # device's, the event time around plain calls includes the host's
+    ms = graph_ms(lambda: moe_route_cuda(logits, k), 50)
+    ev_ms = cuda_ms(lambda: moe_route_cuda(logits, k), 50)
     plain_ms = cuda_ms(lambda: moe_route_ref(logits, k), 5)
     out = moe_route_cuda(logits, k)
     # softmax: exp, sum, divide per logit; top-k: k compares per logit
@@ -826,10 +933,13 @@ def moe_route_phase():
                   "src/repro/kernels/moe_route.py:83", err, ms, plain_ms,
                   _nbytes([logits] + list(out)), (3.0 + k) * logits.numel(),
                   peak=H100_FP32_S)
-    log(f"moe_route at qwen2-moe's serving shape G={G} gs={gs} E={E} k={k}: "
-        f"{ms:.4f} ms/call (twin {plain_ms:.4f} ms/call), bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); no single PyTorch "
-        f"call computes it")
+    rec["event_ms"] = ev_ms
+    rec["plan"] = moe_route_plan(gs, E, k)
+    log(f"moe_route at qwen2-moe's serving shape G={G} gs={gs} E={E} k={k} "
+        f"({rec['plan']}): {ms:.4f} ms/call from CUDA graphs ({ev_ms:.4f} "
+        f"with CUDA events around wrapper calls; twin {plain_ms:.4f} "
+        f"ms/call), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}); no "
+        f"single PyTorch call computes it")
     return rec
 
 
@@ -1259,11 +1369,13 @@ def real_routing_check(params, batch, cfg):
 
 
 def _family(name):
+    """The family of a device kernel, by its name (moe_route's memset
+    nodes are moved to routing by profile_run)."""
     if "flash_attention" in name:
         return "attention (flash kernel)"
     if "rglru_kernel" in name:
         return "rg-lru scan (kernel)"
-    if "route_pass" in name:
+    if "route_kernel" in name:
         return "moe routing (moe_route kernel)"
     if "scan_kernel" in name:
         return "selective scan (kernel)"
@@ -1306,6 +1418,30 @@ def profile_run(label, fn):
     for name, (ms, n) in kernels.items():
         ms0, n0 = fams.get(_family(name), (0.0, 0))
         fams[_family(name)] = (ms0 + ms, n0 + n)
+    route = _family("route_kernel")
+    if route in fams:
+        # moe_route's memset node (its ticket and tile flags) carries no
+        # kernel name: it is the node just before each route_kernel on the
+        # same stream, and moves from elementwise to routing
+        nodes = sorted((ev for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA),
+                       key=lambda ev: (ev.device_resource_id,
+                                       ev.time_range.start))
+        ms, n, before = 0.0, 0, set()
+        for a, b in zip(nodes, nodes[1:]):
+            if ("route_kernel" in b.name
+                    and a.device_resource_id == b.device_resource_id):
+                before.add(a.name[:40])
+                if "memset" in a.name.lower():
+                    ms += a.time_range.elapsed_us() / 1e3
+                    n += 1
+        log(f"profile of {label}: {n} memset nodes of moe_route, "
+            f"{ms:.4f} ms, counted as routing (nodes just before "
+            f"route_kernel: {sorted(before)})")
+        other = _family("memset")
+        ms0, n0 = fams.get(other, (0.0, 0))
+        fams[other] = (ms0 - ms, n0 - n)
+        fams[route] = (fams[route][0] + ms, fams[route][1] + n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
     log(f"profile of {label} ({SERVE['batch']} x {SERVE['seq']} tokens): "
         f"wall {wall_ms:.2f} ms under the profiler, device busy "

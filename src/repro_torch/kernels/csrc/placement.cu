@@ -6,21 +6,22 @@
 // loop at :202; apply_requests, loop at :271).  Their eager PyTorch twins
 // (repro_torch/kernels/placement.py) run one Python iteration per fragment,
 // ~20 tiny launches each, which dominates an interval once the fleet is
-// loaded (thousands of iterations).  Here each cell's whole scan is one CTA.
+// loaded (thousands of iterations).
 //
-// Both keep the per-worker state (n <= MAX_N doubles: free RAM, load and
-// score for BestFit; RAM in use for the repair) in shared memory.  Every
-// lane of the walking warp runs the scalar logic of the scan redundantly on
-// broadcast reads, so branches stay warp-uniform; lane 0 alone stores.  Each
-// argmax over workers is a warp reduction that keeps the first maximum
-// (torch.argmax / jnp.argmax).  Each cell stops at its own trip count, read
-// on the device, so the host never waits for it.  Compiled with -fmad=false:
+// Each cell's walk is one CTA, and each stops at its own trip count, read on
+// the device, so the host never waits for it.  Compiled with -fmad=false:
 // the arithmetic rounds like the eager twin, operation by operation, and
 // each worker's RAM receives its additions in the twin's admission order, so
-// both kernels equal their twins bit for bit.
+// both kernels equal their twins bit for bit.  Each argmax over workers keeps
+// the first maximum (torch.argmax / jnp.argmax).
 //
-// BestFit: one 32-thread block per cell; each step reads its fragment from
-// global memory, then runs a warp argmax of the masked scores.
+// BestFit (see bestfit_kernel): one warp per cell keeps the per-worker state
+// in registers (lane l owns workers l + 32j) and stages the walk's operands,
+// which are fixed before it starts, 32 steps at a time ahead of it.  A step
+// is a compare and a select per register slot, three warp reductions of an
+// order-preserving 64-bit key (__reduce_max_sync on its halves, then
+// __reduce_min_sync on the index), and the winner's float64 update, which
+// every lane computes once for its worker in the winner's register slot.
 //
 // Repair (see repair_kernel): the walk's inputs are known before it starts,
 // so three gathering warps copy the walked slots' records into shared memory
@@ -31,13 +32,16 @@
 //
 // Bound: the scans are sequential chains; the bytes they must move (tens of
 // KB per cell) take well under a microsecond at 3.35 TB/s.  Latency per step
-// bounds them: per BestFit step a global load chain and a warp argmax, per
-// repair record a chain of shared-memory loads, a float64 add and compare
-// and a branch.  chip_smoke.py measured, from CUDA graphs on the G=16
-// main-path grid on an NVIDIA H100 80GB HBM3 with a 700 W power limit,
-// 0.614 ms per BestFit call (779 steps in the longest cell) and 0.264 ms
-// per repair call (683 slots, 387 ns per slot; the earlier design, one warp
-// walking the operands in global memory, took 1.067-1.093 ms) (PERF.md).
+// bounds them.  chip_smoke.py and tools/kernel_variants.py measured, from
+// CUDA graphs on the G=16 main-path grid on an NVIDIA H100 80GB HBM3 with a
+// 700 W power limit: BestFit 0.156 ms per call at interval 30 (779 steps in
+// the longest cell, ~200 ns per step: ~53 cycles of masks and keys, ~105 in
+// the three reductions, ~236 in the winner's update, whose float64 division
+// dominates) and 0.90 ms at interval 99 (4563 steps); the earlier design,
+// state in shared memory and a global load chain and a double-and-index
+// shuffle argmax per step, took 0.614 and 3.57 ms.  Repair 0.264 ms per
+// call (683 slots, 387 ns per slot; the design before it, one warp walking
+// the operands in global memory, took 1.067-1.093 ms) (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,69 +51,146 @@ namespace {
 constexpr int MAX_N = 128;
 constexpr unsigned FULL = 0xffffffffu;
 
-// first maximum of v[0..n) over the warp: every lane returns the index
-__device__ __forceinline__ int warp_argmax(const double* v, int n) {
-  const int lane = threadIdx.x;
-  double best = -INFINITY;
-  int idx = 0x7fffffff;
-  for (int w = lane; w < n; w += 32) {
-    const double x = v[w];
-    if (x > best || idx == 0x7fffffff) {
-      best = x;
-      idx = w;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const double ob = __shfl_xor_sync(FULL, best, off);
-    const int oi = __shfl_xor_sync(FULL, idx, off);
-    if (oi != 0x7fffffff &&
-        (idx == 0x7fffffff || ob > best || (ob == best && oi < idx))) {
-      best = ob;
-      idx = oi;
-    }
-  }
-  return idx;
+// ---------------------------------------------------------------- BestFit
+//
+// One warp per cell.  Lane l owns workers l + 32j (j < J = ceil(n / 32)) and
+// keeps their free RAM, load, score, static term, capacity and the score's
+// key in registers, so a step touches no memory but the one request it
+// stores.  The walk's inputs are fixed before it starts: the lanes load the
+// fragment indices and RAM of the next 32 steps together (step 32c + l in
+// lane l), BF_AHEAD chunks of pos ahead of the walk so the dependent RAM
+// gather never waits, and each step takes its RAM from the owning lane by
+// shuffle.  A step selects, per register slot, the score's key or the
+// masked key (-1e9, where the fragment does not fit), reduces its lane's J
+// entries, then the warp (warp_first_max); every lane then computes the
+// winner's new free RAM, load, score and key for its worker in the winner's
+// register slot (one float64 division, uniform, no divergent branch), and
+// only the owner keeps them; lane (step & 31), which holds the fragment's
+// index, stores the request.  tools/kernel_variants.py holds the committed
+// choices (this argmax, dividing once per lane, BF_AHEAD) beside the other
+// argmax forms, update forms and staging depths it times.
+
+constexpr int BF_AHEAD = 2;     // chunks of 32 steps whose pos is in flight
+
+// An unsigned key that orders doubles as the twin's argmax does: -0.0 and
+// +0.0 equal (x + 0.0 is +0.0 for both), NaN above every number (torch.argmax
+// takes the first NaN).  Key 0 (a NaN bit pattern) marks "no worker".
+__device__ __forceinline__ unsigned long long order_key(double x) {
+  x = __dadd_rn(x, 0.0);
+  const unsigned long long b = (unsigned long long)__double_as_longlong(x);
+  const unsigned long long k = (b >> 63) ? ~b : (b | (1ull << 63));
+  return x != x ? ~0ull : k;
 }
 
+// The first maximum over the warp: every lane gives its own best (key, index)
+// and every lane returns the smallest index whose key is the largest.
+__device__ __forceinline__ int warp_first_max(unsigned long long key,
+                                              int idx) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_max_sync(FULL, hi);
+  const unsigned ml = __reduce_max_sync(FULL, hi == mh ? lo : 0u);
+  return (int)__reduce_min_sync(
+      FULL, (hi == mh && lo == ml) ? (unsigned)idx : 0xffffffffu);
+}
+
+template <int J>
 __global__ void __launch_bounds__(32)
 bestfit_kernel(const int64_t* pos, const int64_t* n_new, int P,
                const double* ram, const double* ram_free0,
                const double* load0, const double* score0,
                const double* stat, const double* cap, int32_t* req,
                int KF, int n) {
-  __shared__ double s_free[MAX_N], s_load[MAX_N], s_score[MAX_N];
-  __shared__ double s_buf[MAX_N], s_static[MAX_N], s_cap[MAX_N];
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
-  for (int w = lane; w < n; w += 32) {
-    s_free[w] = ram_free0[(size_t)g * n + w];
-    s_load[w] = load0[(size_t)g * n + w];
-    s_score[w] = score0[(size_t)g * n + w];
-    s_static[w] = stat[w];
-    s_cap[w] = cap[w];
+  // per worker: free RAM, load, score, static term, capacity, and the
+  // score's key (0 for a register slot past n: it never wins)
+  double fr[J], ld[J], sc[J], st[J], cp[J];
+  unsigned long long sk[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int w = lane + 32 * j;
+    const bool own = w < n;
+    fr[j] = own ? ram_free0[(size_t)g * n + w] : 0.0;
+    ld[j] = own ? load0[(size_t)g * n + w] : 0.0;
+    sc[j] = own ? score0[(size_t)g * n + w] : 0.0;
+    st[j] = own ? stat[w] : 0.0;
+    cp[j] = own ? cap[w] : 1.0;
+    sk[j] = own ? order_key(sc[j]) : 0;
   }
-  __syncwarp();
+  const unsigned long long masked = order_key(-1e9);
+  const int64_t* pos_g = pos + (size_t)g * P;
   const double* ram_g = ram + (size_t)g * KF;
   int32_t* req_g = req + (size_t)g * KF;
-  const int64_t trips = n_new[g] < P ? n_new[g] : P;
-  for (int64_t i = 0; i < trips; ++i) {
-    const int64_t p = pos[(size_t)g * P + i];
-    const double rm = ram_g[p];
-    for (int w = lane; w < n; w += 32)
-      s_buf[w] = s_free[w] < rm ? -1e9 : s_score[w];
-    __syncwarp();
-    const int w = warp_argmax(s_buf, n);
-    const double nf = s_free[w] - rm;
-    const double nl = s_load[w] + 1.0;
-    const double ns = -nl + s_static[w] + 0.1 * nf / s_cap[w];
-    __syncwarp();
-    if (lane == 0) {
-      req_g[p] = w;
-      s_free[w] = nf;
-      s_load[w] = nl;
-      s_score[w] = ns;
+  const int64_t t64 = n_new[g] < P ? n_new[g] : P;
+  const int trips = t64 > 0 ? (int)t64 : 0;
+  // pos rows past n_new are padding: only steps < trips are read
+  auto pos_at = [&](int c) -> int64_t {
+    const int i = 32 * c + lane;
+    return i < trips ? pos_g[i] : 0;
+  };
+  auto ram_at = [&](int c, int64_t p) -> double {
+    return 32 * c + lane < trips ? ram_g[p] : 0.0;
+  };
+  int64_t pq[BF_AHEAD];   // pos of chunks c .. c + BF_AHEAD - 1
+#pragma unroll
+  for (int a = 0; a < BF_AHEAD; ++a) pq[a] = pos_at(a);
+  double rc = ram_at(0, pq[0]);
+  for (int c = 0; 32 * c < trips; ++c) {
+    // the pos of the chunk after the ring, and the next chunk's RAM (its
+    // pos arrived a chunk ago unless BF_AHEAD is 1)
+    const int64_t pn = pos_at(c + BF_AHEAD);
+    const double rn = ram_at(c + 1, BF_AHEAD > 1 ? pq[1 % BF_AHEAD] : pn);
+    const int64_t pc = pq[0];
+    const int nst = min(32, trips - 32 * c);
+    double rm = __shfl_sync(FULL, rc, 0);
+    for (int s = 0; s < nst; ++s) {
+      const double rm_next = __shfl_sync(FULL, rc, (s + 1) & 31);
+      // the masked score's key: order_key(fr < rm ? -1e9 : sc), with the
+      // score's key kept from its last change
+      unsigned long long bk = 0;
+      int bi = 0x7fffffff;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool fits = !(fr[j] < rm);
+        const unsigned long long k = sk[j] ? (fits ? sk[j] : masked) : 0;
+        if (k > bk) {
+          bk = k;
+          bi = lane + 32 * j;
+        }
+      }
+      int w = warp_first_max(bk, bi);
+      if (w >= n) w = 0;
+      // the winner's new free RAM, load, score and key (the twin's
+      // arithmetic, operation by operation), computed by every lane for
+      // its worker in the winner's register slot and kept by the owner
+      const int jw = w >> 5;
+      double f = fr[0], l = ld[0], t = st[0], cw = cp[0];
+#pragma unroll
+      for (int j = 1; j < J; ++j) {
+        f = jw == j ? fr[j] : f;
+        l = jw == j ? ld[j] : l;
+        t = jw == j ? st[j] : t;
+        cw = jw == j ? cp[j] : cw;
+      }
+      const double f1 = f - rm;
+      const double l1 = l + 1.0;
+      const double s1 = -l1 + t + 0.1 * f1 / cw;
+      const unsigned long long k1 = order_key(s1);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool win = w == lane + 32 * j;
+        fr[j] = win ? f1 : fr[j];
+        ld[j] = win ? l1 : ld[j];
+        sc[j] = win ? s1 : sc[j];
+        sk[j] = win ? k1 : sk[j];
+      }
+      if (lane == s) req_g[pc] = w;
+      rm = rm_next;
     }
-    __syncwarp();
+#pragma unroll
+    for (int a = 0; a + 1 < BF_AHEAD; ++a) pq[a] = pq[a + 1];
+    pq[BF_AHEAD - 1] = pn;
+    rc = rn;
   }
 }
 
@@ -386,10 +467,33 @@ extern "C" int bestfit_scan_launch(const void* pos, const void* n_new, int G,
                                    void* stream) {
   if (n < 1 || n > MAX_N || G < 1 || P < 1 || KF < 1)
     return (int)cudaErrorInvalidValue;
-  bestfit_kernel<<<G, 32, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)pos, (const int64_t*)n_new, P, (const double*)ram,
-      (const double*)ram_free0, (const double*)load0, (const double*)score0,
-      (const double*)stat, (const double*)cap, (int32_t*)req, KF, n);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const auto* p = (const int64_t*)pos;
+  const auto* nn = (const int64_t*)n_new;
+  const auto* rm = (const double*)ram;
+  const auto* f0 = (const double*)ram_free0;
+  const auto* l0 = (const double*)load0;
+  const auto* s0 = (const double*)score0;
+  const auto* sp = (const double*)stat;
+  const auto* cp = (const double*)cap;
+  auto* rq = (int32_t*)req;
+  switch ((n + 31) / 32) {
+    case 1:
+      bestfit_kernel<1><<<G, 32, 0, st>>>(p, nn, P, rm, f0, l0, s0, sp, cp,
+                                          rq, KF, n);
+      break;
+    case 2:
+      bestfit_kernel<2><<<G, 32, 0, st>>>(p, nn, P, rm, f0, l0, s0, sp, cp,
+                                          rq, KF, n);
+      break;
+    case 3:
+      bestfit_kernel<3><<<G, 32, 0, st>>>(p, nn, P, rm, f0, l0, s0, sp, cp,
+                                          rq, KF, n);
+      break;
+    default:
+      bestfit_kernel<4><<<G, 32, 0, st>>>(p, nn, P, rm, f0, l0, s0, sp, cp,
+                                          rq, KF, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,11 @@ slot int32), each (S, k) or (G, gs, k): the softmax's k largest
 probabilities (distinct experts, the lower index first on ties), their
 gates normalised to sum 1, and each entry's rank among the earlier
 entries of its expert in (token, choice) order, per group.  A CUDA tensor
-launches the kernel (``csrc/moe_route.cu``: two passes over 32-token
-tiles, exact slots without unordered atomics); a CPU tensor runs the
-eager twin ``ref.moe_route_ref``.  There is no fallback from one to the
+launches the kernel (``csrc/moe_route.cu``: one launch, a CTA per tile of
+tokens and a sub-warp per token, the tiles' per-expert counts chained by
+a decoupled look-back in tile order, exact slots without unordered
+atomics; ``moe_route_plan`` gives the launch shape); a CPU tensor runs
+the eager twin ``ref.moe_route_ref``.  There is no fallback from one to the
 other.  ``moe_route.launches`` counts kernel launches (one per call).
 """
 from __future__ import annotations
@@ -49,11 +51,23 @@ def _library():
         launch.restype = ctypes.c_int
         launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
-        tiles = lib.moe_route_tiles
-        tiles.restype = ctypes.c_int
-        tiles.argtypes = [ctypes.c_int]
-        _FNS.extend((launch, tiles))
+        scratch = lib.moe_route_scratch
+        scratch.restype = ctypes.c_longlong
+        scratch.argtypes = [ctypes.c_int] * 4
+        plan = lib.moe_route_plan
+        plan.restype = None
+        plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        _FNS.extend((launch, scratch, plan))
     return _FNS
+
+
+def moe_route_plan(gs, E, top_k) -> dict:
+    """The kernel's launch shape for groups of ``gs`` tokens over ``E``
+    experts (builds the library on first use)."""
+    out = (ctypes.c_int * 7)()
+    _library()[2](gs, E, top_k, out)
+    return dict(zip(("logits_per_lane", "lanes_per_token", "tokens_per_cta",
+                     "threads", "tiles", "rank_warps", "smem_bytes"), out))
 
 
 def moe_route_cuda(logits, top_k):
@@ -75,14 +89,14 @@ def moe_route_cuda(logits, top_k):
     gate = torch.empty((G, gs, top_k), dtype=torch.float32, device=dev)
     slot = torch.empty((G, gs, top_k), dtype=torch.int32, device=dev)
     if G and gs:
-        launch, tiles = _library()
-        counts = torch.empty((G * tiles(gs) * E,), dtype=torch.int32,
-                             device=dev)
+        launch, scratch_words, _ = _library()
+        scratch = torch.empty((scratch_words(G, gs, E, top_k),),
+                              dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             rc = launch(lg.data_ptr(), eid.data_ptr(), gate.data_ptr(),
-                        slot.data_ptr(), counts.data_ptr(), G, gs, E, top_k,
-                        stream)
+                        slot.data_ptr(), scratch.data_ptr(), G, gs, E,
+                        top_k, stream)
         if rc != 0:
             raise RuntimeError(f"moe_route kernel launch failed: CUDA error "
                                f"{rc}")

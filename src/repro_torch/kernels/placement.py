@@ -7,12 +7,14 @@ sequences (each step sees the previous steps' RAM), batched over grid
 cells, and each cell stops at its own trip count.
 
 On CUDA tensors each runs its kernel in ``csrc/placement.cu`` (a CTA per
-cell, no host round trip: BestFit walks with one warp; the repair gathers
-the walked slots into shared memory with three warps while a fourth walks
-them, ``repair_scan_plan`` gives the layout); on CPU tensors the eager
-twins below run, one Python iteration per step to the grid's largest trip
-count, masking each cell's steps past its own.  ``bestfit_scan.launches`` and
-``repair_scan.launches`` count kernel launches.  In the JAX reference
+cell, no host round trip: BestFit walks with one warp that keeps the
+per-worker state in registers and stages its operands 32 steps ahead; the
+repair gathers the walked slots into shared memory with three warps while
+a fourth walks them, ``repair_scan_plan`` gives the layout); on CPU
+tensors the eager twins below run, one Python iteration per step to the
+grid's largest trip count, masking each cell's steps past its own.
+``bestfit_scan.launches`` and ``repair_scan.launches`` count kernel
+launches.  In the JAX reference
 these are the ``lax.fori_loop`` bodies of ``repro.env.jaxsim.kernels
 .bestfit_requests`` and ``.apply_requests``.
 """

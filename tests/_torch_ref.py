@@ -10,6 +10,7 @@ path, and the caller loads what it wrote there.
 """
 from __future__ import annotations
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -125,3 +126,40 @@ def repair_fuzz(rng: np.random.RandomState, g: int, k: int, f: int, n: int,
             rng.uniform(cap_lo, cap_hi, n),
             rng.randint(-1, n, (g, k, f)).astype(np.int32),
             rng.rand(g, k) < 0.5)
+
+
+def chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (it imports numpy
+    only at the top), whose case generators the GPU tests share."""
+    mod = sys.modules.get("chip_smoke")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = mod
+        spec.loader.exec_module(mod)
+    return mod
+
+
+#: operands of ``placement.bestfit_scan`` (``chip_smoke.bestfit_fuzz``)
+bestfit_fuzz = chip_smoke().bestfit_fuzz
+
+
+#: csrc/moe_route.cu's launch constants
+ROUTE_TILE, ROUTE_VPL, ROUTE_MAX_THREADS, ROUTE_MAX_ENT = 32, 4, 512, 2048
+
+
+def route_plan(gs, E, k, tile=ROUTE_TILE, vpl=ROUTE_VPL):
+    """``make_plan`` of ``csrc/moe_route.cu`` (``tile`` tokens per CTA and
+    ``vpl`` logits per lane at most): (lanes per token, tokens per CTA,
+    threads per CTA, ranking warps, chunks of 32 entries per ranking
+    warp)."""
+    V = vpl if E <= 32 * vpl else 32
+    L = 1
+    while L < -(-E // V):
+        L *= 2
+    tt = max(1, min(tile, ROUTE_MAX_THREADS // L, ROUTE_MAX_ENT // k, gs))
+    chunks = -(-tt * k // 32)
+    warps = -(-tt * L // 32)
+    rank_warps = min(chunks, warps)
+    return L, tt, 32 * warps, rank_warps, -(-chunks // rank_warps)

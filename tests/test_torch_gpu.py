@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ref import repair_fuzz, substep_fuzz
+from _torch_ref import chip_smoke, repair_fuzz, route_plan, substep_fuzz
 from repro_torch.kernels.edge_substep import OUT_NAMES, edge_substep
 from repro_torch.kernels.ref import (CARRY_NAMES, SHARED_NAMES, STATIC_NAMES,
                                      edge_substep_ref)
@@ -244,6 +244,46 @@ def test_repair_chunk_boundary_trips(cuda, delta):
                                    cap_lo=30.0, cap_hi=80.0))
 
 
+def _bestfit_case(cuda, ops):
+    """The BestFit kernel equals its twin exactly and repeats bitwise."""
+    from repro_torch.kernels import placement
+    ops = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in ops]
+    got = placement.bestfit_scan(*ops)
+    again = placement.bestfit_scan(*ops)
+    assert torch.equal(got, placement.bestfit_scan_ref(*ops))
+    assert torch.equal(got, again)
+    return got
+
+
+BESTFIT_CASES = chip_smoke().bestfit_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 31, 32, 33, 50, 128))
+@pytest.mark.parametrize("ties", (False, True))
+def test_bestfit_worker_counts_match_twin(cuda, n, ties):
+    """One to four registers of workers per lane, with and without ties
+    and unplaceable fragments."""
+    _bestfit_case(cuda, BESTFIT_CASES[f"n={n} ties={ties}"])
+
+
+@pytest.mark.gpu
+def test_bestfit_signed_zeros_and_no_fit(cuda):
+    """-0.0 before +0.0 takes the first; a step no worker fits takes 0."""
+    ops = BESTFIT_CASES["-0.0 before +0.0"]
+    got = _bestfit_case(cuda, ops)
+    assert int(got.view(-1)[int(ops[0][0, 0])]) == 3
+    ops = BESTFIT_CASES["no worker fits"]
+    got = _bestfit_case(cuda, ops).view(2, -1).cpu()
+    assert (got[0, ops[0][0, :18]] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trips", (0, 31, 32, 33, 63, 64, 65))
+def test_bestfit_staging_chunk_boundaries(cuda, trips):
+    _bestfit_case(cuda, BESTFIT_CASES[f"trips {trips}"])
+
+
 FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
     (2, 64, 64, 4, 2, 32, True, 0),
     (1, 128, 128, 8, 8, 64, True, 0),
@@ -329,7 +369,10 @@ MOE_ROUTE_CASES = [  # (G, gs, E, k)
     (1, 64, 8, 2), (1, 100, 16, 4), (1, 33, 4, 1),   # tests/test_kernels.py
     (1, 4096, 60, 4),                                # qwen2-moe's serving
     (8, 512, 60, 4),                                 # several groups
+    (2, 150, 60, 4),                 # tokens not a multiple of the tile
     (3, 77, 1024, 7),                                # the widest E
+    (128, 512, 60, 4),       # more tiles than one wave: taken by ticket
+    (1, 20000, 4, 2),        # a look-back longer than a CTA's threads
 ]
 
 
@@ -354,6 +397,20 @@ def test_moe_route_matches_twin(cuda, case):
     assert torch.equal(got[0], eid) and torch.equal(got[2], slot)
     torch.testing.assert_close(got[1], gate, rtol=0.0, atol=1e-5)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_ROUTE_CASES)
+def test_moe_route_plan_matches_emulation(cuda, case):
+    """The launch shape the CPU emulation of test_torch_moe_route.py
+    assumes is the library's."""
+    from repro_torch.kernels.moe_route import moe_route_plan
+    _, gs, E, k = case
+    plan = moe_route_plan(gs, E, k)
+    L, tt, threads, rank_warps, _ = route_plan(gs, E, k)
+    assert (plan["lanes_per_token"], plan["tokens_per_cta"],
+            plan["threads"], plan["rank_warps"]) == (L, tt, threads,
+                                                      rank_warps)
 
 
 @pytest.mark.gpu

@@ -12,15 +12,20 @@ The repair kernel does not walk the operands as the twin does: it gathers
 the walked slots into compacted records a chunk at a time, then walks the
 records with a cached headroom argmax.  ``_gather_walk`` below is a plain
 emulation of that order, held bitwise against the twin here, where the
-kernel itself cannot run.
+kernel itself cannot run.  Likewise ``_keyed_walk`` emulates the BestFit
+kernel: its operands staged 32 steps at a time, its per-lane state and its
+argmax over order-preserving 64-bit keys reduced in two 32-bit halves and
+then by index.
 """
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_ref import repair_fuzz
+from _torch_ref import bestfit_fuzz, repair_fuzz
 from repro_torch.kernels import placement
 
 f8, i4, i8 = torch.float64, torch.int32, torch.int64
@@ -291,3 +296,189 @@ def test_gather_walk_matches_twin_on_real_intervals():
             state, acc, trace["bw_mult"][:, t], cl, 4, 75.0, 300.0, 0.5)
         state["alive"] = state["alive"] & ~state["task_done"]
     assert walked > 0
+
+
+# ------------------------------------------ the BestFit kernel's keyed walk
+
+_M64 = (1 << 64) - 1
+
+
+def _order_key(x):
+    """``order_key`` of ``csrc/placement.cu``: x + 0.0 (-0.0 becomes +0.0),
+    the sign-flipped bits of a double, NaN above every number."""
+    x = x + 0.0
+    if x != x:
+        return _M64
+    b = struct.unpack("<Q", struct.pack("<d", x))[0]
+    return (~b & _M64) if b >> 63 else b | (1 << 63)
+
+
+def _keyed_walk(pos, n_new, ram, ram_free0, load0, score0, static, cap, req,
+                stats=None):
+    """Plain emulation of ``bestfit_kernel`` in ``csrc/placement.cu``.
+
+    Per cell, the steps are staged 32 at a time (step 32c + l in lane l,
+    read only below the cell's trip count).  Worker w lives in lane w % 32
+    at j = w // 32.  A step masks each worker's score (-1e9 where the
+    fragment's RAM does not fit), keeps each lane's first largest key, then
+    takes the warp's largest high half, the largest low half among the
+    lanes that hold it, and the smallest index among the lanes that hold
+    both; the winner's lane updates its state with the twin's arithmetic.
+    ``stats`` counts steps, steps decided by the low half or the index
+    (ties on the high half), and steps where no worker fits."""
+    G, K, F = req.shape
+    n, P = cap.shape[0], pos.shape[1]
+    out = req.clone().numpy().reshape(G, K * F)
+    posn, ramn = pos.numpy(), ram.numpy().reshape(G, K * F)
+    stl, cpl = static.tolist(), cap.tolist()
+    st = stats if stats is not None else {}
+    for key in ("steps", "hi_ties", "masked"):
+        st.setdefault(key, 0)
+    for g in range(G):
+        fr, ld = ram_free0[g].tolist(), load0[g].tolist()
+        sc = score0[g].tolist()
+        trips = max(0, min(int(n_new[g]), P))
+        for c0 in range(0, trips, 32):
+            chunk = [(int(posn[g, i]), float(ramn[g, posn[g, i]]))
+                     for i in range(c0, min(c0 + 32, trips))]
+            for p, rm in chunk:
+                lanes = []
+                for lane in range(32):
+                    bk, bi = 0, 0x7fffffff
+                    for w in range(lane, n, 32):
+                        k = _order_key(-1e9 if fr[w] < rm else sc[w])
+                        if k > bk:
+                            bk, bi = k, w
+                    lanes.append((bk, bi))
+                mh = max(k >> 32 for k, _ in lanes)
+                ml = max((k & 0xffffffff) if k >> 32 == mh else 0
+                         for k, _ in lanes)
+                w = min(i for k, i in lanes
+                        if k >> 32 == mh and k & 0xffffffff == ml)
+                w = 0 if w >= n else w
+                st["steps"] += 1
+                st["hi_ties"] += sum(k >> 32 == mh for k, _ in lanes) > 1
+                st["masked"] += all(f < rm for f in fr)
+                nf = fr[w] - rm
+                nl = ld[w] + 1.0
+                sc[w] = -nl + stl[w] + 0.1 * nf / cpl[w]
+                fr[w], ld[w] = nf, nl
+                out[g, p] = w
+    return torch.from_numpy(out.reshape(G, K, F))
+
+
+def _bestfit_ops(seed, g, k, f, n, n_new=None, ties=False):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in bestfit_fuzz(rng, g, k, f, n, n_new=n_new, ties=ties)]
+
+
+@pytest.mark.parametrize("n", (1, 31, 32, 33, 50, 128))
+def test_keyed_walk_matches_twin_fuzzed(n):
+    for seed, ties in ((n, False), (n + 1000, True)):
+        ops = _bestfit_ops(seed, 3, 9, 4, n, ties=ties)
+        assert torch.equal(_keyed_walk(*ops),
+                           placement.bestfit_scan_ref(*ops)), (seed, ties)
+
+
+def test_keyed_walk_ties_reach_every_path():
+    """The tied fuzz decides steps by the low half or the index and takes
+    steps where no worker fits."""
+    stats = {}
+    for n in (33, 50):
+        _keyed_walk(*_bestfit_ops(n + 1000, 3, 9, 4, n, ties=True), stats)
+    assert min(stats.values()) > 0, stats
+
+
+@pytest.mark.parametrize("first,second", ((-0.0, 0.0), (0.0, -0.0)))
+def test_keyed_walk_signed_zeros_take_the_first(first, second):
+    """-0.0 and +0.0 are equal maxima: the lower index wins either way,
+    as torch.argmax has it (a raw bit key would order them)."""
+    pos, n_new, ram, free0, load0, score0, static, cap, req = _bestfit_ops(
+        5, 1, 4, 2, 40, n_new=[1])
+    score0[:] = -1.0
+    score0[0, 3], score0[0, 35] = first, second
+    free0[:] = 100.0
+    ops = (pos, n_new, ram, free0, load0, score0, static, cap, req)
+    want = placement.bestfit_scan_ref(*ops)
+    p = int(pos[0, 0])
+    assert int(want.view(-1)[p]) == 3
+    assert torch.equal(_keyed_walk(*ops), want)
+
+
+def test_keyed_walk_nan_scores_take_the_first_nan():
+    """torch.argmax takes the first NaN; the key puts NaN above every
+    number."""
+    ops = _bestfit_ops(6, 1, 4, 2, 40, n_new=[1])
+    ops[5][0, 7] = float("nan")
+    ops[5][0, 20] = float("nan")
+    want = placement.bestfit_scan_ref(*ops)
+    assert int(want.view(-1)[int(ops[0][0, 0])]) == 7
+    assert torch.equal(_keyed_walk(*ops), want)
+
+
+def test_keyed_walk_every_worker_masked_takes_worker_zero():
+    ops = _bestfit_ops(7, 2, 6, 3, 50, n_new=[18, 5])
+    ops[2][:] = 1e6                          # no fragment fits anywhere
+    want = placement.bestfit_scan_ref(*ops)
+    got = _keyed_walk(*ops)
+    assert torch.equal(got, want)
+    for g, m in enumerate((18, 5)):
+        assert (got.view(2, -1)[g, ops[0][g, :m]] == 0).all()
+
+
+@pytest.mark.parametrize("trips", (0, 1, 31, 32, 33, 63, 64, 65, 96))
+def test_keyed_walk_staging_chunk_boundaries(trips):
+    """Trips of 0, and at the staging chunk's boundaries +-1, beside cells
+    of other trip counts in the same grid."""
+    n_new = [trips, 70 - trips // 2, 0]
+    ops = _bestfit_ops(100 + trips, 3, 20, 5, 50, n_new=n_new)
+    assert torch.equal(_keyed_walk(*ops), placement.bestfit_scan_ref(*ops))
+
+
+def test_keyed_walk_reads_only_up_to_n_new():
+    """pos past n_new is padding the walk never reads: poisoning it (and
+    the RAM it would point at) changes nothing below n_new."""
+    ops = _bestfit_ops(8, 2, 10, 4, 50, n_new=[13, 33])
+    want = _keyed_walk(*ops)
+    poisoned = [t.clone() for t in ops]
+    poisoned[0][0, 13:] = 10 ** 12
+    poisoned[0][1, 33:] = -(10 ** 12)
+    assert torch.equal(_keyed_walk(*poisoned), want)
+    assert torch.equal(want, placement.bestfit_scan_ref(*ops))
+
+
+def test_keyed_walk_matches_twin_on_real_intervals():
+    """Three real intervals of the tenth-RAM lambda=8 grid of
+    ``test_gather_walk_matches_twin_on_real_intervals``: the emulation
+    equals the twin."""
+    from repro_torch.env.cluster import make_cluster
+    from repro_torch.env.torchsim import driver, engines, kernels
+    from repro_torch.env.torchsim.arrays import (ClusterArrays,
+                                                 compile_trace,
+                                                 default_capacity,
+                                                 stack_traces, to_device)
+    from repro_torch.env.torchsim.policies import make_static_decider
+    cpu = torch.device("cpu")
+    cluster = make_cluster(ram_scale=0.1)
+    traces = [compile_trace(make_static_decider("bestfit-rr"), lam=8.0,
+                            seed=s, n_intervals=6, substeps=4,
+                            cluster=cluster) for s in range(3)]
+    trace = to_device(stack_traces(traces), cpu)
+    cl = to_device(ClusterArrays.from_cluster(cluster).as_dict(), cpu)
+    G, F, n = len(traces), trace["instr"].shape[-1], cl["ram"].shape[0]
+    state = kernels.init_state(G, default_capacity(traces), F, n, cpu)
+    acc = driver._init_acc(G, n, cpu)
+    steps = 0
+    for t in range(3):
+        arr, _ = engines.StaticEngine().decide({}, trace, t)
+        state = kernels.admit(state, arr)
+        ops = kernels.bestfit_operands(state, cl)
+        req = placement.bestfit_scan_ref(*ops)
+        assert torch.equal(_keyed_walk(*ops), req), t
+        steps += int(ops[1].sum())
+        state = kernels.apply_requests(state, cl, req)
+        state, acc, _ = driver._interval_physics(
+            state, acc, trace["bw_mult"][:, t], cl, 4, 75.0, 300.0, 0.5)
+        state["alive"] = state["alive"] & ~state["task_done"]
+    assert steps > 0

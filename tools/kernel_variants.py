@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA kernels side by side on one GPU.
 
-    PYTHONPATH=src python3 tools/kernel_variants.py [flash|rglru|sim [NAME ...]]
+    PYTHONPATH=src python3 tools/kernel_variants.py \
+        [flash|rglru|sim|bestfit|route [NAME ...]]
 
 Builds text variants of ``csrc/rglru_scan.cu`` (CTA size 32/64/128 ×
 steps per register buffer 4/8/16) and of the bfloat16 tensor-core kernel
@@ -35,6 +36,31 @@ values name the fastest.  It also times the committed ``edge_substep`` at
 0, 1 and 30 substeps (the cost of one substep) and builds a profiling
 copy of it that stamps ``clock64()`` at each phase of each substep, and
 prints the mean cycles per phase for rank 0 and the last rank of cell 0.
+
+``bestfit`` builds the BestFit kernel of ``csrc/placement.cu`` with each
+argmax form (``BF_ARGMAX``: 0, the committed one, keyed
+``__reduce_max_sync`` on the key's halves then ``__reduce_min_sync`` on
+the index, 1 an ``fmax`` butterfly on the doubles then the index, 2 a
+butterfly shuffling the 64-bit key and the index, 3 form 0 with a ballot
+shortcut) and update form (``BF_UPDATE``: 2, the committed one, every
+lane divides once for its worker in the winner's register slot, 0 the
+winner's lane divides in a divergent branch, 1 every lane divides for
+each of its workers before the argmax), the other forms as text edits of
+the committed source, and 1, 2 or 3 chunks of 32 steps' ``pos`` loaded
+ahead (``BF_AHEAD``), beside the earlier design (``tools/kernel_baselines/
+bestfit_smem.cu``: state in shared memory, a global load chain and a
+double-and-index shuffle argmax per step); holds each against the twin
+exactly at the shapes of ``chip_smoke.bestfit_cases`` and at two real
+main-path intervals, 30 and the one whose longest cell walks the most, and
+times them there from CUDA graphs.  ``route`` builds ``csrc/moe_route.cu``
+with 2, 4, 8 or 16 logits per lane (``VPL``: 32, 16, 8 or 4 lanes per
+token at E=60, so 16, 32, 32 and 32 tokens per CTA under ``TILE`` = 32),
+beside the earlier two-pass design (``tools/kernel_baselines/
+moe_route_two_pass.cu``); holds each against the twin at
+``chip_smoke.MOE_ROUTE_CASES`` and an underflowing row (ids and slots
+exactly, gates within 1e-5, bitwise repeatable) and times them at
+qwen2-moe's serving shape (G=1, gs=4096, E=60, k=4) from CUDA graphs.
+The committed values are the fastest.
 """
 from __future__ import annotations
 
@@ -151,11 +177,266 @@ def sim_variants(csrc):
     return out
 
 
+BASELINES = os.path.join(ROOT, "tools", "kernel_baselines")
+
+
+def _baseline(name):
+    with open(os.path.join(BASELINES, name)) as f:
+        return f.read()
+
+
+#: the profiling copy of moe_route.cu: %globaltimer stamps of thread 0 of
+#: each CTA at entry (0), after taking its tile (1), after the token phase
+#: (2), after publishing its counts (3), after the ranking (4), after the
+#: look-back (5) and at exit (6)
+ROUTE_PROF_CTAS = 4096
+ROUTE_PROF_HEAD = f"""
+__device__ unsigned long long route_prof[{ROUTE_PROF_CTAS} * 8];
+extern "C" int prof_read(unsigned long long* out) {{
+  return (int)cudaMemcpyFromSymbol(out, route_prof, sizeof(route_prof));
+}}
+__global__ void empty_kernel() {{}}
+// the launch's two graph nodes alone: the flags' memset, an empty kernel
+extern "C" int memset_only(void* p, long long bytes, void* stream) {{
+  return (int)cudaMemsetAsync(p, 0, (size_t)bytes, (cudaStream_t)stream);
+}}
+extern "C" int empty_only(void* stream) {{
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}}
+"""
+
+
+def _route_stamp(phase, indent):
+    return (f"{indent}if (threadIdx.x == 0 && blockIdx.x < "
+            f"{ROUTE_PROF_CTAS}) {{ unsigned long long t_; asm volatile("
+            f"\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
+            f"route_prof[blockIdx.x * 8 + {phase}] = t_; }}\n")
+
+
+def _route_profiled(src):
+    src = src.replace("namespace {", ROUTE_PROF_HEAD + "\nnamespace {", 1)
+    edits = []
+    for phase, mark in enumerate((
+            "  const int tid = threadIdx.x, nthr = blockDim.x;\n",
+            "  // ---- 2.", "  // ---- 3.", "  // ---- 4.", "  // ---- 5.",
+            "  // ---- 6.")):
+        edits.append((mark, _route_stamp(phase, "  ") + mark))
+    end = "    slot[first + i] = s_base[e] + s_cc[w * E + e] + s_loc[i];\n  }\n"
+    edits.append((end, end + _route_stamp(6, "  ")))
+    return _sub(src, edits)
+
+
+def _set(src, name, value):
+    """``src`` with ``constexpr int <name> = <value>;``."""
+    out, n = re.subn(rf"constexpr int {name} = \d+;",
+                     f"constexpr int {name} = {value};", src)
+    if n != 1:
+        raise AssertionError(f"{name}: {n} definitions")
+    return out
+
+
+#: the profiling copy of the BestFit kernel: clock64() of every lane at the
+#: start of each step (0), before the warp argmax (1), after it (2) and
+#: after the update (3), summed over each cell's steps; lane 0 writes its
+#: cell's three sums and step count at exit
+BESTFIT_PROF_CELLS = 64
+BESTFIT_PROF_HEAD = f"""
+__device__ long long bestfit_prof[{BESTFIT_PROF_CELLS} * 4];
+extern "C" int prof_read(long long* out) {{
+  return (int)cudaMemcpyFromSymbol(out, bestfit_prof, sizeof(bestfit_prof));
+}}
+"""
+
+
+def _bestfit_profiled(src):
+    src = src.replace("namespace {", BESTFIT_PROF_HEAD + "\nnamespace {", 1)
+    return _sub(src, [
+        ("  double rc = ram_at(0, pq[0]);\n",
+         "  double rc = ram_at(0, pq[0]);\n"
+         "  long long pf0 = 0, pf1 = 0, pf2 = 0, pfn = 0;\n"),
+        ("      // the masked score's key",
+         "      const long long c0_ = clock64();\n"
+         "      // the masked score's key"),
+        ("      int w = warp_first_max(bk, bi);\n",
+         "      const long long c1_ = clock64();\n"
+         "      int w = warp_first_max(bk, bi);\n"
+         "      const long long c2_ = clock64();\n"),
+        ("      if (lane == s) req_g[pc] = w;\n",
+         "      const long long c3_ = clock64();\n"
+         "      pf0 += c1_ - c0_; pf1 += c2_ - c1_; pf2 += c3_ - c2_; ++pfn;\n"
+         "      if (lane == s) req_g[pc] = w;\n"),
+        ("    rc = rn;\n  }\n}",
+         "    rc = rn;\n  }\n"
+         f"  if (g < {BESTFIT_PROF_CELLS} && lane == 0) {{\n"
+         "    bestfit_prof[4 * g] = pf0; bestfit_prof[4 * g + 1] = pf1;\n"
+         "    bestfit_prof[4 * g + 2] = pf2; bestfit_prof[4 * g + 3] = pfn;\n"
+         "  }\n}")])
+
+
+#: the committed BestFit argmax (form 0: a keyed ``__reduce_max_sync`` on
+#: the key's halves, then ``__reduce_min_sync`` on the index) and the other
+#: forms the sweep times in its place: 1 an ``fmax`` butterfly on the
+#: doubles then the index, 2 a butterfly shuffling the 64-bit key and the
+#: index, 3 form 0 with a ballot shortcut when one lane holds the high half
+BF_ARGMAX_0 = """\
+__device__ __forceinline__ int warp_first_max(unsigned long long key,
+                                              int idx) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_max_sync(FULL, hi);
+  const unsigned ml = __reduce_max_sync(FULL, hi == mh ? lo : 0u);
+  return (int)__reduce_min_sync(
+      FULL, (hi == mh && lo == ml) ? (unsigned)idx : 0xffffffffu);
+}
+"""
+BF_ARGMAX = {
+    1: """\
+__device__ __forceinline__ int warp_first_max(unsigned long long key,
+                                              double val, int idx) {
+  double m = key ? val : -INFINITY;
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmax(m, __shfl_xor_sync(FULL, m, off));
+  return (int)__reduce_min_sync(
+      FULL, (key && val == m) ? (unsigned)idx : 0xffffffffu);
+}
+""",
+    2: """\
+__device__ __forceinline__ int warp_first_max(unsigned long long key,
+                                              int idx) {
+  unsigned long long k = key;
+  unsigned i = (unsigned)idx;
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long ok = __shfl_xor_sync(FULL, k, off);
+    const unsigned oi = __shfl_xor_sync(FULL, i, off);
+    if (ok > k || (ok == k && oi < i)) {
+      k = ok;
+      i = oi;
+    }
+  }
+  return (int)i;
+}
+""",
+    3: """\
+__device__ __forceinline__ int warp_first_max(unsigned long long key,
+                                              int idx) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  const unsigned mh = __reduce_max_sync(FULL, hi);
+  const unsigned at = __ballot_sync(FULL, hi == mh);
+  if (__popc(at) == 1) return __shfl_sync(FULL, idx, __ffs(at) - 1);
+  const unsigned ml = __reduce_max_sync(FULL, hi == mh ? lo : 0u);
+  return (int)__reduce_min_sync(
+      FULL, (hi == mh && lo == ml) ? (unsigned)idx : 0xffffffffu);
+}
+"""}
+#: form 1 also carries each lane's best double beside its key
+BF_ARGMAX_VAL = [
+    ("      int bi = 0x7fffffff;\n",
+     "      double bv = 0.0;\n      int bi = 0x7fffffff;\n"),
+    ("          bi = lane + 32 * j;\n",
+     "          bv = fits ? sc[j] : -1e9;\n          bi = lane + 32 * j;\n"),
+    ("warp_first_max(bk, bi)", "warp_first_max(bk, bv, bi)")]
+
+#: the committed update (form 2: every lane divides once after the argmax,
+#: for its worker in the winner's register slot) and the others: 0 the
+#: winner's lane divides after the argmax, in a divergent branch; 1 every
+#: lane divides for each of its workers before the argmax
+BF_UPDATE_2 = """\
+      const int jw = w >> 5;
+      double f = fr[0], l = ld[0], t = st[0], cw = cp[0];
+#pragma unroll
+      for (int j = 1; j < J; ++j) {
+        f = jw == j ? fr[j] : f;
+        l = jw == j ? ld[j] : l;
+        t = jw == j ? st[j] : t;
+        cw = jw == j ? cp[j] : cw;
+      }
+      const double f1 = f - rm;
+      const double l1 = l + 1.0;
+      const double s1 = -l1 + t + 0.1 * f1 / cw;
+      const unsigned long long k1 = order_key(s1);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool win = w == lane + 32 * j;
+        fr[j] = win ? f1 : fr[j];
+        ld[j] = win ? l1 : ld[j];
+        sc[j] = win ? s1 : sc[j];
+        sk[j] = win ? k1 : sk[j];
+      }
+"""
+BF_UPDATE = {
+    0: [(BF_UPDATE_2, """\
+      if (lane == (w & 31)) {
+        const int jw = w >> 5;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          if (j == jw) {
+            const double f = fr[j] - rm;
+            const double l = ld[j] + 1.0;
+            sc[j] = -l + st[j] + 0.1 * f / cp[j];
+            sk[j] = order_key(sc[j]);
+            fr[j] = f;
+            ld[j] = l;
+          }
+        }
+      }
+""")],
+    1: [("      // the masked score's key", """\
+      double nf[J], ns[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        nf[j] = fr[j] - rm;
+        ns[j] = -(ld[j] + 1.0) + st[j] + 0.1 * nf[j] / cp[j];
+      }
+      // the masked score's key"""), (BF_UPDATE_2, """\
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const bool win = w == lane + 32 * j;
+        fr[j] = win ? nf[j] : fr[j];
+        ld[j] = win ? ld[j] + 1.0 : ld[j];
+        sc[j] = win ? ns[j] : sc[j];
+        sk[j] = win ? order_key(ns[j]) : sk[j];
+      }
+""")]}
+
+
+def bestfit_variant(pc, form, ahead, update):
+    """``placement.cu`` with argmax form ``form``, ``ahead`` chunks of pos
+    staged and update form ``update`` (0, 2 and 2 are the committed
+    values)."""
+    src = _set(pc, "BF_AHEAD", ahead)
+    if form:
+        src = _sub(src, [(BF_ARGMAX_0, BF_ARGMAX[form])]
+                   + (BF_ARGMAX_VAL if form == 1 else []))
+    if update != 2:
+        src = _sub(src, BF_UPDATE[update])
+    return src
+
+
+def placement_variants(csrc):
+    """{name: (source, kind)} of the BestFit kernel's and moe_route's
+    variants, each beside its earlier design."""
+    pc = (csrc / "placement.cu").read_text()
+    mr = (csrc / "moe_route.cu").read_text()
+    out = {"bestfit_smem": (_baseline("bestfit_smem.cu"), "bestfit"),
+           "route_two_pass": (_baseline("moe_route_two_pass.cu"), "route")}
+    shapes = [(form, 2, update) for form in (0, 1, 2, 3)
+              for update in (0, 1, 2)] + [(0, 1, 2), (0, 3, 2)]
+    for form, ahead, update in shapes:
+        out[f"bestfit_a{form}_d{ahead}_u{update}"] = (
+            bestfit_variant(pc, form, ahead, update), "bestfit")
+    for vpl in (2, 4, 8, 16):
+        out[f"route_v{vpl}"] = (_set(mr, "VPL", vpl), "route")
+    out["route_prof"] = (_route_profiled(mr), "route_prof")
+    out["bestfit_prof"] = (_bestfit_profiled(pc), "bestfit_prof")
+    return out
+
+
 def variants(csrc):
     """{name: (source, kernel)} of every variant."""
     rg = (csrc / "rglru_scan.cu").read_text()
     fa = (csrc / "flash_attention.cu").read_text()
     out = sim_variants(csrc)
+    out.update(placement_variants(csrc))
     for threads in (32, 64, 128):
         for u in (4, 8, 16):
             out[f"rglru_t{threads}_u{u}"] = (_sub(rg, [
@@ -277,6 +558,221 @@ def _repair_call(lib, name, ops, worker2, placed):
         raise RuntimeError(f"{name}: CUDA error {rc}")
 
 
+def _bestfit_call(lib, name, ops, out):
+    import torch
+    fn = lib.bestfit_scan_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    G, K, F = ops[8].shape
+    rc = fn(ops[0].data_ptr(), ops[1].data_ptr(), G, ops[0].shape[1],
+            *[t.data_ptr() for t in ops[2:8]], out.data_ptr(), K * F,
+            ops[7].shape[0], torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def bestfit_main(table, libs, times):
+    """Time the BestFit variants at two main-path intervals."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels import placement
+    names = [n for n, (_, k) in table.items() if k == "bestfit"]
+    if not names and not any(k == "bestfit_prof" for _, k in table.values()):
+        return
+    late, walk = chip_smoke.longest_walk_interval()
+    at = {t: chip_smoke.main_path_interval(t)[0] for t in (30, late)}
+    checks = dict(at)
+    for where, ops in chip_smoke.bestfit_cases().items():
+        checks[where] = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                         for a in ops]
+    want = {w: placement.bestfit_scan_ref(*ops) for w, ops in checks.items()}
+    for name in names:
+        for where, ops in checks.items():
+            out, again = ops[8].clone(), ops[8].clone()
+            _bestfit_call(libs[name], name, ops, out)
+            _bestfit_call(libs[name], name, ops, again)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, want[where])
+                    and torch.equal(out, again)):
+                raise AssertionError(f"{name} at {where}: differs from the "
+                                     "twin or between runs")
+    print(f"bestfit: intervals 30 ({int(at[30][1].max())} steps in the "
+          f"longest cell) and {late} ({walk} steps, the longest of the run); "
+          f"every variant equals the twin there and at "
+          f"{len(checks) - 2} edge shapes", flush=True)
+    bestfit_profile(table, libs, at)
+    for rnd in range(2):
+        for name in names:
+            for t, ops in at.items():
+                out = ops[8].clone()
+                ms = chip_smoke.graph_ms(
+                    lambda: _bestfit_call(libs[name], name, ops, out), 10)
+                key = f"{name} @{t}"
+                times.setdefault(key, []).append(ms)
+                print(f"round {rnd} {key}: {ms:.5f} ms/call, "
+                      f"{ms * 1e6 / int(ops[1].max()):.1f} ns per step of "
+                      f"the longest cell", flush=True)
+
+
+def plan_tiles(lib, gs, E, k):
+    """Tiles per group of a moe_route library."""
+    fn = lib.moe_route_plan
+    fn.restype = None
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = (ctypes.c_int * 7)()
+    fn(gs, E, k, out)
+    return out[4]
+
+
+def bestfit_profile(table, libs, at):
+    """Cycles per step of the longest cell's walk by phase, from the
+    clock64() copy, at each of the intervals ``at``."""
+    import torch
+    import chip_smoke
+    for name in (n for n, (_, k) in table.items() if k == "bestfit_prof"):
+        read = libs[name].prof_read
+        read.restype = ctypes.c_int
+        read.argtypes = [ctypes.c_void_p]
+        for t, ops in at.items():
+            out = ops[8].clone()
+            _bestfit_call(libs[name], name, ops, out)
+            torch.cuda.synchronize()
+            st = np.zeros(BESTFIT_PROF_CELLS * 4, dtype=np.int64)
+            if read(st.ctypes.data) != 0:
+                raise RuntimeError(f"{name}: prof_read failed")
+            st = st.reshape(-1, 4)[int(ops[1].argmax())]
+            n = max(int(st[3]), 1)
+            ms = chip_smoke.graph_ms(
+                lambda: _bestfit_call(libs[name], name, ops, out), 10)
+            print(f"{name} @{t}: the longest cell walks {n} steps; per "
+                  f"step {st[0] / n:.0f} cycles to the argmax (masks and "
+                  f"keys), {st[1] / n:.0f} in it, {st[2] / n:.0f} in the "
+                  f"update (the winner's division); the copy takes "
+                  f"{ms:.5f} ms/call, {ms * 1e6 / n:.1f} ns per step",
+                  flush=True)
+
+
+def _route_call(lib, name, logits, k, outs, scratch):
+    import torch
+    fn = lib.moe_route_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    G, gs, E = logits.shape
+    rc = fn(logits.data_ptr(), *[o.data_ptr() for o in outs],
+            scratch.data_ptr(), G, gs, E, k,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def _route_scratch(lib, G, gs, E, k):
+    import torch
+    if hasattr(lib, "moe_route_scratch"):
+        fn = lib.moe_route_scratch
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_int] * 4
+        words = fn(G, gs, E, k)
+    else:
+        fn = lib.moe_route_tiles
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
+        words = G * fn(gs) * E
+    return torch.empty((words,), dtype=torch.int32, device="cuda")
+
+
+def route_main(table, libs, times):
+    """Time the moe_route variants at qwen2-moe's serving shape."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels.ref import moe_route_ref
+    names = [n for n, (_, k) in table.items() if k == "route"]
+    if not names:
+        return
+    rng = np.random.RandomState(0)
+    cases = [(chip_smoke._route_logits(rng, G, gs, E), k)
+             for G, gs, E, k in chip_smoke.MOE_ROUTE_CASES]
+    cases.append((torch.tensor([[[0.0, -200.0, -200.0, -200.0]]],
+                               device="cuda"), 2))
+    for name in names:
+        for logits, k in cases:
+            want = moe_route_ref(logits, k)
+            G, gs, E = logits.shape
+            scratch = _route_scratch(libs[name], G, gs, E, k)
+            got = [torch.empty_like(w) for w in want]
+            again = [torch.empty_like(w) for w in want]
+            _route_call(libs[name], name, logits, k, got, scratch)
+            _route_call(libs[name], name, logits, k, again, scratch)
+            torch.cuda.synchronize()
+            ok = (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+                  and float((got[1] - want[1]).abs().max()) <= 1e-5
+                  and all(torch.equal(a, b) for a, b in zip(got, again)))
+            if not ok:
+                raise AssertionError(f"{name} at {tuple(logits.shape)} k={k}: "
+                                     "differs from the twin or between runs")
+    G, gs, E, k = chip_smoke.MOE_SERVING
+    logits = chip_smoke._route_logits(rng, G, gs, E)
+    print(f"route: every variant equals the twin at "
+          f"{len(chip_smoke.MOE_ROUTE_CASES)} shapes and an underflowing "
+          f"row; timed at G={G} gs={gs} E={E} k={k}", flush=True)
+    for rnd in range(2):
+        for name in names:
+            scratch = _route_scratch(libs[name], G, gs, E, k)
+            outs = [torch.empty((G, gs, k), dtype=dt, device="cuda")
+                    for dt in (torch.int32, torch.float32, torch.int32)]
+            ms = chip_smoke.graph_ms(
+                lambda: _route_call(libs[name], name, logits, k, outs,
+                                    scratch), 50)
+            times.setdefault(name, []).append(ms)
+            print(f"round {rnd} {name}: {ms:.5f} ms/call", flush=True)
+    for name in (n for n, (_, k) in table.items() if k == "route_prof"):
+        lib = libs[name]
+        scratch = _route_scratch(lib, G, gs, E, k)
+        outs = [torch.empty((G, gs, k), dtype=dt, device="cuda")
+                for dt in (torch.int32, torch.float32, torch.int32)]
+        read = lib.prof_read
+        read.restype = ctypes.c_int
+        read.argtypes = [ctypes.c_void_p]
+        spans, phases = [], []
+        for _ in range(20):
+            _route_call(lib, name, logits, k, outs, scratch)
+            torch.cuda.synchronize()
+            st = np.zeros(ROUTE_PROF_CTAS * 8, dtype=np.uint64)
+            if read(st.ctypes.data) != 0:
+                raise RuntimeError(f"{name}: prof_read failed")
+            st = st.reshape(ROUTE_PROF_CTAS, 8).astype(np.int64)
+            used = st[:, 6] > 0
+            st = st[used]
+            spans.append(float(st[:, 6].max() - st[:, 0].min()))
+            phases.append(np.diff(st[:, :7], axis=1))
+        ph = np.concatenate(phases)
+        names_ = ("tile", "token phase", "publish counts", "ranking",
+                  "look-back", "slots")
+        mem = lib.memset_only
+        mem.restype = ctypes.c_int
+        mem.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        emp = lib.empty_only
+        emp.restype = ctypes.c_int
+        emp.argtypes = [ctypes.c_void_p]
+        stream = torch.cuda.current_stream
+        flags_bytes = 4 * (1 + G * plan_tiles(lib, gs, E, k))
+        mem_ms = chip_smoke.graph_ms(lambda: mem(
+            scratch.data_ptr(), flags_bytes, stream().cuda_stream), 50)
+        emp_ms = chip_smoke.graph_ms(lambda: emp(stream().cuda_stream), 50)
+        print(f"{name}: from CUDA graphs, the flags' memset alone "
+              f"{mem_ms * 1e3:.3f} us, an empty kernel alone "
+              f"{emp_ms * 1e3:.3f} us", flush=True)
+        print(f"{name}: {int(ph.shape[0] / 20)} CTAs; kernel span (first "
+              f"entry to last exit) median {np.median(spans) / 1e3:.3f} us; "
+              "per CTA, mean / max ns: " + ", ".join(
+                  f"{n_} {ph[:, i].mean():.0f} / {ph[:, i].max():.0f}"
+                  for i, n_ in enumerate(names_)), flush=True)
+
+
 def sim_main(table, libs, times):
     """Time the simulator kernels' variants at a main-path interval."""
     import torch
@@ -375,7 +871,7 @@ def main() -> int:
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     only = sys.argv[1] if len(sys.argv) > 1 else None
-    if only not in (None, "flash", "rglru", "sim"):
+    if only not in (None, "flash", "rglru", "sim", "bestfit", "route"):
         print(f"kernel_variants: unknown kernel {only!r}", file=sys.stderr)
         return 2
     from repro_torch.kernels.build import BUILD_DIR, CSRC
@@ -394,6 +890,8 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     sim_main(table, libs, times)
+    bestfit_main(table, libs, times)
+    route_main(table, libs, times)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (4, 1024, 4096)
