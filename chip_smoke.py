@@ -34,9 +34,14 @@ shapes and recurrentgemma's serving shape in float32 and bfloat16 (atol
 with every kernel's launch count set to 0 just before and read just
 after:
 
-* the simulator — ``run_grid_batched`` for ``bestfit-rr`` and for the
-  ``"mab"`` deploy policy over a 16-cell (8 seeds × λ∈{6, 24}) grid on
-  the 50-worker Table-3 fleet, 100 intervals of 30 substeps;
+* the simulator — ``run_grid_batched`` for ``bestfit-rr``, for the
+  ``"mab"`` deploy policy and for ``"splitplace"`` (MAB + the DASO stage
+  at ``SurrogatePlacer``'s widths: C=64, hidden 128, depth 3, 50 steps,
+  ``lr_place`` 0.1, θ from a seeded CUDA generator) over a 16-cell (8
+  seeds × λ∈{6, 24}) grid on the 50-worker Table-3 fleet, 100 intervals
+  of 30 substeps; for splitplace it prints the ascent steps per interval,
+  the rows moved off the warm start, the DASO stage's launches and time
+  at interval 30, and a profiled run's device busy time;
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
   falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
   width and depth
@@ -47,7 +52,9 @@ after:
 profiles one more ``bestfit-rr`` run for each simulator kernel's summed
 device time, and cross-checks the GPU driver against the committed golden
 fixture and
-the CPU path, qwen2-moe's real router logits between the routing kernel
+the CPU path (``mab``, and ``splitplace`` and ``layer+gobi`` at
+``lr_place`` 20, where the ascent must move rows), qwen2-moe's real router
+logits between the routing kernel
 and its twin, and the four models and both serving plans against the
 CPU at a reduced size.
 
@@ -81,6 +88,18 @@ MAB_LITERAL = {"R": np.array([700.0, 1800.0, 3500.0]),
                "eps": 0.4, "rho": 0.06, "t": 40}
 MAIN = dict(seeds=tuple(range(8)), lams=(6.0, 24.0), n_intervals=100,
             substeps=30)
+#: the DASO stage of the splitplace main path at SurrogatePlacer's widths
+#: (the config's defaults: hidden 128, depth 3, 50 steps, lr_place 0.1);
+#: θ from init_surrogate with a CUDA generator seeded so (pretrain is not
+#: ported)
+DASO_MAIN = dict(num_workers=50, max_containers=64, state_features=4)
+DASO_SEED = 0
+#: the interval whose DASO stage is profiled and timed on its own
+DASO_PROFILE_INTERVAL = 30
+#: the cross-check's DASO configuration (tools/regen_golden.py's) at a
+#: learning rate where the ascent moves placements off BestFit's
+DASO_SMALL = dict(num_workers=50, max_containers=16, state_features=4,
+                  hidden=32, depth=2, place_iters=12, lr_place=20.0)
 H100_BYTES_S = 3.35e12             # HBM3, NVIDIA H100 SXM data sheet
 H100_FP64_S = 34e12                # FP64 (non-tensor), same data sheet
 H100_BF16_S = 989e12               # bf16 dense tensor cores, same sheet
@@ -1104,6 +1123,7 @@ def main_path(policy, **kw):
     launch count set to 0 just before and read just after; returns
     (records, wall s, launches per kernel, phase seconds)."""
     import torch
+    from repro_torch.env.torchsim.driver import PHASES
     from repro_torch.launch.experiments import run_grid_batched
     phase_s = {}
     torch.cuda.synchronize()
@@ -1133,9 +1153,11 @@ def main_path(policy, **kw):
         f"substeps={MAIN['substeps']}: wall {wall:.3f} s, "
         f"{len(recs) / wall:.3f} traces/s, {tasks / wall:.1f} tasks/s "
         f"({int(tasks)} tasks); launches {launches}; phases "
-        + ", ".join(f"{k} {v:.3f} s" for k, v in phase_s.items())
+        + ", ".join(f"{k} {phase_s[k]:.3f} s" for k in PHASES)
+        + f" (of feedback, the MAB's host reads "
+        f"{phase_s.get('mab_host_read', 0.0):.4f} s)"
         + f", host trace compile + upload + summaries "
-        f"{wall - sum(phase_s.values()):.3f} s"
+        f"{wall - sum(phase_s[k] for k in PHASES):.3f} s"
         + f"; mean reward {np.mean([r['reward'] for r in recs]):.4f}")
     return recs, wall, launches, phase_s
 
@@ -1146,44 +1168,182 @@ SIM_SYMBOLS = {"edge_substep": "edge_substep_kernel",
                "repair_scan": "repair_kernel"}
 
 
-def sim_profile(policy):
-    """One more main-path run under torch.profiler (CUPTI): each simulator
-    kernel's summed device time and launches in the run, and the device
-    time of every kernel of the run; {} if the profiler recorded none."""
-    import torch
+def _cuda_events(prof):
+    """(kernel name, summed device ms, launches) of every device kernel a
+    torch.profiler run recorded."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.experiments import run_grid_batched
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run_grid_batched(policy, **MAIN, device="cuda")
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sums = {name: [0.0, 0] for name in SIM_SYMBOLS}
-    busy = 0.0
+    out = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
-        busy += us / 1e3
+        out.append((ev.key, us / 1e3, ev.count))
+    return out
+
+
+def sim_profile(policy, **kw):
+    """One more main-path run under torch.profiler (CUPTI): each simulator
+    kernel's summed device time and launches in the run, and the device
+    time and kernel count of the whole run; {} if the profiler recorded
+    none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.experiments import run_grid_batched
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_grid_batched(policy, **MAIN, device="cuda", **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sums = {name: [0.0, 0] for name in SIM_SYMBOLS}
+    events = _cuda_events(prof)
+    busy = sum(ms for _, ms, _ in events)
+    count = sum(n for _, _, n in events)
+    for key, ms, n in events:
         for name, sym in SIM_SYMBOLS.items():
-            if sym in ev.key:
-                sums[name][0] += us / 1e3
-                sums[name][1] += ev.count
+            if sym in key:
+                sums[name][0] += ms
+                sums[name][1] += n
     if busy == 0.0:
         log(f"profile of a {policy} main-path run: the profiler recorded no "
             "device time (not measured)")
         return {}
     log(f"profile of a {policy} main-path run (G=16 T=100 substeps=30): "
-        f"wall {wall:.3f} s under the profiler, device busy {busy:.2f} ms; "
+        f"wall {wall:.3f} s under the profiler, device busy {busy:.2f} ms "
+        f"in {count} kernels (idle share at most "
+        f"{1 - busy / (wall * 1e3):.3f}); "
         + "; ".join(f"{name} {ms:.3f} ms in {count} launches "
                     f"({ms / max(count, 1):.4f} ms each)"
                     for name, (ms, count) in sums.items())
         + f"; other kernels {busy - sum(v[0] for v in sums.values()):.2f} ms")
     return sums
+
+
+class DasoTally:
+    """While active, wraps the DASO stage of the interval program: every
+    ascent (one per interval) leaves its per-cell steps, valid rows and
+    rows whose argmax left the warm start on the device, read once at the
+    end; the stage's operands at interval ``capture_at`` are kept for
+    ``daso_stage_profile``."""
+
+    def __init__(self, capture_at=None):
+        self.capture_at = capture_at
+        self.steps, self.rows, self.moved = [], [], []
+        self.captured = None
+
+    def __enter__(self):
+        from repro_torch.core import daso
+        from repro_torch.env.torchsim import engines
+        self._daso, self._engines = daso, engines
+        self._ascent = daso.optimize_placement_grid
+        self._place = engines._daso_place
+
+        def ascent(cfg, theta, state, p0, dec, mask):
+            p, score, steps = self._ascent(cfg, theta, state, p0, dec, mask)
+            valid = mask.bool()
+            self.steps.append(steps)
+            self.rows.append(valid.sum(dim=1))
+            self.moved.append(((p.argmax(-1) != p0.argmax(-1))
+                               & valid).sum(dim=1))
+            return p, score, steps
+
+        def place(cfg, es, state, cl, trace, t, interval_s):
+            if t == self.capture_at:
+                self.captured = (cfg, es["theta"],
+                                 {k: v.clone() for k, v in state.items()},
+                                 cl, trace["lat_prev"][:, t].clone(),
+                                 interval_s)
+            return self._place(cfg, es, state, cl, trace, t, interval_s)
+
+        daso.optimize_placement_grid = ascent
+        engines._daso_place = place
+        return self
+
+    def __exit__(self, *exc):
+        self._daso.optimize_placement_grid = self._ascent
+        self._engines._daso_place = self._place
+
+    def read(self):
+        """(steps, valid rows, rows moved), each (intervals, cells)."""
+        import torch
+        return tuple(torch.stack(x).cpu().numpy()
+                     for x in (self.steps, self.rows, self.moved))
+
+
+def daso_report(tally, cfg, label, intervals):
+    """Ascent steps per interval and rows moved off the warm start in one
+    run of ``intervals`` intervals; returns the rows moved."""
+    steps, rows, moved = tally.read()
+    if steps.shape[0] != intervals:
+        raise AssertionError(f"{label}: {steps.shape[0]} ascents, expected "
+                             f"one per interval ({intervals})")
+    full = float(np.mean(steps == cfg.place_iters))
+    log(f"{label}: DASO ascent steps per interval and cell mean "
+        f"{steps.mean():.2f}, min {steps.min()}, max {steps.max()} of "
+        f"{cfg.place_iters} (share at place_iters {full:.3f}); "
+        f"{int(rows.sum())} container rows over the run (C="
+        f"{cfg.max_containers}, {rows.mean():.2f} per interval and cell), "
+        f"{int(moved.sum())} moved off the warm start "
+        f"({moved.sum() / max(rows.sum(), 1):.4f} of rows)")
+    return int(moved.sum())
+
+
+def daso_stage_profile(captured):
+    """The DASO stage (``state_features_k`` + ``daso_requests``) at one
+    captured main-path interval: launches and device ms under
+    torch.profiler, and ms per stage from CUDA events and from the host
+    clock around a synchronized call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.env.torchsim import kernels
+    cfg, theta, state, cl, lat, interval_s = captured
+    req = kernels.bestfit_requests(state, cl)
+
+    def stage():
+        feat = kernels.state_features_k(state, cl, lat, interval_s)
+        return kernels.daso_requests(cfg, theta, state, feat, req)
+
+    first = stage()
+    if not torch.equal(first, stage()):
+        raise AssertionError("DASO stage: two runs on one interval differ")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stage()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev_ms = cuda_ms(stage, 5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stage()
+        torch.cuda.synchronize()
+    events = _cuda_events(prof)
+    busy = sum(ms for _, ms, _ in events)
+    count = sum(n for _, _, n in events)
+    per_step = (count / cfg.place_iters) if cfg.place_iters else 0.0
+    log(f"DASO stage at main-path interval {DASO_PROFILE_INTERVAL} (G="
+        f"{state['worker'].shape[0]}, K={state['worker'].shape[1]}, C="
+        f"{cfg.max_containers}, hidden {cfg.hidden}, depth {cfg.depth}, "
+        f"{cfg.place_iters} steps): {count} launches ({per_step:.1f} per "
+        f"ascent step), device busy {busy:.3f} ms, {ev_ms:.3f} ms per stage "
+        f"(CUDA events), {host_ms:.3f} ms host clock; repeatable bitwise")
+    return count, busy, ev_ms
+
+
+def daso_path(mab_state):
+    """The splitplace main path at SurrogatePlacer's widths, with its DASO
+    tallies, the stage's launches at one interval and a profiled run."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    cfg = DASOConfig(**DASO_MAIN)
+    gen = torch.Generator(device="cuda").manual_seed(DASO_SEED)
+    theta = init_surrogate(cfg, gen, device="cuda")
+    kw = dict(mab_state=mab_state, daso_theta=theta, daso_cfg=cfg)
+    with DasoTally(capture_at=DASO_PROFILE_INTERVAL) as tally:
+        main_path("splitplace", **kw)
+    daso_report(tally, cfg, "main path splitplace", MAIN["n_intervals"])
+    daso_stage_profile(tally.captured)
+    sim_profile("splitplace", **kw)
 
 
 def _expected_params(cfg):
@@ -1535,6 +1695,40 @@ def cross_checks():
                                      f"{c[k]!r}")
     log("cross-check: a G=3 'mab' grid on cuda matches the cpu path at "
         "rtol=1e-9")
+    daso_cross_check()
+
+
+def daso_cross_check():
+    """splitplace and layer+gobi on a small grid at lr_place 20: the card
+    matches the port's CPU path at rtol 1e-9, and the ascent moved rows
+    off the warm start."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.launch.experiments import run_grid_batched
+    cfg = DASOConfig(**DASO_SMALL)
+    theta = init_surrogate(cfg, torch.Generator().manual_seed(DASO_SEED),
+                           device="cpu")
+    grid = dict(seeds=(0, 1, 2), lams=(5.0, 24.0), n_intervals=8,
+                substeps=4, mab_state=MAB_LITERAL, daso_theta=theta,
+                daso_cfg=cfg)
+    for policy in ("splitplace", "layer+gobi"):
+        with DasoTally() as tally:
+            on_gpu = run_grid_batched(policy, device="cuda", **grid)
+        moved = daso_report(tally, cfg, f"cross-check {policy}",
+                            grid["n_intervals"])
+        if moved <= 0:
+            raise AssertionError(f"{policy}: the ascent moved no row off "
+                                 "the warm start at lr_place 20")
+        on_cpu = run_grid_batched(policy, device="cpu", **grid)
+        for g, c in zip(on_gpu, on_cpu):
+            for k in c:
+                if k == "policy":
+                    continue
+                if not np.isclose(g[k], c[k], rtol=1e-9, atol=1e-12):
+                    raise AssertionError(f"{policy} grid {k}: cuda {g[k]!r}"
+                                         f" vs cpu {c[k]!r}")
+        log(f"cross-check: a G={len(on_gpu)} {policy!r} grid at lr_place "
+            f"{cfg.lr_place} on cuda matches the cpu path at rtol=1e-9")
 
 
 def main() -> int:
@@ -1578,6 +1772,9 @@ def main() -> int:
                 rec["device_ms_per_run"] = device[rec["name"]][0]
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
+    daso_path(mab_state)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     totals, flash_by_arch = {}, {}
     for arch in SERVE_ARCHS:

@@ -28,7 +28,10 @@ oracle this port is checked against:
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import contextvars
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -117,12 +120,47 @@ def decide_ucb(state: MABState, sla, app, c: float = 0.5):
     return d[:, 0], ctx[:, 0]
 
 
+#: the caller's dict that ``timed_host_reads`` installs (per thread and
+#: task), or None
+_host_read_s: contextvars.ContextVar[Optional[dict]] = \
+    contextvars.ContextVar("mab_host_read_s", default=None)
+
+
+@contextlib.contextmanager
+def timed_host_reads(phase_s: Optional[dict]):
+    """While active, every host read of ``_masked_rows`` adds its wall
+    seconds, after a device synchronize (so queued work is not counted),
+    into ``phase_s["mab_host_read"]``.  Does nothing when ``phase_s`` is
+    None."""
+    if phase_s is None:
+        yield
+        return
+    phase_s.setdefault("mab_host_read", 0.0)
+    token = _host_read_s.set(phase_s)
+    try:
+        yield
+    finally:
+        _host_read_s.reset(token)
+
+
+def _host_max(count) -> int:
+    phase_s = _host_read_s.get()
+    if phase_s is None:
+        return int(count.max())
+    if count.is_cuda:
+        torch.cuda.synchronize(count.device)
+    t0 = time.perf_counter()
+    n = int(count.max())
+    phase_s["mab_host_read"] += time.perf_counter() - t0
+    return n
+
+
 def _masked_rows(mask):
     """Per-cell row indices of the True entries of ``mask`` (G, M), in row
     order, plus their count; one host read for the longest cell."""
     order = torch.argsort((~mask).to(torch.int8), dim=1, stable=True)
     count = mask.sum(dim=1)
-    return order, count, int(count.max()) if mask.numel() else 0
+    return order, count, _host_max(count) if mask.numel() else 0
 
 
 def update_response_estimates(state: MABState, apps, resp, was_layer,

@@ -1,8 +1,9 @@
 """Trace/grid drivers: the interval program over a device-resident grid.
 
-The port of ``repro.env.jaxsim.driver`` for the static and MAB-deploy
-engines.  ``run_program`` is THE interval program: a Python loop over
-intervals whose every step works on the whole grid at once (leading axis
+The port of ``repro.env.jaxsim.driver`` for the static, MAB-deploy
+(BestFit or DASO placement) and static-decider DASO engines.
+``run_program`` is THE interval program: a Python loop over intervals
+whose every step works on the whole grid at once (leading axis
 G), calling the engine's ``decide / place / feedback`` hooks around the
 shared physics.  ``run_grid_engine`` compiles nothing: it stacks the
 traces, uploads them once (``arrays.to_device``) and runs the loop on
@@ -19,7 +20,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.mab import MABState, mab_state_from_numpy
+from repro_torch.core.mab import (MABState, mab_state_from_numpy,
+                                  timed_host_reads)
 from repro_torch.device import resolve
 from repro_torch.env.cluster import Cluster, make_cluster
 from repro_torch.env.torchsim import engines, kernels
@@ -38,7 +40,9 @@ MAB_HP = (0.5, 0.3, 0.3, 0.1)
 METRIC_COLS = ("n_fin", "sum_resp", "n_viol", "sum_acc", "sum_reward",
                "sum_wait", "fin_layer", "fin_semantic", "fin_compressed")
 
-#: phases of ``run_program`` timed when the caller passes ``phase_s``
+#: phases of ``run_program`` timed when the caller passes ``phase_s``; the
+#: dict also gets "mab_host_read", the part of "feedback" the MAB's
+#: per-interval host reads take (``mab.timed_host_reads``)
 PHASES = ("decide", "place", "physics", "feedback")
 
 f8 = torch.float64
@@ -104,6 +108,13 @@ def run_program(engine, trace: dict, cl: dict, es, K: int, substeps: int,
     accumulators and the engine's outputs as device tensors.  With
     ``phase_s`` the wall time of each of ``PHASES`` is added into it
     (synchronizing the device at every phase boundary)."""
+    with timed_host_reads(phase_s):
+        return _run_program(engine, trace, cl, es, K, substeps, interval_s,
+                            swap_slowdown, phase_s)
+
+
+def _run_program(engine, trace, cl, es, K, substeps, interval_s,
+                 swap_slowdown, phase_s):
     G, T = trace["valid"].shape[:2]
     frag = trace["vinstr"] if "vinstr" in trace else trace["instr"]
     F = frag.shape[-1]
@@ -229,6 +240,27 @@ def _mab_es(mab_state):
     return build
 
 
+def _check_learned_args(daso_cfg, daso_theta, n):
+    if daso_cfg is None:
+        return ()                         # BestFit placement: no surrogate
+    if daso_theta is None:
+        raise ValueError("the DASO placer needs pretrained theta")
+    if daso_cfg.num_workers != n:
+        raise ValueError(f"daso_cfg.num_workers={daso_cfg.num_workers} "
+                         f"!= cluster size {n}")
+    return daso_theta
+
+
+def _theta_on(theta, dev):
+    """θ (the port's tensors, or the reference's NumPy ``{"w", "b"}``
+    list) on ``dev`` as float64, exactly: the DASO stage ascends in
+    float64."""
+    if not theta:
+        return ()
+    return [{k: torch.as_tensor(v).to(device=dev, dtype=f8)
+             for k, v in layer.items()} for layer in theta]
+
+
 # ------------------------------------------------- engine-selecting API
 
 
@@ -255,30 +287,101 @@ def run_trace_arrays(trace: TraceArrays, cluster: Optional[Cluster] = None,
 
 
 def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
+                            daso_theta=None, daso_cfg=None,
                             cluster: Optional[Cluster] = None,
                             max_active: Optional[int] = None,
                             swap_slowdown: float = 0.5, device="cuda",
                             mab_hp=MAB_HP,
                             phase_s: Optional[dict] = None) -> list:
-    """Run a grid of dual traces under the deploy-mode MAB policy (online
-    UCB split decisions + Algorithm-1 feedback, BestFit placement).  Every
-    cell carries its own copy of ``mab_state``.  Summaries gain the final
-    MAB scalars (``mab_eps``/``mab_rho``/``mab_t``).  The DASO placement
-    stage is not ported yet (ROADMAP queue 1 item 6)."""
+    """Run a grid of dual traces under the deploy-mode MAB policy: online
+    UCB split decisions + Algorithm-1 feedback, placed by BestFit, or by
+    the DASO stage when ``daso_cfg``/``daso_theta`` are given
+    (``daso_cfg.decision_aware=False`` is the GOBI ablation).  Every cell
+    carries its own copy of ``mab_state``.  Summaries gain the final MAB
+    scalars (``mab_eps``/``mab_rho``/``mab_t``)."""
     _check_variants(traces, engines.MAB_VARIANTS)
-    engine = engines.MABDeployEngine(mab_hp=tuple(mab_hp))
-    return run_grid_engine(engine, traces, _mab_es(mab_state),
-                           cluster=cluster, max_active=max_active,
+    cluster = cluster or make_cluster()
+    theta = _check_learned_args(daso_cfg, daso_theta, cluster.n)
+    engine = engines.MABDeployEngine(mab_hp=tuple(mab_hp), daso_cfg=daso_cfg)
+    mab_es = _mab_es(mab_state)
+
+    def build(G, dev):
+        es = mab_es(G, dev)
+        es["theta"] = _theta_on(theta, dev)
+        return es
+
+    return run_grid_engine(engine, traces, build, cluster=cluster,
+                           max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
                            phase_s=phase_s)
 
 
 def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
+                             daso_theta=None, daso_cfg=None,
                              cluster: Optional[Cluster] = None,
                              max_active: Optional[int] = None,
                              swap_slowdown: float = 0.5, device="cuda",
                              mab_hp=MAB_HP) -> dict:
     """Run one dual trace through the deploy-mode MAB program."""
     return run_grid_arrays_learned(
-        [trace], mab_state, cluster=cluster, max_active=max_active,
-        swap_slowdown=swap_slowdown, device=device, mab_hp=mab_hp)[0]
+        [trace], mab_state, daso_theta=daso_theta, daso_cfg=daso_cfg,
+        cluster=cluster, max_active=max_active, swap_slowdown=swap_slowdown,
+        device=device, mab_hp=mab_hp)[0]
+
+
+#: the static-decider baseline arms and the ``engines.MAB_VARIANTS`` index
+#: each realizes on every row (−1: uniform random per row, ``random+daso``,
+#: not ported: ROADMAP queue 1 item 7)
+STATIC_DASO_ARMS = {"layer+gobi": 0, "semantic+gobi": 1, "random+daso": -1}
+
+
+def _static_daso_engine(policy, daso_cfg, daso_theta, cluster):
+    """One of ``STATIC_DASO_ARMS`` as its engine and frozen θ.  The GOBI
+    arms flip ``decision_aware=False`` (the surrogate input's decision
+    one-hot slice is zeroed); ``random+daso`` keeps the caller's cfg."""
+    if policy not in STATIC_DASO_ARMS:
+        raise ValueError(f"policy {policy!r} is not one of "
+                         f"{sorted(STATIC_DASO_ARMS)}")
+    if daso_cfg is None:
+        raise ValueError(f"{policy!r} needs a pretrained DASO surrogate "
+                         "(daso_cfg/daso_theta)")
+    arm = STATIC_DASO_ARMS[policy]
+    if arm >= 0:
+        daso_cfg = daso_cfg._replace(decision_aware=False)
+    theta = _check_learned_args(daso_cfg, daso_theta, cluster.n)
+    engine = engines.StaticDeciderDASOEngine(arm=arm, daso_cfg=daso_cfg,
+                                             name=policy)
+    return engine, theta
+
+
+def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
+                                policy: str, daso_theta=None, daso_cfg=None,
+                                cluster: Optional[Cluster] = None,
+                                max_active: Optional[int] = None,
+                                swap_slowdown: float = 0.5, device="cuda",
+                                phase_s: Optional[dict] = None) -> list:
+    """Run a grid of dual traces under a static-decider baseline arm
+    (``layer+gobi`` / ``semantic+gobi``: a fixed split, placed by the
+    decision-blind DASO stage); one §6.4 summary dict per trace."""
+    _check_variants(traces, engines.MAB_VARIANTS)
+    cluster = cluster or make_cluster()
+    engine, theta = _static_daso_engine(policy, daso_cfg, daso_theta,
+                                        cluster)
+    return run_grid_engine(engine, traces,
+                           lambda G, dev: {"theta": _theta_on(theta, dev)},
+                           cluster=cluster, max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device,
+                           phase_s=phase_s)
+
+
+def run_trace_arrays_static_daso(trace: DualTraceArrays, policy: str,
+                                 daso_theta=None, daso_cfg=None,
+                                 cluster: Optional[Cluster] = None,
+                                 max_active: Optional[int] = None,
+                                 swap_slowdown: float = 0.5,
+                                 device="cuda") -> dict:
+    """Run one dual trace under a static-decider baseline arm."""
+    return run_grid_arrays_static_daso(
+        [trace], policy, daso_theta=daso_theta, daso_cfg=daso_cfg,
+        cluster=cluster, max_active=max_active, swap_slowdown=swap_slowdown,
+        device=device)[0]

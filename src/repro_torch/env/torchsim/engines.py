@@ -1,5 +1,6 @@
 """Policy engines of the interval program (the port of
-``repro.env.jaxsim.engines``, static and MAB-deploy engines).
+``repro.env.jaxsim.engines``: the static, static-decider DASO and
+MAB-deploy engines).
 
 ``driver.run_program`` runs ONE interval pipeline for every policy:
 
@@ -24,6 +25,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
+from repro_torch.core.daso import DASOConfig
 from repro_torch.env.torchsim import kernels
 from repro_torch.env.workload import LAYER, SEMANTIC
 
@@ -37,6 +41,15 @@ VAR_KEYS = ("vacc", "vchain", "vnfrag", "vinstr", "vram", "vout")
 
 #: the dual-trace variant codes the MAB decides between
 MAB_VARIANTS = (LAYER, SEMANTIC)
+
+
+def _daso_place(daso_cfg, es, state, cl, trace, t, interval_s):
+    """BestFit requests, then the DASO stage ascending the frozen
+    surrogate ``es["theta"]`` from them."""
+    req = kernels.bestfit_requests(state, cl)
+    feat = kernels.state_features_k(state, cl, trace["lat_prev"][:, t],
+                                    interval_s)
+    return kernels.daso_requests(daso_cfg, es["theta"], state, feat, req)
 
 
 def _interval_rows(trace, t):
@@ -70,21 +83,54 @@ class StaticEngine:
 
 
 @dataclasses.dataclass(frozen=True)
-class MABDeployEngine:
-    """Online UCB MAB decisions (eq. 9) + Algorithm-1 feedback against the
-    carried per-cell ``MABState``, with BestFit placement.
-    ``es = {"mab": MABState}``.  The DASO placement stage
-    (``daso_cfg``) is ROADMAP queue 1 item 6 and not ported yet."""
+class StaticDeciderDASOEngine:
+    """The static-decider baseline arms: every row of a dual (LAYER,
+    SEMANTIC) trace takes variant ``arm`` (0 for ``layer+gobi``, 1 for
+    ``semantic+gobi``), placed by the DASO stage ascending a frozen
+    surrogate.  The GOBI arms pass a ``decision_aware=False`` cfg.
+    ``es = {"theta": θ}``.  ``arm = -1`` (``random+daso``, uniform-random
+    rows) needs JAX's fold-in bits and is ROADMAP queue 1 item 7."""
 
-    mab_hp: Tuple[float, float, float, float]
-    daso_cfg: Optional[object] = None
-    name: str = "mab-deploy"
+    arm: int
+    daso_cfg: DASOConfig
+    name: str = "static-daso"
 
     def __post_init__(self):
-        if self.daso_cfg is not None:
+        if self.arm < 0:
             raise NotImplementedError(
-                "MAB deploy with DASO placement is not ported yet "
-                "(ROADMAP queue 1 item 6: core/daso.py)")
+                "random+daso is not ported yet (ROADMAP queue 1 item 7: "
+                "in-loop randomness, the random arm's fold-in bits)")
+
+    def decide(self, es, trace, t):
+        shared, var = _interval_rows(trace, t)
+        d = torch.full_like(shared["app"], self.arm)
+        return kernels.select_variant(shared, var, d), es
+
+    def place(self, es, state, cl, trace, t, interval_s):
+        return _daso_place(self.daso_cfg, es, state, cl, trace, t,
+                           interval_s), es, None
+
+    def feedback(self, es, state, fin, util, aux, t, interval_s):
+        return es
+
+    def outputs(self, es):
+        return {}
+
+    def summarize(self, out, s):
+        return s
+
+
+@dataclasses.dataclass(frozen=True)
+class MABDeployEngine:
+    """Online UCB MAB decisions (eq. 9) + Algorithm-1 feedback against the
+    carried per-cell ``MABState``; BestFit placement, or with a
+    ``daso_cfg`` the DASO stage ascending a frozen surrogate
+    (``decision_aware=False`` is the GOBI ablation).
+    ``es = {"mab": MABState, "theta": θ or ()}``."""
+
+    mab_hp: Tuple[float, float, float, float]
+    daso_cfg: Optional[DASOConfig] = None
+    name: str = "mab-deploy"
 
     def decide(self, es, trace, t):
         shared, var = _interval_rows(trace, t)
@@ -92,7 +138,10 @@ class MABDeployEngine:
         return kernels.select_variant(shared, var, d), es
 
     def place(self, es, state, cl, trace, t, interval_s):
-        return kernels.bestfit_requests(state, cl), es, None
+        if self.daso_cfg is None:
+            return kernels.bestfit_requests(state, cl), es, None
+        return _daso_place(self.daso_cfg, es, state, cl, trace, t,
+                           interval_s), es, None
 
     def feedback(self, es, state, fin, util, aux, t, interval_s):
         _, phi, gamma, k_rbed = self.mab_hp

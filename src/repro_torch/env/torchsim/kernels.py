@@ -12,7 +12,11 @@ grid axis G where the reference relied on ``vmap``:
   * ``run_substeps`` — the substep physics
                        (``repro_torch.kernels.edge_substep``);
   * ``select_variant`` / ``mab_decide_arrivals`` / ``mab_feedback`` — the
-                       MAB deploy loop's decide and feedback stages.
+                       MAB deploy loop's decide and feedback stages;
+  * ``state_features_k`` / ``daso_requests`` — the DASO placement stage:
+                       per-worker features, then the surrogate ascent over
+                       the first ``max_containers`` live fragments
+                       (``repro_torch.core.daso.optimize_placement_grid``).
 
 Every stage here is vectorized over the grid; the three sequential or
 fused pieces (the two placement scans and the substep physics) are CUDA
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import daso as daso_mod
 from repro_torch.core import mab as mab_mod
 from repro_torch.env.cluster import NIC_CAP_MB
 from repro_torch.kernels import placement
@@ -307,3 +312,84 @@ def mab_feedback(mab_state, state: dict, fin, phi: float, gamma: float,
         by_seq(_norm_f32(state["resp"], batch)),
         by_seq(state["acc"].to(torch.float32)),
         by_seq(state["decision"].clamp(0, 1)), by_seq(fin), phi, gamma, k)
+
+
+# ------------------------------------------------------ DASO placement stage
+
+
+def state_features_k(state: dict, cl: dict, lat_mult, interval_s: float):
+    """(G, n, 4) worker utilization features (cpu load, ram load, net
+    quality, placed count), computed post-admit so new fragments (worker
+    −1) are left out.  The censuses are float64 one-hot products (G,
+    3, K·F) × (G, K·F, n), which sum in a fixed order on every run.
+    ``lat_mult`` is this interval's (G, n) latency multipliers."""
+    G, K, F = state["worker"].shape
+    n = cl["mips"].shape[0]
+    worker, done = state["worker"], state["done"]
+    wsafe = worker.clamp(0, n - 1).long()
+    live = (~done) & (worker >= 0)
+    mips_f = torch.clamp(cl["mips"][wsafe], min=1)
+    cpu_v = torch.where(live, state["instr"] / mips_f / interval_s, 0.0)
+    is_stage = torch.arange(F, dtype=i4, device=worker.device) \
+        == state["stage"][..., None]
+    holds = live & ((~state["chain"][..., None]) | is_stage)
+    ram_v = torch.where(holds, state["ram"] / cl["ram"][wsafe], 0.0)
+    stacked = torch.stack([cpu_v, ram_v, live.to(f8)], dim=1)
+    onehot = (wsafe[..., None] == torch.arange(n, device=worker.device)
+              ).to(f8)
+    sums = torch.bmm(stacked.reshape(G, 3, K * F),
+                     onehot.reshape(G, K * F, n))
+    cpu, ram_load, cnt = sums[:, 0], sums[:, 1], sums[:, 2]
+    return torch.stack([torch.clamp(cpu, 0, 4) / 4.0,
+                        torch.clamp(ram_load, 0, 2) / 2.0,
+                        1.0 / lat_mult,
+                        torch.clamp(cnt, 0, 8) / 8.0], dim=-1)
+
+
+def _daso_rows(cfg, state: dict, req):
+    """Container rows of the DASO stage, (G, C) each: the first
+    ``cfg.max_containers`` live fragments in admission order (slot, column),
+    whether the row holds one, its warm-start worker (its entry of ``req``:
+    the current worker or the BestFit target) and its split decision
+    clipped to {0, 1}."""
+    G, K, F = state["worker"].shape
+    n, C = cfg.num_workers, cfg.max_containers
+    dev = req.device
+    order = _admission_order(state)
+    live = ~state["done"]
+    flat_ord = torch.gather(live, 1,
+                            order[..., None].expand(G, K, F)).reshape(G, K * F)
+    ncum = torch.cumsum(flat_ord.to(i8), dim=1)
+    want = torch.arange(1, C + 1, device=dev).expand(G, C).contiguous()
+    pos = torch.searchsorted(ncum, want, right=False).clamp(max=K * F - 1)
+    slot_i = torch.gather(order, 1, pos // F)
+    f_i = pos % F
+    rowvalid = torch.arange(C, device=dev) < ncum[:, -1:]
+    warm = torch.gather(req.reshape(G, K * F), 1,
+                        slot_i * F + f_i).clamp(0, n - 1)
+    dec = torch.gather(state["decision"], 1, slot_i).clamp(0, 1)
+    dec_i = torch.where(rowvalid, dec, 0)
+    return slot_i, f_i, rowvalid, warm, dec_i
+
+
+def daso_requests(cfg, theta, state: dict, feat, req):
+    """The DASO placement stage (§5.3, eqs. 10–12) for every cell: the
+    first ``cfg.max_containers`` live fragments become logit rows warm
+    started from ``req``, the surrogate ``theta`` is ascended
+    (``daso.optimize_placement_grid``, in ``feat``'s dtype), and each row's
+    argmax worker is written back into the request tensor.  Fragments past
+    the container budget keep their BestFit request, and
+    ``apply_requests`` repairs the result."""
+    G, K, F = req.shape
+    slot_i, f_i, rowvalid, warm, dec_i = _daso_rows(cfg, state, req)
+    logits = daso_mod.warm_start_logits(cfg, warm, rowvalid, feat.dtype)
+    p_opt, _, _ = daso_mod.optimize_placement_grid(cfg, theta, feat, logits,
+                                                   dec_i, rowvalid)
+    assign = torch.argmax(p_opt, dim=-1).to(req.dtype)
+    # rows past the live fragments write to the extra column K·F, which is
+    # cut off
+    tgt = torch.where(rowvalid, slot_i * F + f_i, K * F)
+    out = torch.cat([req.reshape(G, K * F),
+                     req.new_zeros((G, 1))], dim=1)
+    out.scatter_(1, tgt, assign)
+    return out[:, :K * F].reshape(G, K, F)

@@ -24,6 +24,15 @@ from repro_torch.env.workload import (COMPRESSED, LAYER, SEMANTIC,
 STATIC_POLICIES = ("mc", "bestfit-layer", "bestfit-semantic", "bestfit-rr",
                    "bestfit-threshold", "bestfit-mab")
 
+#: the in-loop learned policies that consume a pretrained ``MABState``:
+#: "mab" places with BestFit, "splitplace" with the DASO stage, "mab+gobi"
+#: with its decision-blind ablation (the surrogate input's decision one-hot
+#: slice zeroed, ``daso_cfg.decision_aware=False``)
+MAB_LEARNED_POLICIES = ("mab", "splitplace", "mab+gobi")
+
+#: the subset that also consumes the pretrained DASO surrogate (θ + cfg)
+DASO_LEARNED_POLICIES = ("splitplace", "mab+gobi")
+
 
 class StaticFixedDecider:
     def __init__(self, decision: int, name: str):

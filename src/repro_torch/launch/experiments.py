@@ -1,11 +1,13 @@
 """Batched experiment runner of the port — (seed × λ) grids for one policy.
 
 ``run_grid_batched`` is the port of ``repro.launch.experiments
-.run_grid_batched`` for the static BestFit policies and the ``"mab"``
-policy in ``mode="deploy"``: the whole grid runs as one batched interval
-program on the device (one row per grid cell).  Every other policy or
-mode raises ``NotImplementedError`` naming the ROADMAP item that brings
-it.
+.run_grid_batched`` for the static BestFit policies, the MAB policies
+``"mab"``, ``"splitplace"`` and ``"mab+gobi"`` in ``mode="deploy"``, and
+the static-decider DASO arms ``"layer+gobi"`` and ``"semantic+gobi"``: the
+whole grid runs as one batched interval program on the device (one row per
+grid cell).  Every other policy or mode raises ``NotImplementedError``
+naming the ROADMAP item that brings it.  ``pretrain`` is not ported: the
+DASO policies take θ and its cfg from the caller.
 """
 from __future__ import annotations
 
@@ -18,11 +20,8 @@ from repro_torch.env.torchsim.driver import MAB_HP
 #: policies of the reference not ported yet, with the ROADMAP queue-1
 #: item that brings each
 NOT_PORTED = {
-    "splitplace": "item 6 (DASO placement, core/daso.py)",
-    "mab+gobi": "item 6 (DASO placement, core/daso.py)",
-    "layer+gobi": "item 6 (DASO placement, core/daso.py)",
-    "semantic+gobi": "item 6 (DASO placement, core/daso.py)",
-    "random+daso": "items 6 and 7 (DASO placement, in-loop randomness)",
+    "random+daso": "item 7 (in-loop randomness: the random arm's fold-in "
+                   "bits)",
     "gillis": "item 7 (in-loop randomness and training)",
 }
 
@@ -40,19 +39,25 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
                      lams: Sequence[float] = (6.0,), n_intervals: int = 100,
                      substeps: int = 30, interval_s: float = 300.0,
                      apps=None, cluster=None, mab_state=None, seed_offset=0,
-                     max_active: Optional[int] = None, mab_hp=None,
-                     mode: str = "deploy", device="cuda",
+                     max_active: Optional[int] = None, daso_theta=None,
+                     daso_cfg=None, mab_hp=None, mode: str = "deploy",
+                     device="cuda",
                      phase_s: Optional[dict] = None) -> List[dict]:
     """Run a whole (seed × λ) grid for one policy as ONE batched interval
     program on ``device``; one record per trace, in
     ``itertools.product(lams, seeds)`` order.
 
     Static policies (``torchsim.STATIC_POLICIES``) compile single-variant
-    traces; ``"mab"`` compiles dual traces and carries one copy of
-    ``mab_state`` per cell (online UCB decisions + Algorithm-1 feedback,
-    BestFit placement).  ``phase_s`` collects the wall seconds of the
-    program's phases (see ``driver.PHASES``).  Records report
-    ``dropped_tasks`` (0 unless ``max_active`` was forced too small)."""
+    traces.  The MAB policies (``torchsim.MAB_LEARNED_POLICIES``) compile
+    dual traces and carry one copy of ``mab_state`` per cell (online UCB
+    decisions + Algorithm-1 feedback); ``"mab"`` places with BestFit,
+    ``"splitplace"`` with the DASO stage ascending ``daso_theta`` under
+    ``daso_cfg``, ``"mab+gobi"`` with the same cfg made decision-blind.
+    ``"layer+gobi"`` / ``"semantic+gobi"`` fix the split and place with
+    the decision-blind DASO stage; they need θ and cfg but no
+    ``mab_state``.  ``phase_s`` collects the wall seconds of the program's
+    phases (see ``driver.PHASES``).  Records report ``dropped_tasks`` (0
+    unless ``max_active`` was forced too small)."""
     if mode not in ("deploy", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "train":
@@ -63,16 +68,31 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
         raise NotImplementedError(f"policy {policy!r} is not ported yet "
                                   f"(ROADMAP queue 1 {NOT_PORTED[policy]})")
     cells = list(itertools.product(lams, seeds))
-    if policy == "mab":
-        if mab_state is None:
-            raise ValueError("policy 'mab' needs a pretrained mab_state")
+    mab = policy in torchsim.MAB_LEARNED_POLICIES
+    daso = policy in torchsim.DASO_LEARNED_POLICIES \
+        or policy in torchsim.STATIC_DASO_ARMS
+    if daso and (daso_theta is None or daso_cfg is None):
+        raise ValueError(f"policy {policy!r} needs daso_theta/daso_cfg")
+    if mab and mab_state is None:
+        raise ValueError(f"policy {policy!r} needs a pretrained mab_state")
+    if mab or daso:
         traces = [torchsim.compile_trace_dual(
             lam=lam, seed=seed + seed_offset, n_intervals=n_intervals,
             interval_s=interval_s, substeps=substeps, apps=apps,
             cluster=cluster) for lam, seed in cells]
+    if policy in torchsim.STATIC_DASO_ARMS:
+        outs = torchsim.run_grid_arrays_static_daso(
+            traces, policy, daso_theta=daso_theta, daso_cfg=daso_cfg,
+            cluster=cluster, max_active=max_active, device=device,
+            phase_s=phase_s)
+    elif mab:
+        if policy == "mab+gobi":
+            daso_cfg = daso_cfg._replace(decision_aware=False)
         outs = torchsim.run_grid_arrays_learned(
-            traces, mab_state, cluster=cluster, max_active=max_active,
-            device=device, mab_hp=tuple(mab_hp or MAB_HP), phase_s=phase_s)
+            traces, mab_state, daso_theta=daso_theta if daso else None,
+            daso_cfg=daso_cfg if daso else None, cluster=cluster,
+            max_active=max_active, device=device,
+            mab_hp=tuple(mab_hp or MAB_HP), phase_s=phase_s)
     else:
         dec = torchsim.make_static_decider(policy, mab_state=mab_state)
         traces = [torchsim.compile_trace(

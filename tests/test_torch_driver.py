@@ -14,8 +14,11 @@
     star's rtol=1e-4 on the three cases of ``tests/test_jaxsim_parity.py``:
     BestFit at two λ, RAM pressure, layer chains;
   * a grid equals its cells run one by one;
-  * ``run_grid_batched`` returns one record per (λ, seed) cell and
-    refuses what is not ported yet.
+  * ``run_grid_batched`` returns one record per (λ, seed) cell, for the
+    DASO policies too, and refuses what is not ported yet (``random+daso``,
+    ``gillis``, ``mode="train"``: ROADMAP item 7).
+
+The DASO placement stage itself is held in ``test_torch_daso_sim.py``.
 """
 from __future__ import annotations
 
@@ -26,12 +29,16 @@ import os
 import numpy as np
 import pytest
 
+import torch
+
 from _torch_ref import MAB_LITERAL, MAB_LITERAL_JAX, ROOT, run_reference
+from repro_torch.core import daso
 from repro_torch.env.cluster import make_cluster
 from repro_torch.env.torchsim import (compile_trace, compile_trace_dual,
                                       engines,
                                       make_static_decider, run_grid_arrays,
                                       run_grid_arrays_learned,
+                                      run_grid_arrays_static_daso,
                                       run_trace_arrays,
                                       run_trace_arrays_learned)
 from repro_torch.launch.experiments import NOT_PORTED, run_grid_batched
@@ -192,19 +199,37 @@ def test_grid_equals_single_trace_runs(policy):
         assert one == g
 
 
-@pytest.mark.parametrize("policy", ("mc", "mab"))
+#: a small random surrogate for the DASO policies (C=8, hidden 16)
+DASO_CFG = daso.DASOConfig(num_workers=50, max_containers=8,
+                           state_features=4, hidden=16, depth=2,
+                           place_iters=5, lr_place=20.0)
+
+
+def _daso_theta():
+    return daso.init_surrogate(DASO_CFG, torch.Generator().manual_seed(0),
+                               device="cpu")
+
+
+@pytest.mark.parametrize("policy", ("mc", "mab", "splitplace", "mab+gobi",
+                                    "layer+gobi", "semantic+gobi"))
 def test_run_grid_batched_one_record_per_cell(policy):
     lams, seeds = (4.0, 6.0), (3, 5)
     phase_s = {}
     recs = run_grid_batched(policy, seeds=seeds, lams=lams, n_intervals=5,
                             substeps=3, mab_state=MAB_LITERAL, device="cpu",
+                            daso_theta=_daso_theta(), daso_cfg=DASO_CFG,
                             phase_s=phase_s)
     cells = list(itertools.product(lams, seeds))
     assert [(r["lam"], r["seed"]) for r in recs] == cells
     assert all(r["policy"] == policy for r in recs)
     assert all(isinstance(v, float) for r in recs for k, v in r.items()
                if k not in ("policy", "seed", "lam"))
-    assert set(phase_s) == {"decide", "place", "physics", "feedback"}
+    assert set(phase_s) == {"decide", "place", "physics", "feedback",
+                            "mab_host_read"}
+    # the MAB feedback's host reads are a part of phase "feedback"
+    assert 0.0 <= phase_s["mab_host_read"] <= phase_s["feedback"]
+    if policy in ("mab", "splitplace", "mab+gobi"):
+        assert phase_s["mab_host_read"] > 0.0
     # the same cells run as single-variant static traces one by one
     if policy == "mc":
         for (lam, seed), r in zip(cells, recs):
@@ -216,15 +241,37 @@ def test_run_grid_batched_one_record_per_cell(policy):
 
 @pytest.mark.parametrize("policy", sorted(NOT_PORTED))
 def test_unported_policies_raise(policy):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert set(NOT_PORTED) == {"random+daso", "gillis"}
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         run_grid_batched(policy, n_intervals=2, substeps=2, device="cpu",
-                         mab_state=MAB_LITERAL)
+                         mab_state=MAB_LITERAL, daso_theta=_daso_theta(),
+                         daso_cfg=DASO_CFG)
 
 
 def test_train_mode_and_daso_raise():
+    """``mode="train"`` and the ``random+daso`` arm (its engine, arm −1)
+    raise naming item 7; the MAB deploy engine takes a DASO cfg."""
     with pytest.raises(NotImplementedError, match="item 7"):
         run_grid_batched("mab", mode="train", mab_state=MAB_LITERAL,
                          n_intervals=2, substeps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        engines.MABDeployEngine(mab_hp=(0.5, 0.3, 0.3, 0.1),
-                                daso_cfg=object())
+    with pytest.raises(NotImplementedError, match="item 7"):
+        engines.StaticDeciderDASOEngine(arm=-1, daso_cfg=DASO_CFG)
+    eng = engines.MABDeployEngine(mab_hp=(0.5, 0.3, 0.3, 0.1),
+                                  daso_cfg=DASO_CFG)
+    assert eng.daso_cfg is DASO_CFG
+
+
+def test_random_daso_raises_in_the_driver():
+    traces = [compile_trace_dual(lam=3.0, seed=0, n_intervals=2,
+                                 substeps=2)]
+    with pytest.raises(NotImplementedError, match="item 7"):
+        run_grid_arrays_static_daso(traces, "random+daso",
+                                    daso_theta=_daso_theta(),
+                                    daso_cfg=DASO_CFG, device="cpu")
+
+
+@pytest.mark.parametrize("policy", ("splitplace", "layer+gobi"))
+def test_daso_policies_need_theta(policy):
+    with pytest.raises(ValueError, match="daso_theta"):
+        run_grid_batched(policy, n_intervals=2, substeps=2, device="cpu",
+                         mab_state=MAB_LITERAL)

@@ -536,3 +536,56 @@ def test_recurrentgemma_reduced(cuda):
         branch_forward(params, {"tokens": tok.to(cuda)}, cfg, 2).cpu(),
         branch_forward(cpu_params, {"tokens": tok}, cfg, 2),
         rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_daso_ascent_matches_cpu(cuda):
+    """The grid-batched float64 ascent at SurrogatePlacer's widths (C=64,
+    hidden 128, depth 3, 50 steps) on the card equals the CPU's: steps
+    and argmax exactly, logits at rtol 1e-9; at lr_place 5 rows move."""
+    from repro_torch.core.daso import (DASOConfig, init_surrogate,
+                                       optimize_placement_grid,
+                                       warm_start_logits)
+    cfg = DASOConfig(num_workers=50, max_containers=64, state_features=4,
+                     lr_place=5.0)
+    theta = init_surrogate(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.RandomState(0)
+    G = 4
+    feat = torch.from_numpy(rng.rand(G, 50, 4))
+    valid = torch.arange(64) < torch.tensor([64, 40, 3, 0])[:, None]
+    warm = torch.from_numpy(rng.randint(0, 50, (G, 64)))
+    dec = torch.from_numpy(rng.randint(0, 2, (G, 64)).astype(np.int32))
+    args = (feat, warm_start_logits(cfg, warm, valid), dec, valid)
+    p, _, steps = optimize_placement_grid(cfg, theta, *args)
+    gp, _, gsteps = optimize_placement_grid(
+        cfg, [{k: v.to(cuda) for k, v in layer.items()} for layer in theta],
+        *[a.to(cuda) for a in args])
+    assert torch.equal(gsteps.cpu(), steps)
+    assert torch.equal(gp.argmax(-1).cpu(), p.argmax(-1))
+    torch.testing.assert_close(gp.cpu(), p, rtol=1e-9, atol=1e-12)
+    assert ((p.argmax(-1) != warm) & valid).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["splitplace", "mab+gobi", "layer+gobi",
+                                    "semantic+gobi"])
+def test_daso_policies_match_cpu(cuda, policy):
+    """The four DASO policies on a small grid at lr_place 20 (the ascent
+    moves rows there): the card's records equal the CPU's at rtol 1e-9."""
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.launch.experiments import run_grid_batched
+    cfg = DASOConfig(num_workers=50, max_containers=16, state_features=4,
+                     hidden=32, depth=2, place_iters=12, lr_place=20.0)
+    theta = init_surrogate(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    kw = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=6, substeps=4,
+              mab_state=chip_smoke().MAB_LITERAL, daso_theta=theta,
+              daso_cfg=cfg)
+    on_gpu = run_grid_batched(policy, device="cuda", **kw)
+    on_cpu = run_grid_batched(policy, device="cpu", **kw)
+    for g, c in zip(on_gpu, on_cpu):
+        assert set(g) == set(c)
+        for k, v in c.items():
+            if k != "policy":
+                assert np.isclose(g[k], v, rtol=1e-9, atol=1e-12), k
