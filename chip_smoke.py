@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the substep physics, the two placement scans, flash attention, MoE
-routing, the selective scan and the RG-LRU scan) and holds each against
+routing, the selective scan, the RG-LRU scan and the threefry draws) and
+holds each against
 its eager PyTorch twin: the simulator kernels on fuzzed slot states, at
 the shapes of ``tests/test_torch_gpu.py`` (``edge_substep`` at K not a
 multiple of its cluster, K below it, G=33, n=1 and 128, no substep,
@@ -30,9 +31,14 @@ within atol 1e-5); ``selective_scan`` at the reference's test
 shapes and falcon-mamba's serving shape in float32 and bfloat16 (rtol and
 atol 1e-5, bitwise repeatable); ``rglru_scan`` at the reference's test
 shapes and recurrentgemma's serving shape in float32 and bfloat16 (atol
-1e-5 and 3e-2, bitwise repeatable).  Then it drives the main paths, each
-with every kernel's launch count set to 0 just before and read just
-after:
+1e-5 and 3e-2, bitwise repeatable); ``threefry_rows`` (JAX's threefry
+draws of the in-loop learners) at its three call sites over G up to 64, A
+up to 512, keys near 2**32, t up to 10**4 and p in {0, 1, a float32 ε, a
+float64 ε} (bitwise), then at the main path's shape (G=16, A=39, the
+trace keys) for every interval of the main paths at each site's ε
+(bitwise), timed there from CUDA graphs.
+Then it drives the main paths, each with every kernel's launch count set
+to 0 just before and read just after:
 
 * the simulator — ``run_grid_batched`` for ``bestfit-rr``, for the
   ``"mab"`` deploy policy and for ``"splitplace"`` (MAB + the DASO stage
@@ -42,6 +48,13 @@ after:
   of 30 substeps; for splitplace it prints the ascent steps per interval,
   the rows moved off the warm start, the DASO stage's launches and time
   at interval 30, and a profiled run's device busy time;
+* the training loop on the same grid — ``splitplace`` and ``mab`` in
+  ``mode="train"`` (ε-greedy decisions; for splitplace the online DASO
+  finetune from interval 7 and the ascent of the finetuned θ from
+  interval 32), ``gillis`` and ``random+daso`` — each launching
+  ``threefry_rows`` once per interval, with the phases ``draw`` and
+  ``daso_train`` beside the others; each draw these paths make is kept
+  and held bitwise against the twin on the same operands after the run;
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
   falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
   width and depth
@@ -53,7 +66,10 @@ profiles one more ``bestfit-rr`` run for each simulator kernel's summed
 device time, and cross-checks the GPU driver against the committed golden
 fixture and
 the CPU path (``mab``, and ``splitplace`` and ``layer+gobi`` at
-``lr_place`` 20, where the ascent must move rows), qwen2-moe's real router
+``lr_place`` 20, where the ascent must move rows; this slice's five
+policies at G=4, T=12 with the train gates lowered, where decisions must
+be equal, summaries within rtol 1e-9, the finetuned θ within 1e-5, and a
+placement that flips must be a near-tie), qwen2-moe's real router
 logits between the routing kernel
 and its twin, and the four models and both serving plans against the
 CPU at a reduced size.
@@ -154,6 +170,24 @@ H100_FP32_S = 67e12                # FP32 (non-tensor), same data sheet
 RGLRU_CASES = [(2, 37, 24), (1, 64, 128)]
 RGLRU_SERVING = (4, 1024, 4096)
 RGLRU_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
+
+
+#: threefry_rows: its three call sites, (split, width of the explore draw)
+THREEFRY_SITES = {"mab-train": (True, 32), "gillis": (True, 64),
+                  "random+daso": (False, 64)}
+#: the fuzz's (G, A) shapes and intervals
+THREEFRY_SHAPES = [(1, 1), (16, 64), (33, 7), (64, 512)]
+THREEFRY_TS = (0, 1, 9999, 10000)
+#: 32-bit operations per row of each site: ~80 per threefry hash (20
+#: rounds of an add, a funnel shift and a xor; 5 key injections), 6 hashes
+#: with the split, 3 without, and a few for the uniforms
+THREEFRY_OPS = {True: 6 * 80 + 12, False: 3 * 80 + 6}
+#: the train paths' gates lowered (alpha, beta, train_steps, place_min,
+#: train_min) so that a short trace ascends the finetuned θ
+TRAIN_HP_LOW = (0.5, 0.5, 4, 4, 2)
+#: the card-against-CPU cross-check of this slice's policies (G=4)
+TRAIN_CROSS = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=12,
+                   substeps=4)
 
 
 #: edge_substep shapes beside the fuzz and the main-path interval (as in
@@ -662,6 +696,129 @@ def kernel_phase():
     return records
 
 
+def threefry_cases():
+    """Operands of ``threefry_rows``, name -> (key (G, 2) int64, t, rows,
+    p (G,) float64 or None, width): every site at every fuzz shape and
+    interval, keys near 2**32 among them, p in {0, 1, a float32 ε, a
+    float64 ε}."""
+    rng = np.random.RandomState(19)
+    eps = [0.0, 1.0, float(np.float32(0.4)), 0.5 * 0.995 ** 37]
+    cases = {}
+    for G, A in THREEFRY_SHAPES:
+        key = rng.randint(0, 2 ** 32, (G, 2), dtype=np.int64)
+        key[0] = (2 ** 32 - 1, 2 ** 32 - 1)
+        if G > 1:
+            key[1] = (0, 2 ** 32 - 2)
+        p = np.array([eps[i % 4] for i in range(G)], np.float64)
+        for t in THREEFRY_TS:
+            for site, (split, width) in THREEFRY_SITES.items():
+                cases[f"{site} G={G} A={A} t={t}"] = (
+                    key, t, A, p if split else None, width)
+    return cases
+
+
+def main_grid_rows():
+    """(G, A) of the main-path grid's dual traces: the draws' shape."""
+    from repro_torch.env.torchsim import compile_trace_dual
+    A = max(compile_trace_dual(lam=lam, seed=seed,
+                               n_intervals=MAIN["n_intervals"],
+                               substeps=MAIN["substeps"]).max_arrivals
+            for lam in MAIN["lams"] for seed in MAIN["seeds"])
+    return len(MAIN["lams"]) * len(MAIN["seeds"]), A
+
+
+def draw_err(xs, ys, what):
+    """The largest difference (0 or 1) between two runs' draws; raises
+    unless they are bitwise equal."""
+    err = max(float((x.int() - y.int()).abs().max()) if x.numel() else 0.0
+              for x, y in zip(xs, ys))
+    if err or not bitwise_equal(xs, ys):
+        raise AssertionError(f"threefry_rows {what}: kernel vs twin differ")
+    return err
+
+
+def threefry_phase():
+    """``threefry_rows`` bitwise against its twin on the fuzz and at the
+    main path's shape for every interval and site, then timed there for
+    each site; returns its record."""
+    import torch
+    from repro_torch.env.torchsim import GILLIS_HP, trace_train_key
+    from repro_torch.kernels.ref import threefry_rows_ref
+    from repro_torch.kernels.threefry import threefry_rows_cuda
+    dev = torch.device("cuda")
+
+    def run(fn, key, t, A, p, width):
+        out = fn(key, t, A, p, width)
+        return out if isinstance(out, tuple) else (out,)
+
+    err = 0.0
+    for name, (key, t, A, p, width) in threefry_cases().items():
+        key = torch.from_numpy(key).to(dev)
+        p = None if p is None else torch.from_numpy(p).to(dev)
+        k1 = run(threefry_rows_cuda, key, t, A, p, width)
+        k2 = run(threefry_rows_cuda, key, t, A, p, width)
+        ref = run(threefry_rows_ref, key, t, A, p, width)
+        torch.cuda.synchronize()
+        err = max(err, draw_err(k1, ref, name))
+        if not bitwise_equal(k1, k2):
+            raise AssertionError(f"threefry_rows {name}: two runs differ")
+    log(f"threefry_rows: {len(threefry_cases())} cases (the three sites at "
+        f"(G, A) in {THREEFRY_SHAPES}, t in {THREEFRY_TS}, keys near 2**32, "
+        "p in {0, 1, float32 eps, float64 eps}) equal the twin bitwise, "
+        "bitwise repeatable")
+    G, A = main_grid_rows()
+    key = torch.stack([trace_train_key(s, dev) for _ in MAIN["lams"]
+                       for s in MAIN["seeds"]])
+    p = torch.full((G,), float(np.float32(MAB_LITERAL["eps"])),
+                   dtype=torch.float64, device=dev)
+    # each site's ε at interval t on the main paths: the MAB's float32 ε
+    # (it starts from MAB_LITERAL's and decays only on an improvement, so
+    # the tap in train_paths holds the values the run drew with), Gillis's
+    # float64 ε0 · decay^t, multiplied out per interval as its engine does
+    eps = {"mab-train": [p] * MAIN["n_intervals"], "gillis": [],
+           "random+daso": [None] * MAIN["n_intervals"]}
+    g = torch.full((G,), GILLIS_HP[0], dtype=torch.float64, device=dev)
+    for _ in range(MAIN["n_intervals"]):
+        eps["gillis"].append(g)
+        g = g * GILLIS_HP[2]
+    for site, (_, width) in THREEFRY_SITES.items():
+        for t, pt in enumerate(eps[site]):
+            err = max(err, draw_err(
+                run(threefry_rows_cuda, key, t, A, pt, width),
+                run(threefry_rows_ref, key, t, A, pt, width),
+                f"{site} G={G} A={A} t={t}"))
+    torch.cuda.synchronize()
+    log(f"threefry_rows: the three sites at the main path's G={G} A={A} "
+        f"with its trace keys and each site's ε, every t in "
+        f"range({MAIN['n_intervals']}), equal the twin bitwise (largest "
+        f"difference {err})")
+    sites = {}
+    for site, (split, width) in THREEFRY_SITES.items():
+        pp = p if split else None
+        ms = graph_ms(lambda: threefry_rows_cuda(key, 30, A, pp, width), 50)
+        ev_ms = cuda_ms(lambda: threefry_rows_cuda(key, 30, A, pp, width),
+                        50)
+        plain_ms = cuda_ms(lambda: threefry_rows_ref(key, 30, A, pp, width),
+                           3)
+        nbytes = G * 16 + (G * 8 if split else 0) + (2 if split else 1) \
+            * G * A
+        sites[site] = {"ms": ms, "event_ms": ev_ms, "plain_ms": plain_ms,
+                       "bytes": nbytes, "ops": THREEFRY_OPS[split] * G * A}
+        log(f"threefry_rows {site} at the main path's G={G} A={A}: {ms:.5f} "
+            f"ms/call from CUDA graphs ({ev_ms:.5f} with CUDA events around "
+            f"wrapper calls); twin {plain_ms:.4f} ms/call")
+    main = sites["mab-train"]
+    rec = _record("threefry_rows", "src/repro_torch/kernels/csrc/threefry.cu",
+                  "src/repro/core/mab.py:126 (jax.random threefry in "
+                  "decide_train_rows; not a Pallas kernel)", err, main["ms"],
+                  main["plain_ms"], main["bytes"], main["ops"],
+                  peak=H100_FP32_S)
+    rec["event_ms"] = main["event_ms"]
+    rec["peak"] = "FP32 non-tensor rate (the data sheet gives no INT32 rate)"
+    rec["sites"] = sites
+    return rec
+
+
 def _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype):
     import torch
     return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
@@ -1100,17 +1257,21 @@ def _counters():
     from repro_torch.kernels.moe_route import moe_route
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.threefry import threefry_rows
     return {"edge_substep": edge_substep,
             "bestfit_scan": placement.bestfit_scan,
             "repair_scan": placement.repair_scan,
             "flash_attention": flash_attention,
             "moe_route": moe_route,
             "selective_scan": selective_scan,
-            "rglru_scan": rglru_scan}
+            "rglru_scan": rglru_scan,
+            "threefry_rows": threefry_rows}
 
 
-#: the kernels each main path runs
+#: the kernels each main path runs (and, once per interval, the draws of
+#: the learners that draw: ``DRAW_KERNELS``)
 SIM_KERNELS = ("edge_substep", "bestfit_scan", "repair_scan")
+DRAW_KERNELS = ("threefry_rows",)
 #: block kinds that run attention, and the serving kernel each kind runs
 #: once per layer per forward
 ATTN_KINDS = {"attn", "attn_moe", "local_attn"}
@@ -1118,46 +1279,84 @@ LAYER_KERNELS = {"flash_attention": ATTN_KINDS, "moe_route": {"attn_moe"},
                  "selective_scan": {"mamba"}, "rglru_scan": {"rglru"}}
 
 
-def main_path(policy, **kw):
+class CompileClock:
+    """While active, sums the wall seconds of the host trace compiles
+    ``run_grid_batched`` makes (``seconds``)."""
+
+    def __enter__(self):
+        from repro_torch.env import torchsim
+        self._mod, self.seconds = torchsim, 0.0
+        self._fns = {name: getattr(torchsim, name)
+                     for name in ("compile_trace", "compile_trace_dual")}
+        for name, fn in self._fns.items():
+            setattr(torchsim, name, self._timed(fn))
+        return self
+
+    def _timed(self, fn):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self._fns.items():
+            setattr(self._mod, name, fn)
+
+
+def main_path(policy, label=None, draws=False, **kw):
     """One main-path grid through run_grid_batched with every kernel's
-    launch count set to 0 just before and read just after; returns
-    (records, wall s, launches per kernel, phase seconds)."""
+    launch count set to 0 just before and read just after; ``draws``: the
+    policy draws once per interval (``DRAW_KERNELS``).  Returns (records,
+    wall s, launches per kernel, phase seconds)."""
     import torch
     from repro_torch.env.torchsim.driver import PHASES
     from repro_torch.launch.experiments import run_grid_batched
+    label = label or policy
     phase_s = {}
+    gc.collect()
     torch.cuda.synchronize()
     for fn in _counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
-    recs = run_grid_batched(policy, **MAIN, device="cuda", phase_s=phase_s,
-                            **kw)
+    with CompileClock() as compile_s:
+        recs = run_grid_batched(policy, **MAIN, device="cuda",
+                                phase_s=phase_s, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
-    for name in SIM_KERNELS:
+    for name in SIM_KERNELS + (DRAW_KERNELS if draws else ()):
         count = launches[name]
         if count != MAIN["n_intervals"]:
-            raise AssertionError(f"{policy}: {name} launched {count} times, "
+            raise AssertionError(f"{label}: {name} launched {count} times, "
                                  f"expected once per interval "
                                  f"({MAIN['n_intervals']})")
     for r in recs:
         if r["dropped_tasks"] != 0:
-            raise AssertionError(f"{policy}: dropped tasks in {r}")
+            raise AssertionError(f"{label}: dropped tasks in {r}")
         if not r["tasks_completed"] > 0:
-            raise AssertionError(f"{policy}: no task completed in {r}")
+            raise AssertionError(f"{label}: no task completed in {r}")
         if not 0.0 <= r["reward"] <= 1.0:
-            raise AssertionError(f"{policy}: reward out of [0, 1] in {r}")
+            raise AssertionError(f"{label}: reward out of [0, 1] in {r}")
     tasks = sum(r["tasks_completed"] for r in recs)
-    log(f"main path {policy}: G={len(recs)} T={MAIN['n_intervals']} "
+    shares = [f"the MAB's host reads {phase_s.get('mab_host_read', 0.0):.4f}"
+              " s of feedback"]
+    if "draw" in phase_s:
+        shares.append(f"the draws {phase_s['draw']:.4f} s of decide")
+    if "daso_train" in phase_s:
+        shares.append(f"the DASO finetune {phase_s['daso_train']:.4f} s of "
+                      "feedback")
+    log(f"main path {label}: G={len(recs)} T={MAIN['n_intervals']} "
         f"substeps={MAIN['substeps']}: wall {wall:.3f} s, "
         f"{len(recs) / wall:.3f} traces/s, {tasks / wall:.1f} tasks/s "
         f"({int(tasks)} tasks); launches {launches}; phases "
         + ", ".join(f"{k} {phase_s[k]:.3f} s" for k in PHASES)
-        + f" (of feedback, the MAB's host reads "
-        f"{phase_s.get('mab_host_read', 0.0):.4f} s)"
-        + f", host trace compile + upload + summaries "
-        f"{wall - sum(phase_s[k] for k in PHASES):.3f} s"
+        + " (" + "; ".join(shares) + ")"
+        + f", host {wall - sum(phase_s[k] for k in PHASES):.3f} s (of it "
+        f"the trace compile {compile_s.seconds:.3f} s; the rest upload, "
+        f"state and summaries)"
         + f"; mean reward {np.mean([r['reward'] for r in recs]):.4f}")
     return recs, wall, launches, phase_s
 
@@ -1344,6 +1543,87 @@ def daso_path(mab_state):
     daso_report(tally, cfg, "main path splitplace", MAIN["n_intervals"])
     daso_stage_profile(tally.captured)
     sim_profile("splitplace", **kw)
+
+
+class DrawTap:
+    """While active, keeps the operands and outputs of every
+    ``threefry_rows`` call the simulator's learners make (the wrapper
+    still launches and counts once per call); ``check`` holds each output
+    bitwise against the twin on the same operands."""
+    MODULES = ("repro_torch.core.mab", "repro_torch.env.torchsim.engines")
+
+    def __enter__(self):
+        import importlib
+        self.calls = []
+        self._mods = [importlib.import_module(m) for m in self.MODULES]
+        self._fn = self._mods[0].threefry_rows
+        if any(m.threefry_rows is not self._fn for m in self._mods):
+            raise AssertionError("the learners call different threefry_rows")
+        for mod in self._mods:
+            mod.threefry_rows = self._tapped
+        return self
+
+    def _tapped(self, key, t, rows, p=None, width=64):
+        out = self._fn(key, t, rows, p, width)
+        outs = out if isinstance(out, tuple) else (out,)
+        self.calls.append((key.clone(), t, rows,
+                           None if p is None else p.clone(), width,
+                           tuple(o.clone() for o in outs)))
+        return out
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.threefry_rows = self._fn
+
+    def check(self, label):
+        """(draws checked, largest difference); raises on a mismatch."""
+        from repro_torch.kernels.ref import threefry_rows_ref
+        err = 0.0
+        for key, t, rows, p, width, outs in self.calls:
+            ref = threefry_rows_ref(key, t, rows, p, width)
+            err = max(err, draw_err(
+                outs, ref if isinstance(ref, tuple) else (ref,),
+                f"{label} t={t} (G={key.shape[0]} A={rows})"))
+        shapes = sorted({(c[0].shape[0], c[2]) for c in self.calls})
+        log(f"{label}: its {len(self.calls)} draws (G, A) in {shapes} equal "
+            f"the twin on the same operands bitwise (largest difference "
+            f"{err})")
+        return len(self.calls), err
+
+
+def train_paths(mab_state):
+    """This slice's main paths at the main grid: ``splitplace`` and ``mab``
+    in train mode (default ``TRAIN_HP``: the ascent from interval 32, the
+    finetune from interval 7), ``gillis`` and ``random+daso``, the DASO
+    stages at ``SurrogatePlacer``'s widths with θ from a seeded CUDA
+    generator; returns ``threefry_rows``' launches per path and the
+    largest difference of its draws there from the twin's."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.env.torchsim import TRAIN_HP
+    cfg = DASOConfig(**DASO_MAIN)
+    gen = torch.Generator(device="cuda").manual_seed(DASO_SEED)
+    theta = init_surrogate(cfg, gen, device="cuda")
+    draws, err = {}, 0.0
+    with DasoTally() as tally, DrawTap() as tap:
+        _, _, launches, _ = main_path(
+            "splitplace", label="splitplace train", draws=True, mode="train",
+            mab_state=mab_state, daso_theta=theta, daso_cfg=cfg)
+    daso_report(tally, cfg, "main path splitplace train",
+                MAIN["n_intervals"] - TRAIN_HP[3])
+    draws["splitplace train"] = launches["threefry_rows"]
+    err = max(err, tap.check("main path splitplace train")[1])
+    for label, policy, kw in (
+            ("mab train", "mab", dict(mode="train", mab_state=mab_state)),
+            ("gillis", "gillis", {}),
+            ("random+daso", "random+daso",
+             dict(daso_theta=theta, daso_cfg=cfg))):
+        with DrawTap() as tap:
+            _, _, launches, _ = main_path(policy, label=label, draws=True,
+                                          **kw)
+        draws[label] = launches["threefry_rows"]
+        err = max(err, tap.check(f"main path {label}")[1])
+    return draws, err
 
 
 def _expected_params(cfg):
@@ -1696,6 +1976,7 @@ def cross_checks():
     log("cross-check: a G=3 'mab' grid on cuda matches the cpu path at "
         "rtol=1e-9")
     daso_cross_check()
+    train_cross_check()
 
 
 def daso_cross_check():
@@ -1731,6 +2012,167 @@ def daso_cross_check():
             f"{cfg.lr_place} on cuda matches the cpu path at rtol=1e-9")
 
 
+class StageTally:
+    """While active, keeps every interval's split decisions (the codes
+    ``select_variant`` records, with the valid rows) and the DASO stage's
+    final logits (``_write_rows``' operands), as device tensors."""
+
+    def __enter__(self):
+        from repro_torch.env.torchsim import kernels
+        self._kernels = kernels
+        self._select, self._write = kernels.select_variant, kernels._write_rows
+        self.decisions, self.logits = [], []
+
+        def select(shared, var, decision, arm_decisions=(0, 1)):
+            arr = self._select(shared, var, decision, arm_decisions)
+            self.decisions.append((arr["decision"].clone(),
+                                   shared["valid"].clone()))
+            return arr
+
+        def write(req, slot_i, f_i, rowvalid, logits):
+            self.logits.append((logits.clone(), rowvalid.clone()))
+            return self._write(req, slot_i, f_i, rowvalid, logits)
+
+        kernels.select_variant, kernels._write_rows = select, write
+        return self
+
+    def __exit__(self, *exc):
+        self._kernels.select_variant = self._select
+        self._kernels._write_rows = self._write
+
+
+def _first_flips(card, host, label):
+    """Per cell, the first interval whose DASO placements differ between
+    the card and the CPU, and the largest relative logit margin of the
+    rows that differ there (on the CPU's logits); raises unless it is a
+    near-tie (< 1e-6)."""
+    flips = {}
+    for i, ((lc, vc), (lh, vh)) in enumerate(zip(card.logits, host.logits)):
+        lc, vc = lc.cpu(), vc.cpu()
+        if not np.array_equal(vc.numpy(), vh.numpy()):
+            bad = [g for g in range(len(vc)) if not np.array_equal(
+                vc[g].numpy(), vh[g].numpy())]
+            if all(g in flips for g in bad):
+                continue
+            raise AssertionError(f"{label}: interval {i}: container rows "
+                                 f"differ in cells {bad} before any flip")
+        ac, ah = lc.argmax(-1), lh.argmax(-1)
+        for g in range(lc.shape[0]):
+            rows = ((ac[g] != ah[g]) & vh[g]).nonzero()[:, 0]
+            if g in flips or not len(rows):
+                continue
+            l = lh[g, rows]
+            pick_c = l.gather(1, ac[g, rows][:, None])[:, 0]
+            pick_h = l.gather(1, ah[g, rows][:, None])[:, 0]
+            margin = float(((pick_h - pick_c).abs()
+                            / pick_h.abs().clamp(min=1e-300)).max())
+            if not margin < 1e-6:
+                raise AssertionError(f"{label}: cell {g} interval {i}: a "
+                                     f"placement differs by {margin:.3e} "
+                                     "relative")
+            flips[g] = (i, margin)
+    return flips
+
+
+def train_cross_check(labels=None):
+    """This slice's policies on a G=4 grid (``TRAIN_CROSS``) with the gates
+    lowered (``TRAIN_HP_LOW``) and ``DASO_SMALL``'s lr_place 20, so that
+    the finetuned θ is ascended and placements move, on the card and on
+    the port's CPU path: per cell, equal decisions, summaries at rtol 1e-9,
+    Q-tables at rtol 1e-9 and the finetuned θ at rtol 1e-5 (with a floor of
+    1e-5 of each leaf's largest entry); a DASO placement that differs must
+    be a near-tie (< 1e-6 relative), and its cell is then compared only up
+    to there and reported."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.env.torchsim import (compile_trace_dual,
+                                          run_grid_arrays_gillis,
+                                          run_grid_arrays_static_daso,
+                                          run_grid_arrays_trained)
+    from repro_torch.env.workload import COMPRESSED, LAYER
+    cfg = DASOConfig(**DASO_SMALL)
+    theta = init_surrogate(cfg, torch.Generator().manual_seed(DASO_SEED),
+                           device="cpu")
+    cells = [(lam, seed) for lam in TRAIN_CROSS["lams"]
+             for seed in TRAIN_CROSS["seeds"]]
+
+    def traces(**kw):
+        return [compile_trace_dual(
+            lam=lam, seed=seed, n_intervals=TRAIN_CROSS["n_intervals"],
+            substeps=TRAIN_CROSS["substeps"], **kw) for lam, seed in cells]
+
+    dual, gdual = traces(), traces(variants=(LAYER, COMPRESSED))
+    trained = dict(daso_theta=theta, train_hp=TRAIN_HP_LOW)
+    runs = {
+        "mab train": lambda dev: run_grid_arrays_trained(
+            dual, MAB_LITERAL, device=dev),
+        "splitplace train": lambda dev: run_grid_arrays_trained(
+            dual, MAB_LITERAL, daso_cfg=cfg, device=dev, **trained),
+        "mab+gobi train": lambda dev: run_grid_arrays_trained(
+            dual, MAB_LITERAL, daso_cfg=cfg._replace(decision_aware=False),
+            device=dev, **trained),
+        "gillis": lambda dev: run_grid_arrays_gillis(gdual, device=dev),
+        "random+daso": lambda dev: run_grid_arrays_static_daso(
+            dual, "random+daso", daso_theta=theta, daso_cfg=cfg,
+            device=dev),
+    }
+    for label, run in runs.items():
+        if labels is not None and label not in labels:
+            continue
+        with DasoTally() as tally, StageTally() as card:
+            on_gpu = run("cuda")
+        with StageTally() as host:
+            on_cpu = run("cpu")
+        flips = _first_flips(card, host, label)
+        rows = 0
+        for i, ((dc, vc), (dh, vh)) in enumerate(zip(card.decisions,
+                                                     host.decisions)):
+            dc, vc = dc.cpu(), vc.cpu()
+            for g in range(len(dc)):
+                if g in flips and i > flips[g][0]:
+                    continue
+                if not torch.equal(vc[g], vh[g]) or not torch.equal(
+                        dc[g][vh[g]], dh[g][vh[g]]):
+                    raise AssertionError(f"{label}: cell {g} interval {i}: "
+                                         "decisions differ")
+                rows += int(vh[g].sum())
+        worst_theta = 0.0
+        for g, (gs, cs) in enumerate(zip(on_gpu, on_cpu)):
+            if g in flips:
+                continue
+            for k, v in cs.items():
+                if k == "daso_theta":
+                    for lg, lc in zip(gs[k], v):
+                        for x in ("w", "b"):
+                            scale = float(np.abs(lc[x]).max())
+                            err = float(np.abs(lg[x] - lc[x]).max())
+                            worst_theta = max(worst_theta,
+                                              err / max(scale, 1e-30))
+                            if not np.allclose(lg[x], lc[x], rtol=1e-5,
+                                               atol=1e-5 * scale):
+                                raise AssertionError(
+                                    f"{label} cell {g}: finetuned θ {x} "
+                                    f"differs by {err:.3e}")
+                elif not np.allclose(gs[k], v, rtol=1e-9, atol=1e-12):
+                    raise AssertionError(f"{label} cell {g} {k}: cuda "
+                                         f"{gs[k]!r} vs cpu {v!r}")
+        moved = ""
+        if tally.steps:
+            n_moved = daso_report(tally, cfg, f"cross-check {label}",
+                                  len(tally.steps))
+            if n_moved <= 0:
+                raise AssertionError(f"{label}: the ascent moved no row")
+            moved = f", {n_moved} rows moved by the ascent"
+        log(f"cross-check {label}: a G={len(cells)} grid (T="
+            f"{TRAIN_CROSS['n_intervals']}) on cuda matches the cpu path: "
+            f"{rows} decisions equal, summaries at rtol 1e-9"
+            + (f", finetuned θ within {worst_theta:.3e} of each leaf's "
+               "largest entry" if "daso_theta" in on_cpu[0] else "")
+            + moved + "; placements that flip on a near-tie: "
+            + (", ".join(f"cell {g} at interval {i} (margin {m:.3e})"
+                         for g, (i, m) in flips.items()) or "none"))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1760,6 +2202,7 @@ def main() -> int:
     records.append(moe_route_phase())
     records.append(selective_scan_phase())
     records.append(rglru_scan_phase())
+    records.append(threefry_phase())
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1773,6 +2216,12 @@ def main() -> int:
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
     daso_path(mab_state)
+    draws, draw_err_main = train_paths(mab_state)
+    for rec in records:
+        if rec["name"] == "threefry_rows":
+            rec["launches"] = draws["splitplace train"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], draw_err_main)
+            rec["launches_by_path"] = draws
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1786,7 +2235,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     for rec in records:
-        if rec["name"] not in SIM_KERNELS:
+        if rec["name"] not in SIM_KERNELS + DRAW_KERNELS:
             rec["launches"] = totals[rec["name"]]
         if rec["name"] == "flash_attention":
             rec["hd128"]["launches"] = flash_by_arch["qwen2-moe-a2.7b"]

@@ -1,7 +1,9 @@
-"""Multi-Armed-Bandit split-decision module (paper §4.1, eqs. 2–9), deploy half.
+"""Multi-Armed-Bandit split-decision module (paper §4.1, eqs. 2–9) and the
+Gillis baseline's Q-learner.
 
-The port of ``repro.core.mab``'s UCB decisions and Algorithm-1
-bookkeeping, batched over a leading grid axis G: every leaf of
+The port of ``repro.core.mab``: UCB decisions (deploy), ε-greedy
+decisions (train), the Algorithm-1 bookkeeping and the Gillis functions,
+batched over a leading grid axis G: every leaf of
 ``MABState`` carries one row per grid cell, and the per-task arrays
 carry (G, rows).  Two context-separated bandits:
 
@@ -10,7 +12,9 @@ carry (G, rows).  Two context-separated bandits:
   * ``l`` — low-SLA context: deadline below the estimate.
 
 Each context holds Q-estimates and decision counts for the two arms
-(L = layer split, S = semantic split).  Deployment uses UCB (eq. 9).
+(L = layer split, S = semantic split).  Deployment uses UCB (eq. 9),
+training ε-greedy (eq. 6) with JAX's threefry bits per row
+(``repro_torch.kernels.threefry``).
 
 Numerics follow the reference as XLA:CPU executes it, since that is the
 oracle this port is checked against:
@@ -24,7 +28,11 @@ oracle this port is checked against:
     float64 before the float32 cast.  That is JAX's op-by-op result and
     XLA:CPU's jitted one for up to 14 rows; on wider slot arrays the
     jitted reference regroups the float32 sums, a last-ulp difference
-    (ROADMAP queue 3).
+    (ROADMAP queue 3);
+  * the Gillis TD step ``Q + lr·(r − Q)`` is float64, and XLA:CPU
+    contracts it into one fused multiply-add too (the reference's scan
+    body is compiled even when called op by op); ``_fma64`` reproduces
+    that single rounding with an exact product (Dekker's split).
 """
 from __future__ import annotations
 
@@ -36,7 +44,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve
+from repro_torch.kernels.threefry import threefry_rows
 
 LAYER, SEMANTIC = 0, 1        # arm indices
 HIGH, LOW = 0, 1              # context indices
@@ -122,33 +132,53 @@ def decide_ucb(state: MABState, sla, app, c: float = 0.5):
 
 #: the caller's dict that ``timed_host_reads`` installs (per thread and
 #: task), or None
-_host_read_s: contextvars.ContextVar[Optional[dict]] = \
-    contextvars.ContextVar("mab_host_read_s", default=None)
+_phase_s: contextvars.ContextVar[Optional[dict]] = \
+    contextvars.ContextVar("mab_phase_s", default=None)
 
 
 @contextlib.contextmanager
 def timed_host_reads(phase_s: Optional[dict]):
     """While active, every host read of ``_masked_rows`` adds its wall
     seconds, after a device synchronize (so queued work is not counted),
-    into ``phase_s["mab_host_read"]``.  Does nothing when ``phase_s`` is
-    None."""
+    into ``phase_s["mab_host_read"]``, and every ``timed_share`` block its
+    own into ``phase_s[name]``.  Does nothing when ``phase_s`` is None."""
     if phase_s is None:
         yield
         return
     phase_s.setdefault("mab_host_read", 0.0)
-    token = _host_read_s.set(phase_s)
+    token = _phase_s.set(phase_s)
     try:
         yield
     finally:
-        _host_read_s.reset(token)
+        _phase_s.reset(token)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def timed_share(name: str, device):
+    """While ``timed_host_reads`` is active, add the wall seconds of the
+    block, with the device synchronized before and after, into
+    ``phase_s[name]`` (a share of the phase that runs it)."""
+    phase_s = _phase_s.get()
+    if phase_s is None:
+        yield
+        return
+    _sync(device)
+    t0 = time.perf_counter()
+    yield
+    _sync(device)
+    phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
 
 
 def _host_max(count) -> int:
-    phase_s = _host_read_s.get()
+    phase_s = _phase_s.get()
     if phase_s is None:
         return int(count.max())
-    if count.is_cuda:
-        torch.cuda.synchronize(count.device)
+    _sync(count.device)
     t0 = time.perf_counter()
     n = int(count.max())
     phase_s["mab_host_read"] += time.perf_counter() - t0
@@ -255,3 +285,115 @@ def end_of_interval(state: MABState, apps, sla, resp, acc, decisions,
     rows = [t[None] for t in (apps, sla, resp, acc, decisions)]
     mask = torch.ones_like(rows[0], dtype=torch.bool)
     return end_of_interval_masked(state, *rows, mask, phi, gamma, k)
+
+
+# ------------------------------------------------------- ε-greedy (train)
+
+
+def decide_train_rows(state: MABState, key, t: int, sla, app):
+    """ε-greedy training decisions (eq. 6) for one interval's (G, A) rows:
+    row a of cell g draws from ``fold_in(fold_in(key[g], t), a)`` (the
+    reference's ``fold_in(key_t, a)`` with ``key_t = fold_in(key, t)``),
+    explores with probability ε (a float32 draw, as ``bernoulli`` of the
+    float32 ε) and then takes a fair coin, else ``argmax Q[ctx]`` (the
+    first arm on ties).  key (G, 2) int64 words; returns (arm, ctx),
+    both (G, A) int32."""
+    ctx = context_of(state, sla, app)
+    idx = ctx.long()[..., None].expand(*ctx.shape, 2)
+    greedy = torch.argmax(torch.gather(state.Q, 1, idx), dim=-1)
+    with timed_share("draw", sla.device):
+        explore, coin = threefry_rows(key, t, sla.shape[1],
+                                      p=state.eps.to(torch.float64),
+                                      width=32)
+    return torch.where(explore, coin.long(), greedy).to(torch.int32), ctx
+
+
+def decide_train(state: MABState, key, sla, app):
+    """One ε-greedy decision per cell from its own key (G, 2): sla/app are
+    (G,); the draws are ``split(key)`` as in the reference's
+    ``decide_train``."""
+    ctx = context_of(state, sla[:, None], app[:, None])[:, 0]
+    greedy = torch.argmax(state.Q[torch.arange(len(ctx)), ctx.long()], -1)
+    k1, k2 = prng.split(key)
+    explore = prng.bernoulli(k1, state.eps, 32)
+    coin = prng.bernoulli(k2, 0.5, 64)
+    return torch.where(explore, coin.long(), greedy).to(torch.int32), ctx
+
+
+# ----------------------------------------------- Gillis baseline (arrays)
+
+def gillis_init(num_apps: int, *, grid: int = 1, device="cuda",
+                dtype=torch.float64):
+    """Zero contextual Q-tables, (G, apps, 2 buckets, 2 arms)."""
+    return torch.zeros((grid, num_apps, 2, 2), dtype=dtype,
+                       device=resolve(device))
+
+
+def gillis_bucket(sla, batch, app, layer_ref):
+    """Deadline context bucket: 1 when the SLA undercuts 1.6× the
+    batch-scaled unloaded layer-chain reference.  ``layer_ref`` (apps,)
+    float64; sla, batch (float64) and app of one shape; int32."""
+    ref = layer_ref[app.long()] * batch / 40000.0 * 1.6
+    return (sla < ref).to(torch.int32)
+
+
+def gillis_decide_rows(Q, eps, key, t: int, sla, batch, app, layer_ref):
+    """ε-greedy Gillis arm decisions for one interval's (G, A) rows, with
+    the same per-row keys as ``decide_train_rows``; ε (G,) float64 is a
+    float64 draw.  Returns (arms, buckets), (G, A) int32; arm 0 is the
+    layer split, arm 1 the compressed model."""
+    bucket = gillis_bucket(sla, batch, app, layer_ref)
+    G, A = sla.shape
+    cell = (app.long() * 2 + bucket) * 2                   # (G, A)
+    q = Q.reshape(G, -1)
+    q2 = torch.stack([torch.gather(q, 1, cell),
+                      torch.gather(q, 1, cell + 1)], dim=-1)
+    greedy = torch.argmax(q2, dim=-1)
+    with timed_share("draw", sla.device):
+        explore, coin = threefry_rows(key, t, A, p=eps, width=64)
+    return torch.where(explore, coin.long(), greedy).to(torch.int32), bucket
+
+
+_SPLIT = 134217729.0                      # 2**27 + 1, Dekker's split
+
+
+def _halves(a):
+    c = _SPLIT * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _fma64(a, b, c):
+    """float64 ``a*b + c`` with one rounding, as XLA:CPU contracts it: the
+    product is split exactly into p + e (Dekker), p + c into s + t
+    (Knuth's two-sum), and s + (t + e) is rounded once more.  That equals
+    the fused result except where t + e rounds across a rounding boundary
+    of s, which needs an exact tie."""
+    p = a * b
+    ah, al = _halves(a)
+    bh, bl = _halves(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def gillis_update_masked(Q, apps, buckets, arms, rewards, mask, lr: float):
+    """Per-leaving-task sequential TD(0) update ``Q ← Q + lr·(r − Q)`` over
+    masked (G, M) rows, in row order (later rows of one (app, bucket, arm)
+    entry see earlier updates); masked-out rows no-op.  One host read per
+    call (``_masked_rows``)."""
+    G = Q.shape[0]
+    q = Q.reshape(G, -1).clone()
+    gi = torch.arange(G, device=Q.device)
+    lr64 = torch.tensor(lr, dtype=torch.float64, device=Q.device)
+    entry = (apps.long() * 2 + buckets.long()) * 2 + arms.long()
+    order, count, n = _masked_rows(mask)
+    for i in range(n):
+        row = order[:, i]
+        e = entry[gi, row]
+        cur = q[gi, e]
+        new = _fma64(lr64, rewards[gi, row] - cur, cur)
+        q[gi, e] = torch.where(i < count, new, cur)
+    return q.reshape(Q.shape)

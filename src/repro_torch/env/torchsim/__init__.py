@@ -7,7 +7,11 @@ repair → substep physics → feedback over all G grid cells at once on the
 chosen device.  The substep physics is the hand-written CUDA kernel
 ``repro_torch.kernels.edge_substep`` on a CUDA grid.  Placement is BestFit,
 or BestFit followed by the DASO stage (``splitplace``, ``mab+gobi`` and the
-static-decider arms ``layer+gobi`` / ``semantic+gobi``).
+static-decider arms ``layer+gobi`` / ``semantic+gobi`` / ``random+daso``).
+The learners run in deploy mode (UCB) or train mode (ε-greedy decisions
+and online DASO finetuning), and the Gillis baseline learns its Q-table in
+the loop; their draws are JAX's threefry bits
+(``repro_torch.kernels.threefry``).
 """
 from repro_torch.env.torchsim import engines
 from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
@@ -15,17 +19,25 @@ from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
                                              compile_trace_dual,
                                              default_capacity, stack_traces,
                                              to_device)
-from repro_torch.env.torchsim.driver import (MAB_HP, METRIC_COLS,
-                                             STATIC_DASO_ARMS,
+from repro_torch.env.torchsim.driver import (GILLIS_HP, MAB_HP,
+                                             METRIC_COLS, STATIC_DASO_ARMS,
+                                             TRAIN_HP, gillis_init_state,
+                                             gillis_layer_ref,
                                              run_grid_arrays,
+                                             run_grid_arrays_gillis,
                                              run_grid_arrays_learned,
                                              run_grid_arrays_static_daso,
+                                             run_grid_arrays_trained,
                                              run_grid_engine, run_program,
                                              run_trace_arrays,
+                                             run_trace_arrays_gillis,
                                              run_trace_arrays_learned,
                                              run_trace_arrays_static_daso,
-                                             run_trace_engine)
+                                             run_trace_arrays_trained,
+                                             run_trace_engine,
+                                             trace_train_key)
 from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
+                                               LEARNED_POLICIES,
                                                MAB_LEARNED_POLICIES,
                                                STATIC_POLICIES,
                                                make_static_decider)
@@ -33,11 +45,14 @@ from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
 __all__ = [
     "ClusterArrays", "DualTraceArrays", "TraceArrays", "compile_trace",
     "compile_trace_dual", "default_capacity", "stack_traces", "to_device",
-    "engines", "MAB_HP", "METRIC_COLS", "STATIC_DASO_ARMS",
-    "run_grid_arrays", "run_grid_arrays_learned",
-    "run_grid_arrays_static_daso", "run_grid_engine", "run_program",
-    "run_trace_arrays", "run_trace_arrays_learned",
-    "run_trace_arrays_static_daso", "run_trace_engine",
-    "DASO_LEARNED_POLICIES", "MAB_LEARNED_POLICIES", "STATIC_POLICIES",
+    "engines", "GILLIS_HP", "MAB_HP", "METRIC_COLS", "STATIC_DASO_ARMS",
+    "TRAIN_HP", "gillis_init_state", "gillis_layer_ref", "run_grid_arrays",
+    "run_grid_arrays_gillis", "run_grid_arrays_learned",
+    "run_grid_arrays_static_daso", "run_grid_arrays_trained",
+    "run_grid_engine", "run_program", "run_trace_arrays",
+    "run_trace_arrays_gillis", "run_trace_arrays_learned",
+    "run_trace_arrays_static_daso", "run_trace_arrays_trained",
+    "run_trace_engine", "trace_train_key", "DASO_LEARNED_POLICIES",
+    "LEARNED_POLICIES", "MAB_LEARNED_POLICIES", "STATIC_POLICIES",
     "make_static_decider",
 ]

@@ -1,7 +1,9 @@
 """Trace/grid drivers: the interval program over a device-resident grid.
 
-The port of ``repro.env.jaxsim.driver`` for the static, MAB-deploy
-(BestFit or DASO placement) and static-decider DASO engines.
+The port of ``repro.env.jaxsim.driver`` for every engine: static,
+MAB-deploy (BestFit or DASO placement), static-decider DASO (fixed or
+random split), MAB-train (ε-greedy decisions and online DASO finetuning)
+and Gillis.
 ``run_program`` is THE interval program: a Python loop over intervals
 whose every step works on the whole grid at once (leading axis
 G), calling the engine's ``decide / place / feedback`` hooks around the
@@ -20,8 +22,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import daso as daso_mod
+from repro_torch.core import mab as mab_mod
 from repro_torch.core.mab import (MABState, mab_state_from_numpy,
                                   timed_host_reads)
+from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve
 from repro_torch.env.cluster import Cluster, make_cluster
 from repro_torch.env.torchsim import engines, kernels
@@ -30,10 +35,21 @@ from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
                                              check_grid_homogeneous,
                                              default_capacity, stack_traces,
                                              to_device)
+from repro_torch.env.workload import layer_ref_response_s
 
 #: MAB hyperparameters of the in-loop learned policies, matching the host
 #: ``MABDecider`` defaults: (ucb_c, phi, gamma, k)
 MAB_HP = (0.5, 0.3, 0.3, 0.1)
+
+#: DASO finetuning hyperparameters, matching the host ``SurrogatePlacer``
+#: defaults: (alpha, beta, train_steps, place_min, train_min); the last
+#: two are the cold-start gates (ascend the surrogate only from interval
+#: ``place_min``, train only once ``train_min`` records exist)
+TRAIN_HP = (0.5, 0.5, 4, daso_mod.PLACE_MIN, daso_mod.TRAIN_MIN)
+
+#: Gillis baseline hyperparameters, matching the host ``GillisDecider``
+#: defaults: (eps0, lr, decay)
+GILLIS_HP = (0.5, 0.3, 0.995)
 
 #: layout of the packed per-substep metric accumulator:
 #: [n_fin, Σresp, n_viol, Σacc, Σreward, Σwait, fin_dec·3]
@@ -41,8 +57,10 @@ METRIC_COLS = ("n_fin", "sum_resp", "n_viol", "sum_acc", "sum_reward",
                "sum_wait", "fin_layer", "fin_semantic", "fin_compressed")
 
 #: phases of ``run_program`` timed when the caller passes ``phase_s``; the
-#: dict also gets "mab_host_read", the part of "feedback" the MAB's
-#: per-interval host reads take (``mab.timed_host_reads``)
+#: dict also gets "mab_host_read", the part of "feedback" the MAB's and
+#: Gillis's per-interval host reads take (``mab.timed_host_reads``), and,
+#: where the engine runs them, "draw" (the threefry draws' part of
+#: "decide") and "daso_train" (the DASO finetune's part of "feedback")
 PHASES = ("decide", "place", "physics", "feedback")
 
 f8 = torch.float64
@@ -195,12 +213,21 @@ def run_grid_engine(engine, traces: Sequence, es_builder: Callable,
     cld = to_device(cl.as_dict(), dev)
     out = run_program(engine, leaves, cld, es_builder(len(traces), dev), K,
                       t0.substeps, t0.interval_s, swap_slowdown, phase_s)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    out = _tree(out, lambda v: v.cpu().numpy())
     cost_total = float(cl.cost_hr.sum())
     return [engine.summarize(row, _summarize(row, t0.interval_s,
                                              t0.n_intervals, cost_total))
-            for row in ({k: v[i] for k, v in out.items()}
+            for row in (_tree(out, lambda v: v[i])
                         for i in range(len(traces)))]
+
+
+def _tree(x, fn):
+    """``fn`` applied to every leaf of nested dicts and lists."""
+    if isinstance(x, dict):
+        return {k: _tree(v, fn) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_tree(v, fn) for v in x]
+    return fn(x)
 
 
 def run_trace_engine(engine, trace, es_builder: Callable, **kw) -> dict:
@@ -330,8 +357,7 @@ def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
 
 
 #: the static-decider baseline arms and the ``engines.MAB_VARIANTS`` index
-#: each realizes on every row (−1: uniform random per row, ``random+daso``,
-#: not ported: ROADMAP queue 1 item 7)
+#: each realizes on every row (−1: uniform random per row, ``random+daso``)
 STATIC_DASO_ARMS = {"layer+gobi": 0, "semantic+gobi": 1, "random+daso": -1}
 
 
@@ -362,14 +388,22 @@ def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
                                 phase_s: Optional[dict] = None) -> list:
     """Run a grid of dual traces under a static-decider baseline arm
     (``layer+gobi`` / ``semantic+gobi``: a fixed split, placed by the
-    decision-blind DASO stage); one §6.4 summary dict per trace."""
+    decision-blind DASO stage; ``random+daso``: a fair coin per row from
+    ``trace_train_key(trace.seed)``, placed by the decision-aware stage);
+    one §6.4 summary dict per trace."""
     _check_variants(traces, engines.MAB_VARIANTS)
     cluster = cluster or make_cluster()
     engine, theta = _static_daso_engine(policy, daso_cfg, daso_theta,
                                         cluster)
-    return run_grid_engine(engine, traces,
-                           lambda G, dev: {"theta": _theta_on(theta, dev)},
-                           cluster=cluster, max_active=max_active,
+
+    def build(G, dev):
+        es = {"theta": _theta_on(theta, dev)}
+        if engine.arm < 0:
+            es["key"] = _trace_keys(traces, dev)
+        return es
+
+    return run_grid_engine(engine, traces, build, cluster=cluster,
+                           max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
                            phase_s=phase_s)
 
@@ -385,3 +419,139 @@ def run_trace_arrays_static_daso(trace: DualTraceArrays, policy: str,
         [trace], policy, daso_theta=daso_theta, daso_cfg=daso_cfg,
         cluster=cluster, max_active=max_active, swap_slowdown=swap_slowdown,
         device=device)[0]
+
+
+def trace_train_key(seed: int, device="cpu"):
+    """The per-trace PRNG key of the train, Gillis and random-arm loops:
+    ``jax.random.PRNGKey(seed)``, (2,) int64 words."""
+    return prng_key(seed, device=device)
+
+
+def _trace_keys(traces, dev):
+    return torch.stack([trace_train_key(t.seed, dev) for t in traces])
+
+
+def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
+                            daso_theta=None, daso_cfg=None,
+                            daso_opt_state=None,
+                            cluster: Optional[Cluster] = None,
+                            max_active: Optional[int] = None,
+                            swap_slowdown: float = 0.5, device="cuda",
+                            mab_hp=MAB_HP, train_hp=TRAIN_HP,
+                            phase_s: Optional[dict] = None) -> list:
+    """Run a grid of dual traces with the §6.3 training loop: ε-greedy MAB
+    decisions + Algorithm-1 feedback, and with ``daso_cfg``/``daso_theta``
+    online DASO finetuning (replay-window appends and weighted AdamW
+    epochs in the loop).  Every cell carries its own copies of
+    ``mab_state``, θ (float32), the AdamW state (``daso_opt_state`` or
+    fresh) and the replay window; its draws come from
+    ``trace_train_key(trace.seed)``.  Summaries gain the final MAB scalars
+    and, with DASO, the finetuned θ under ``"daso_theta"`` (the
+    reference's NumPy ``{"w", "b"}`` list)."""
+    _check_variants(traces, engines.MAB_VARIANTS)
+    cluster = cluster or make_cluster()
+    theta = _check_learned_args(daso_cfg, daso_theta, cluster.n)
+    engine = engines.MABTrainEngine(mab_hp=tuple(mab_hp),
+                                    train_hp=tuple(train_hp),
+                                    daso_cfg=daso_cfg)
+    mab_es = _mab_es(mab_state)
+
+    def build(G, dev):
+        es = mab_es(G, dev)
+        es["key"] = _trace_keys(traces, dev)
+        es["theta"], es["opt"], es["win"] = (), (), {}
+        if daso_cfg is not None:
+            es["theta"] = daso_mod.theta_cells(theta, G, dev)
+            es["opt"] = daso_mod.opt_state_cells(daso_opt_state,
+                                                 es["theta"], G, dev)
+            es["win"] = daso_mod.window_init(daso_cfg, G, dev)
+        return es
+
+    return run_grid_engine(engine, traces, build, cluster=cluster,
+                           max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device,
+                           phase_s=phase_s)
+
+
+def run_trace_arrays_trained(trace: DualTraceArrays, mab_state,
+                             daso_theta=None, daso_cfg=None,
+                             daso_opt_state=None,
+                             cluster: Optional[Cluster] = None,
+                             max_active: Optional[int] = None,
+                             swap_slowdown: float = 0.5, device="cuda",
+                             mab_hp=MAB_HP, train_hp=TRAIN_HP) -> dict:
+    """Run one dual trace through the training loop."""
+    return run_grid_arrays_trained(
+        [trace], mab_state, daso_theta=daso_theta, daso_cfg=daso_cfg,
+        daso_opt_state=daso_opt_state, cluster=cluster,
+        max_active=max_active, swap_slowdown=swap_slowdown, device=device,
+        mab_hp=mab_hp, train_hp=train_hp)[0]
+
+
+def gillis_layer_ref(num_apps: int = 3):
+    """The (num_apps,) unloaded layer-chain reference times the Gillis
+    context bucket compares deadlines with."""
+    return np.array([layer_ref_response_s(a) for a in range(num_apps)],
+                    np.float64)
+
+
+def gillis_init_state(num_apps: int = 3, eps0: float = GILLIS_HP[0]):
+    """Fresh Gillis carry pieces: a zero (apps, 2, 2) Q-table and ε₀,
+    float64 NumPy.  Pass a previous run's ``{"Q": gillis_q, "eps":
+    gillis_eps}`` instead to continue one."""
+    return {"Q": np.zeros((num_apps, 2, 2), np.float64),
+            "eps": np.float64(eps0)}
+
+
+def _gillis_es(traces, gillis_state, num_apps: int, eps0: float):
+    """The ``es_builder`` of the Gillis engine: every cell starts from its
+    own copy of ``gillis_state``, or from zeros and ε₀."""
+    def build(G, dev):
+        if gillis_state is None:
+            Q = mab_mod.gillis_init(num_apps, grid=G, device=dev)
+            eps = torch.full((G,), eps0, dtype=f8, device=dev)
+        else:
+            Q = torch.as_tensor(np.asarray(gillis_state["Q"], np.float64),
+                                device=dev).expand(G, num_apps, 2, 2)
+            eps = torch.as_tensor(np.float64(gillis_state["eps"]),
+                                  device=dev).expand(G)
+        return {"Q": Q.clone(), "eps": eps.clone(),
+                "key": _trace_keys(traces, dev),
+                "layer_ref": torch.as_tensor(gillis_layer_ref(num_apps),
+                                             device=dev)}
+    return build
+
+
+def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
+                           gillis_state=None,
+                           cluster: Optional[Cluster] = None,
+                           max_active: Optional[int] = None,
+                           swap_slowdown: float = 0.5, device="cuda",
+                           gillis_hp=GILLIS_HP, num_apps: int = 3,
+                           phase_s: Optional[dict] = None) -> list:
+    """Run a grid of (LAYER, COMPRESSED) dual traces under the Gillis
+    baseline: contextual ε-greedy Q-learning with per-interval ε decay and
+    per-leaving-task TD(0) updates, BestFit placement.  Every cell starts
+    from its own copy of ``gillis_state`` (zeros and ε₀ when None) and
+    draws from ``trace_train_key(trace.seed)``.  Summaries gain
+    ``gillis_eps`` and the final Q-table ``gillis_q``."""
+    _check_variants(traces, engines.GILLIS_VARIANTS)
+    engine = engines.GillisEngine(gillis_hp=tuple(gillis_hp))
+    return run_grid_engine(engine, traces,
+                           _gillis_es(traces, gillis_state, num_apps,
+                                      gillis_hp[0]),
+                           cluster=cluster, max_active=max_active,
+                           swap_slowdown=swap_slowdown, device=device,
+                           phase_s=phase_s)
+
+
+def run_trace_arrays_gillis(trace: DualTraceArrays, gillis_state=None,
+                            cluster: Optional[Cluster] = None,
+                            max_active: Optional[int] = None,
+                            swap_slowdown: float = 0.5, device="cuda",
+                            gillis_hp=GILLIS_HP, num_apps: int = 3) -> dict:
+    """Run one (LAYER, COMPRESSED) dual trace under the Gillis baseline."""
+    return run_grid_arrays_gillis(
+        [trace], gillis_state, cluster=cluster, max_active=max_active,
+        swap_slowdown=swap_slowdown, device=device, gillis_hp=gillis_hp,
+        num_apps=num_apps)[0]

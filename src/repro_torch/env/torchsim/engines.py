@@ -1,6 +1,6 @@
 """Policy engines of the interval program (the port of
-``repro.env.jaxsim.engines``: the static, static-decider DASO and
-MAB-deploy engines).
+``repro.env.jaxsim.engines``: the static, static-decider DASO, MAB-deploy,
+MAB-train and Gillis engines).
 
 ``driver.run_program`` runs ONE interval pipeline for every policy:
 
@@ -19,17 +19,25 @@ is ``trace[k][:, t]``.
 Protocol: ``decide``, ``place``, ``feedback`` as above; ``outputs(es)`` —
 extra per-cell results; ``summarize(out, summary)`` — lift those into the
 host summary dict.
+
+The learners' randomness is JAX's threefry, one key per cell
+(``es["key"]``, (G, 2) int64 words): row a of interval t draws from
+``fold_in(fold_in(key, t), a)`` (``repro_torch.kernels.threefry``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import daso as daso_mod
 from repro_torch.core.daso import DASOConfig
+from repro_torch.core.mab import timed_share
 from repro_torch.env.torchsim import kernels
-from repro_torch.env.workload import LAYER, SEMANTIC
+from repro_torch.env.workload import COMPRESSED, LAYER, SEMANTIC
+from repro_torch.kernels.threefry import threefry_rows
 
 #: arrival keys of a single-variant (static) compiled trace
 STATIC_ARR_KEYS = ("valid", "sla", "arrival_s", "app", "batch", "acc",
@@ -39,8 +47,9 @@ STATIC_ARR_KEYS = ("valid", "sla", "arrival_s", "app", "batch", "acc",
 SHARED_KEYS = ("valid", "sla", "arrival_s", "app", "batch")
 VAR_KEYS = ("vacc", "vchain", "vnfrag", "vinstr", "vram", "vout")
 
-#: the dual-trace variant codes the MAB decides between
+#: the dual-trace variant codes each engine family decides between
 MAB_VARIANTS = (LAYER, SEMANTIC)
+GILLIS_VARIANTS = (LAYER, COMPRESSED)
 
 
 def _daso_place(daso_cfg, es, state, cl, trace, t, interval_s):
@@ -86,24 +95,23 @@ class StaticEngine:
 class StaticDeciderDASOEngine:
     """The static-decider baseline arms: every row of a dual (LAYER,
     SEMANTIC) trace takes variant ``arm`` (0 for ``layer+gobi``, 1 for
-    ``semantic+gobi``), placed by the DASO stage ascending a frozen
-    surrogate.  The GOBI arms pass a ``decision_aware=False`` cfg.
-    ``es = {"theta": θ}``.  ``arm = -1`` (``random+daso``, uniform-random
-    rows) needs JAX's fold-in bits and is ROADMAP queue 1 item 7."""
+    ``semantic+gobi``), or with ``arm = -1`` (``random+daso``) a fair coin
+    per row from the cell's key, placed by the DASO stage ascending a
+    frozen surrogate.  The GOBI arms pass a ``decision_aware=False`` cfg.
+    ``es = {"theta": θ}`` (+ ``"key"`` (G, 2) for the random arm)."""
 
     arm: int
     daso_cfg: DASOConfig
     name: str = "static-daso"
 
-    def __post_init__(self):
-        if self.arm < 0:
-            raise NotImplementedError(
-                "random+daso is not ported yet (ROADMAP queue 1 item 7: "
-                "in-loop randomness, the random arm's fold-in bits)")
-
     def decide(self, es, trace, t):
         shared, var = _interval_rows(trace, t)
-        d = torch.full_like(shared["app"], self.arm)
+        if self.arm < 0:
+            with timed_share("draw", shared["app"].device):
+                d = threefry_rows(es["key"], t, shared["app"].shape[1])
+            d = d.to(torch.int32)
+        else:
+            d = torch.full_like(shared["app"], self.arm)
         return kernels.select_variant(shared, var, d), es
 
     def place(self, es, state, cl, trace, t, interval_s):
@@ -151,11 +159,124 @@ class MABDeployEngine:
         return es
 
     def outputs(self, es):
-        mab = es["mab"]
-        return {"mab_eps": mab.eps, "mab_rho": mab.rho, "mab_t": mab.t}
+        return _mab_outputs(es["mab"])
 
     def summarize(self, out, s):
-        s["mab_eps"] = float(out["mab_eps"])
-        s["mab_rho"] = float(out["mab_rho"])
-        s["mab_t"] = int(out["mab_t"])
+        return _mab_scalars(out, s)
+
+
+def _mab_outputs(mab):
+    return {"mab_eps": mab.eps, "mab_rho": mab.rho, "mab_t": mab.t}
+
+
+def _mab_scalars(out, s):
+    s["mab_eps"] = float(out["mab_eps"])
+    s["mab_rho"] = float(out["mab_rho"])
+    s["mab_t"] = int(out["mab_t"])
+    return s
+
+
+@dataclasses.dataclass(frozen=True)
+class MABTrainEngine:
+    """The §6.3 training loop in the carry: ε-greedy MAB decisions (eq. 6)
+    and Algorithm-1 feedback, and with a ``daso_cfg`` online DASO
+    finetuning — the ascent of the CARRIED θ once the interval index
+    reaches ``place_min``, one replay-window record per interval, and
+    ``train_steps`` weighted epochs once ``train_min`` records exist.
+    ``train_hp = (alpha, beta, train_steps, place_min, train_min)``.
+    ``es = {"mab", "theta", "opt", "win", "key"}``, every leaf per cell
+    (the window's record count is one host-side int)."""
+
+    mab_hp: Tuple[float, float, float, float]
+    train_hp: Tuple[float, float, int, int, int]
+    daso_cfg: Optional[DASOConfig] = None
+    name: str = "mab-train"
+
+    def decide(self, es, trace, t):
+        shared, var = _interval_rows(trace, t)
+        d = kernels.mab_decide_arrivals_train(es["mab"], shared, es["key"],
+                                              t)
+        return kernels.select_variant(shared, var, d), es
+
+    def place(self, es, state, cl, trace, t, interval_s):
+        req = kernels.bestfit_requests(state, cl)
+        if self.daso_cfg is None:
+            return req, es, None
+        feat = kernels.state_features_k(state, cl, trace["lat_prev"][:, t],
+                                        interval_s)
+        # one record lands per interval, so the pre-interval record count
+        # is t: the gate is a host-side branch on the interval index
+        req, x = kernels.daso_requests_train(
+            self.daso_cfg, es["theta"], state, feat, req,
+            t >= self.train_hp[3])
+        return req, es, x
+
+    def feedback(self, es, state, fin, util, aux, t, interval_s):
+        _, phi, gamma, k_rbed = self.mab_hp
+        alpha, beta, train_steps, _, train_min = self.train_hp
+        es = dict(es)
+        es["mab"] = kernels.mab_feedback(es["mab"], state, fin, phi, gamma,
+                                         k_rbed)
+        if self.daso_cfg is not None:
+            with timed_share("daso_train", fin.device):
+                y = daso_mod.op_objective(
+                    state["resp"], state["sla"], state["acc"], fin, util,
+                    interval_s, alpha, beta)
+                es["win"] = daso_mod.window_append(es["win"], aux, y)
+                es["theta"], es["opt"] = daso_mod.finetune_window(
+                    self.daso_cfg, es["theta"], es["opt"], es["win"],
+                    train_steps, train_min)
+        return es
+
+    def outputs(self, es):
+        out = _mab_outputs(es["mab"])
+        if self.daso_cfg is not None:
+            out["daso_theta"] = es["theta"]
+        return out
+
+    def summarize(self, out, s):
+        s = _mab_scalars(out, s)
+        if "daso_theta" in out:
+            s["daso_theta"] = out["daso_theta"]
+        return s
+
+
+@dataclasses.dataclass(frozen=True)
+class GillisEngine:
+    """The Gillis baseline in the carry: contextual ε-greedy Q-learning
+    between the layer split (arm 0) and model compression (arm 1) over
+    (LAYER, COMPRESSED) dual traces, ε decaying once per interval after
+    its decisions, and sequential per-leaving-task TD(0) updates.
+    ``gillis_hp = (eps0, lr, decay)``.  Placement is plain BestFit.
+    ``es = {"Q" (G, apps, 2, 2), "eps" (G,), "key" (G, 2), "layer_ref"
+    (apps,)}``, float64."""
+
+    gillis_hp: Tuple[float, float, float]
+    name: str = "gillis"
+
+    def decide(self, es, trace, t):
+        shared, var = _interval_rows(trace, t)
+        arms = kernels.gillis_decide_arrivals(es["Q"], es["eps"], shared,
+                                              es["key"], t, es["layer_ref"])
+        arr = kernels.select_variant(shared, var, arms,
+                                     arm_decisions=GILLIS_VARIANTS)
+        es = dict(es)
+        es["eps"] = es["eps"] * self.gillis_hp[2]
+        return arr, es
+
+    def place(self, es, state, cl, trace, t, interval_s):
+        return kernels.bestfit_requests(state, cl), es, None
+
+    def feedback(self, es, state, fin, util, aux, t, interval_s):
+        es = dict(es)
+        es["Q"] = kernels.gillis_feedback(es["Q"], state, fin,
+                                          es["layer_ref"], self.gillis_hp[1])
+        return es
+
+    def outputs(self, es):
+        return {"gillis_eps": es["eps"], "gillis_q": es["Q"]}
+
+    def summarize(self, out, s):
+        s["gillis_eps"] = float(out["gillis_eps"])
+        s["gillis_q"] = np.asarray(out["gillis_q"], np.float64)
         return s

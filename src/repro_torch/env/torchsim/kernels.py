@@ -13,10 +13,15 @@ grid axis G where the reference relied on ``vmap``:
                        (``repro_torch.kernels.edge_substep``);
   * ``select_variant`` / ``mab_decide_arrivals`` / ``mab_feedback`` — the
                        MAB deploy loop's decide and feedback stages;
+                       ``mab_decide_arrivals_train`` the ε-greedy decide
+                       of the train loop;
+  * ``gillis_decide_arrivals`` / ``gillis_feedback`` — the Gillis
+                       baseline's decide and TD(0) feedback;
   * ``state_features_k`` / ``daso_requests`` — the DASO placement stage:
                        per-worker features, then the surrogate ascent over
                        the first ``max_containers`` live fragments
-                       (``repro_torch.core.daso.optimize_placement_grid``).
+                       (``repro_torch.core.daso.optimize_placement_grid``);
+                       ``daso_requests_train`` the train loop's gated form.
 
 Every stage here is vectorized over the grid; the three sequential or
 fused pieces (the two placement scans and the substep physics) are CUDA
@@ -295,6 +300,47 @@ def mab_decide_arrivals(mab_state, shared: dict, ucb_c: float):
     return d
 
 
+def mab_decide_arrivals_train(mab_state, shared: dict, key, t: int):
+    """ε-greedy training decisions (eq. 6) for one interval's (G, A)
+    arrival rows against each cell's state, with the per-row draws of
+    ``mab.decide_train_rows`` from each cell's trace key (G, 2) and the
+    interval ``t``.  SLAs are normalized as in ``mab_decide_arrivals``."""
+    sla_n = _norm_f32(shared["sla"], torch.clamp(shared["batch"].to(f8),
+                                                 min=1.0))
+    d, _ = mab_mod.decide_train_rows(mab_state, key, t, sla_n, shared["app"])
+    return d
+
+
+def gillis_decide_arrivals(Q, eps, shared: dict, key, t: int, layer_ref):
+    """Gillis ε-greedy arm decisions (layer vs compressed) for one
+    interval's (G, A) arrival rows against each cell's Q-table and ε; the
+    context buckets come from the raw SLA and batch (no normalization)."""
+    arms, _ = mab_mod.gillis_decide_rows(
+        Q, eps, key, t, shared["sla"], shared["batch"].to(f8),
+        shared["app"], layer_ref)
+    return arms
+
+
+def gillis_feedback(Q, state: dict, fin, layer_ref, lr: float):
+    """End-of-interval Gillis Q-updates over the slots that finished, in
+    admission (``seq``) order: each slot's bucket recomputed from its
+    stored SLA/batch/app, arm 0 for the layer split, reward ((resp <= sla)
+    + acc) / 2, then ``mab.gillis_update_masked``."""
+    ordr = torch.argsort(torch.where(fin, state["seq"], SEQ_DEAD), dim=1,
+                         stable=True)
+
+    def by_seq(x):
+        return torch.gather(x, 1, ordr)
+
+    bucket = mab_mod.gillis_bucket(state["sla"], state["batch"],
+                                   state["app"], layer_ref)
+    arm = (state["decision"] != 0).to(i4)
+    reward = ((state["resp"] <= state["sla"]).to(f8) + state["acc"]) / 2.0
+    return mab_mod.gillis_update_masked(
+        Q, by_seq(state["app"]), by_seq(bucket), by_seq(arm),
+        by_seq(reward), by_seq(fin), lr)
+
+
 def mab_feedback(mab_state, state: dict, fin, phi: float, gamma: float,
                  k: float):
     """End-of-interval MAB bookkeeping over the slots that finished, fed
@@ -380,12 +426,18 @@ def daso_requests(cfg, theta, state: dict, feat, req):
     argmax worker is written back into the request tensor.  Fragments past
     the container budget keep their BestFit request, and
     ``apply_requests`` repairs the result."""
-    G, K, F = req.shape
     slot_i, f_i, rowvalid, warm, dec_i = _daso_rows(cfg, state, req)
     logits = daso_mod.warm_start_logits(cfg, warm, rowvalid, feat.dtype)
     p_opt, _, _ = daso_mod.optimize_placement_grid(cfg, theta, feat, logits,
                                                    dec_i, rowvalid)
-    assign = torch.argmax(p_opt, dim=-1).to(req.dtype)
+    return _write_rows(req, slot_i, f_i, rowvalid, p_opt)
+
+
+def _write_rows(req, slot_i, f_i, rowvalid, logits):
+    """``req`` with each valid container row's fragment set to the argmax
+    worker of its logits."""
+    G, K, F = req.shape
+    assign = torch.argmax(logits, dim=-1).to(req.dtype)
     # rows past the live fragments write to the extra column K·F, which is
     # cut off
     tgt = torch.where(rowvalid, slot_i * F + f_i, K * F)
@@ -393,3 +445,20 @@ def daso_requests(cfg, theta, state: dict, feat, req):
                      req.new_zeros((G, 1))], dim=1)
     out.scatter_(1, tgt, assign)
     return out[:, :K * F].reshape(G, K, F)
+
+
+def daso_requests_train(cfg, theta, state: dict, feat, req, use_opt: bool):
+    """The train loop's DASO stage: the rows of ``daso_requests``, ascended
+    from their warm start when ``use_opt`` (a host-side gate: the interval
+    index has reached ``place_min``), else the warm logits as they are;
+    each valid row's argmax is written back into the request tensor.
+    ``theta`` is the carried per-cell float32 θ; the ascent casts it to
+    ``feat``'s dtype (float64).  Returns (requests, x) with x (G,
+    feature_size) the packed surrogate input of the logits used."""
+    slot_i, f_i, rowvalid, warm, dec_i = _daso_rows(cfg, state, req)
+    p = daso_mod.warm_start_logits(cfg, warm, rowvalid, feat.dtype)
+    if use_opt:
+        p, _, _ = daso_mod.optimize_placement_grid(cfg, theta, feat, p,
+                                                   dec_i, rowvalid)
+    x = daso_mod.pack_input_grid(cfg, feat, p, dec_i, rowvalid)
+    return _write_rows(req, slot_i, f_i, rowvalid, p), x

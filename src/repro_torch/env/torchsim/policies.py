@@ -33,6 +33,10 @@ MAB_LEARNED_POLICIES = ("mab", "splitplace", "mab+gobi")
 #: the subset that also consumes the pretrained DASO surrogate (θ + cfg)
 DASO_LEARNED_POLICIES = ("splitplace", "mab+gobi")
 
+#: every in-loop learned policy: the MAB policies and the Gillis baseline
+#: (contextual ε-greedy Q-learning, which needs no pretraining products)
+LEARNED_POLICIES = MAB_LEARNED_POLICIES + ("gillis",)
+
 
 class StaticFixedDecider:
     def __init__(self, decision: int, name: str):

@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the port, built together by ``build_all``
 SOURCES = ("edge_substep", "placement", "flash_attention", "moe_route",
-           "selective_scan", "rglru_scan")
+           "selective_scan", "rglru_scan", "threefry")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

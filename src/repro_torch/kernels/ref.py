@@ -10,6 +10,8 @@ oracle of ``repro_torch.kernels.flash_attention`` and its CPU path;
 ports of the reference's oracles of the same names, the oracles and CPU
 paths of ``repro_torch.kernels.moe_route``,
 ``repro_torch.kernels.selective_scan`` and ``repro_torch.kernels.rglru_scan``.
+``threefry_rows_ref``, built on ``repro_torch.core.prng``, is the oracle
+and CPU path of ``repro_torch.kernels.threefry``.
 
 Out-of-range stage: the reference gathers each chain's active-stage
 channels with ``take_along_axis``, and JAX's default gather *fills* an
@@ -22,6 +24,8 @@ clamps the index and substitutes those fill semantics explicitly.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import prng
 
 f8 = torch.float64
 
@@ -121,6 +125,22 @@ def rglru_scan_ref(a, bx):
         h = a[:, t].float() * h + bx[:, t].float()
         out[:, t] = h
     return out
+
+
+def threefry_rows_ref(key, t: int, rows: int, p=None, width: int = 64):
+    """The per-row draws of one interval, with JAX's threefry bits: for
+    cell g and row a, ``k = fold_in(fold_in(key[g], t), a)``; with ``p``
+    (G,) float64, ``(k1, k2) = split(k)`` and the result is (explore,
+    coin) with ``explore = U_width(k1) < p[g]`` and ``coin = U_64(k2) <
+    0.5``; without ``p`` it is ``U_64(k) < 0.5``.  key (G, 2) int64 words;
+    outputs bool (G, rows)."""
+    kt = prng.fold_in(key, t)
+    a = torch.arange(rows, dtype=torch.int64, device=key.device)
+    k = prng.fold_in(kt[:, None, :], a[None, :])
+    if p is None:
+        return prng.bernoulli(k, 0.5, 64)
+    k1, k2 = prng.split(k)
+    return prng.bernoulli(k1, p[:, None], width), prng.bernoulli(k2, 0.5, 64)
 
 
 #: operand order of the fused physics (carries first, then the

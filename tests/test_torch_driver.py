@@ -15,8 +15,9 @@
     BestFit at two λ, RAM pressure, layer chains;
   * a grid equals its cells run one by one;
   * ``run_grid_batched`` returns one record per (λ, seed) cell, for the
-    DASO policies too, and refuses what is not ported yet (``random+daso``,
-    ``gillis``, ``mode="train"``: ROADMAP item 7).
+    DASO policies too; ``random+daso``, ``gillis`` and ``mode="train"``
+    run (no policy is left unported), and ``mode="train"`` of a static
+    policy raises the reference's ValueError.
 
 The DASO placement stage itself is held in ``test_torch_daso_sim.py``.
 """
@@ -239,35 +240,45 @@ def test_run_grid_batched_one_record_per_cell(policy):
             assert r["tasks_completed"] == one["tasks_completed"]
 
 
-@pytest.mark.parametrize("policy", sorted(NOT_PORTED))
+@pytest.mark.parametrize("policy", ("random+daso", "gillis"))
 def test_unported_policies_raise(policy):
-    assert set(NOT_PORTED) == {"random+daso", "gillis"}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-        run_grid_batched(policy, n_intervals=2, substeps=2, device="cpu",
-                         mab_state=MAB_LITERAL, daso_theta=_daso_theta(),
-                         daso_cfg=DASO_CFG)
+    """Nothing is left unported: both policies run a grid through
+    ``run_grid_batched`` (held against the reference in
+    ``test_torch_train_sim.py``)."""
+    assert NOT_PORTED == {}
+    recs = run_grid_batched(policy, n_intervals=2, substeps=2, device="cpu",
+                            mab_state=MAB_LITERAL, daso_theta=_daso_theta(),
+                            daso_cfg=DASO_CFG)
+    assert len(recs) == 1 and recs[0]["policy"] == policy
+    assert recs[0]["dropped_tasks"] == 0
 
 
 def test_train_mode_and_daso_raise():
-    """``mode="train"`` and the ``random+daso`` arm (its engine, arm −1)
-    raise naming item 7; the MAB deploy engine takes a DASO cfg."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_grid_batched("mab", mode="train", mab_state=MAB_LITERAL,
-                         n_intervals=2, substeps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        engines.StaticDeciderDASOEngine(arm=-1, daso_cfg=DASO_CFG)
+    """``mode="train"`` runs the MAB policies and raises the reference's
+    ValueError for a static one; the ``random+daso`` engine (arm −1)
+    builds; the MAB deploy engine takes a DASO cfg."""
+    recs = run_grid_batched("mab", mode="train", mab_state=MAB_LITERAL,
+                            n_intervals=2, substeps=2, device="cpu")
+    assert recs[0]["mab_t"] == MAB_LITERAL["t"] + 2
+    with pytest.raises(ValueError, match="is static — mode='train'"):
+        run_grid_batched("mc", mode="train", n_intervals=2, substeps=2,
+                         device="cpu")
+    assert engines.StaticDeciderDASOEngine(arm=-1, daso_cfg=DASO_CFG).arm \
+        == -1
     eng = engines.MABDeployEngine(mab_hp=(0.5, 0.3, 0.3, 0.1),
                                   daso_cfg=DASO_CFG)
     assert eng.daso_cfg is DASO_CFG
 
 
 def test_random_daso_raises_in_the_driver():
-    traces = [compile_trace_dual(lam=3.0, seed=0, n_intervals=2,
-                                 substeps=2)]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        run_grid_arrays_static_daso(traces, "random+daso",
-                                    daso_theta=_daso_theta(),
-                                    daso_cfg=DASO_CFG, device="cpu")
+    """The driver runs the random arm: its rows mix both splits, unlike
+    either fixed arm."""
+    traces = [compile_trace_dual(lam=8.0, seed=0, n_intervals=8,
+                                 substeps=4)]
+    kw = dict(daso_theta=_daso_theta(), daso_cfg=DASO_CFG, device="cpu")
+    got = run_grid_arrays_static_daso(traces, "random+daso", **kw)[0]
+    assert 0.0 < got["layer_fraction"] < 1.0
+    assert got["dropped_tasks"] == 0 and got["tasks_completed"] > 0
 
 
 @pytest.mark.parametrize("policy", ("splitplace", "layer+gobi"))

@@ -589,3 +589,39 @@ def test_daso_policies_match_cpu(cuda, policy):
         for k, v in c.items():
             if k != "policy":
                 assert np.isclose(g[k], v, rtol=1e-9, atol=1e-12), k
+
+
+#: chip_smoke's threefry_rows fuzz: every site, keys near 2**32, t up to
+#: 10**4, p in {0, 1, a float32 ε, a float64 ε}
+THREEFRY_CASES = chip_smoke().threefry_cases()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(THREEFRY_CASES))
+def test_threefry_rows_matches_twin(cuda, name):
+    from repro_torch.kernels.ref import threefry_rows_ref
+    from repro_torch.kernels.threefry import threefry_rows
+    key, t, A, p, width = THREEFRY_CASES[name]
+    key = torch.from_numpy(key).to(cuda)
+    p = None if p is None else torch.from_numpy(p).to(cuda)
+    before = threefry_rows.launches
+    got = threefry_rows(key, t, A, p, width)
+    assert threefry_rows.launches == before + 1
+    want = threefry_rows_ref(key.cpu(), t, A, None if p is None else p.cpu(),
+                             width)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bool and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["mab train", "splitplace train",
+                                   "mab+gobi train", "gillis",
+                                   "random+daso"])
+def test_train_paths_match_cpu(cuda, label):
+    """This slice's policies on chip_smoke's G=4 cross-check grid (gates
+    lowered, lr_place 20): the card equals the CPU path (decisions
+    exactly, summaries at rtol 1e-9, finetuned θ at rtol 1e-5, near-tie
+    placement flips reported)."""
+    chip_smoke().train_cross_check(labels=(label,))
