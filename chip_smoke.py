@@ -55,6 +55,19 @@ to 0 just before and read just after:
   ``threefry_rows`` once per interval, with the phases ``draw`` and
   ``daso_train`` beside the others; each draw these paths make is kept
   and held bitwise against the twin on the same operands after the run;
+* the paper's experiment protocol (``table4``) — ``pretrain(200)`` at
+  Table 4's settings (λ=6, seed 7, 10 substeps; the host ``EdgeSim`` with
+  the MAB, DASO and Gillis learners on the card), with its wall, phase
+  split, ascent steps, host reads, θ's drift and the rows the trained θ's
+  ascent moves; then ``run_grid(backend="torch")`` over the 7 Table-4
+  policies × seeds (0, 1, 2) × T=100 with those products (each simulator
+  kernel launched T times per policy, ``threefry_rows`` T times in
+  ``gillis`` and ``random+daso``) and ``aggregate`` beside the paper's
+  values; the ``splitplace`` main path with the trained θ; the host
+  backend on the card (7 policies, seed 0, T=40; it launches none of the
+  kernels); and ``pretrain(36)`` from one θ0 on the card against the CPU,
+  whose card products then feed short grids on both devices (summaries
+  at rtol 1e-9);
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
   falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
   width and depth
@@ -188,6 +201,37 @@ TRAIN_HP_LOW = (0.5, 0.5, 4, 4, 2)
 #: the card-against-CPU cross-check of this slice's policies (G=4)
 TRAIN_CROSS = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=12,
                    substeps=4)
+
+#: the paper's experiment protocol (benchmarks/table4.py): the shared §6.3
+#: pretraining pass, then the 7 policies × 3 seeds on the interval program
+TABLE4_POLICIES = ("mc", "gillis", "semantic+gobi", "layer+gobi",
+                   "random+daso", "mab+gobi", "splitplace")
+TABLE4_PRETRAIN = dict(n_intervals=200, lam=6.0, seed=7, substeps=10)
+TABLE4 = dict(seeds=(0, 1, 2), lams=(6.0,), n_intervals=100, substeps=10)
+#: the host backend on the card, with the same pretraining products
+TABLE4_HOST = dict(seeds=(0,), lams=(6.0,), n_intervals=40, substeps=10)
+#: the card against the CPU at a reduced size: a 36-interval pretraining
+#: pass (the ascent runs from interval 33) from one θ0, then a short grid
+#: fed the card's products
+TABLE4_CROSS_PRETRAIN = dict(n_intervals=36, lam=6.0, seed=7, substeps=4)
+TABLE4_CROSS = dict(seeds=(0, 1), lams=(6.0,), n_intervals=12, substeps=4)
+#: card against CPU: Q and R, and θ and the AdamW moments, relative to
+#: each leaf's largest entry (float32 sums in other orders); summaries
+TABLE4_MAB_TOL, TABLE4_THETA_TOL, TABLE4_RTOL = 1e-6, 5e-4, 1e-9
+#: the paper's Table-4 values (benchmarks/table4.py), printed beside the
+#: run's for information only
+TABLE4_PAPER = {
+    "mc": dict(reward=0.8398, viol=0.26, acc=0.8993, resp=6.85),
+    "gillis": dict(reward=0.8417, viol=0.22, acc=0.9190, resp=8.39),
+    "semantic+gobi": dict(reward=0.8391, viol=0.14, acc=0.8904, resp=3.70),
+    "layer+gobi": dict(reward=0.6487, viol=0.62, acc=0.9317, resp=9.92),
+    "random+daso": dict(reward=0.8162, viol=0.29, acc=0.9071, resp=5.55),
+    "mab+gobi": dict(reward=0.9018, viol=0.10, acc=0.9145, resp=5.64),
+    "splitplace": dict(reward=0.9418, viol=0.08, acc=0.9272, resp=4.50),
+}
+#: the Table-4 policies that draw with threefry_rows on the interval
+#: program
+TABLE4_DRAWS = ("gillis", "random+daso")
 
 
 #: edge_substep shapes beside the fuzz and the main-path interval (as in
@@ -2173,6 +2217,399 @@ def train_cross_check(labels=None):
                          for g, (i, m) in flips.items()) or "none"))
 
 
+class HostTally:
+    """While active, tallies the host loop's learners: every batch of MAB
+    decisions (``MABDecider.decide``, one host read per task) and every
+    DASO ascent (``daso.optimize_placement``: its steps, each a host read,
+    its container rows, the rows whose argmax left the warm start, and the
+    ascended logits, copied to the CPU)."""
+
+    def __enter__(self):
+        from repro_torch.core import daso, splitplace
+        self._daso, self._cls = daso, splitplace.MABDecider
+        self._ascent, self._decide = daso.optimize_placement, \
+            splitplace.MABDecider.decide
+        self.decisions, self.ascents = [], []
+        tally = self
+
+        def ascent(cfg, theta, state, p0, dec, mask):
+            p, score, steps = tally._ascent(cfg, theta, state, p0, dec, mask)
+            valid = mask.bool()
+            tally.ascents.append({
+                "steps": int(steps), "rows": int(valid.sum()),
+                "moved": int(((p.argmax(-1) != p0.argmax(-1))
+                              & valid).sum()),
+                "logits": p.detach().cpu(), "valid": valid.cpu()})
+            return p, score, steps
+
+        def decide(decider, tasks):
+            out = tally._decide(decider, tasks)
+            tally.decisions.append(list(out))
+            return out
+
+        daso.optimize_placement = ascent
+        splitplace.MABDecider.decide = decide
+        return self
+
+    def __exit__(self, *exc):
+        self._daso.optimize_placement = self._ascent
+        self._cls.decide = self._decide
+
+    def ascent_report(self, label, last=20):
+        """Logs steps and rows moved over all ascents and the last
+        ``last``; returns the steps."""
+        a = self.ascents
+        steps = sum(x["steps"] for x in a)
+        tail = a[-last:]
+        moved_tail = sum(x["moved"] for x in tail)
+        rows_tail = sum(x["rows"] for x in tail)
+        log(f"{label}: {len(a)} ascents, {steps} steps (mean "
+            f"{steps / max(len(a), 1):.2f} per ascent), "
+            f"{sum(x['moved'] for x in a)} of {sum(x['rows'] for x in a)} "
+            f"container rows moved off BestFit's warm start; in the last "
+            f"{len(tail)} ascents {moved_tail} of {rows_tail} "
+            f"({moved_tail / max(rows_tail, 1):.4f})")
+        return steps
+
+
+def _finite_records(recs, label):
+    """The Table-4 gates on grid records: no dropped task (the host loop
+    reports none: it never drops), tasks completed, rewards in [0, 1],
+    every metric finite."""
+    for r in recs:
+        where = f"{label} {r['policy']} seed {r['seed']}"
+        if r.get("dropped_tasks", 0) != 0:
+            raise AssertionError(f"{where}: dropped tasks")
+        if not r["tasks_completed"] > 0:
+            raise AssertionError(f"{where}: no task completed")
+        if not 0.0 <= r["reward"] <= 1.0:
+            raise AssertionError(f"{where}: reward {r['reward']}")
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{where}: not finite: {bad}")
+
+
+def _leaves_finite(pre, label):
+    import torch
+    leaves = list(pre.mab_state) + [v for layer in pre.daso_theta
+                                    for v in layer.values()]
+    if not all(bool(torch.isfinite(v.float()).all()) for v in leaves):
+        raise AssertionError(f"{label}: a pretrained leaf is not finite")
+
+
+def table4_pretrain():
+    """``pretrain(200)`` on the card at Table 4's protocol: its wall and
+    phase split, ascent steps and host reads, θ's drift from θ0 and the
+    rows the trained θ's ascent moves in its last intervals."""
+    import torch
+    from repro_torch.core.splitplace import SurrogatePlacer
+    from repro_torch.env.torchsim.driver import PHASES
+    from repro_torch.launch.experiments import pretrain
+    kw = TABLE4_PRETRAIN
+    T = kw["n_intervals"]
+    # the seeded θ0 pretrain's placer starts from
+    theta0 = SurrogatePlacer(50, True, seed=kw["seed"], device="cuda").theta
+    phase_s = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HostTally() as tally:
+        pre = pretrain(**kw, policies=TABLE4_POLICIES, device="cuda",
+                       phase_s=phase_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _leaves_finite(pre, "pretrain")
+    if int(pre.mab_state.t[0]) != T + 1 or pre.gillis_policy is None:
+        raise AssertionError(f"pretrain: t={int(pre.mab_state.t[0])}, "
+                             f"gillis {pre.gillis_policy}")
+    trace = sum(phase_s[p] for p in PHASES)
+    n_dec = sum(len(d) for d in tally.decisions)
+    log(f"table4 pretrain({T}, lam={kw['lam']}, seed={kw['seed']}, "
+        f"substeps={kw['substeps']}) on cuda: wall {wall:.3f} s; the "
+        f"splitplace trace {trace:.3f} s: MAB decisions (decide) "
+        f"{phase_s['decide']:.3f} s, place {phase_s['place']:.3f} s (the "
+        f"ascent {phase_s.get('ascent', 0.0):.3f} s of it, the rest BestFit"
+        f" and the surrogate input), host simulator (placement repair and "
+        f"advance) {phase_s['physics']:.3f} s, feedback "
+        f"{phase_s['feedback']:.3f} s (the finetune epochs "
+        f"{phase_s.get('daso_train', 0.0):.3f} s, the MAB's host reads "
+        f"{phase_s['mab_host_read']:.4f} s); the Gillis trace and set-up "
+        f"{wall - trace:.3f} s")
+    steps = tally.ascent_report("table4 pretrain")
+    log(f"table4 pretrain host reads: {n_dec} MAB decisions (one each), "
+        f"{steps} ascent steps (one each), {T} assignment reads, and the "
+        f"MAB feedback's (two per interval with finished tasks)")
+    if not steps or not n_dec:
+        raise AssertionError("pretrain: no ascent or no MAB decision ran")
+    for i, (l, l0) in enumerate(zip(pre.daso_theta, theta0)):
+        for k in ("w", "b"):
+            d = float((l[k] - l0[k]).norm())
+            n0 = float(l0[k].norm())
+            log(f"  θ[{i}].{k} {tuple(l[k].shape)}: ||θ - θ0|| {d:.6f}"
+                + (f" ({d / n0:.6f} of ||θ0||)" if n0 else " (θ0 = 0)")
+                + f", largest |θ - θ0| {float((l[k] - l0[k]).abs().max()):.6f}")
+    return pre
+
+
+def table4_grid(pre):
+    """Table 4 on the interval program: ``run_grid(backend="torch")`` over
+    the 7 policies × 3 seeds with the pretraining products, the counts of
+    every kernel set to 0 just before and read just after (and per
+    policy), then ``aggregate`` beside the paper's values.  Returns the
+    launches per kernel."""
+    import torch
+    from repro_torch.core.daso import DASOConfig
+    from repro_torch.launch import experiments
+    T = TABLE4["n_intervals"]
+    per_policy = {}
+    batched = experiments.run_grid_batched
+
+    def counted(policy, **kw):
+        torch.cuda.synchronize()
+        before = {n: fn.launches for n, fn in _counters().items()}
+        t0 = time.perf_counter()
+        recs = batched(policy, **kw)
+        torch.cuda.synchronize()
+        per_policy[policy] = (time.perf_counter() - t0, {
+            n: fn.launches - before[n] for n, fn in _counters().items()})
+        return recs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+    experiments.run_grid_batched = counted
+    t0 = time.perf_counter()
+    try:
+        with DasoTally() as tally:
+            recs = experiments.run_grid(
+                list(TABLE4_POLICIES), **TABLE4, backend="torch",
+                device="cuda", mab_state=pre.mab_state,
+                daso_theta=pre.daso_theta, daso_cfg=pre.daso_cfg,
+                daso_opt_state=pre.daso_opt_state)
+        torch.cuda.synchronize()
+    finally:
+        experiments.run_grid_batched = batched
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in _counters().items()}
+    for pol in TABLE4_POLICIES:
+        got = per_policy[pol][1]
+        for name in SIM_KERNELS + DRAW_KERNELS:
+            want = T if name in SIM_KERNELS or pol in TABLE4_DRAWS else 0
+            if got[name] != want:
+                raise AssertionError(f"table4 {pol}: {name} launched "
+                                     f"{got[name]} times, expected {want}")
+    for name in SIM_KERNELS + DRAW_KERNELS:
+        if launches[name] != sum(c[name] for _, c in per_policy.values()):
+            raise AssertionError(f"table4: {name} counts do not add up")
+    _finite_records(recs, "table4")
+    cfg = DASOConfig(**DASO_MAIN)
+    steps, rows, moved = tally.read()
+    daso_pols = [p for p in TABLE4_POLICIES
+                 if p not in ("mc", "gillis")]
+    for i, pol in enumerate(daso_pols):
+        sl = slice(i * T, (i + 1) * T)
+        log(f"table4 {pol}: DASO ascent steps mean "
+            f"{steps[sl].mean():.2f} of {cfg.place_iters}; "
+            f"{int(moved[sl].sum())} of {int(rows[sl].sum())} container "
+            f"rows moved off the warm start by the trained θ")
+    rows_t = experiments.aggregate(recs, by=("policy",))
+    log(f"table4 run_grid(backend='torch'): {len(TABLE4_POLICIES)} "
+        f"policies × seeds {TABLE4['seeds']} × T={T} at substeps "
+        f"{TABLE4['substeps']}, lam {TABLE4['lams'][0]}: wall {wall:.3f} s; "
+        f"launches {launches}")
+    for pol in TABLE4_POLICIES:
+        m, p = rows_t[pol], TABLE4_PAPER[pol]
+        log(f"  {pol:14s} reward {m['reward']:.4f} (paper {p['reward']:.4f})"
+            f" viol {m['sla_violations']:.3f} ({p['viol']:.2f}) acc "
+            f"{m['accuracy']:.4f} ({p['acc']:.4f}) resp "
+            f"{m['response_intervals']:.3f} ({p['resp']:.2f}) energy "
+            f"{m['energy_mwhr']:.6f} MWh fair {m['fairness']:.3f} "
+            f"reward_std {m['reward_std']:.4f}; wall "
+            f"{per_policy[pol][0]:.3f} s")
+    return launches
+
+
+def table4_host(pre):
+    """The host backend on the card: the 7 policies at seed 0, T=40, with
+    the same pretraining products (the Gillis object continued); the
+    interval program's kernels are launched no time."""
+    import torch
+    from repro_torch.launch import experiments
+    walls = {}
+    run_trace = experiments.run_trace
+
+    def timed(name, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_trace(name, **kw)
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    for fn in _counters().values():
+        fn.launches = 0
+    experiments.run_trace = timed
+    try:
+        with HostTally() as tally:
+            recs = experiments.run_grid(
+                list(TABLE4_POLICIES), **TABLE4_HOST, backend="soa",
+                device="cuda", mab_state=pre.mab_state,
+                gillis_policy=pre.gillis_policy)
+    finally:
+        experiments.run_trace = run_trace
+    launched = {n: fn.launches for n, fn in _counters().items()
+                if fn.launches}
+    if launched:
+        raise AssertionError(f"table4 host loop launched kernels {launched}")
+    _finite_records(recs, "table4 host")
+    tally.ascent_report("table4 host loop")
+    log(f"table4 host backend (run_grid backend='soa', seeds "
+        f"{TABLE4_HOST['seeds']}, T={TABLE4_HOST['n_intervals']}, substeps "
+        f"{TABLE4_HOST['substeps']}) on cuda: "
+        + ", ".join(f"{r['policy']} reward {r['reward']:.4f} viol "
+                    f"{r['sla_violations']:.3f} wall {walls[r['policy']]:.3f}"
+                    " s" for r in recs)
+        + f"; {sum(len(d) for d in tally.decisions)} MAB decisions")
+
+
+def _ascent_flip(card, host):
+    """The first ascent whose assignments differ between two pretraining
+    runs: (index, rows, largest relative margin of the CPU's logits), or
+    None."""
+    for i, (ac, ah) in enumerate(zip(card.ascents, host.ascents)):
+        if not np.array_equal(ac["valid"].numpy(), ah["valid"].numpy()):
+            return i, "container rows differ", float("inf")
+        pc, ph = ac["logits"].argmax(-1), ah["logits"].argmax(-1)
+        rows = ((pc != ph) & ah["valid"]).nonzero()[:, 0]
+        if len(rows):
+            lh = ah["logits"][rows]
+            a = lh.gather(1, pc[rows][:, None])[:, 0]
+            b = lh.gather(1, ph[rows][:, None])[:, 0]
+            return i, rows.tolist(), float(((b - a).abs()
+                                            / b.abs().clamp(min=1e-30))
+                                           .max())
+    return None
+
+
+def table4_cross():
+    """The card against the CPU at a reduced size: ``pretrain(36)`` from one
+    θ0 on each device — N, t, ε, ρ equal, Q and R and θ within the stated
+    tolerances of each leaf's largest entry, any differing decision or
+    assignment reported with its margin — then the card's products fed to
+    ``run_grid(backend="torch")`` on both devices, summaries at rtol
+    1e-9 (a DASO placement that flips must be a near-tie; its cell is
+    then left out and reported)."""
+    from repro_torch.core.daso import PLACE_MIN
+    from repro_torch.core.splitplace import SurrogatePlacer
+    from repro_torch.launch.experiments import pretrain, run_grid
+    kw = TABLE4_CROSS_PRETRAIN
+    theta0 = [{k: v.numpy() for k, v in layer.items()} for layer in
+              SurrogatePlacer(50, True, seed=kw["seed"], device="cpu").theta]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        with HostTally() as tally:
+            pre = pretrain(**kw, device=dev, daso_theta0=theta0)
+        runs[dev] = (pre, tally, time.perf_counter() - t0)
+    (pc, tc, wc), (ph, th, wh) = runs["cuda"], runs["cpu"]
+    dec = next((i for i, (a, b) in enumerate(zip(tc.decisions,
+                                                  th.decisions)) if a != b),
+               None)
+    flip = _ascent_flip(tc, th)
+    # ascent j places interval PLACE_MIN + j (the replay's 32nd record)
+    if dec is not None and (flip is None or dec <= PLACE_MIN + flip[0]):
+        raise AssertionError(f"table4 cross-check: MAB decisions differ at "
+                             f"interval {dec} before any placement did")
+    if flip is not None:
+        if not flip[2] < 1e-4:
+            raise AssertionError(f"table4 cross-check: ascent {flip[0]} "
+                                 f"places rows {flip[1]} differently "
+                                 f"(relative margin {flip[2]:.3e})")
+        log(f"table4 cross-check pretrain: ascent {flip[0]} places rows "
+            f"{flip[1]} differently on a near-tie (relative margin "
+            f"{flip[2]:.3e}); the trajectories part there, so the states "
+            "are reported, not held")
+    worst = {}
+    for f in ("N", "t", "eps", "rho", "Q", "R"):
+        a = getattr(pc.mab_state, f).cpu().numpy()
+        b = getattr(ph.mab_state, f).cpu().numpy()
+        worst[f] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+        if flip is None and (worst[f] > TABLE4_MAB_TOL or (
+                f in ("N", "t", "eps", "rho") and not np.array_equal(a, b))):
+            raise AssertionError(f"table4 cross-check: MAB {f} cuda {a} "
+                                 f"cpu {b}")
+    for name, lc_, lh_ in (("θ", pc.daso_theta, ph.daso_theta),
+                           ("m", pc.daso_opt_state.m, ph.daso_opt_state.m),
+                           ("v", pc.daso_opt_state.v, ph.daso_opt_state.v)):
+        for lc, lh in zip(lc_, lh_):
+            for k in ("w", "b"):
+                b = lh[k].numpy()
+                err = float(np.abs(lc[k].cpu().numpy() - b).max()
+                            / max(np.abs(b).max(), 1e-30))
+                worst[name] = max(worst.get(name, 0.0), err)
+    if flip is None and max(worst[n] for n in ("θ", "m", "v")) > \
+            TABLE4_THETA_TOL:
+        raise AssertionError(f"table4 cross-check: θ or moments differ "
+                             f"{worst}")
+    log(f"table4 cross-check pretrain({kw['n_intervals']}, substeps "
+        f"{kw['substeps']}) from one θ0: cuda {wc:.3f} s, cpu {wh:.3f} s; "
+        f"{sum(len(d) for d in tc.decisions)} MAB decisions "
+        + ("equal" if dec is None else f"differ from interval {dec}")
+        + f", {len(tc.ascents)} ascents ("
+        + ("assignments equal" if flip is None else "a near-tie flip")
+        + "); largest difference relative to each leaf's largest entry: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (tolerances: Q, R {TABLE4_MAB_TOL}, θ and moments "
+        f"{TABLE4_THETA_TOL}; N, t, ε, ρ exact)")
+    products = dict(mab_state=pc.mab_state, daso_theta=pc.daso_theta,
+                    daso_cfg=pc.daso_cfg, daso_opt_state=pc.daso_opt_state)
+    for pol in TABLE4_POLICIES:
+        with StageTally() as card:
+            on_gpu = run_grid([pol], **TABLE4_CROSS, backend="torch",
+                              device="cuda", **products)
+        with StageTally() as host:
+            on_cpu = run_grid([pol], **TABLE4_CROSS, backend="torch",
+                              device="cpu", **products)
+        flips = _first_flips(card, host, f"table4 cross-check {pol}")
+        for g, (a, b) in enumerate(zip(on_gpu, on_cpu)):
+            if g in flips:
+                continue
+            for k, v in b.items():
+                if isinstance(v, float) and not np.isclose(
+                        a[k], v, rtol=TABLE4_RTOL, atol=1e-12):
+                    raise AssertionError(f"table4 cross-check {pol} cell "
+                                         f"{g} {k}: cuda {a[k]!r} cpu "
+                                         f"{v!r}")
+        log(f"table4 cross-check {pol}: run_grid(backend='torch') G="
+            f"{len(on_cpu)} T={TABLE4_CROSS['n_intervals']} with the card's "
+            f"pretraining products: cuda matches cpu at rtol {TABLE4_RTOL}"
+            + ("; near-tie flips: " + ", ".join(
+                f"cell {g} at interval {i} (margin {m:.3e})"
+                for g, (i, m) in flips.items()) if flips else ""))
+
+
+def table4_phase():
+    """The paper's experiment protocol on the card; returns the Table-4
+    grid's launches per kernel."""
+    import torch
+    from repro_torch.core.daso import DASOConfig
+    pre = table4_pretrain()
+    launches = table4_grid(pre)
+    cfg = DASOConfig(**DASO_MAIN)
+    with DasoTally() as tally:
+        main_path("splitplace", label="splitplace trained θ",
+                  mab_state=pre.mab_state, daso_theta=pre.daso_theta,
+                  daso_cfg=pre.daso_cfg)
+    daso_report(tally, cfg, "main path splitplace trained θ",
+                MAIN["n_intervals"])
+    table4_host(pre)
+    gc.collect()
+    torch.cuda.empty_cache()
+    table4_cross()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2222,6 +2659,15 @@ def main() -> int:
             rec["launches"] = draws["splitplace train"]
             rec["max_abs_err"] = max(rec["max_abs_err"], draw_err_main)
             rec["launches_by_path"] = draws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    table4 = table4_phase()
+    log(f"table4 phase: {time.perf_counter() - t0:.1f} s")
+    for rec in records:
+        if rec["name"] in SIM_KERNELS + DRAW_KERNELS:
+            rec["launches_table4"] = table4[rec["name"]]
     gc.collect()
     torch.cuda.empty_cache()
 

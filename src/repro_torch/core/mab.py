@@ -238,10 +238,16 @@ def interval_rewards_masked(state: MABState, apps, sla, resp, acc,
     return O.to(f32).reshape(G, 2, 2), cnt.to(f32).reshape(G, 2, 2)
 
 
-def update_q(state: MABState, O, cnt, gamma: float = 0.3) -> MABState:
-    """Q <- Q + gamma (O - Q) where data exists (eq. 5), N += counts."""
+def update_q(state: MABState, O, cnt, gamma: float = 0.3,
+             fused: bool = True) -> MABState:
+    """Q <- Q + gamma (O - Q) where data exists (eq. 5), N += counts.
+    ``fused`` rounds the step once, as the jitted reference contracts it;
+    without it the product and the sum round apart, as the reference's
+    op-by-op host decider computes them."""
     g32 = torch.tensor(gamma, dtype=f32, device=O.device)
-    Q = torch.where(cnt > 0, _fma32(g32, O - state.Q, state.Q), state.Q)
+    step = _fma32(g32, O - state.Q, state.Q) if fused \
+        else state.Q + g32 * (O - state.Q)
+    Q = torch.where(cnt > 0, step, state.Q)
     return state._replace(Q=Q, N=state.N + cnt)
 
 
@@ -264,27 +270,30 @@ def rbed_update(state: MABState, O, cnt, k: float = 0.1) -> MABState:
 
 def end_of_interval_masked(state: MABState, apps, sla, resp, acc, decisions,
                            mask, phi: float = 0.9, gamma: float = 0.3,
-                           k: float = 0.1) -> MABState:
+                           k: float = 0.1,
+                           fused_q: bool = True) -> MABState:
     """Algorithm-1 end-of-interval bookkeeping over masked (G, M) rows.
-    With an all-False mask this degrades to ``t += 1``."""
+    With an all-False mask this degrades to ``t += 1``.  ``fused_q`` is
+    ``update_q``'s ``fused``."""
     state = update_response_estimates(
         state, apps, resp, mask & (decisions == LAYER), phi)
     O, cnt = interval_rewards_masked(state, apps, sla, resp, acc,
                                      decisions, mask)
-    state = update_q(state, O, cnt, gamma)
+    state = update_q(state, O, cnt, gamma, fused_q)
     state = rbed_update(state, O, cnt, k)
     return state._replace(t=state.t + 1)
 
 
 def end_of_interval(state: MABState, apps, sla, resp, acc, decisions,
                     phi: float = 0.9, gamma: float = 0.3,
-                    k: float = 0.1) -> MABState:
+                    k: float = 0.1, fused_q: bool = True) -> MABState:
     """Algorithm-1 bookkeeping for the tasks leaving this interval, for a
     one-cell state (G=1) and (n,) rows: ``end_of_interval_masked`` with
     every row kept."""
     rows = [t[None] for t in (apps, sla, resp, acc, decisions)]
     mask = torch.ones_like(rows[0], dtype=torch.bool)
-    return end_of_interval_masked(state, *rows, mask, phi, gamma, k)
+    return end_of_interval_masked(state, *rows, mask, phi, gamma, k,
+                                  fused_q)
 
 
 # ------------------------------------------------------- ε-greedy (train)
@@ -308,15 +317,17 @@ def decide_train_rows(state: MABState, key, t: int, sla, app):
     return torch.where(explore, coin.long(), greedy).to(torch.int32), ctx
 
 
-def decide_train(state: MABState, key, sla, app):
+def decide_train(state: MABState, key, sla, app, coin_width: int = 64):
     """One ε-greedy decision per cell from its own key (G, 2): sla/app are
     (G,); the draws are ``split(key)`` as in the reference's
-    ``decide_train``."""
+    ``decide_train``.  The coin is ``bernoulli(k2, 0.5)`` at
+    ``coin_width`` bits: 64 under the reference's ``enable_x64``, 32
+    without it (its host decider)."""
     ctx = context_of(state, sla[:, None], app[:, None])[:, 0]
     greedy = torch.argmax(state.Q[torch.arange(len(ctx)), ctx.long()], -1)
     k1, k2 = prng.split(key)
     explore = prng.bernoulli(k1, state.eps, 32)
-    coin = prng.bernoulli(k2, 0.5, 64)
+    coin = prng.bernoulli(k2, 0.5, coin_width)
     return torch.where(explore, coin.long(), greedy).to(torch.int32), ctx
 
 

@@ -68,6 +68,12 @@ class Cluster:
     def mobile_mask(self):
         return np.array([t.mobile for t in self.types], bool)
 
+    def power(self, util):
+        """util (n,) in [0,1] -> Watts (n,)."""
+        idle = np.array([t.power_idle for t in self.types])
+        peak = np.array([t.power_peak for t in self.types])
+        return idle + (peak - idle) * np.clip(util, 0, 1)
+
 
 def make_cluster(fleet=FLEET_SPEC, compute_scale=1.0, ram_scale=1.0,
                  net_scale=1.0) -> Cluster:

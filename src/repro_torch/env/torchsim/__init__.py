@@ -40,6 +40,7 @@ from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
                                                LEARNED_POLICIES,
                                                MAB_LEARNED_POLICIES,
                                                STATIC_POLICIES,
+                                               host_policy,
                                                make_static_decider)
 
 __all__ = [
@@ -54,5 +55,5 @@ __all__ = [
     "run_trace_arrays_static_daso", "run_trace_arrays_trained",
     "run_trace_engine", "trace_train_key", "DASO_LEARNED_POLICIES",
     "LEARNED_POLICIES", "MAB_LEARNED_POLICIES", "STATIC_POLICIES",
-    "make_static_decider",
+    "host_policy", "make_static_decider",
 ]

@@ -92,7 +92,7 @@ def _interval_physics(state, acc, bw_row, cl, substeps, dt, interval_s,
     return state, acc, util
 
 
-class _PhaseClock:
+class PhaseClock:
     """Adds each phase's wall seconds (after a device synchronize) into a
     caller-owned dict; does nothing when the dict is None."""
 
@@ -141,7 +141,7 @@ def _run_program(engine, trace, cl, es, K, substeps, interval_s,
     dt = interval_s / substeps
     state = kernels.init_state(G, K, F, n, device)
     acc = _init_acc(G, n, device)
-    clock = _PhaseClock(phase_s, device)
+    clock = PhaseClock(phase_s, device)
     for t in range(T):
         arr, es = engine.decide(es, trace, t)
         state = kernels.admit(state, arr)

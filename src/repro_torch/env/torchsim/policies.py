@@ -7,7 +7,8 @@ state).  Covered: fixed LAYER / SEMANTIC / COMPRESSED (the L+*, S+*, MC
 arms), ``roundrobin`` (i % 3), ``threshold`` (layer when the SLA clears
 1.6× the unloaded layer-chain reference) and ``mab-static`` (UCB
 decisions from a frozen ``MABState``).  Placement for all of them is the
-BestFit stage of the interval program.
+BestFit stage of the interval program; ``host_policy`` pairs the same
+decider with the host loop's ``BestFitPlacer``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,15 @@ DASO_LEARNED_POLICIES = ("splitplace", "mab+gobi")
 LEARNED_POLICIES = MAB_LEARNED_POLICIES + ("gillis",)
 
 
-class StaticFixedDecider:
+class _StaticDecider:
+    """A decider no outcome changes: its feedback does nothing (the host
+    loop calls it every interval)."""
+
+    def feedback(self, finished) -> None:
+        pass
+
+
+class StaticFixedDecider(_StaticDecider):
     def __init__(self, decision: int, name: str):
         self.decision = decision
         self.name = name
@@ -47,7 +56,7 @@ class StaticFixedDecider:
         return [self.decision] * len(tasks)
 
 
-class RoundRobinDecider:
+class RoundRobinDecider(_StaticDecider):
     """i % 3 over each interval's arrivals."""
     name = "bestfit-rr"
 
@@ -55,7 +64,7 @@ class RoundRobinDecider:
         return [i % 3 for i in range(len(tasks))]
 
 
-class ThresholdDecider:
+class ThresholdDecider(_StaticDecider):
     """LAYER when the deadline clears ``margin``× the unloaded layer-split
     reference time (batch-scaled), else SEMANTIC."""
     name = "bestfit-threshold"
@@ -71,7 +80,7 @@ class ThresholdDecider:
         return out
 
 
-class StaticMABDecider:
+class StaticMABDecider(_StaticDecider):
     """Frozen-state UCB decisions (deploy-mode MAB without the feedback
     loop).  ``state`` is a port ``MABState`` with a grid axis of 1, or the
     reference's fields as a dict of NumPy arrays; decisions run on the
@@ -98,8 +107,10 @@ class StaticMABDecider:
         return [int(x) for x in d[0]]
 
 
-def make_static_decider(policy: str, mab_state=None):
-    """Resolve a compiled-trace policy name to its decider."""
+def make_static_decider(policy: str, mab_state=None, seed: int = 0):
+    """Resolve a compiled-trace policy name to its decider (``seed`` is
+    accepted and ignored: static deciders are deterministic)."""
+    del seed
     table = {
         "mc": lambda: StaticFixedDecider(COMPRESSED, "mc"),
         "bestfit-layer": lambda: StaticFixedDecider(LAYER, "bestfit-layer"),
@@ -113,3 +124,12 @@ def make_static_decider(policy: str, mab_state=None):
         raise ValueError(f"policy {policy!r} is not static (have "
                          f"{STATIC_POLICIES})")
     return table[policy]()
+
+
+def host_policy(policy: str, mab_state=None, seed: int = 0):
+    """The same (static decider, BestFit) pair as a host ``Policy`` object
+    for the host interval loop (``run_trace(backend="soa", policy=...)``),
+    to compare the two backends on identical policy behaviour."""
+    from repro_torch.core.splitplace import BestFitPlacer, Policy
+    return Policy(policy, make_static_decider(policy, mab_state, seed),
+                  BestFitPlacer())

@@ -10,8 +10,10 @@ app).  A split decision realizes the task as containers:
 
 A NumPy copy of the reference ``repro.env.workload``: the generator makes
 the identical ``RandomState`` draws in the identical order, so a trace
-compiled here is byte-equal to the reference's.  Tasks and fragments are
-plain records (the port has no structure-of-arrays host simulator).
+compiled here is byte-equal to the reference's.  ``Task`` and
+``Fragment`` are plain records until a host simulator's
+structure-of-arrays store (``repro_torch.env.soa.SoAStore``) adopts them;
+from then on their hot fields are views into the store's rows.
 """
 from __future__ import annotations
 
@@ -48,27 +50,119 @@ SEMANTIC_WORK = 0.85          # branches are 1/G-width nets
 REF_MIPS = 4019.0             # median worker, for SLA reference times
 
 
-@dataclasses.dataclass
+def _frag_field(name, cast):
+    """Property for a Fragment field: plain attribute until the fragment is
+    adopted by a structure-of-arrays store, then a view into its row."""
+    slot = "_" + name
+
+    def get(self):
+        if self._store is None:
+            return getattr(self, slot)
+        return cast(getattr(self._store, name)[self._row])
+
+    def set_(self, value):
+        if self._store is None:
+            setattr(self, slot, value)
+        else:
+            getattr(self._store, name)[self._row] = value
+
+    return property(get, set_)
+
+
 class Fragment:
-    """One container of a realized task."""
-    task_id: int
-    idx: int
-    instr_left: float
-    ram_mb: float
-    out_bytes: float
+    """One container of a realized task.
+
+    Construction-compatible with the former dataclass.  Hot per-substep
+    state (``instr_left``, ``worker``, ``done``, ``transfer_left``, …)
+    lives in ``repro_torch.env.soa.SoAStore`` arrays once the owning simulator
+    adopts the fragment; the attributes here are thin views into that row,
+    so object-level reads/writes (tests, placers) stay coherent with the
+    vectorized kernels.
+    """
+    __slots__ = ("task_id", "idx", "_store", "_row", "_instr_left",
+                 "_ram_mb", "_out_bytes", "_worker", "_done",
+                 "_transfer_left")
+
+    def __init__(self, task_id: int, idx: int, instr_left: float,
+                 ram_mb: float, out_bytes: float, worker: int = -1,
+                 done: bool = False, transfer_left: float = 0.0):
+        self.task_id = task_id
+        self.idx = idx
+        self._store = None
+        self._row = -1
+        self._instr_left = instr_left
+        self._ram_mb = ram_mb
+        self._out_bytes = out_bytes
+        self._worker = worker
+        self._done = done
+        self._transfer_left = transfer_left
+
+    instr_left = _frag_field("instr_left", float)
+    ram_mb = _frag_field("ram_mb", float)
+    out_bytes = _frag_field("out_bytes", float)
+    worker = _frag_field("worker", int)
+    done = _frag_field("done", bool)
+    transfer_left = _frag_field("transfer_left", float)
+
+    def __repr__(self):
+        return (f"Fragment(task_id={self.task_id}, idx={self.idx}, "
+                f"instr_left={self.instr_left:.1f}, worker={self.worker}, "
+                f"done={self.done})")
 
 
-@dataclasses.dataclass
+def _task_field(name, cast, slot=None):
+    slot = slot or "_" + name
+
+    def get(self):
+        if self._store is None:
+            return getattr(self, slot)
+        return cast(getattr(self._store, name)[self._trow])
+
+    def set_(self, value):
+        if self._store is None:
+            setattr(self, slot, value)
+        else:
+            getattr(self._store, name)[self._trow] = value
+
+    return property(get, set_)
+
+
 class Task:
-    """A split-able inference job."""
-    id: int
-    app: int
-    batch: int
-    sla_s: float
-    arrival_s: float
-    decision: int = -1
-    chain: bool = False
-    fragments: List[Fragment] = dataclasses.field(default_factory=list)
+    """A split-able inference job; construction-compatible with the former
+    dataclass.  ``chain``/``stage``/``placed``/``done`` become views into
+    the owning store once adopted (see ``Fragment``)."""
+
+    def __init__(self, id: int, app: int, batch: int, sla_s: float,
+                 arrival_s: float, decision: int = -1, fragments=None,
+                 chain: bool = False, stage: int = 0, placed: bool = False,
+                 wait_s: float = 0.0, done: bool = False,
+                 response_s: float = 0.0, accuracy: float = 0.0):
+        self.id = id
+        self.app = app
+        self.batch = batch
+        self.sla_s = sla_s
+        self.arrival_s = arrival_s
+        self.decision = decision
+        self.fragments: List[Fragment] = fragments if fragments is not None \
+            else []
+        self._store = None
+        self._trow = -1
+        self._chain = chain
+        self._stage = stage            # active fragment in a layer chain
+        self._placed = placed
+        self._done = done
+        self.wait_s = wait_s
+        self.response_s = response_s
+        self.accuracy = accuracy
+
+    chain = _task_field("chain", bool)
+    stage = _task_field("stage", int)
+    placed = _task_field("placed", bool)
+    done = _task_field("task_done", bool, slot="_done")
+
+    def __repr__(self):
+        return (f"Task(id={self.id}, app={self.app}, decision="
+                f"{self.decision}, stage={self.stage}, done={self.done})")
 
 
 def layer_ref_response_s(app: int) -> float:

@@ -47,6 +47,18 @@ MAB_STATE = mab.init_state(3)._replace(
 """
 
 
+
+def ref_mab_state(d):
+    """The reference's ``MABState`` from its fields given as NumPy (such as
+    ``MAB_LITERAL``), for reference code run in process."""
+    import jax.numpy as jnp
+    from repro.core import mab
+    return mab.init_state(len(np.asarray(d["R"])))._replace(
+        **{k: jnp.asarray(np.asarray(v),
+                          jnp.int32 if k == "t" else jnp.float32)
+           for k, v in d.items()})
+
+
 def run_reference(code: str, out_path, timeout: float = 600) -> None:
     """Run ``code`` (reference-side Python) in a fresh interpreter; raise
     with its output if it fails."""

@@ -625,3 +625,49 @@ def test_train_paths_match_cpu(cuda, label):
     exactly, summaries at rtol 1e-9, finetuned θ at rtol 1e-5, near-tie
     placement flips reported)."""
     chip_smoke().train_cross_check(labels=(label,))
+
+
+@pytest.mark.gpu
+def test_table4_routing(cuda):
+    """The Table-4 policies at a small size: with the products of a short
+    ``pretrain`` on the card, ``run_grid(backend="torch")`` launches each
+    simulator kernel once per interval in every policy and
+    ``threefry_rows`` in ``gillis`` and ``random+daso`` only; the host
+    backend launches none of them."""
+    from repro_torch.launch import experiments as ex
+    cs = chip_smoke()
+    counters = cs._counters()
+    pols = list(cs.TABLE4_POLICIES)
+    pre = ex.pretrain(3, substeps=2, device="cuda", policies=pols)
+    products = dict(mab_state=pre.mab_state, daso_theta=pre.daso_theta,
+                    daso_cfg=pre.daso_cfg, daso_opt_state=pre.daso_opt_state)
+    T = 4
+    for pol in pols:
+        before = {n: fn.launches for n, fn in counters.items()}
+        recs = ex.run_grid([pol], seeds=(0, 1), n_intervals=T, substeps=2,
+                           backend="torch", device="cuda", **products)
+        got = {n: fn.launches - before[n] for n, fn in counters.items()}
+        for name in cs.SIM_KERNELS + cs.DRAW_KERNELS:
+            want = T if name in cs.SIM_KERNELS or pol in cs.TABLE4_DRAWS \
+                else 0
+            assert got[name] == want, (pol, name)
+        assert [r["seed"] for r in recs] == [0, 1]
+        assert all(r["dropped_tasks"] == 0 and 0 <= r["reward"] <= 1
+                   for r in recs)
+    before = {n: fn.launches for n, fn in counters.items()}
+    recs = ex.run_grid(pols, n_intervals=3, substeps=2, device="cuda",
+                       mab_state=pre.mab_state,
+                       gillis_policy=pre.gillis_policy)
+    assert {n: fn.launches for n, fn in counters.items()} == before
+    assert [r["policy"] for r in recs] == pols
+
+
+@pytest.mark.gpu
+def test_pretrain_matches_cpu(cuda):
+    """chip_smoke's Table-4 cross-check: ``pretrain(36)`` from one θ0 on
+    the card and on the CPU (N, t, ε, ρ equal; Q, R, θ and the AdamW
+    moments within their tolerances; a differing decision or placement
+    reported with its margin), then each Table-4 policy's
+    ``run_grid(backend="torch")`` on both devices with the card's
+    products, summaries at rtol 1e-9."""
+    chip_smoke().table4_cross()
