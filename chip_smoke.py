@@ -68,6 +68,17 @@ to 0 just before and read just after:
   kernels); and ``pretrain(36)`` from one θ0 on the card against the CPU,
   whose card products then feed short grids on both devices (summaries
   at rtol 1e-9);
+* interval telemetry (``telemetry``) — each simulator path above
+  (``bestfit-rr``, ``mab``, ``splitplace``, ``splitplace`` and ``mab`` in
+  train mode, ``gillis``, ``random+daso``) with ``telemetry="interval"``
+  beside its summary run, 3 interleaved calls each: equal summaries, a
+  finite (16, 100, 18 + engine columns) series whose ``n_fin`` and
+  ``energy_j`` sum to the totals, no added host read, cell 0 against the
+  port's host ``EdgeSim`` oracle (``torchsim.reference``) at
+  ``tests/test_differential.py``'s rule, and the walls of both modes;
+* the differential fuzz (``differential``) — 30 seeded cases of
+  ``tests/test_differential.py``'s quantized space and its six regression
+  cases with the interval program on the card against the host oracles;
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
   falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
   width and depth
@@ -2610,6 +2621,575 @@ def table4_phase():
     return launches
 
 
+# ------------------------------------------------- interval telemetry
+
+
+#: the telemetry phase: every simulator main path run with
+#: telemetry="interval" beside its summary run, TELEMETRY_CALLS
+#: interleaved calls of each; the overhead is printed beside the
+#: reference's own ceiling (benchmarks/jaxsim_grid.py
+#: MAX_TELEMETRY_OVERHEAD), not gated
+TELEMETRY_CALLS = 3
+TELEMETRY_CEILING = 0.05
+#: the train path's finetune is chaotic past ~50 intervals at the main
+#: widths (θ0 perturbed by 1e-7 moves θ by 0.27 of a leaf's largest entry
+#: at T=100 on one device): on the main grid θ and the window loss are
+#: reported, not held, and held at the full rule on a cut run of cell 0
+TELEMETRY_CHAOTIC = ("daso_theta", "telemetry/daso_last_loss")
+TELEMETRY_TRAIN_CUT = 10
+
+
+class SeriesTap:
+    """While active, keeps the full per-cell summaries (the telemetry
+    series among them) that ``run_grid_batched``'s interval program
+    returns, before its records keep only the scalars."""
+
+    def __enter__(self):
+        from repro_torch.launch import experiments
+        self._mod, self._fn, self.outs = experiments, \
+            experiments._run_torch, []
+
+        def tapped(*a, **k):
+            out = self._fn(*a, **k)
+            self.outs.extend(out)
+            return out
+
+        experiments._run_torch = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._run_torch = self._fn
+
+
+def telemetry_paths(mab_state):
+    """The simulator main paths the script drives, as (label, policy,
+    run_grid_batched keywords, draws once per interval, the engine's
+    telemetry columns); the DASO stages at ``SurrogatePlacer``'s widths
+    with θ from a seeded CUDA generator."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.env.torchsim.engines import (
+        GILLIS_TELEMETRY_COLS, MAB_TELEMETRY_COLS, TRAIN_DASO_TELEMETRY_COLS)
+    cfg = DASOConfig(**DASO_MAIN)
+    gen = torch.Generator(device="cuda").manual_seed(DASO_SEED)
+    daso = dict(daso_theta=init_surrogate(cfg, gen, device="cuda"),
+                daso_cfg=cfg)
+    mab = dict(mab_state=mab_state)
+    return [("bestfit-rr", "bestfit-rr", {}, False, ()),
+            ("mab", "mab", mab, False, MAB_TELEMETRY_COLS),
+            ("splitplace", "splitplace", dict(**mab, **daso), False,
+             MAB_TELEMETRY_COLS),
+            ("splitplace train", "splitplace",
+             dict(mode="train", **mab, **daso), True,
+             TRAIN_DASO_TELEMETRY_COLS),
+            ("mab train", "mab", dict(mode="train", **mab), True,
+             MAB_TELEMETRY_COLS),
+            ("gillis", "gillis", {}, True, GILLIS_TELEMETRY_COLS),
+            ("random+daso", "random+daso", daso, True, ())]
+
+
+def telemetry_train_cut(kw, errs):
+    """``splitplace train``'s cell 0 cut to ``TELEMETRY_TRAIN_CUT``
+    intervals (three finetune intervals, 12 AdamW epochs), on the card
+    against the host oracle at the full rule, θ and the window loss
+    included."""
+    from repro_torch.env import torchsim
+    tr = torchsim.compile_trace_dual(
+        lam=MAIN["lams"][0], seed=MAIN["seeds"][0],
+        n_intervals=TELEMETRY_TRAIN_CUT, substeps=MAIN["substeps"])
+    args = dict(daso_theta=kw["daso_theta"], daso_cfg=kw["daso_cfg"],
+                telemetry="interval")
+    got = torchsim.run_trace_arrays_trained(tr, kw["mab_state"],
+                                            device="cuda", **args)
+    ref = torchsim.replay_trace_edgesim_trained(tr, kw["mab_state"], **args)
+    cut = {}
+    worst = diff_compare(ref, got, "telemetry splitplace train cut", cut)
+    for k in TELEMETRY_CHAOTIC:
+        errs[f"{k} (T={TELEMETRY_TRAIN_CUT})"] = cut[k]
+    log(f"telemetry splitplace train, cell 0 cut to T="
+        f"{TELEMETRY_TRAIN_CUT}: the card matches the host oracle at the "
+        f"full rule, θ and the window loss included (largest relative "
+        f"difference {worst:.3e}, θ {cut['daso_theta']:.3e})")
+
+
+def telemetry_oracle(label, kw):
+    """The port's host oracle of cell 0 of the main grid (λ=6, seed 0)
+    for the path ``label``, with ``telemetry="interval"``."""
+    from repro_torch.env import torchsim
+    from repro_torch.env.workload import COMPRESSED, LAYER
+    lam, seed = MAIN["lams"][0], MAIN["seeds"][0]
+    shape = dict(lam=lam, seed=seed, n_intervals=MAIN["n_intervals"],
+                 substeps=MAIN["substeps"])
+    tel = dict(telemetry="interval")
+    if label == "bestfit-rr":
+        tr = torchsim.compile_trace(
+            torchsim.make_static_decider("bestfit-rr"), **shape)
+        return torchsim.replay_trace_edgesim(tr, **tel)
+    if label == "gillis":
+        tr = torchsim.compile_trace_dual(variants=(LAYER, COMPRESSED),
+                                         **shape)
+        return torchsim.replay_trace_edgesim_gillis(tr, **tel)
+    tr = torchsim.compile_trace_dual(**shape)
+    if label == "random+daso":
+        return torchsim.replay_trace_edgesim_static_daso(
+            tr, "random+daso", daso_theta=kw["daso_theta"],
+            daso_cfg=kw["daso_cfg"], **tel)
+    daso = {k: kw[k] for k in ("daso_theta", "daso_cfg") if k in kw}
+    if kw.get("mode") == "train":
+        return torchsim.replay_trace_edgesim_trained(
+            tr, kw["mab_state"], **daso, **tel)
+    return torchsim.replay_trace_edgesim_learned(tr, kw["mab_state"],
+                                                 **daso, **tel)
+
+
+def _spread(xs):
+    return (f"median {np.median(xs):.3f} s (min {min(xs):.3f}, max "
+            f"{max(xs):.3f})")
+
+
+def telemetry_phase(mab_state):
+    """Every simulator main path with ``telemetry="interval"`` on the main
+    grid (G=16, T=100, 30 substeps, K=default_capacity): per path, the
+    summary keys equal the summary run's, the series is (G, T, 18 +
+    engine columns) and finite with ``n_fin`` summing to
+    ``tasks_completed`` and ``energy_j`` to the energy total (rtol 1e-12),
+    no host read is added, and cell 0's summary and series match the
+    port's host oracle at ``test_differential.py``'s rule; the walls of
+    ``TELEMETRY_CALLS`` interleaved calls in each mode are printed.
+    Returns the interval runs' launches per kernel, summed."""
+    from repro_torch.core.mab import host_reads
+    from repro_torch.env.metrics import TELEMETRY_COLS
+    totals, errs = {}, {}
+    G, T = len(MAIN["seeds"]) * len(MAIN["lams"]), MAIN["n_intervals"]
+    for label, policy, kw, draws, ecols in telemetry_paths(mab_state):
+        walls = {"summary": [], "interval": []}
+        first = {}
+        for call in range(TELEMETRY_CALLS):
+            for mode in ("summary", "interval"):
+                r0 = host_reads()
+                with SeriesTap() as tap:
+                    recs, wall, launches, _ = main_path(
+                        policy, label=f"{label} [{mode} {call + 1}]",
+                        draws=draws, telemetry=mode, **kw)
+                walls[mode].append(wall)
+                if call == 0:
+                    first[mode] = (recs, tap.outs, launches,
+                                   host_reads() - r0)
+        (srecs, _, _, sreads), (irecs, iouts, ilaunch, ireads) = \
+            first["summary"], first["interval"]
+        for name, count in ilaunch.items():
+            totals[name] = totals.get(name, 0) + count
+        if ireads != sreads:
+            raise AssertionError(f"telemetry {label}: {ireads} host reads "
+                                 f"against {sreads} in the summary run")
+        bitwise = True
+        for g, (s, i) in enumerate(zip(srecs, irecs)):
+            for k, v in s.items():
+                if i[k] != v and not (isinstance(v, float) and np.isclose(
+                        i[k], v, rtol=1e-12, atol=1e-12)):
+                    raise AssertionError(f"telemetry {label} cell {g} {k}: "
+                                         f"summary {v!r} interval {i[k]!r}")
+                bitwise &= i[k] == v
+        series = np.stack([o["telemetry"]["series"] for o in iouts])
+        cols = iouts[0]["telemetry"]["cols"]
+        if cols != list(TELEMETRY_COLS) + list(ecols) or \
+                series.shape != (G, T, len(TELEMETRY_COLS) + len(ecols)):
+            raise AssertionError(f"telemetry {label}: series {series.shape} "
+                                 f"cols {cols}")
+        if not np.isfinite(series).all():
+            raise AssertionError(f"telemetry {label}: a non-finite entry")
+        for g, o in enumerate(iouts):
+            sr = o["telemetry"]["series"]
+            nfin = sr[:, cols.index("n_fin")].sum()
+            energy = sr[:, cols.index("energy_j")].sum() / 3.6e9
+            if nfin != o["tasks_completed"] or not np.isclose(
+                    energy, o["energy_mwhr"], rtol=1e-12, atol=0.0):
+                raise AssertionError(
+                    f"telemetry {label} cell {g}: n_fin sums to {nfin} "
+                    f"({o['tasks_completed']} completed), energy_j to "
+                    f"{energy!r} MWh ({o['energy_mwhr']!r})")
+        t0 = time.perf_counter()
+        ref = telemetry_oracle(label, kw)
+        oracle_s = time.perf_counter() - t0
+        # the finetune is chaotic past ~50 intervals at these widths: θ
+        # and its window loss are held on a cut run (telemetry_train_cut)
+        skip = TELEMETRY_CHAOTIC if "daso_theta" in ref else ()
+        worst = diff_compare(ref, iouts[0], f"telemetry {label} cell 0",
+                             errs, skip=skip)
+        if skip:
+            telemetry_train_cut(kw, errs)
+        med = {m: float(np.median(w)) for m, w in walls.items()}
+        log(f"telemetry {label}: series {series.shape} (engine columns "
+            f"{', '.join(ecols) or 'none'}), summaries equal the summary "
+            f"run's ({'bitwise' if bitwise else 'within rtol 1e-12'}), "
+            f"{ireads} host reads in either mode; cell 0 matches the host "
+            f"oracle (largest relative difference {worst:.3e}, the oracle "
+            f"{oracle_s:.1f} s on the host); wall summary "
+            f"{_spread(walls['summary'])}, interval "
+            f"{_spread(walls['interval'])}: overhead "
+            f"{med['interval'] / med['summary'] - 1.0:+.2%} of the median "
+            f"(the reference's ceiling {TELEMETRY_CEILING:.0%}, reported, "
+            f"not gated)")
+    log("telemetry: largest relative difference from the host oracle per "
+        "key: " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(errs.items())))
+    return totals
+
+
+# --------------------------------------------------- differential fuzz
+#
+# tests/test_differential.py's contract on the port: seeded cases from a
+# quantized space (fleet, λ, capacity scales, workload seed, MAB state and
+# hyperparameters, DASO surrogate), each run through the interval program
+# on a device and the host oracle; summaries at rtol 1e-4 / atol 1e-9,
+# percentiles within their binning bound.  tests/test_torch_differential.py
+# runs it on the CPU, the differential phase on the card.
+
+DIFF_RTOL, DIFF_ATOL = 1e-4, 1e-9
+#: slot capacity big enough that no quantized case drops an arrival
+DIFF_MAX_ACTIVE = 160
+DIFF_N_INTERVALS = (4, 6)
+DIFF_SUBSTEPS = (3, 4)
+DIFF_CLUSTERS = ("table3", "ram_squeeze", "slow_small")
+DIFF_MAB_HPS = ((0.5, 0.3, 0.3, 0.1),      # host MABDecider defaults
+                (1.0, 0.3, 0.3, 0.1),      # exploratory UCB
+                (0.05, 0.9, 0.5, 0.2),     # paper-φ, aggressive RBED
+                (0.5, 0.3, 0.3, 0.0))      # k=0: RBED never decays ε
+#: (alpha, beta, train_steps, place_min, train_min): the lowered gates
+#: make the short horizons ascend the finetuned surrogate and train
+DIFF_TRAIN_HPS = ((0.5, 0.5, 4, 32, 8), (0.5, 0.5, 2, 2, 1),
+                  (0.3, 0.7, 4, 4, 2))
+DIFF_DASO_CFGS = ("small", "wide")
+#: (eps0, lr, decay) of the Gillis arm: defaults, explore-heavy, pure
+#: greedy forever, pure coin with lr=1
+DIFF_GILLIS_HPS = ((0.5, 0.3, 0.995), (1.0, 0.5, 0.9), (0.0, 0.3, 1.0),
+                   (1.0, 1.0, 1.0))
+DIFF_MODES = ("static", "deploy", "train", "gillis", "gobi")
+DIFF_PCT_KEYS = tuple(f"p{q}_{m}_s" for q in (50, 95, 99)
+                      for m in ("response", "wait"))
+#: the shrunk regression cases of tests/test_differential.py
+DIFF_REGRESSIONS = ("ram_pressure_repair_static",
+                    "ram_pressure_repair_train", "eps_boundary_decisions",
+                    "gillis_eps_boundaries", "gillis_ram_pressure",
+                    "capacity_drop_counting")
+#: the differential phase on the card: this many seeded cases
+DIFF_CHIP_CASES = 30
+
+
+def diff_cluster(name):
+    from repro_torch.env.cluster import make_cluster
+    if name == "table3":
+        return make_cluster()
+    if name == "ram_squeeze":
+        return make_cluster(ram_scale=0.45)
+    return make_cluster(fleet=[("B2ms", 8), ("E2asv4", 4), ("B4ms", 4)],
+                        compute_scale=0.7)
+
+
+def diff_daso(name, n_workers, rng):
+    """(θ on the CPU, cfg) of a small or wide surrogate, θ from a CPU
+    generator seeded by one draw of ``rng``."""
+    import torch
+    from repro_torch.core import daso
+    hidden, C = (16, 8) if name == "small" else (32, 16)
+    cfg = daso.DASOConfig(num_workers=n_workers, max_containers=C,
+                          state_features=4, hidden=hidden, depth=2,
+                          place_iters=8)
+    gen = torch.Generator().manual_seed(int(rng.randint(2**31)))
+    return daso.init_surrogate(cfg, gen, device="cpu"), cfg
+
+
+def diff_mab_state(rng):
+    """A random-but-plausible MAB state (the reference's fields as NumPy):
+    both contexts and arms reachable."""
+    return {"R": rng.uniform(300.0, 4000.0, 3).astype(np.float32),
+            "Q": rng.uniform(0.0, 1.0, (2, 2)).astype(np.float32),
+            "N": rng.uniform(1.0, 40.0, (2, 2)).astype(np.float32),
+            "eps": np.float32(rng.uniform(0.0, 1.0)),
+            "rho": np.float32(rng.uniform(0.02, 0.2)),
+            "t": int(rng.randint(1, 80))}
+
+
+def diff_gillis_state(rng):
+    return {"Q": rng.uniform(0.0, 1.0, (3, 2, 2)).astype(np.float64),
+            "eps": np.float64(rng.uniform(0.0, 1.0))}
+
+
+def diff_draw_case(case_seed: int) -> dict:
+    """One configuration, fully determined by ``case_seed`` (the draws of
+    ``tests/test_differential.py``'s ``draw_case``)."""
+    rng = np.random.RandomState(case_seed)
+    mode = DIFF_MODES[rng.randint(5)]
+    case = {
+        "mode": mode,
+        "lam": float(np.round(rng.uniform(2.0, 9.0), 2)),
+        "seed": int(rng.randint(10_000)),
+        "n_intervals": int(DIFF_N_INTERVALS[rng.randint(2)]),
+        "substeps": int(DIFF_SUBSTEPS[rng.randint(2)]),
+        "cluster": DIFF_CLUSTERS[rng.randint(3)],
+        "mab_hp": DIFF_MAB_HPS[rng.randint(4)],
+        "mab_rng": int(rng.randint(2**31)),
+        # the gobi ablation is a surrogate config: its draw is never None
+        "daso": (((None,) if mode != "gobi" else ()) + DIFF_DASO_CFGS)[
+            rng.randint((1 if mode != "gobi" else 0) + 2)],
+    }
+    if mode == "train":
+        case["train_hp"] = DIFF_TRAIN_HPS[rng.randint(3)]
+    if mode == "static":
+        case["policy"] = ("mc", "bestfit-rr", "bestfit-layer",
+                          "bestfit-semantic",
+                          "bestfit-threshold")[rng.randint(5)]
+    if mode == "gillis":
+        case["gillis_hp"] = DIFF_GILLIS_HPS[rng.randint(4)]
+    case["telemetry"] = ("summary", "interval")[rng.randint(2)]
+    return case
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(a), 1e-300),
+                        initial=0.0))
+
+
+def diff_compare(ref, got, ctx, errs=None, skip=()):
+    """``tests/test_differential.py``'s ``assert_close``: equal key sets,
+    every key at rtol 1e-4 / atol 1e-9 (θ and the Q-table leaf by leaf,
+    the series column by column), the percentiles within the larger
+    binning bound; raises on a mismatch.  Records the largest relative
+    difference per key into ``errs`` and returns the largest of all.
+    Keys and series columns (``"telemetry/<col>"``) named in ``skip`` are
+    not held; their largest difference (relative to the leaf's largest
+    entry for θ) goes into ``errs`` under ``"<name> (not held)"``."""
+    if set(ref) != set(got):
+        raise AssertionError(f"{ctx}: key sets differ: "
+                             f"{sorted(set(ref) ^ set(got))}")
+    errs = {} if errs is None else errs
+    worst = 0.0
+
+    def note(k, e):
+        nonlocal worst
+        if k in skip:
+            k = f"{k} (not held)"
+        else:
+            worst = max(worst, e)
+        errs[k] = max(errs.get(k, 0.0), e)
+
+    for k in ref:
+        if k in ("daso_theta", "gillis_q"):
+            for a, b in zip(_leaves(ref[k]), _leaves(got[k])):
+                a, b = np.asarray(a), np.asarray(b)
+                if k in skip:
+                    note(k, float(np.max(np.abs(np.asarray(a, np.float64)
+                                                - b), initial=0.0)
+                                  / max(np.abs(a).max(), 1e-300)))
+                    continue
+                if not np.allclose(b, a, rtol=DIFF_RTOL, atol=DIFF_ATOL):
+                    raise AssertionError(f"{ctx}: {k} differs")
+                note(k, _rel(a, b))
+        elif k == "telemetry":
+            if ref[k]["cols"] != got[k]["cols"]:
+                raise AssertionError(f"{ctx}: telemetry cols "
+                                     f"{ref[k]['cols']} vs {got[k]['cols']}")
+            rs, gs = ref[k]["series"], got[k]["series"]
+            if np.shape(rs) != np.shape(gs):
+                raise AssertionError(f"{ctx}: series {np.shape(rs)} vs "
+                                     f"{np.shape(gs)}")
+            for i, col in enumerate(ref[k]["cols"]):
+                if f"telemetry/{col}" not in skip and not np.allclose(
+                        gs[:, i], rs[:, i], rtol=DIFF_RTOL, atol=DIFF_ATOL):
+                    raise AssertionError(f"{ctx}: telemetry column {col}")
+                note(f"telemetry/{col}", _rel(rs[:, i], gs[:, i]))
+        elif k == "percentile_err_s":
+            if not (ref[k] >= 0.0 and got[k] >= 0.0):
+                raise AssertionError(f"{ctx}: {k}")
+        elif k in DIFF_PCT_KEYS:
+            bound = max(ref["percentile_err_s"], got["percentile_err_s"])
+            if abs(ref[k] - got[k]) > bound + DIFF_ATOL \
+                    + DIFF_RTOL * abs(ref[k]):
+                raise AssertionError(f"{ctx}: {k}: host={ref[k]!r} "
+                                     f"program={got[k]!r} bound={bound!r}")
+        else:
+            if not np.isclose(got[k], ref[k], rtol=DIFF_RTOL,
+                              atol=DIFF_ATOL):
+                raise AssertionError(f"{ctx}: {k}: host={ref[k]!r} "
+                                     f"program={got[k]!r}")
+            note(k, _rel(ref[k], got[k]))
+    return worst
+
+
+def diff_check_case(case: dict, device, errs=None):
+    """Run one configuration through the interval program on ``device``
+    and through the host oracle, and compare."""
+    from repro_torch.env import torchsim
+    from repro_torch.env.workload import COMPRESSED, LAYER
+    cl = diff_cluster(case["cluster"])
+    tel = case.get("telemetry", "summary")
+    ctx = f"case={case!r}"
+    shape = dict(lam=case["lam"], seed=case["seed"],
+                 n_intervals=case["n_intervals"],
+                 substeps=case["substeps"], cluster=cl, max_arrivals=48)
+    run = dict(cluster=cl, max_active=DIFF_MAX_ACTIVE, device=device,
+               telemetry=tel)
+    if case["mode"] == "static":
+        tr = torchsim.compile_trace(
+            torchsim.make_static_decider(case["policy"]), **shape)
+        ref = torchsim.replay_trace_edgesim(tr, cluster=cl, telemetry=tel)
+        got = torchsim.run_trace_arrays(tr, **run)
+    elif case["mode"] == "gillis":
+        rng = np.random.RandomState(case["mab_rng"])
+        st = diff_gillis_state(rng)
+        tr = torchsim.compile_trace_dual(variants=(LAYER, COMPRESSED),
+                                         **shape)
+        ref = torchsim.replay_trace_edgesim_gillis(
+            tr, gillis_state=st, cluster=cl, gillis_hp=case["gillis_hp"],
+            telemetry=tel)
+        got = torchsim.run_trace_arrays_gillis(
+            tr, gillis_state=st, gillis_hp=case["gillis_hp"], **run)
+    else:
+        rng = np.random.RandomState(case["mab_rng"])
+        st = diff_mab_state(rng)
+        theta = cfg = None
+        if case["daso"] is not None:
+            theta, cfg = diff_daso(case["daso"], cl.n, rng)
+        if case["mode"] == "gobi":
+            cfg = cfg._replace(decision_aware=False)
+        tr = torchsim.compile_trace_dual(**shape)
+        daso = dict(daso_theta=theta, daso_cfg=cfg, mab_hp=case["mab_hp"])
+        if case["mode"] in ("deploy", "gobi"):
+            ref = torchsim.replay_trace_edgesim_learned(
+                tr, st, cluster=cl, telemetry=tel, **daso)
+            got = torchsim.run_trace_arrays_learned(tr, st, **daso, **run)
+        else:
+            ref = torchsim.replay_trace_edgesim_trained(
+                tr, st, cluster=cl, train_hp=case["train_hp"],
+                telemetry=tel, **daso)
+            got = torchsim.run_trace_arrays_trained(
+                tr, st, train_hp=case["train_hp"], **daso, **run)
+    if got["dropped_tasks"] != 0:
+        raise AssertionError(f"{ctx}: dropped tasks")
+    return diff_compare(ref, got, ctx, errs)
+
+
+def diff_regression(name: str, device, errs=None):
+    """One shrunk regression case of ``tests/test_differential.py`` with
+    the interval program on ``device``."""
+    from repro_torch.env import torchsim
+    from repro_torch.env.cluster import make_cluster
+    from repro_torch.env.workload import COMPRESSED, LAYER
+    gv = dict(variants=(LAYER, COMPRESSED))
+    if name == "ram_pressure_repair_static":
+        # squeezed RAM + high λ: the repair, failed placements (waiting
+        # tasks) and the swap slowdown
+        cl = make_cluster(ram_scale=0.3)
+        tr = torchsim.compile_trace(torchsim.make_static_decider("mc"),
+                                    lam=14.0, seed=5, n_intervals=12,
+                                    substeps=4, cluster=cl)
+        ref = torchsim.replay_trace_edgesim(tr, cluster=cl)
+        got = torchsim.run_trace_arrays(tr, cluster=cl, device=device)
+        if not ref["wait_intervals"] > 0:
+            raise AssertionError(f"{name}: the repair failed no task")
+        return diff_compare(ref, got, name, errs)
+    if name == "ram_pressure_repair_train":
+        # the repair rewrites the finetuned surrogate's requests while the
+        # training carry advances through the repaired placements
+        rng = np.random.RandomState(11)
+        cl = make_cluster(ram_scale=0.45)
+        st = diff_mab_state(rng)
+        theta, cfg = diff_daso("small", cl.n, rng)
+        tr = torchsim.compile_trace_dual(lam=11.0, seed=5, n_intervals=10,
+                                         substeps=4, cluster=cl)
+        kw = dict(daso_theta=theta, daso_cfg=cfg, cluster=cl,
+                  train_hp=(0.5, 0.5, 2, 2, 1))
+        ref = torchsim.replay_trace_edgesim_trained(tr, st, **kw)
+        got = torchsim.run_trace_arrays_trained(tr, st, device=device, **kw)
+        if not (ref["wait_intervals"] > 0 or ref["response_intervals"] > 1):
+            raise AssertionError(f"{name}: no RAM pressure")
+        return diff_compare(ref, got, name, errs)
+    if name == "eps_boundary_decisions":
+        # ε=0 (pure greedy) and ε=1 (pure coin) train decisions
+        rng = np.random.RandomState(3)
+        tr = torchsim.compile_trace_dual(lam=5.0, seed=2, n_intervals=6,
+                                         substeps=3)
+        worst = 0.0
+        for eps in (0.0, 1.0):
+            st = dict(diff_mab_state(rng), eps=np.float32(eps))
+            ref = torchsim.replay_trace_edgesim_trained(tr, st)
+            got = torchsim.run_trace_arrays_trained(tr, st, device=device)
+            worst = max(worst, diff_compare(ref, got, f"{name} eps={eps}",
+                                            errs))
+        return worst
+    if name == "gillis_eps_boundaries":
+        # ε=0 over a tied all-zero Q, and ε=1 with decay 1 (a coin forever)
+        tr = torchsim.compile_trace_dual(lam=5.0, seed=2, n_intervals=6,
+                                         substeps=3, **gv)
+        worst = 0.0
+        for hp in ((0.0, 0.3, 0.995), (1.0, 1.0, 1.0)):
+            ref = torchsim.replay_trace_edgesim_gillis(tr, gillis_hp=hp)
+            got = torchsim.run_trace_arrays_gillis(tr, gillis_hp=hp,
+                                                   device=device)
+            worst = max(worst, diff_compare(ref, got, f"{name} hp={hp}",
+                                            errs))
+        return worst
+    if name == "gillis_ram_pressure":
+        # compressed tasks have the largest single-container footprints
+        rng = np.random.RandomState(7)
+        cl = make_cluster(ram_scale=0.4)
+        st = diff_gillis_state(rng)
+        tr = torchsim.compile_trace_dual(lam=11.0, seed=5, n_intervals=10,
+                                         substeps=4, cluster=cl, **gv)
+        ref = torchsim.replay_trace_edgesim_gillis(tr, gillis_state=st,
+                                                   cluster=cl)
+        got = torchsim.run_trace_arrays_gillis(tr, gillis_state=st,
+                                               cluster=cl, device=device)
+        if not (ref["wait_intervals"] > 0 or ref["response_intervals"] > 1):
+            raise AssertionError(f"{name}: no RAM pressure")
+        return diff_compare(ref, got, name, errs)
+    if name == "capacity_drop_counting":
+        # arrivals past max_active are dropped and counted, the same way
+        # twice, and grid rows equal solo runs while dropping
+        tr = torchsim.compile_trace(torchsim.make_static_decider("mc"),
+                                    lam=10.0, seed=1, n_intervals=8,
+                                    substeps=3)
+        one = torchsim.run_trace_arrays(tr, max_active=8, device=device)
+        two = torchsim.run_trace_arrays(tr, max_active=8, device=device)
+        if not one["dropped_tasks"] > 0 or one != two:
+            raise AssertionError(f"{name}: drops {one['dropped_tasks']}, "
+                                 f"deterministic {one == two}")
+        for row in torchsim.run_grid_arrays([tr, tr], max_active=8,
+                                            device=device):
+            for k in one:
+                if not np.isclose(one[k], row[k], rtol=1e-12, atol=1e-12):
+                    raise AssertionError(f"{name}: grid row {k}")
+        return 0.0
+    raise ValueError(f"unknown regression case {name!r}")
+
+
+def differential_phase():
+    """``DIFF_CHIP_CASES`` seeded cases and the six regression cases with
+    the interval program on the card against the host oracles; returns
+    the launches per kernel of the card runs."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    errs, modes = {}, {}
+    t0 = time.perf_counter()
+    for seed in range(DIFF_CHIP_CASES):
+        case = diff_draw_case(seed)
+        diff_check_case(case, "cuda", errs)
+        key = f"{case['mode']}/{case['telemetry']}"
+        modes[key] = modes.get(key, 0) + 1
+    for name in DIFF_REGRESSIONS:
+        diff_regression(name, "cuda", errs)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"differential: {DIFF_CHIP_CASES} seeded cases (mode/telemetry: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(modes.items()))
+        + f") and {len(DIFF_REGRESSIONS)} regression cases on cuda match "
+        f"the host oracles at rtol {DIFF_RTOL} / atol {DIFF_ATOL} in "
+        f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+    log("differential: largest relative difference per key: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(errs.items())))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2659,6 +3239,19 @@ def main() -> int:
             rec["launches"] = draws["splitplace train"]
             rec["max_abs_err"] = max(rec["max_abs_err"], draw_err_main)
             rec["launches_by_path"] = draws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tel = telemetry_phase(mab_state)
+    log(f"telemetry phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    diff = differential_phase()
+    log(f"differential phase: {time.perf_counter() - t0:.1f} s")
+    for rec in records:
+        if rec["name"] in SIM_KERNELS + DRAW_KERNELS:
+            rec["launches_telemetry"] = tel[rec["name"]]
+            rec["launches_differential"] = diff[rec["name"]]
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -174,7 +174,18 @@ def timed_share(name: str, device):
     phase_s[name] = phase_s.get(name, 0.0) + time.perf_counter() - t0
 
 
+#: host reads ``_masked_rows`` has made in this process (``host_reads``)
+_HOST_READS = [0]
+
+
+def host_reads() -> int:
+    """How many host reads ``_masked_rows`` has made in this process (one
+    per call that has rows: the MAB's two per interval, Gillis's one)."""
+    return _HOST_READS[0]
+
+
 def _host_max(count) -> int:
+    _HOST_READS[0] += 1
     phase_s = _phase_s.get()
     if phase_s is None:
         return int(count.max())

@@ -197,21 +197,35 @@ class BestFitPlacer:
     def place(self, sim) -> Dict:
         n = sim.cluster.n
         ram_cap = sim.cluster.ram()
-        # vectorized census over the SoA store
-        st = sim.fragment_store()
-        F, T = st.n_fragments, st.n_tasks
-        worker = st.worker[:F]
-        live = ~st.done[:F]
-        placedm = live & (worker >= 0)
-        pw = worker[placedm]
-        ram_used = np.bincount(pw, weights=st.ram_mb[:F][placedm],
-                               minlength=n)
-        load = np.bincount(pw, minlength=n).astype(np.float64)
-        new_rows = np.nonzero(live & (worker < 0))[0]
-        tids = st.task_id[:T][st.task_of[new_rows]].tolist()
-        idxs = st.frag_idx[new_rows].tolist()
-        rams = st.ram_mb[new_rows].tolist()
-        new = list(zip(tids, idxs, rams))
+        if hasattr(sim, "fragment_store"):
+            # vectorized census over the SoA store
+            st = sim.fragment_store()
+            F, T = st.n_fragments, st.n_tasks
+            worker = st.worker[:F]
+            live = ~st.done[:F]
+            placedm = live & (worker >= 0)
+            pw = worker[placedm]
+            ram_used = np.bincount(pw, weights=st.ram_mb[:F][placedm],
+                                   minlength=n)
+            load = np.bincount(pw, minlength=n).astype(np.float64)
+            new_rows = np.nonzero(live & (worker < 0))[0]
+            tids = st.task_id[:T][st.task_of[new_rows]].tolist()
+            idxs = st.frag_idx[new_rows].tolist()
+            rams = st.ram_mb[new_rows].tolist()
+            new = list(zip(tids, idxs, rams))
+        else:
+            # per-object census (``env.legacy_sim.LegacyEdgeSim``): the
+            # accumulation order matches the bincount above, so the
+            # outputs are identical
+            ram_used = np.zeros(n)
+            load = np.zeros(n)
+            new = []
+            for task, f in sim.containers():
+                if f.worker >= 0:
+                    ram_used[f.worker] += f.ram_mb
+                    load[f.worker] += 1
+                else:
+                    new.append((task.id, f.idx, f.ram_mb))
         # already-placed fragments are left out of the assignment:
         # apply_placement defaults each fragment to its current worker
         out = {}

@@ -11,7 +11,12 @@ static-decider arms ``layer+gobi`` / ``semantic+gobi`` / ``random+daso``).
 The learners run in deploy mode (UCB) or train mode (ε-greedy decisions
 and online DASO finetuning), and the Gillis baseline learns its Q-table in
 the loop; their draws are JAX's threefry bits
-(``repro_torch.kernels.threefry``).
+(``repro_torch.kernels.threefry``).  ``telemetry="interval"`` records a
+per-interval series on the device.
+
+``reference`` holds the host oracles: the compiled trace replayed through
+the NumPy ``EdgeSim`` with the same learner functions
+(``replay_trace_edgesim*``).
 """
 from repro_torch.env.torchsim import engines
 from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
@@ -36,6 +41,10 @@ from repro_torch.env.torchsim.driver import (GILLIS_HP, MAB_HP,
                                              run_trace_arrays_trained,
                                              run_trace_engine,
                                              trace_train_key)
+from repro_torch.env.torchsim.reference import (
+    replay_trace_edgesim, replay_trace_edgesim_gillis,
+    replay_trace_edgesim_learned, replay_trace_edgesim_static_daso,
+    replay_trace_edgesim_trained)
 from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
                                                LEARNED_POLICIES,
                                                MAB_LEARNED_POLICIES,
@@ -55,5 +64,7 @@ __all__ = [
     "run_trace_arrays_static_daso", "run_trace_arrays_trained",
     "run_trace_engine", "trace_train_key", "DASO_LEARNED_POLICIES",
     "LEARNED_POLICIES", "MAB_LEARNED_POLICIES", "STATIC_POLICIES",
-    "host_policy", "make_static_decider",
+    "host_policy", "make_static_decider", "replay_trace_edgesim",
+    "replay_trace_edgesim_gillis", "replay_trace_edgesim_learned",
+    "replay_trace_edgesim_static_daso", "replay_trace_edgesim_trained",
 ]

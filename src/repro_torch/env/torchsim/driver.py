@@ -11,11 +11,22 @@ shared physics.  ``run_grid_engine`` compiles nothing: it stacks the
 traces, uploads them once (``arrays.to_device``) and runs the loop on
 ``device``.  ``run_trace_*`` is the same with G=1.
 
+``telemetry="interval"`` records a per-interval series on the device: one
+(G, T, C) float64 tensor whose row t is written in place at the end of
+interval t (``metrics.TELEMETRY_COLS`` plus the engine's
+``telemetry_cols()``), copied to the host once after the loop; the
+summaries gain it and binned response/wait percentiles.  The default
+``"summary"`` runs exactly the launches it always has.  The host side of
+every grid is recorded in the active ``repro_torch.obs`` ledger: a
+``grid`` span per ``run_grid_engine`` call around its ``upload``,
+``dispatch`` and ``summarize`` spans.
+
 Every entry point runs on ``device="cuda"`` unless the caller asks for
 the CPU, and raises when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Callable, Optional, Sequence
 
@@ -30,12 +41,14 @@ from repro_torch.core.prng import prng_key
 from repro_torch.device import resolve
 from repro_torch.env.cluster import Cluster, make_cluster
 from repro_torch.env.torchsim import engines, kernels
+from repro_torch.env.metrics import TELEMETRY_COLS, series_percentiles
 from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
                                              TraceArrays,
                                              check_grid_homogeneous,
                                              default_capacity, stack_traces,
                                              to_device)
 from repro_torch.env.workload import layer_ref_response_s
+from repro_torch.obs import get_ledger
 
 #: MAB hyperparameters of the in-loop learned policies, matching the host
 #: ``MABDecider`` defaults: (ucb_c, phi, gamma, k)
@@ -118,21 +131,59 @@ class PhaseClock:
         self._t = now
 
 
+def _telemetry_base_row(state, acc, m0, e0, d0, util, fin):
+    """One float64 row per cell of the per-interval telemetry series (the
+    ``metrics.TELEMETRY_COLS`` layout), (G, 18): interval deltas of the
+    packed metrics, the drop counter and the energy; the finishers'
+    response and wait extremes (0.0 in a cell where none finished); the
+    per-worker utilization's mean and max; end-of-interval slot
+    occupancy.  ``m0``/``e0``/``d0`` are the interval-entry snapshots the
+    deltas subtract.  Built on the device: nothing is read back."""
+    md = acc["metrics"] - m0
+    have = md[:, 0] > 0
+    resp, wait = state["resp"], state["wait_s"]
+    # the four extremes as one masked min: (min r, -max r, min w, -max w)
+    x = torch.stack([resp, resp.neg(), wait, wait.neg()], dim=1)
+    ext = torch.where(fin[:, None], x, math.inf).amin(dim=2)
+    ext[:, 1::2].neg_()
+    ext = torch.where(have[:, None], ext, 0.0)
+    return torch.cat([md, (state["dropped"] - d0).to(f8)[:, None],
+                      (acc["energy"] - e0)[:, None], ext,
+                      util.mean(dim=1)[:, None], util.amax(dim=1)[:, None],
+                      state["alive"].sum(dim=1, dtype=f8)[:, None]], dim=1)
+
+
+def _check_telemetry(engine, telemetry):
+    """Validate the knob and resolve the full column tuple (base + the
+    engine's learning-signal columns); None in summary mode."""
+    if telemetry not in ("summary", "interval"):
+        raise ValueError(f"telemetry={telemetry!r} "
+                         "(want 'summary' or 'interval')")
+    if telemetry == "summary":
+        return None
+    return tuple(TELEMETRY_COLS) + tuple(engine.telemetry_cols())
+
+
 def run_program(engine, trace: dict, cl: dict, es, K: int, substeps: int,
                 interval_s: float, swap_slowdown: float,
-                phase_s: Optional[dict] = None) -> dict:
+                phase_s: Optional[dict] = None,
+                telemetry: str = "summary") -> dict:
     """THE interval program over a stacked device grid ``trace`` (leaves
     (G, T, ...)) and cluster rows ``cl``; returns the per-cell
     accumulators and the engine's outputs as device tensors.  With
     ``phase_s`` the wall time of each of ``PHASES`` is added into it
-    (synchronizing the device at every phase boundary)."""
+    (synchronizing the device at every phase boundary).  With
+    ``telemetry="interval"`` the outputs gain ``"telemetry"``, the (G, T,
+    C) series (its rows written at the end of each interval's feedback,
+    inside phase ``feedback``)."""
+    tcols = _check_telemetry(engine, telemetry)
     with timed_host_reads(phase_s):
         return _run_program(engine, trace, cl, es, K, substeps, interval_s,
-                            swap_slowdown, phase_s)
+                            swap_slowdown, phase_s, tcols)
 
 
 def _run_program(engine, trace, cl, es, K, substeps, interval_s,
-                 swap_slowdown, phase_s):
+                 swap_slowdown, phase_s, tcols):
     G, T = trace["valid"].shape[:2]
     frag = trace["vinstr"] if "vinstr" in trace else trace["instr"]
     F = frag.shape[-1]
@@ -142,7 +193,11 @@ def _run_program(engine, trace, cl, es, K, substeps, interval_s,
     state = kernels.init_state(G, K, F, n, device)
     acc = _init_acc(G, n, device)
     clock = PhaseClock(phase_s, device)
+    series = None if tcols is None else \
+        torch.zeros((G, T, len(tcols)), dtype=f8, device=device)
     for t in range(T):
+        if series is not None:
+            m0, e0, d0 = acc["metrics"], acc["energy"], state["dropped"]
         arr, es = engine.decide(es, trace, t)
         state = kernels.admit(state, arr)
         clock.lap("decide")
@@ -157,17 +212,27 @@ def _run_program(engine, trace, cl, es, K, substeps, interval_s,
         fin = state["task_done"] & ~prev_done
         es = engine.feedback(es, state, fin, util, aux, t, interval_s)
         state["alive"] = state["alive"] & ~state["task_done"]
+        if series is not None:
+            row = _telemetry_base_row(state, acc, m0, e0, d0, util, fin)
+            erow = engine.telemetry_row(es)
+            series[:, t] = row if erow is None else \
+                torch.cat([row, erow.to(f8)], dim=1)
         clock.lap("feedback")
     out = {"metrics": acc["metrics"], "energy": acc["energy"],
            "pwt": acc["pwt"], "dropped": state["dropped"]}
+    if series is not None:
+        out["telemetry"] = series
     out.update(engine.outputs(es))
     return out
 
 
 def _summarize(out, interval_s: float, n_intervals: int,
-               cost_hr_total: float) -> dict:
+               cost_hr_total: float, telemetry_cols=None) -> dict:
     """Assemble the §6.4 summary dict from one cell's accumulators
-    (NumPy)."""
+    (NumPy).  With ``telemetry_cols`` (interval mode) it also carries the
+    per-interval series under ``"telemetry"`` and the percentile estimates
+    binned from it (``metrics.series_percentiles``, whose error bound is
+    ``percentile_err_s``)."""
     m = dict(zip(METRIC_COLS, np.asarray(out["metrics"], np.float64)))
     n_fin = m["n_fin"]
     d = max(n_fin, 1.0)
@@ -178,7 +243,7 @@ def _summarize(out, interval_s: float, n_intervals: int,
     fair = float(tot ** 2 / (len(pwt) * np.sum(pwt ** 2) + 1e-12)) \
         if tot > 0 else 1.0
     cost = cost_hr_total * interval_s / 3600.0 * n_intervals
-    return {
+    s = {
         "accuracy": float(m["sum_acc"] / d),
         "sla_violations": float(m["n_viol"] / d),
         "reward": float(m["sum_reward"] / d),
@@ -192,33 +257,51 @@ def _summarize(out, interval_s: float, n_intervals: int,
         "tasks_completed": int(n_fin),
         "dropped_tasks": int(out["dropped"]),
     }
+    if telemetry_cols is not None:
+        series = np.asarray(out["telemetry"], np.float64)[:n_intervals]
+        s.update(series_percentiles(series, telemetry_cols))
+        s["telemetry"] = {"cols": list(telemetry_cols), "series": series}
+    return s
 
 
 def run_grid_engine(engine, traces: Sequence, es_builder: Callable,
                     cluster: Optional[Cluster] = None,
                     max_active: Optional[int] = None,
                     swap_slowdown: float = 0.5, device="cuda",
-                    phase_s: Optional[dict] = None) -> list:
+                    phase_s: Optional[dict] = None,
+                    telemetry: str = "summary") -> list:
     """Run a grid of compiled traces through the interval program under
     ``engine`` on ``device``; returns one summary dict per trace (same
     order).  ``es_builder(G, device)`` builds the engine state with one
-    row per cell."""
+    row per cell.  ``telemetry="interval"`` adds each cell's per-interval
+    series and percentile estimates to its summary."""
+    tcols = _check_telemetry(engine, telemetry)
     dev = resolve(device)
     check_grid_homogeneous(traces)
+    led = get_ledger()
     cluster = cluster or make_cluster()
     cl = ClusterArrays.from_cluster(cluster)
     K = max_active or default_capacity(traces)
     t0 = traces[0]
-    leaves = to_device(stack_traces(traces), dev)
-    cld = to_device(cl.as_dict(), dev)
-    out = run_program(engine, leaves, cld, es_builder(len(traces), dev), K,
-                      t0.substeps, t0.interval_s, swap_slowdown, phase_s)
-    out = _tree(out, lambda v: v.cpu().numpy())
-    cost_total = float(cl.cost_hr.sum())
-    return [engine.summarize(row, _summarize(row, t0.interval_s,
-                                             t0.n_intervals, cost_total))
-            for row in (_tree(out, lambda v: v[i])
-                        for i in range(len(traces)))]
+    G = len(traces)
+    with led.span("grid", engine=engine.name, n_traces=G,
+                  device=dev.type, telemetry=telemetry):
+        with led.span("upload", engine=engine.name, n_traces=G):
+            leaves = to_device(stack_traces(traces), dev)
+            cld = to_device(cl.as_dict(), dev)
+            es = es_builder(G, dev)
+        with led.span("dispatch", engine=engine.name, n_traces=G,
+                      telemetry=telemetry):
+            out = run_program(engine, leaves, cld, es, K, t0.substeps,
+                              t0.interval_s, swap_slowdown, phase_s,
+                              telemetry)
+            out = _tree(out, lambda v: v.cpu().numpy())
+        cost_total = float(cl.cost_hr.sum())
+        with led.span("summarize", engine=engine.name, n_traces=G):
+            return [engine.summarize(row, _summarize(
+                row, t0.interval_s, t0.n_intervals, cost_total,
+                telemetry_cols=tcols))
+                for row in (_tree(out, lambda v: v[i]) for i in range(G))]
 
 
 def _tree(x, fn):
@@ -295,22 +378,25 @@ def run_grid_arrays(traces: Sequence[TraceArrays],
                     cluster: Optional[Cluster] = None,
                     max_active: Optional[int] = None,
                     swap_slowdown: float = 0.5, device="cuda",
-                    phase_s: Optional[dict] = None) -> list:
+                    phase_s: Optional[dict] = None,
+                    telemetry: str = "summary") -> list:
     """Run a grid of statically-decided compiled traces (BestFit
     placement); returns one §6.4 summary dict per trace."""
     return run_grid_engine(engines.StaticEngine(), traces,
                            lambda G, dev: {}, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s)
+                           phase_s=phase_s, telemetry=telemetry)
 
 
 def run_trace_arrays(trace: TraceArrays, cluster: Optional[Cluster] = None,
                      max_active: Optional[int] = None,
-                     swap_slowdown: float = 0.5, device="cuda") -> dict:
+                     swap_slowdown: float = 0.5, device="cuda",
+                     telemetry: str = "summary") -> dict:
     """Run one compiled trace through the static program."""
     return run_grid_arrays([trace], cluster=cluster, max_active=max_active,
-                           swap_slowdown=swap_slowdown, device=device)[0]
+                           swap_slowdown=swap_slowdown, device=device,
+                           telemetry=telemetry)[0]
 
 
 def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
@@ -319,7 +405,8 @@ def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
                             max_active: Optional[int] = None,
                             swap_slowdown: float = 0.5, device="cuda",
                             mab_hp=MAB_HP,
-                            phase_s: Optional[dict] = None) -> list:
+                            phase_s: Optional[dict] = None,
+                            telemetry: str = "summary") -> list:
     """Run a grid of dual traces under the deploy-mode MAB policy: online
     UCB split decisions + Algorithm-1 feedback, placed by BestFit, or by
     the DASO stage when ``daso_cfg``/``daso_theta`` are given
@@ -340,7 +427,7 @@ def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
     return run_grid_engine(engine, traces, build, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s)
+                           phase_s=phase_s, telemetry=telemetry)
 
 
 def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
@@ -348,12 +435,13 @@ def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
                              cluster: Optional[Cluster] = None,
                              max_active: Optional[int] = None,
                              swap_slowdown: float = 0.5, device="cuda",
-                             mab_hp=MAB_HP) -> dict:
+                             mab_hp=MAB_HP,
+                             telemetry: str = "summary") -> dict:
     """Run one dual trace through the deploy-mode MAB program."""
     return run_grid_arrays_learned(
         [trace], mab_state, daso_theta=daso_theta, daso_cfg=daso_cfg,
         cluster=cluster, max_active=max_active, swap_slowdown=swap_slowdown,
-        device=device, mab_hp=mab_hp)[0]
+        device=device, mab_hp=mab_hp, telemetry=telemetry)[0]
 
 
 #: the static-decider baseline arms and the ``engines.MAB_VARIANTS`` index
@@ -385,7 +473,8 @@ def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
                                 cluster: Optional[Cluster] = None,
                                 max_active: Optional[int] = None,
                                 swap_slowdown: float = 0.5, device="cuda",
-                                phase_s: Optional[dict] = None) -> list:
+                                phase_s: Optional[dict] = None,
+                            telemetry: str = "summary") -> list:
     """Run a grid of dual traces under a static-decider baseline arm
     (``layer+gobi`` / ``semantic+gobi``: a fixed split, placed by the
     decision-blind DASO stage; ``random+daso``: a fair coin per row from
@@ -405,7 +494,7 @@ def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
     return run_grid_engine(engine, traces, build, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s)
+                           phase_s=phase_s, telemetry=telemetry)
 
 
 def run_trace_arrays_static_daso(trace: DualTraceArrays, policy: str,
@@ -413,12 +502,13 @@ def run_trace_arrays_static_daso(trace: DualTraceArrays, policy: str,
                                  cluster: Optional[Cluster] = None,
                                  max_active: Optional[int] = None,
                                  swap_slowdown: float = 0.5,
-                                 device="cuda") -> dict:
+                                 device="cuda",
+                                 telemetry: str = "summary") -> dict:
     """Run one dual trace under a static-decider baseline arm."""
     return run_grid_arrays_static_daso(
         [trace], policy, daso_theta=daso_theta, daso_cfg=daso_cfg,
         cluster=cluster, max_active=max_active, swap_slowdown=swap_slowdown,
-        device=device)[0]
+        device=device, telemetry=telemetry)[0]
 
 
 def trace_train_key(seed: int, device="cpu"):
@@ -438,7 +528,8 @@ def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
                             max_active: Optional[int] = None,
                             swap_slowdown: float = 0.5, device="cuda",
                             mab_hp=MAB_HP, train_hp=TRAIN_HP,
-                            phase_s: Optional[dict] = None) -> list:
+                            phase_s: Optional[dict] = None,
+                            telemetry: str = "summary") -> list:
     """Run a grid of dual traces with the §6.3 training loop: ε-greedy MAB
     decisions + Algorithm-1 feedback, and with ``daso_cfg``/``daso_theta``
     online DASO finetuning (replay-window appends and weighted AdamW
@@ -470,7 +561,7 @@ def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
     return run_grid_engine(engine, traces, build, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s)
+                           phase_s=phase_s, telemetry=telemetry)
 
 
 def run_trace_arrays_trained(trace: DualTraceArrays, mab_state,
@@ -479,13 +570,14 @@ def run_trace_arrays_trained(trace: DualTraceArrays, mab_state,
                              cluster: Optional[Cluster] = None,
                              max_active: Optional[int] = None,
                              swap_slowdown: float = 0.5, device="cuda",
-                             mab_hp=MAB_HP, train_hp=TRAIN_HP) -> dict:
+                             mab_hp=MAB_HP, train_hp=TRAIN_HP,
+                             telemetry: str = "summary") -> dict:
     """Run one dual trace through the training loop."""
     return run_grid_arrays_trained(
         [trace], mab_state, daso_theta=daso_theta, daso_cfg=daso_cfg,
         daso_opt_state=daso_opt_state, cluster=cluster,
         max_active=max_active, swap_slowdown=swap_slowdown, device=device,
-        mab_hp=mab_hp, train_hp=train_hp)[0]
+        mab_hp=mab_hp, train_hp=train_hp, telemetry=telemetry)[0]
 
 
 def gillis_layer_ref(num_apps: int = 3):
@@ -528,7 +620,8 @@ def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
                            max_active: Optional[int] = None,
                            swap_slowdown: float = 0.5, device="cuda",
                            gillis_hp=GILLIS_HP, num_apps: int = 3,
-                           phase_s: Optional[dict] = None) -> list:
+                           phase_s: Optional[dict] = None,
+                           telemetry: str = "summary") -> list:
     """Run a grid of (LAYER, COMPRESSED) dual traces under the Gillis
     baseline: contextual ε-greedy Q-learning with per-interval ε decay and
     per-leaving-task TD(0) updates, BestFit placement.  Every cell starts
@@ -542,16 +635,17 @@ def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
                                       gillis_hp[0]),
                            cluster=cluster, max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s)
+                           phase_s=phase_s, telemetry=telemetry)
 
 
 def run_trace_arrays_gillis(trace: DualTraceArrays, gillis_state=None,
                             cluster: Optional[Cluster] = None,
                             max_active: Optional[int] = None,
                             swap_slowdown: float = 0.5, device="cuda",
-                            gillis_hp=GILLIS_HP, num_apps: int = 3) -> dict:
+                            gillis_hp=GILLIS_HP, num_apps: int = 3,
+                            telemetry: str = "summary") -> dict:
     """Run one (LAYER, COMPRESSED) dual trace under the Gillis baseline."""
     return run_grid_arrays_gillis(
         [trace], gillis_state, cluster=cluster, max_active=max_active,
         swap_slowdown=swap_slowdown, device=device, gillis_hp=gillis_hp,
-        num_apps=num_apps)[0]
+        num_apps=num_apps, telemetry=telemetry)[0]

@@ -18,7 +18,11 @@ is ``trace[k][:, t]``.
 
 Protocol: ``decide``, ``place``, ``feedback`` as above; ``outputs(es)`` —
 extra per-cell results; ``summarize(out, summary)`` — lift those into the
-host summary dict.
+host summary dict; ``telemetry_cols()`` / ``telemetry_row(es)`` — the
+engine's learning-signal columns of the ``telemetry="interval"`` series
+(appended after ``metrics.TELEMETRY_COLS``) and their (G, C) float64
+values at the end of an interval's feedback, computed on the device
+(None when the engine has no columns).
 
 The learners' randomness is JAX's threefry, one key per cell
 (``es["key"]``, (G, 2) int64 words): row a of interval t draws from
@@ -50,6 +54,25 @@ VAR_KEYS = ("vacc", "vchain", "vnfrag", "vinstr", "vram", "vout")
 #: the dual-trace variant codes each engine family decides between
 MAB_VARIANTS = (LAYER, SEMANTIC)
 GILLIS_VARIANTS = (LAYER, COMPRESSED)
+
+#: per-interval learning-signal columns of both MAB engines: exploration
+#: and threshold scalars plus cumulative per-arm decision counts (summed
+#: over the two SLA contexts); train mode with DASO adds the replay
+#: window's fill and its loss; Gillis logs ε and the Q-table's extremes
+MAB_TELEMETRY_COLS = ("mab_eps", "mab_rho", "mab_n_layer",
+                      "mab_n_semantic")
+TRAIN_DASO_TELEMETRY_COLS = MAB_TELEMETRY_COLS + ("daso_win_fill",
+                                                  "daso_last_loss")
+GILLIS_TELEMETRY_COLS = ("gillis_eps", "gillis_q_min", "gillis_q_max")
+
+f8 = torch.float64
+
+
+def _mab_telemetry_row(mab):
+    """(G, 4) ``MAB_TELEMETRY_COLS`` of each cell's state."""
+    return torch.stack([mab.eps.to(f8), mab.rho.to(f8),
+                        mab.N[:, :, 0].sum(dim=1).to(f8),
+                        mab.N[:, :, 1].sum(dim=1).to(f8)], dim=1)
 
 
 def _daso_place(daso_cfg, es, state, cl, trace, t, interval_s):
@@ -90,6 +113,12 @@ class StaticEngine:
     def summarize(self, out, s):
         return s
 
+    def telemetry_cols(self):
+        return ()
+
+    def telemetry_row(self, es):
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class StaticDeciderDASOEngine:
@@ -127,6 +156,12 @@ class StaticDeciderDASOEngine:
     def summarize(self, out, s):
         return s
 
+    def telemetry_cols(self):
+        return ()
+
+    def telemetry_row(self, es):
+        return None
+
 
 @dataclasses.dataclass(frozen=True)
 class MABDeployEngine:
@@ -163,6 +198,12 @@ class MABDeployEngine:
 
     def summarize(self, out, s):
         return _mab_scalars(out, s)
+
+    def telemetry_cols(self):
+        return MAB_TELEMETRY_COLS
+
+    def telemetry_row(self, es):
+        return _mab_telemetry_row(es["mab"])
 
 
 def _mab_outputs(mab):
@@ -240,6 +281,21 @@ class MABTrainEngine:
             s["daso_theta"] = out["daso_theta"]
         return s
 
+    def telemetry_cols(self):
+        if self.daso_cfg is None:
+            return MAB_TELEMETRY_COLS
+        return TRAIN_DASO_TELEMETRY_COLS
+
+    def telemetry_row(self, es):
+        row = _mab_telemetry_row(es["mab"])
+        if self.daso_cfg is None:
+            return row
+        # the window's fill is the host-side record count; its loss is one
+        # surrogate forward per cell, left on the device
+        loss = daso_mod.window_loss(self.daso_cfg, es["theta"], es["win"])
+        fill = torch.full_like(loss, float(es["win"]["count"]), dtype=f8)
+        return torch.cat([row, fill[:, None], loss.to(f8)[:, None]], dim=1)
+
 
 @dataclasses.dataclass(frozen=True)
 class GillisEngine:
@@ -280,3 +336,11 @@ class GillisEngine:
         s["gillis_eps"] = float(out["gillis_eps"])
         s["gillis_q"] = np.asarray(out["gillis_q"], np.float64)
         return s
+
+    def telemetry_cols(self):
+        return GILLIS_TELEMETRY_COLS
+
+    def telemetry_row(self, es):
+        q = es["Q"].reshape(es["Q"].shape[0], -1)
+        return torch.stack([es["eps"].to(f8), q.amin(dim=1).to(f8),
+                            q.amax(dim=1).to(f8)], dim=1)

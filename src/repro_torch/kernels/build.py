@@ -10,6 +10,13 @@ in ``.gitignore``):
 The library name carries a hash of the source, so an edited source is
 rebuilt and a stale library is never loaded.  ``build_all`` starts one
 nvcc per source, all at once, and waits for them together.
+
+``cache_stats()`` counts how this process got its libraries: a hit is a
+request served by a library already loaded, a miss one that loaded it
+(from ``_build/`` or after compiling it); ``keys`` gives each loaded
+library's file and how many times this process compiled it.  Each nvcc
+batch is a ``kernel_build`` span of the active ``repro_torch.obs``
+ledger.
 """
 from __future__ import annotations
 
@@ -20,6 +27,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+from repro_torch.obs import get_ledger
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -63,6 +72,9 @@ class KernelLibraries:
     def __init__(self):
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.logs: Dict[str, str] = {}
+        self.hits = 0
+        self.misses = 0
+        self.builds: Dict[str, int] = {}
 
     def build_all(self, names=SOURCES) -> Dict[str, str]:
         """Compile every missing library, one nvcc per source started
@@ -80,26 +92,48 @@ class KernelLibraries:
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)
         failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            self.logs[name] = log
-            if proc.returncode != 0:
-                failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
-                continue
-            os.replace(tmp, out)
+        with get_ledger().span("kernel_build", sources=sorted(procs)):
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                self.logs[name] = log
+                if proc.returncode != 0:
+                    failed.append(f"{name}: nvcc exited {proc.returncode}"
+                                  f"\n{log}")
+                    continue
+                os.replace(tmp, out)
+                self.builds[out.name] = self.builds.get(out.name, 0) + 1
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         return dict(self.logs)
 
     def get(self, name: str) -> ctypes.CDLL:
         lib = self._libs.get(name)
-        if lib is None:
-            path = _lib_path(name)
-            if not path.exists():
-                self.build_all((name,))
-            lib = ctypes.CDLL(str(path))
-            self._libs[name] = lib
+        if lib is not None:
+            self.hits += 1
+            return lib
+        self.misses += 1
+        path = _lib_path(name)
+        if not path.exists():
+            self.build_all((name,))
+        lib = ctypes.CDLL(str(path))
+        self._libs[name] = lib
+        self.builds.setdefault(path.name, 0)
         return lib
+
+    def cache_stats(self) -> dict:
+        """The library counters in ``RunLedger.add_cache_stats``'s form:
+        hits, misses, evictions (none: a loaded library stays loaded),
+        loaded libraries, and per loaded library file the number of times
+        this process compiled it (0: loaded from an earlier build)."""
+        return {"hits": self.hits, "misses": self.misses, "evictions": 0,
+                "size": len(self._libs),
+                "keys": {path: self.builds.get(path, 0) for path in
+                         sorted(_lib_path(n).name for n in self._libs)}}
 
 
 LIBRARIES = KernelLibraries()
+
+
+def cache_stats() -> dict:
+    """``LIBRARIES.cache_stats()``."""
+    return LIBRARIES.cache_stats()

@@ -80,17 +80,12 @@ def _record(pol: str, seed: int, lam: float, summary: dict) -> dict:
     return rec
 
 
-def _telemetry_not_ported():
-    return NotImplementedError(
-        "telemetry='interval' on backend='torch' is not ported yet "
-        "(ROADMAP queue 1 item 8: telemetry); backend='soa' records it")
-
-
 def _run_torch(policy: str, cells, *, n_intervals, substeps, interval_s,
                apps=None, cluster=None, mab_state=None, seed_offset=0,
                max_active=None, daso_theta=None, daso_cfg=None, mab_hp=None,
                mode="deploy", train_hp=None, gillis_state=None,
-               daso_opt_state=None, device="cuda", phase_s=None) -> list:
+               daso_opt_state=None, device="cuda", phase_s=None,
+               telemetry="summary") -> list:
     """One batched interval program for ``policy`` over the (λ, seed)
     ``cells``; one summary dict per cell (see ``run_grid_batched``)."""
     if mode not in ("deploy", "train"):
@@ -103,7 +98,7 @@ def _run_torch(policy: str, cells, *, n_intervals, substeps, interval_s,
             cluster=cluster, **kw) for lam, seed in cells]
 
     run_kw = dict(cluster=cluster, max_active=max_active, device=device,
-                  phase_s=phase_s)
+                  phase_s=phase_s, telemetry=telemetry)
     if policy == "gillis":
         return torchsim.run_grid_arrays_gillis(
             dual(variants=(LAYER, COMPRESSED)), gillis_state, **run_kw)
@@ -165,8 +160,10 @@ def run_trace(policy_name: Optional[str] = None, n_intervals: int = 100,
     Q-learner).  ``mode="train"`` is the ε-greedy training flag there
     (same as ``train=True``).  The summary gains ``policy_obj`` and, for
     a MAB decider, ``mab_state``.  ``telemetry="interval"`` records the
-    per-interval ``TELEMETRY_COLS`` series and exact response/wait
-    percentiles.
+    per-interval series: on the host loop the ``TELEMETRY_COLS`` and exact
+    response/wait percentiles; on the interval program the engine's
+    columns too, recorded on the device, and percentiles binned from the
+    series within ``percentile_err_s``.
 
     ``backend="torch"`` compiles the workload and runs the batched
     interval program with one cell (see ``run_grid_batched`` for the
@@ -189,15 +186,13 @@ def run_trace(policy_name: Optional[str] = None, n_intervals: int = 100,
             raise ValueError("backend='torch' takes policy names only (no "
                              "policy objects; ε-greedy training is "
                              "mode='train' on the learned policies)")
-        if telemetry != "summary":
-            raise _telemetry_not_ported()
         out = _run_torch(policy_name, [(lam, seed)],
                          n_intervals=n_intervals, substeps=substeps,
                          interval_s=interval_s, apps=apps, cluster=cluster,
                          mab_state=mab_state, daso_theta=daso_theta,
                          daso_cfg=daso_cfg, mode=mode,
                          daso_opt_state=daso_opt_state, device=dev,
-                         phase_s=phase_s)[0]
+                         phase_s=phase_s, telemetry=telemetry)[0]
         out["policy"] = policy_name
         return out
     if backend != "soa":
@@ -321,9 +316,10 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
     result) or as the individual fields (which win).  ``phase_s``
     collects the wall seconds of the program's phases (see
     ``driver.PHASES``).  Records report ``dropped_tasks`` (0 unless
-    ``max_active`` was forced too small)."""
-    if telemetry != "summary":
-        raise _telemetry_not_ported()
+    ``max_active`` was forced too small).  ``telemetry="interval"`` runs
+    the program with its per-interval series; the records keep only its
+    scalar percentile fields (``_record`` drops the series: call the
+    ``torchsim.run_grid_arrays*`` functions for it)."""
     mab_state, daso_theta, daso_cfg, daso_opt_state = _pretrained(
         pretrain_state, mab_state, daso_theta, daso_cfg, daso_opt_state)
     cells = list(itertools.product(lams, seeds))
@@ -335,7 +331,7 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
                       mab_hp=mab_hp, mode=mode, train_hp=train_hp,
                       gillis_state=gillis_state,
                       daso_opt_state=daso_opt_state, device=device,
-                      phase_s=phase_s)
+                      phase_s=phase_s, telemetry=telemetry)
     return [_record(policy, seed, lam, out)
             for (lam, seed), out in zip(cells, outs)]
 

@@ -300,11 +300,14 @@ def test_host_policy_runs_the_static_deciders_on_the_host_loop():
 
 
 def test_unported_paths_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ex.run_trace("mc", backend="torch", telemetry="interval",
-                     n_intervals=2, substeps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ex.run_grid_batched("mc", telemetry="interval", device="cpu")
+    # item 8 (telemetry on backend="torch") is ported: both calls return
+    # the interval mode's products
+    out = ex.run_trace("mc", backend="torch", telemetry="interval",
+                       n_intervals=2, substeps=2, device="cpu")
+    assert out["telemetry"]["series"].shape == (2, 18)
+    rec, = ex.run_grid_batched("mc", telemetry="interval", n_intervals=2,
+                               substeps=2, device="cpu")
+    assert "p99_response_s" in rec and "telemetry" not in rec
     with pytest.raises(NotImplementedError, match="item 9"):
         ex.run_stream("mc")
 

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.models.rglru",
               "repro_torch.configs.tinyllama_1_1b",
               "repro_torch.models.model", "repro_torch.serving.engine",
-              "repro_torch.core.daso", "repro_torch.launch.serve"):
+              "repro_torch.core.daso", "repro_torch.launch.serve",
+              "repro_torch.env.torchsim.reference", "repro_torch.obs",
+              "repro_torch.obs.ledger", "repro_torch.env.legacy_sim"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"

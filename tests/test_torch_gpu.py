@@ -671,3 +671,64 @@ def test_pretrain_matches_cpu(cuda):
     ``run_grid(backend="torch")`` on both devices with the card's
     products, summaries at rtol 1e-9."""
     chip_smoke().table4_cross()
+
+
+#: telemetry families on the card: (policy, run_grid_batched keywords)
+TELEMETRY_GRID = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=8,
+                      substeps=4)
+TELEMETRY_POLICIES = ("bestfit-rr", "mab", "splitplace", "splitplace train",
+                      "gillis", "random+daso")
+
+
+def _telemetry_outs(policy, device):
+    """The full per-cell summaries of ``policy``'s small grid with
+    ``telemetry="interval"`` on ``device`` (chip_smoke's ``SeriesTap``)."""
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.launch.experiments import run_grid_batched
+    cs = chip_smoke()
+    cfg = DASOConfig(**cs.DASO_SMALL)
+    theta = init_surrogate(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    kw = dict(mab_state=cs.MAB_LITERAL)
+    if policy in ("splitplace", "splitplace train", "random+daso"):
+        kw.update(daso_theta=theta, daso_cfg=cfg)
+    if policy.endswith(" train"):
+        kw.update(mode="train", train_hp=cs.TRAIN_HP_LOW)
+    with cs.SeriesTap() as tap:
+        run_grid_batched(policy.split()[0], device=device,
+                         telemetry="interval", **TELEMETRY_GRID, **kw)
+    return tap.outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", TELEMETRY_POLICIES)
+def test_telemetry_series_matches_cpu(cuda, policy):
+    """The interval program's series on the card equals the CPU's (rtol
+    1e-9; the train path's window loss, a forward of the finetuned
+    float32 θ, at 1e-5), and so do the percentile fields."""
+    on_gpu, on_cpu = _telemetry_outs(policy, "cuda"), \
+        _telemetry_outs(policy, "cpu")
+    for g, c in zip(on_gpu, on_cpu):
+        assert g["telemetry"]["cols"] == c["telemetry"]["cols"]
+        for i, col in enumerate(c["telemetry"]["cols"]):
+            rtol = 1e-5 if col == "daso_last_loss" else 1e-9
+            np.testing.assert_allclose(g["telemetry"]["series"][:, i],
+                                       c["telemetry"]["series"][:, i],
+                                       rtol=rtol, atol=1e-12, err_msg=col)
+        for k in ("p50_response_s", "p99_wait_s", "percentile_err_s"):
+            assert np.isclose(g[k], c[k], rtol=1e-9, atol=1e-12), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case_seed", range(6))
+def test_differential_cases_on_cuda(cuda, case_seed):
+    """chip_smoke's differential contract with the interval program on the
+    card against the host oracles (rtol 1e-4 / atol 1e-9)."""
+    cs = chip_smoke()
+    cs.diff_check_case(cs.diff_draw_case(case_seed), "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", chip_smoke().DIFF_REGRESSIONS)
+def test_differential_regressions_on_cuda(cuda, name):
+    chip_smoke().diff_regression(name, "cuda")
