@@ -79,6 +79,19 @@ to 0 just before and read just after:
 * the differential fuzz (``differential``) — 30 seeded cases of
   ``tests/test_differential.py``'s quantized space and its six regression
   cases with the interval program on the card against the host oracles;
+* the streaming serve loop (``stream``) — ``run_stream`` at its own
+  defaults (the Table-3 fleet, λ=6, 30 substeps, a ring of 512 slots,
+  chunks of 64 intervals): ``mc`` until 10⁴ tasks are offered, then
+  ``splitplace`` (θ at ``SurrogatePlacer``'s widths) and ``gillis`` until
+  2000; the admission ledger balances with nothing dropped, device memory
+  is flat from the second chunk on, each simulator kernel (and
+  ``threefry_rows`` in ``gillis``) is launched once per interval and no
+  kernel library is loaded after the first chunk; it prints the chunk
+  walls, the steady tasks/s and the feeder thread's overlap with the
+  chunks.  Then ``replay_stream`` of main-grid cell 0 in chunks of 32
+  equals the one-shot program to every digit (``bestfit-rr``,
+  ``splitplace``, ``gillis``), and ``mc`` and ``gillis`` at 1500 tasks
+  give the CPU's counters and its summaries within rtol 1e-9;
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
   falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
   width and depth
@@ -3190,6 +3203,294 @@ def differential_phase():
     return launches
 
 
+# ------------------------------------------------------- streaming serve
+#
+# run_stream's own defaults (the Table-3 fleet, λ=6, 300 s intervals of 30
+# substeps, a ring of 512 slots, chunks of 64 intervals): the reference's
+# --quick soak size for mc, 2000 tasks for splitplace and gillis; replay
+# of main-grid cell 0 in chunks of 32 against the one-shot program; the
+# card against the CPU at 1500 tasks.
+
+STREAM = dict(lam=6.0, seed=0, chunk_intervals=64, max_active=512,
+              substeps=30)
+STREAM_TASKS = {"mc": 10_000, "splitplace": 2000, "gillis": 2000}
+STREAM_REPLAY = dict(n_intervals=100, chunk=32, substeps=30)
+STREAM_REPLAY_POLICIES = ("bestfit-rr", "splitplace", "gillis")
+STREAM_CROSS = dict(target_tasks=1500, **STREAM)
+STREAM_CROSS_POLICIES = ("mc", "gillis")
+STREAM_RTOL = 1e-9
+#: the serving report's integer keys (the admission ledger and its shape)
+STREAM_COUNTERS = ("n_chunks", "n_intervals", "offered", "fed",
+                   "feeder_overflow", "dropped", "admitted", "finished",
+                   "live")
+
+
+def stream_policy_kw(policy, mab_state, device):
+    """run_stream's learner keywords of ``policy``: splitplace with the
+    golden literal's MAB state and θ at ``SurrogatePlacer``'s widths from
+    a seeded generator on ``device``."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    if policy != "splitplace":
+        return {}
+    cfg = DASOConfig(**DASO_MAIN)
+    gen = torch.Generator(device=device).manual_seed(DASO_SEED)
+    return dict(mab_state=mab_state, daso_cfg=cfg,
+                daso_theta=init_surrogate(cfg, gen, device=device))
+
+
+def _check_stream_ledger(rep, label):
+    if not (rep["offered"] == rep["fed"] + rep["feeder_overflow"]
+            and rep["admitted"] == rep["fed"] - rep["dropped"]
+            and rep["admitted"] == rep["finished"] + rep["live"]):
+        raise AssertionError(f"stream {label}: the admission ledger does "
+                             f"not balance: "
+                             + str({k: rep[k] for k in STREAM_COUNTERS}))
+
+
+def _overlap_s(spans, others):
+    """Seconds of the ``spans`` intervals that ``others`` cover (``others``
+    do not overlap one another: they run on one thread)."""
+    return sum(max(0.0, min(b, d) - max(a, c))
+               for a, b in spans for c, d in others)
+
+
+def stream_path(policy, target_tasks, mab_state=None, draws=False,
+                unthreaded=False):
+    """One ``run_stream`` soak on the card at ``STREAM``'s settings with
+    every kernel's launch count set to 0 just before and read just after:
+    the ledger balances, nothing is dropped, device memory is flat from
+    the second chunk on (growth at most one chunk's tape and series),
+    each simulator kernel (and with ``draws`` ``threefry_rows``) launched
+    once per interval, no kernel library built or loaded after the first
+    chunk.  Prints the report, the chunk walls, the steady tasks/s and the
+    feeder's overlap with the chunks; with ``unthreaded`` the same chunks
+    again with no feeder thread (``stream_unthreaded``).  Returns the
+    launches."""
+    import torch
+    from repro_torch.env.metrics import TELEMETRY_COLS
+    from repro_torch.env.torchsim import stream
+    from repro_torch.kernels import build
+    from repro_torch.launch.experiments import run_stream
+    from repro_torch.obs import RunLedger, use_ledger
+    kw = stream_policy_kw(policy, mab_state, "cuda")
+    mem, fin, cache = [], [], []
+    T = STREAM["chunk_intervals"]
+    i_fin = TELEMETRY_COLS.index("n_fin")
+
+    def on_chunk(i, runner, rolling):
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.memory_allocated())
+        fin.append(sum(row[i_fin] for row in list(rolling.window)[-T:]))
+        if i == 1:
+            cache.append(build.cache_stats())
+
+    # one chunk's upload (its tape, packed) and its series on the card
+    engine, _, fkw = stream.make_stream_policy(policy, **kw)
+    tape = stream.StreamFeeder(lam=STREAM["lam"], seed=STREAM["seed"],
+                               substeps=STREAM["substeps"],
+                               **fkw).next_chunk(T)
+    chunk_bytes = T * (len(TELEMETRY_COLS) + len(engine.telemetry_cols())) \
+        * 8 + sum(-(-v.nbytes // 8) * 8 for v in tape.values())
+    counters = _counters()
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    led = RunLedger(f"stream {policy}")
+    t0 = time.perf_counter()
+    with use_ledger(led):
+        rep = run_stream(policy, target_tasks=target_tasks,
+                         on_chunk=on_chunk, device="cuda", **STREAM, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    label = f"stream {policy}"
+    _check_stream_ledger(rep, label)
+    if rep["feeder_overflow"] or rep["dropped"]:
+        raise AssertionError(f"{label}: feeder_overflow "
+                             f"{rep['feeder_overflow']}, dropped "
+                             f"{rep['dropped']} (expected 0)")
+    n = rep["n_intervals"]
+    for name in SIM_KERNELS + (DRAW_KERNELS if draws else ()):
+        if launches[name] != n:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times over {n} "
+                                 "intervals")
+    growth = max(mem[1:]) - mem[1] if len(mem) > 1 else 0
+    if growth > chunk_bytes:
+        raise AssertionError(f"{label}: device memory grew by {growth} B "
+                             f"from chunk 2 on (one chunk's tape and "
+                             f"series: {chunk_bytes} B): {mem}")
+    end = build.cache_stats()
+    if cache and (end["misses"] != cache[0]["misses"]
+                  or end["keys"] != cache[0]["keys"]):
+        raise AssertionError(f"{label}: kernel libraries loaded or built "
+                             f"after the first chunk: {cache[0]} -> {end}")
+    spans = [e for e in led.events if e["kind"] == "span"]
+    chunk_iv = [(e["start_s"], e["start_s"] + e["dur_s"]) for e in spans
+                if e["name"] == "stream_chunk"]
+    feed_iv = [(e["start_s"], e["start_s"] + e["dur_s"]) for e in spans
+               if e["name"] == "feed"]
+    walls = [b - a for a, b in chunk_iv]
+    steady = sum(fin[1:]) / sum(walls[1:]) if len(walls) > 1 else 0.0
+    feed_s = sum(b - a for a, b in feed_iv)
+    roll = rep["rolling"]
+    log(f"{label}: {target_tasks} tasks at lam={STREAM['lam']}, "
+        f"{rep['n_chunks']} chunks of {T} = {n} intervals of "
+        f"{STREAM['substeps']} substeps, ring {STREAM['max_active']}: wall "
+        f"{wall:.3f} s; offered {rep['offered']} = fed {rep['fed']} + "
+        f"feeder_overflow {rep['feeder_overflow']}; admitted "
+        f"{rep['admitted']} = fed - dropped {rep['dropped']} = finished "
+        f"{rep['finished']} + live {rep['live']}; occupancy max "
+        f"{rep['max_occupancy']:.0f}, halves "
+        f"{rep['occupancy_mean_first_half']:.2f} / "
+        f"{rep['occupancy_mean_second_half']:.2f}; rolling "
+        f"({roll['window_intervals']} intervals) qps {roll['qps']:.5f}/s, "
+        f"p50 {roll['p50_response_s']:.1f} s, p99 "
+        f"{roll['p99_response_s']:.1f} s, violation rate "
+        f"{roll['violation_rate']:.4f}; reward "
+        f"{rep['summary']['reward']:.4f}")
+    log(f"{label}: chunk wall median {np.median(walls):.4f} s (min "
+        f"{min(walls):.4f}, max {max(walls):.4f}); steady "
+        f"{steady:.1f} tasks/s (completions over chunk wall, chunk 1 left "
+        f"out); feeder {feed_s:.3f} s in {len(feed_iv)} feed spans, "
+        f"{_overlap_s(feed_iv, chunk_iv):.3f} s of it overlapping chunks; "
+        f"memory_allocated {mem[0]} B after chunk 1, growth from chunk 2 "
+        f"{growth} B (bound {chunk_bytes} B; every chunk: "
+        f"{', '.join(str(m) for m in mem)}); launches {launches}")
+    if unthreaded:
+        stream_unthreaded(policy, kw, rep, walls)
+    return launches
+
+
+def stream_unthreaded(policy, kw, rep, walls):
+    """The soak's tapes made first, then run through a ``StreamRunner``
+    with no feeder thread: the summary equals the threaded soak's (the
+    report does not depend on thread timing), and the chunk walls, without
+    the feeder competing for the GIL, are printed beside the threaded
+    ones."""
+    from repro_torch.env.torchsim import stream
+    engine, es0, fkw = stream.make_stream_policy(policy, seed=STREAM["seed"],
+                                                 **kw)
+    feeder = stream.StreamFeeder(lam=STREAM["lam"], seed=STREAM["seed"],
+                                 substeps=STREAM["substeps"], **fkw)
+    tapes = [feeder.next_chunk(STREAM["chunk_intervals"])
+             for _ in range(rep["n_chunks"])]
+    runner = stream.StreamRunner(engine, es0, interval_s=feeder.interval_s,
+                                 substeps=feeder.substeps,
+                                 max_active=STREAM["max_active"],
+                                 device="cuda")
+    alone = []
+    for tape in tapes:
+        t0 = time.perf_counter()
+        runner.run_chunk(tape)
+        alone.append(time.perf_counter() - t0)
+    got = runner.summary()
+    for k, v in rep["summary"].items():
+        if not np.array_equal(got[k], v):
+            raise AssertionError(f"stream {policy} without the feeder "
+                                 f"thread: {k} {got[k]!r}, threaded {v!r}")
+    log(f"stream {policy} without the feeder thread (tapes made first): "
+        f"the same summary to every digit; chunk wall median "
+        f"{np.median(alone):.4f} s (min {min(alone):.4f}, max "
+        f"{max(alone):.4f}), chunks 2 on {sum(alone[1:]):.3f} s against "
+        f"{sum(walls[1:]):.3f} s with the feeder thread running")
+
+
+def stream_replay(policy, device, mab_state=None, **shape):
+    """``replay_stream`` of main-grid cell 0 (λ=6, seed 0) in chunks
+    against the one-shot program with ``telemetry="interval"`` on
+    ``device``: the summaries and series equal to every digit."""
+    from repro_torch.env import torchsim
+    from repro_torch.env.torchsim import driver, stream
+    shape = {**STREAM_REPLAY, **shape}
+    kw = stream_policy_kw(policy, mab_state, device)
+    engine, es0, fkw = stream.make_stream_policy(policy, seed=0, **kw)
+    tkw = dict(lam=MAIN["lams"][0], seed=MAIN["seeds"][0],
+               n_intervals=shape["n_intervals"], substeps=shape["substeps"])
+    if "decider" in fkw:
+        tr = torchsim.compile_trace(fkw["decider"], **tkw)
+    else:
+        tr = torchsim.compile_trace_dual(variants=fkw["variants"], **tkw)
+    one = driver.run_trace_engine(engine, tr, es0, device=device,
+                                  telemetry="interval")
+    got = stream.replay_stream(engine, tr, es0,
+                               chunk_intervals=shape["chunk"],
+                               collect_series=True, device=device)
+    if set(got) != set(one):
+        raise AssertionError(f"stream replay {policy}: keys differ: "
+                             f"{set(got) ^ set(one)}")
+    for k, v in one.items():
+        if k == "telemetry":
+            same = got[k]["cols"] == v["cols"] and \
+                got[k]["series"].tobytes() == v["series"].tobytes()
+        elif isinstance(v, np.ndarray):
+            same = got[k].tobytes() == v.tobytes()
+        else:
+            same = got[k] == v
+        if not same:
+            raise AssertionError(f"stream replay {policy} {k}: one-shot "
+                                 f"{v!r} chunked {got[k]!r}")
+    log(f"stream replay {policy} on {device}: T={shape['n_intervals']} in "
+        f"chunks of {shape['chunk']} equals the one-shot run to every digit "
+        f"(summary and {got['telemetry']['series'].shape} series; "
+        f"{one['tasks_completed']} tasks)")
+
+
+def stream_cross(policy, **settings):
+    """``run_stream`` on the card and on the CPU: the serving report's
+    counters equal, the summary and the rolling snapshot within
+    ``STREAM_RTOL``."""
+    from repro_torch.launch.experiments import run_stream
+    settings = {**STREAM_CROSS, **settings}
+    card, host = (run_stream(policy, device=d, **settings)
+                  for d in ("cuda", "cpu"))
+    for k in STREAM_COUNTERS:
+        if card[k] != host[k]:
+            raise AssertionError(f"stream {policy} {k}: cuda {card[k]} cpu "
+                                 f"{host[k]}")
+    worst = 0.0
+    for part in ("summary", "rolling"):
+        for k, v in host[part].items():
+            g = card[part][k]
+            if isinstance(v, (float, np.ndarray)):
+                if not np.allclose(g, v, rtol=STREAM_RTOL, atol=1e-12):
+                    raise AssertionError(f"stream {policy} {part} {k}: cuda "
+                                         f"{g!r} cpu {v!r}")
+                d = np.abs(np.asarray(g) - np.asarray(v)) / np.maximum(
+                    np.abs(np.asarray(v)), 1e-300)
+                worst = max(worst, float(np.max(d)))
+            elif g != v:
+                raise AssertionError(f"stream {policy} {part} {k}: cuda "
+                                     f"{g!r} cpu {v!r}")
+    log(f"stream {policy}: the card equals the CPU on every counter "
+        f"({card['n_intervals']} intervals, {card['finished']} finished) "
+        f"and within rtol {STREAM_RTOL} on the summary and the rolling "
+        f"snapshot (largest relative difference {worst:.3e})")
+
+
+def stream_phase(mab_state):
+    """The streaming serve loop on the card: the ``mc`` soak and the
+    ``splitplace`` and ``gillis`` runs (``stream_path``), chunked replay
+    against the one-shot program, and the card against the CPU.  Returns
+    the soaks' launches per kernel, summed."""
+    totals = {}
+    for policy, draws in (("mc", False), ("splitplace", False),
+                          ("gillis", True)):
+        t0 = time.perf_counter()
+        launches = stream_path(policy, STREAM_TASKS[policy], mab_state,
+                               draws=draws, unthreaded=policy == "mc")
+        log(f"stream {policy}: {time.perf_counter() - t0:.1f} s")
+        for name, count in launches.items():
+            totals[name] = totals.get(name, 0) + count
+    for policy in STREAM_REPLAY_POLICIES:
+        stream_replay(policy, "cuda", mab_state)
+    for policy in STREAM_CROSS_POLICIES:
+        stream_cross(policy)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3248,10 +3549,14 @@ def main() -> int:
     t0 = time.perf_counter()
     diff = differential_phase()
     log(f"differential phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    streamed = stream_phase(mab_state)
+    log(f"stream phase: {time.perf_counter() - t0:.1f} s")
     for rec in records:
         if rec["name"] in SIM_KERNELS + DRAW_KERNELS:
             rec["launches_telemetry"] = tel[rec["name"]]
             rec["launches_differential"] = diff[rec["name"]]
+            rec["launches_stream"] = streamed[rec["name"]]
     gc.collect()
     torch.cuda.empty_cache()
 

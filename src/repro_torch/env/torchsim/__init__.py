@@ -14,13 +14,21 @@ the loop; their draws are JAX's threefry bits
 (``repro_torch.kernels.threefry``).  ``telemetry="interval"`` records a
 per-interval series on the device.
 
+``stream`` is the always-on serving mode: a host feeder streams Poisson
+arrivals as chunk tapes (``arrays.chunk_tapes`` slices a compiled trace
+the same way) into a fixed ring of device slots, and a carry-re-entrant
+chunk program (``driver.run_chunk``) continues one episode from chunk to
+chunk, with rolling QPS, percentile and violation metrics
+(``stream.serve``, ``stream.replay_stream``).
+
 ``reference`` holds the host oracles: the compiled trace replayed through
 the NumPy ``EdgeSim`` with the same learner functions
 (``replay_trace_edgesim*``).
 """
 from repro_torch.env.torchsim import engines
 from repro_torch.env.torchsim.arrays import (ClusterArrays, DualTraceArrays,
-                                             TraceArrays, compile_trace,
+                                             TraceArrays, chunk_tapes,
+                                             compile_trace,
                                              compile_trace_dual,
                                              default_capacity, stack_traces,
                                              to_device)
@@ -45,6 +53,7 @@ from repro_torch.env.torchsim.reference import (
     replay_trace_edgesim, replay_trace_edgesim_gillis,
     replay_trace_edgesim_learned, replay_trace_edgesim_static_daso,
     replay_trace_edgesim_trained)
+from repro_torch.env.torchsim import stream
 from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
                                                LEARNED_POLICIES,
                                                MAB_LEARNED_POLICIES,
@@ -53,7 +62,8 @@ from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
                                                make_static_decider)
 
 __all__ = [
-    "ClusterArrays", "DualTraceArrays", "TraceArrays", "compile_trace",
+    "ClusterArrays", "DualTraceArrays", "TraceArrays", "chunk_tapes",
+    "compile_trace",
     "compile_trace_dual", "default_capacity", "stack_traces", "to_device",
     "engines", "GILLIS_HP", "MAB_HP", "METRIC_COLS", "STATIC_DASO_ARMS",
     "TRAIN_HP", "gillis_init_state", "gillis_layer_ref", "run_grid_arrays",
@@ -67,4 +77,5 @@ __all__ = [
     "host_policy", "make_static_decider", "replay_trace_edgesim",
     "replay_trace_edgesim_gillis", "replay_trace_edgesim_learned",
     "replay_trace_edgesim_static_daso", "replay_trace_edgesim_trained",
+    "stream",
 ]

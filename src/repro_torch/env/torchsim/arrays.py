@@ -425,6 +425,43 @@ def to_device(leaves: dict, device) -> dict:
             for k, v in leaves.items()}
 
 
+def to_device_packed(leaves: dict, device) -> dict:
+    """Upload a dict of NumPy leaves as ONE host→device copy: the leaves
+    are packed into one byte buffer (each at an 8-byte-aligned offset),
+    copied once, and come back as typed views of the device buffer, each
+    leaf's dtype and shape kept.  The streaming driver uploads a chunk
+    tape this way (one copy per chunk, not one per leaf)."""
+    arrs = {k: np.ascontiguousarray(v) for k, v in leaves.items()}
+    offs, off = {}, 0
+    for k, v in arrs.items():
+        offs[k] = off
+        off += -(-v.nbytes // 8) * 8
+    buf = np.zeros(off, np.uint8)
+    for k, v in arrs.items():
+        buf[offs[k]:offs[k] + v.nbytes] = v.reshape(-1).view(np.uint8)
+    dev_buf = torch.from_numpy(buf).to(device)
+    return {k: dev_buf[offs[k]:offs[k] + v.nbytes].view(
+                torch.from_numpy(np.empty(0, v.dtype)).dtype).view(v.shape)
+            for k, v in arrs.items()}
+
+
+def chunk_tapes(trace, chunk_intervals: int):
+    """Slice one compiled trace's kernel leaves into chunk tapes for the
+    streaming replay (``repro_torch.env.torchsim.stream.replay_stream``).
+
+    Yields ``(t0, leaves)``: ``t0`` is the chunk's absolute start interval
+    and every leaf holds rows ``[t0, t0 + chunk_intervals)`` of its
+    ``kernel_dict`` array (every leaf is T-leading, for single-variant and
+    dual traces alike).  The last chunk is shorter when ``n_intervals`` is
+    not a multiple of ``chunk_intervals``."""
+    if chunk_intervals < 1:
+        raise ValueError(f"chunk_intervals must be >= 1, "
+                         f"got {chunk_intervals}")
+    d = trace.kernel_dict()
+    for t0 in range(0, trace.n_intervals, chunk_intervals):
+        yield t0, {k: v[t0:t0 + chunk_intervals] for k, v in d.items()}
+
+
 def default_capacity(traces: Sequence[TraceArrays]) -> int:
     """Default slot capacity K for a grid: enough for every task of the
     densest trace to be live at once (never drops), rounded up to a

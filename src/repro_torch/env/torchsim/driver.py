@@ -11,6 +11,14 @@ shared physics.  ``run_grid_engine`` compiles nothing: it stacks the
 traces, uploads them once (``arrays.to_device``) and runs the loop on
 ``device``.  ``run_trace_*`` is the same with G=1.
 
+The loop's body is ``run_intervals``: intervals ``[t0, t0 + T)`` over a
+given carry ``(state, acc, es)`` (``init_carry`` builds the first).  The
+whole-trace program runs it once from t0 = 0; the streaming driver
+(``stream.py``) runs it chunk after chunk through ``run_chunk``, whose
+tape leaves read the absolute interval index (``_ShiftedLeaf``).  PyTorch
+compiles nothing per shape, so unlike the reference there is no runner
+cache and no compile per chunk shape.
+
 ``telemetry="interval"`` records a per-interval series on the device: one
 (G, T, C) float64 tensor whose row t is written in place at the end of
 interval t (``metrics.TELEMETRY_COLS`` plus the engine's
@@ -182,20 +190,25 @@ def run_program(engine, trace: dict, cl: dict, es, K: int, substeps: int,
                             swap_slowdown, phase_s, tcols)
 
 
-def _run_program(engine, trace, cl, es, K, substeps, interval_s,
-                 swap_slowdown, phase_s, tcols):
-    G, T = trace["valid"].shape[:2]
-    frag = trace["vinstr"] if "vinstr" in trace else trace["instr"]
-    F = frag.shape[-1]
-    n = cl["ram"].shape[0]
-    device = trace["valid"].device
+def init_carry(G: int, K: int, F: int, n: int, device):
+    """The interval program's starting carry for G cells: the empty slot
+    store (K slots of F fragment columns over n workers) and zeroed
+    accumulators; the engine state joins it as the carry's third part."""
+    return kernels.init_state(G, K, F, n, device), _init_acc(G, n, device)
+
+
+def run_intervals(engine, trace, cl, carry, t0: int, T: int, substeps: int,
+                  interval_s: float, swap_slowdown: float,
+                  clock: PhaseClock, series=None):
+    """THE interval body: intervals ``[t0, t0 + T)`` over the carry
+    ``(state, acc, es)``; returns the carry they leave.  ``trace[k][:, t]``
+    must read interval ``t`` for the absolute ``t`` every hook sees (a
+    whole trace with ``t0 = 0``, or a chunk tape behind
+    ``_ShiftedLeaf``).  ``series`` (G, T, C), when given, gets interval
+    ``t``'s telemetry row at ``t - t0``."""
+    state, acc, es = carry
     dt = interval_s / substeps
-    state = kernels.init_state(G, K, F, n, device)
-    acc = _init_acc(G, n, device)
-    clock = PhaseClock(phase_s, device)
-    series = None if tcols is None else \
-        torch.zeros((G, T, len(tcols)), dtype=f8, device=device)
-    for t in range(T):
+    for t in range(t0, t0 + T):
         if series is not None:
             m0, e0, d0 = acc["metrics"], acc["energy"], state["dropped"]
         arr, es = engine.decide(es, trace, t)
@@ -215,15 +228,71 @@ def _run_program(engine, trace, cl, es, K, substeps, interval_s,
         if series is not None:
             row = _telemetry_base_row(state, acc, m0, e0, d0, util, fin)
             erow = engine.telemetry_row(es)
-            series[:, t] = row if erow is None else \
+            series[:, t - t0] = row if erow is None else \
                 torch.cat([row, erow.to(f8)], dim=1)
         clock.lap("feedback")
+    return state, acc, es
+
+
+def _run_program(engine, trace, cl, es, K, substeps, interval_s,
+                 swap_slowdown, phase_s, tcols):
+    G, T = trace["valid"].shape[:2]
+    frag = trace["vinstr"] if "vinstr" in trace else trace["instr"]
+    F = frag.shape[-1]
+    n = cl["ram"].shape[0]
+    device = trace["valid"].device
+    state, acc = init_carry(G, K, F, n, device)
+    clock = PhaseClock(phase_s, device)
+    series = None if tcols is None else \
+        torch.zeros((G, T, len(tcols)), dtype=f8, device=device)
+    state, acc, es = run_intervals(engine, trace, cl, (state, acc, es), 0,
+                                   T, substeps, interval_s, swap_slowdown,
+                                   clock, series)
     out = {"metrics": acc["metrics"], "energy": acc["energy"],
            "pwt": acc["pwt"], "dropped": state["dropped"]}
     if series is not None:
         out["telemetry"] = series
     out.update(engine.outputs(es))
     return out
+
+
+# ------------------------------------------------ streaming chunk program
+
+
+class _ShiftedLeaf:
+    """A chunk tape's (G, T_chunk, ...) leaf read at the ABSOLUTE interval
+    index: ``leaf[:, t]`` is the tape's column ``t - t0``.  The hooks fold
+    ``t`` into their draws (``threefry_rows(key, t, ...)``), so a chunk
+    must show them the episode's ``t``, not the chunk-local one."""
+
+    __slots__ = ("arr", "t0")
+
+    def __init__(self, arr, t0: int):
+        self.arr = arr
+        self.t0 = t0
+
+    def __getitem__(self, idx):
+        g, t = idx
+        return self.arr[g, t - self.t0]
+
+
+def run_chunk(engine, tape: dict, cl: dict, carry, t0: int, substeps: int,
+              interval_s: float, swap_slowdown: float, tcols):
+    """The carry-re-entrant chunk program of the streaming driver: the
+    device tape ``tape`` (leaves (G, T_chunk, ...)) holds intervals
+    ``[t0, t0 + T_chunk)`` of one endless episode, the carry enters as an
+    argument and leaves as a result, and the chunk's (G, T_chunk, C)
+    telemetry series (always on: the rolling metrics read it) comes back
+    beside it.  The body is ``run_intervals``, the one the whole-trace
+    program runs."""
+    G, T = tape["valid"].shape[:2]
+    device = tape["valid"].device
+    series = torch.zeros((G, T, len(tcols)), dtype=f8, device=device)
+    shifted = {k: _ShiftedLeaf(v, t0) for k, v in tape.items()}
+    carry = run_intervals(engine, shifted, cl, carry, t0, T, substeps,
+                          interval_s, swap_slowdown,
+                          PhaseClock(None, device), series)
+    return carry, series
 
 
 def _summarize(out, interval_s: float, n_intervals: int,
@@ -350,6 +419,18 @@ def _mab_es(mab_state):
     return build
 
 
+def _deploy_es(mab_state, theta):
+    """The ``es_builder`` of the MAB deploy engine: each cell's copy of
+    ``mab_state`` and θ on the device (``()`` under BestFit placement)."""
+    mab_es = _mab_es(mab_state)
+
+    def build(G, dev):
+        es = mab_es(G, dev)
+        es["theta"] = _theta_on(theta, dev)
+        return es
+    return build
+
+
 def _check_learned_args(daso_cfg, daso_theta, n):
     if daso_cfg is None:
         return ()                         # BestFit placement: no surrogate
@@ -417,14 +498,8 @@ def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
     cluster = cluster or make_cluster()
     theta = _check_learned_args(daso_cfg, daso_theta, cluster.n)
     engine = engines.MABDeployEngine(mab_hp=tuple(mab_hp), daso_cfg=daso_cfg)
-    mab_es = _mab_es(mab_state)
-
-    def build(G, dev):
-        es = mab_es(G, dev)
-        es["theta"] = _theta_on(theta, dev)
-        return es
-
-    return run_grid_engine(engine, traces, build, cluster=cluster,
+    return run_grid_engine(engine, traces, _deploy_es(mab_state, theta),
+                           cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
                            phase_s=phase_s, telemetry=telemetry)
@@ -517,8 +592,12 @@ def trace_train_key(seed: int, device="cpu"):
     return prng_key(seed, device=device)
 
 
+def _seed_keys(seeds, dev):
+    return torch.stack([trace_train_key(s, dev) for s in seeds])
+
+
 def _trace_keys(traces, dev):
-    return torch.stack([trace_train_key(t.seed, dev) for t in traces])
+    return _seed_keys([t.seed for t in traces], dev)
 
 
 def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
@@ -595,9 +674,10 @@ def gillis_init_state(num_apps: int = 3, eps0: float = GILLIS_HP[0]):
             "eps": np.float64(eps0)}
 
 
-def _gillis_es(traces, gillis_state, num_apps: int, eps0: float):
+def _gillis_es(seeds, gillis_state, num_apps: int, eps0: float):
     """The ``es_builder`` of the Gillis engine: every cell starts from its
-    own copy of ``gillis_state``, or from zeros and ε₀."""
+    own copy of ``gillis_state``, or from zeros and ε₀, and draws from
+    ``trace_train_key`` of its seed (``seeds``, one per cell)."""
     def build(G, dev):
         if gillis_state is None:
             Q = mab_mod.gillis_init(num_apps, grid=G, device=dev)
@@ -608,7 +688,7 @@ def _gillis_es(traces, gillis_state, num_apps: int, eps0: float):
             eps = torch.as_tensor(np.float64(gillis_state["eps"]),
                                   device=dev).expand(G)
         return {"Q": Q.clone(), "eps": eps.clone(),
-                "key": _trace_keys(traces, dev),
+                "key": _seed_keys(seeds, dev),
                 "layer_ref": torch.as_tensor(gillis_layer_ref(num_apps),
                                              device=dev)}
     return build
@@ -631,8 +711,8 @@ def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
     _check_variants(traces, engines.GILLIS_VARIANTS)
     engine = engines.GillisEngine(gillis_hp=tuple(gillis_hp))
     return run_grid_engine(engine, traces,
-                           _gillis_es(traces, gillis_state, num_apps,
-                                      gillis_hp[0]),
+                           _gillis_es([t.seed for t in traces],
+                                      gillis_state, num_apps, gillis_hp[0]),
                            cluster=cluster, max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
                            phase_s=phase_s, telemetry=telemetry)

@@ -22,9 +22,14 @@ Two simulator backends:
     online DASO finetuning), the Gillis baseline and the static-decider
     DASO arms ``"layer+gobi"``, ``"semantic+gobi"`` and ``"random+daso"``.
 
+``run_stream`` is the always-on serving run
+(``repro_torch.env.torchsim.stream``): Poisson arrivals streamed through
+the chunked interval program until a task budget is offered.
+
 ``pretrain`` returns a ``PretrainState`` whose products feed either
-backend as they are.  Every entry point runs on ``device="cuda"`` unless
-the caller asks for the CPU, and raises when CUDA is asked for and absent.
+backend and the stream as they are.  Every entry point runs on
+``device="cuda"`` unless the caller asks for the CPU, and raises when CUDA
+is asked for and absent.
 """
 from __future__ import annotations
 
@@ -336,11 +341,48 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
             for (lam, seed), out in zip(cells, outs)]
 
 
-def run_stream(*args, **kwargs) -> dict:
-    """The always-on serving run of the reference; not ported yet."""
-    raise NotImplementedError(
-        "run_stream (the edge-simulator serving loop) is not ported yet "
-        "(ROADMAP queue 1 item 9: streaming)")
+def run_stream(policy: str = "mc", lam: float = 6.0, seed: int = 0,
+               target_tasks: int = 10_000, chunk_intervals: int = 64,
+               max_active: int = 512, interval_s: float = 300.0,
+               substeps: int = 30, window_intervals: int = 256,
+               apps=None, cluster=None,
+               pretrain_state: Optional[PretrainState] = None,
+               mab_state=None, daso_theta=None, daso_cfg=None,
+               gillis_state=None, max_arrivals: Optional[int] = None,
+               prefetch: int = 2, on_chunk: Optional[Callable] = None,
+               device="cuda") -> dict:
+    """The always-on serving run: stream Poisson arrivals through the
+    chunked interval program on ``device`` until ``target_tasks`` tasks
+    have been offered (``torchsim.stream.serve``); a host feeder thread
+    fills the next chunk's tape while the current one runs.
+
+    Takes ``run_grid_batched``'s policy names and pretraining products
+    (the static BestFit policies run a host decider feeder; ``"mab"`` /
+    ``"splitplace"`` / ``"mab+gobi"`` / ``"gillis"`` serve their in-loop
+    engines, continuing ``pretrain_state`` when given and starting cold
+    otherwise).  Returns the serving report (admission ledger, ring
+    occupancy, rolling-window QPS / percentiles / violation rate, the
+    cumulative §6.4 summary) with ``policy``, ``lam`` and ``seed``.  The
+    reference's ``substep_impl`` has no counterpart: the substep physics
+    is always ``repro_torch.kernels.edge_substep``'s dispatcher."""
+    dev = resolve(device)
+    cluster = cluster or make_cluster()
+    mab_state, daso_theta, daso_cfg, _ = _pretrained(
+        pretrain_state, mab_state, daso_theta, daso_cfg, None)
+    engine, es0, feeder_kw = torchsim.stream.make_stream_policy(
+        policy, cluster=cluster, seed=seed, mab_state=mab_state,
+        daso_theta=daso_theta, daso_cfg=daso_cfg,
+        gillis_state=gillis_state)
+    feeder = torchsim.stream.StreamFeeder(
+        lam=lam, seed=seed, interval_s=interval_s, substeps=substeps,
+        cluster=cluster, apps=apps, max_arrivals=max_arrivals, **feeder_kw)
+    rep = torchsim.stream.serve(
+        engine, es0, feeder, chunk_intervals=chunk_intervals,
+        max_active=max_active, target_tasks=target_tasks,
+        window_intervals=window_intervals, prefetch=prefetch,
+        on_chunk=on_chunk, device=dev)
+    rep.update(policy=policy, lam=lam, seed=seed)
+    return rep
 
 
 def run_grid(policies: Sequence[str], seeds: Sequence[int] = (0,),

@@ -1,18 +1,32 @@
-"""Serving driver: SLA-aware SplitPlace plan selection over batched model
-requests, the port of ``repro.launch.serve``'s default (plan) mode.
+"""Serving drivers, the port of ``repro.launch.serve``.  Two modes share
+this entry point:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --requests 20 \\
-        --batch 4 --seq 1024
+  * default: SLA-aware SplitPlace plan selection over batched model
+    requests,
 
-serves the full-width model on the card, with random weights from
-``--seed``.  ``--arch`` names any registered model whose blocks the port
+        PYTHONPATH=src python -m repro_torch.launch.serve --requests 20 \\
+            --batch 4 --seq 1024
+
+  * ``--stream``: the always-on edge-simulator serving loop
+    (``repro_torch.env.torchsim.stream``): a host feeder thread streams
+    Poisson task arrivals into the fixed ring of device slots while the
+    interval program runs chunk after chunk, printing rolling QPS,
+    p50/p99 response and deadline-violation metrics,
+
+        PYTHONPATH=src python -m repro_torch.launch.serve --stream \\
+            --policy mc --tasks 100000 --chunk 64
+
+    (the Table-3 fleet, λ=6, 30 substeps of 300 s intervals, 512 slots;
+    ``--device cpu`` runs the same loop on the CPU).
+
+In plan mode the script serves the full-width model on the card, with
+random weights from ``--seed``.  ``--arch`` names any registered model whose blocks the port
 runs: dense attention (``tinyllama-1.1b``, the default), MoE
 (``qwen2-moe-a2.7b``), Mamba (``falcon-mamba-7b``) or the RG-LRU hybrid
 with local attention (``recurrentgemma-9b``).  ``--device cpu``
 runs the eager path on the model cut to the reference's CPU size
 (``reduced(max_d_model=256, max_layers=4)``, as its ``_plan_main``
-always serves).  The reference's ``--stream`` mode (the edge-simulator
-serving loop) is not ported yet.
+always serves).
 """
 from __future__ import annotations
 
@@ -59,6 +73,53 @@ def serve_requests(params, cfg, *, requests=20, batch=2, seq=64, stages=2,
             "tight": tight, "results": results}
 
 
+def _stream_main(args):
+    """``--stream``: ``experiments.run_stream`` with progress lines every
+    ``--report-every`` chunks and the reference's closing lines."""
+    from repro_torch.launch import experiments
+
+    dev = resolve(args.device)
+    pretrain_state = None
+    if args.pretrain > 0:
+        print(f"pretraining ({args.pretrain} intervals)...")
+        wants = ("splitplace",) if args.policy != "gillis" else ("gillis",)
+        pretrain_state = experiments.pretrain(args.pretrain, lam=args.lam,
+                                              policies=wants, device=dev)
+
+    def progress(i, runner, rolling):
+        if i % args.report_every:
+            return
+        s = rolling.snapshot()
+        print(f"chunk {i:5d}  intervals={runner.t0:7d}  "
+              f"qps={s['qps']:.4f}/s  "
+              f"p50={s.get('p50_response_s', 0):.0f}s "
+              f"p99={s.get('p99_response_s', 0):.0f}s  "
+              f"viol={s['violation_rate']:.3f}  "
+              f"occ={s['occupancy_mean']:.1f}", flush=True)
+
+    rep = experiments.run_stream(
+        policy=args.policy, lam=args.lam, seed=args.seed,
+        target_tasks=args.tasks, chunk_intervals=args.chunk,
+        max_active=args.capacity, interval_s=args.interval,
+        substeps=args.substeps, window_intervals=args.window,
+        pretrain_state=pretrain_state, on_chunk=progress, device=dev)
+    s = rep["summary"]
+    print(f"\nserved {rep['finished']} tasks over {rep['n_intervals']} "
+          f"intervals ({rep['n_chunks']} chunks of {args.chunk}); "
+          f"{rep['live']} still live")
+    print(f"admission: offered={rep['offered']} "
+          f"feeder_overflow={rep['feeder_overflow']} "
+          f"ring_dropped={rep['dropped']}")
+    print(f"occupancy: max={rep['max_occupancy']:.0f}/{args.capacity}, "
+          f"halves {rep['occupancy_mean_first_half']:.1f} / "
+          f"{rep['occupancy_mean_second_half']:.1f}")
+    print(f"summary: reward={s['reward']:.3f} "
+          f"sla_violations={s['sla_violations']:.3f} "
+          f"accuracy={s['accuracy']:.3f} "
+          f"energy_mwhr={s['energy_mwhr']:.3f}")
+    return rep
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -68,16 +129,37 @@ def main(argv=None):
     ap.add_argument("--stages", type=int, default=2)
     ap.add_argument("--branches", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights")
+                    help="seed of the random weights; stream mode: of the "
+                         "workload")
     ap.add_argument("--device", default="cuda",
-                    help="cuda: full width; cpu: the reference's CPU size")
+                    help="cuda: full width; cpu: the reference's CPU size "
+                         "(stream mode: the same loop on the CPU)")
     ap.add_argument("--stream", action="store_true",
-                    help="the edge-simulator serving loop (not ported)")
+                    help="run the always-on edge-simulator serving loop "
+                         "instead of model-plan selection")
+    ap.add_argument("--policy", default="mc",
+                    help="stream mode: policy name (static BestFit or "
+                         "mab/splitplace/mab+gobi/gillis)")
+    ap.add_argument("--lam", type=float, default=6.0)
+    ap.add_argument("--tasks", type=int, default=10_000,
+                    help="stream mode: stop after offering this many")
+    ap.add_argument("--chunk", type=int, default=64,
+                    help="stream mode: intervals per chunk")
+    ap.add_argument("--capacity", type=int, default=512,
+                    help="stream mode: device ring slot capacity")
+    ap.add_argument("--interval", type=float, default=300.0)
+    ap.add_argument("--substeps", type=int, default=30)
+    ap.add_argument("--window", type=int, default=256,
+                    help="stream mode: rolling-metrics window intervals")
+    ap.add_argument("--report-every", type=int, default=10,
+                    help="stream mode: print rolling metrics every N "
+                         "chunks")
+    ap.add_argument("--pretrain", type=int, default=0,
+                    help="stream mode: §6.3 pretraining intervals for "
+                         "learned policies (0 = cold start)")
     args = ap.parse_args(argv)
     if args.stream:
-        raise NotImplementedError(
-            "--stream (the edge-simulator serving loop) is not ported yet "
-            "(ROADMAP queue 1 item 9: streaming)")
+        return _stream_main(args)
     dev = resolve(args.device)
     cfg = get_config(args.arch)
     if dev.type == "cpu":

@@ -67,6 +67,7 @@ class RunLedger:
     def __init__(self, name: str = "run"):
         self.name = name
         self.created_s = time.time()
+        self._origin = time.perf_counter()
         self.provenance = None
         self.cache_stats = None
         self.events = []
@@ -92,8 +93,9 @@ class RunLedger:
 
     @contextmanager
     def span(self, name: str, parent=None, **attrs):
-        """Record a wall-clock span.  Nesting comes from the per-thread
-        span stack; ``parent`` overrides it."""
+        """Record a wall-clock span: its start (``start_s``, seconds since
+        the ledger was made) and duration.  Nesting comes from the
+        per-thread span stack; ``parent`` overrides it."""
         with self._lock:
             sid = self._next_id
             self._next_id += 1
@@ -107,7 +109,7 @@ class RunLedger:
             dur = time.perf_counter() - t0
             st.pop()
             ev = {"kind": "span", "id": sid, "parent": pid, "name": name,
-                  "dur_s": dur}
+                  "start_s": t0 - self._origin, "dur_s": dur}
             if attrs:
                 ev["attrs"] = attrs
             with self._lock:

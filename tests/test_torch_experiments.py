@@ -308,8 +308,11 @@ def test_unported_paths_name_their_roadmap_items():
     rec, = ex.run_grid_batched("mc", telemetry="interval", n_intervals=2,
                                substeps=2, device="cpu")
     assert "p99_response_s" in rec and "telemetry" not in rec
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ex.run_stream("mc")
+    # item 9 (streaming) is ported: run_stream serves on the CPU
+    rep = ex.run_stream("mc", target_tasks=20, chunk_intervals=2,
+                        max_active=64, substeps=2, device="cpu")
+    assert rep["offered"] == rep["fed"] + rep["feeder_overflow"]
+    assert rep["admitted"] == rep["finished"] + rep["live"]
 
 
 def test_scaled_fleet_equals_reference():

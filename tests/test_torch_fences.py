@@ -43,7 +43,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.models.model", "repro_torch.serving.engine",
               "repro_torch.core.daso", "repro_torch.launch.serve",
               "repro_torch.env.torchsim.reference", "repro_torch.obs",
-              "repro_torch.obs.ledger", "repro_torch.env.legacy_sim"):
+              "repro_torch.obs.ledger", "repro_torch.env.legacy_sim",
+              "repro_torch.env.torchsim.stream"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"
@@ -81,7 +82,8 @@ def _entry_points():
                                           run_trace_arrays)
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.launch.experiments import run_grid_batched
+    from repro_torch.env.torchsim import stream
+    from repro_torch.launch.experiments import run_grid_batched, run_stream
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import SplitPlaceEngine
     cfg = get_config("tinyllama-1.1b").reduced()
@@ -90,6 +92,8 @@ def _entry_points():
     tr = compile_trace(make_static_decider("mc"), lam=2.0, seed=0,
                        n_intervals=2, substeps=2)
     dual = compile_trace_dual(lam=2.0, seed=0, n_intervals=2, substeps=2)
+    eng, es0, feeder_kw = stream.make_stream_policy("mc")
+    feeder = stream.StreamFeeder(lam=2.0, substeps=2, **feeder_kw)
     return {
         "run_grid_batched": lambda: run_grid_batched("mc", n_intervals=2,
                                                      substeps=2),
@@ -103,6 +107,12 @@ def _entry_points():
         "SplitPlaceEngine": lambda: SplitPlaceEngine(
             init_params(cfg, device="cpu"), cfg),
         "serve_main": lambda: serve.main(["--requests", "1"]),
+        "run_stream": lambda: run_stream("mc", target_tasks=4),
+        "StreamRunner": lambda: stream.StreamRunner(
+            eng, es0, interval_s=300.0, substeps=2, max_active=8),
+        "serve": lambda: stream.serve(eng, es0, feeder, target_tasks=4),
+        "serve_stream_main": lambda: serve.main(["--stream", "--tasks",
+                                                 "4"]),
     }
 
 
@@ -111,7 +121,9 @@ def _entry_points():
                                   "run_grid_arrays_learned",
                                   "mab_state_from_numpy", "mab_init_state",
                                   "init_params", "SplitPlaceEngine",
-                                  "serve_main"])
+                                  "serve_main", "run_stream",
+                                  "StreamRunner", "serve",
+                                  "serve_stream_main"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -127,7 +139,10 @@ def test_serve_runs_on_the_cpu_when_asked(capsys):
     assert "plan latencies" in out and "req   1" in out
 
 
-def test_serve_stream_names_its_roadmap_item():
+def test_serve_stream_names_its_roadmap_item(capsys):
+    # item 9 (streaming) is ported: --stream serves on the CPU when asked
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="item 9"):
-        serve.main(["--stream", "--device", "cpu"])
+    serve.main(["--stream", "--device", "cpu", "--tasks", "20", "--chunk",
+                "2", "--substeps", "2", "--capacity", "64"])
+    out = capsys.readouterr().out
+    assert "served " in out and "admission: offered=" in out

@@ -732,3 +732,27 @@ def test_differential_cases_on_cuda(cuda, case_seed):
 @pytest.mark.parametrize("name", chip_smoke().DIFF_REGRESSIONS)
 def test_differential_regressions_on_cuda(cuda, name):
     chip_smoke().diff_regression(name, "cuda")
+
+
+#: the streaming serve loop at a small size on both devices
+STREAM_SMALL = dict(target_tasks=200, chunk_intervals=8, max_active=128,
+                    substeps=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["mc", "gillis"])
+def test_stream_matches_cpu(cuda, policy):
+    """``run_stream`` on the card equals the CPU: the serving report's
+    counters exactly, the summary and the rolling snapshot at rtol
+    1e-9."""
+    chip_smoke().stream_cross(policy, **STREAM_SMALL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["bestfit-rr", "splitplace", "gillis"])
+def test_stream_replay_matches_one_shot_on_cuda(cuda, policy):
+    """Chunked replay on the card (20 intervals in chunks of 6) equals the
+    card's one-shot run to every digit, summary and series."""
+    cs = chip_smoke()
+    cs.stream_replay(policy, "cuda", mab_state=cs.MAB_LITERAL,
+                     n_intervals=20, chunk=6, substeps=4)
