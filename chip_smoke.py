@@ -22,14 +22,19 @@ tensor cores, float32 on the CUDA cores) at the reference's test shapes,
 at the tile edges of the bfloat16 kernel, at every attention shape of the
 serving paths, full forward and one semantic branch, and at a 4096-token
 shape where recurrentgemma's 2048-token window bites (atol 2e-5 in
-float32, 2e-2 in bfloat16, bitwise repeatable);
+float32, 2e-2 in bfloat16, bitwise repeatable), and with explicit
+positions at every decode shape of the served models (one query per row
+over a ring of 1056 slots, 1 to all of them written, the unwritten ones
+at 2**30) and at offset and packed prefills (timed at the decode shapes
+beside scaled_dot_product_attention with a boolean mask);
 ``moe_route`` at the reference's test shapes, qwen2-moe's serving shape
 (timed from CUDA graphs, CUDA events beside), several overflowing groups,
 ragged groups, the widest E, more tiles than one wave, a multi-window
-look-back and an underflowing row (expert ids and slots exactly, gates
-within atol 1e-5); ``selective_scan`` at the reference's test
-shapes and falcon-mamba's serving shape in float32 and bfloat16 (rtol and
-atol 1e-5, bitwise repeatable); ``rglru_scan`` at the reference's test
+look-back, an underflowing row and a decode step's 4 tokens (expert ids
+and slots exactly, gates within atol 1e-5); ``selective_scan`` at the
+reference's test shapes and falcon-mamba's serving shape in float32 and
+bfloat16, y and the final state (rtol and atol 1e-5, bitwise
+repeatable); ``rglru_scan`` at the reference's test
 shapes and recurrentgemma's serving shape in float32 and bfloat16 (atol
 1e-5 and 3e-2, bitwise repeatable); ``threefry_rows`` (JAX's threefry
 draws of the in-loop learners) at its three call sites over G up to 64, A
@@ -98,6 +103,14 @@ to 0 just before and read just after:
   (bfloat16, random weights from seed 0), 2 stages / 2 branches, batch
   4 × 1024 tokens, 20 requests under the reference's tight/loose deadline
   rule;
+* decode — for each served model, ``launch.steps.make_prefill_step`` on
+  a 4 × 1024-token prompt (caches of 1056 positions), then 32 greedy
+  ``make_serve_step`` calls: prefill and per-step times, tokens/s, cache
+  bytes, peak memory, launches (flash and ``moe_route`` once per layer
+  per call, the scans once per layer in the prefill) and a profiled
+  step; each decode logit within 0.25 of the largest logit of the
+  teacher-forced forward; TinyLlama-1.1B at full width in float32 within
+  2e-3 of its forward over 8 teacher-forced steps;
 
 profiles one more ``bestfit-rr`` run for each simulator kernel's summed
 device time, and cross-checks the GPU driver against the committed golden
@@ -108,8 +121,9 @@ policies at G=4, T=12 with the train gates lowered, where decisions must
 be equal, summaries within rtol 1e-9, the finetuned θ within 1e-5, and a
 placement that flips must be a near-tie), qwen2-moe's real router
 logits between the routing kernel
-and its twin, and the four models and both serving plans against the
-CPU at a reduced size.
+and its twin, the four models and both serving plans against the
+CPU at a reduced size, and the four reduced models' prefill and decode
+steps (their rings wrapping) against the CPU, logits and every cache leaf.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
 numbers, a ``{"kernels": [...]}`` JSON line and, as the last line,
@@ -183,6 +197,34 @@ SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
 #: kvh, hd, window), bfloat16
 FLASH_WINDOWED = (1, 4096, 16, 1, 256, 2048)
 SERVE = dict(requests=20, batch=4, seq=1024, stages=2, branches=2)
+#: decode (``launch.steps``): each serving model prefills SERVE's batch ×
+#: seq prompt into caches of seq + headroom positions, then decodes
+#: ``steps`` greedy tokens; the bfloat16 runs' largest |decode logit −
+#: teacher-forced forward logit| over the largest |forward logit| must stay
+#: within ``bf16_rel`` (PERF.md states the bound and why; for an MoE model
+#: over the rows routed alike); the float32 gates (TinyLlama-1.1B, and
+#: qwen2-moe-a2.7b cut to ``f32_moe_layers``) decode ``f32_steps``
+#: teacher-forced tokens within ``f32_atol`` of the forward
+#: (tests/test_arch_smoke.py's bound)
+DECODE = dict(steps=32, headroom=32, bf16_rel=0.25, f32_steps=8,
+              f32_atol=2e-3, f32_moe_layers=4)
+#: the reduced float32 card-vs-CPU decode check: a (batch, prompt) prefill
+#: into a ring of the prompt's length, ``steps`` decode steps past it (the
+#: ring wraps), and TinyLlama from a zero cache over a ring of ``ring``
+#: slots to position 2 × ring
+DECODE_CROSS = dict(batch=2, prompt=12, steps=6, ring=8)
+#: flash attention at decode's shapes (explicit positions, sq=1, a ring of
+#: seq + headroom slots, g = 8, 1, 16): (h, kvh, hd) of TinyLlama-1.1B,
+#: qwen2-moe-a2.7b and recurrentgemma-9b; the ring's written slots
+FLASH_DECODE_HEADS = [(32, 4, 64), (16, 16, 128), (16, 1, 256)]
+FLASH_DECODE_VALID = (1, 517, 1025, 1056)
+#: flash attention at prefill shapes with explicit positions: (b, s, h,
+#: kvh, hd, window, kind), offset rows or two packed sequences per row
+FLASH_POS_CASES = [(2, 200, 32, 4, 64, 0, "offset"),
+                   (2, 200, 16, 16, 128, 17, "offset"),
+                   (1, 300, 16, 1, 256, 0, "packed"),
+                   (2, 77, 8, 2, 64, 5, "packed"),
+                   (1, 130, 4, 4, 32, 0, "offset")]
 #: moe_route: the reference's test shapes (tests/test_kernels.py), the
 #: serving shape of qwen2-moe (one group of 4 × 1024 tokens, 60 experts,
 #: top-4), several groups with capacity factor 1.0 (overflowing), groups
@@ -192,8 +234,12 @@ SERVE = dict(requests=20, batch=4, seq=1024, stages=2, branches=2)
 #: (G, gs, E, k)
 MOE_ROUTE_CASES = [(1, 64, 8, 2), (1, 100, 16, 4), (1, 33, 4, 1),
                    (1, 4096, 60, 4), (8, 512, 60, 4), (2, 150, 60, 4),
-                   (3, 77, 1024, 7), (128, 512, 60, 4), (1, 20000, 4, 2)]
+                   (3, 77, 1024, 7), (128, 512, 60, 4), (1, 20000, 4, 2),
+                   (1, 4, 60, 4)]
 MOE_SERVING = (1, 4096, 60, 4)
+#: one decode step of qwen2-moe: one group of the batch's 4 tokens, a
+#: partial 32-token tile
+MOE_DECODE = (1, 4, 60, 4)
 MOE_OVERFLOW = (8, 512, 60, 4)
 GATE_ATOL = 1e-5
 #: selective_scan: the reference's test shapes and falcon-mamba's serving
@@ -894,15 +940,17 @@ def _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype):
             for shape in ((b, sq, h, hd), (b, sk, kvh, hd), (b, sk, kvh, hd))]
 
 
-def _flash_check(q, k, v, causal, window, dtype, where):
+def _flash_check(q, k, v, causal, window, dtype, where, pos_q=None,
+                 pos_k=None):
     """Kernel vs twin on the card at the reference's tolerance; returns
     the largest absolute difference."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import attention_ref
-    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    again = flash_attention_cuda(q, k, v, causal=causal, window=window)
-    want = attention_ref(q, k, v, causal=causal, window=window)
+    kw = dict(causal=causal, window=window, pos_q=pos_q, pos_k=pos_k)
+    got = flash_attention_cuda(q, k, v, **kw)
+    again = flash_attention_cuda(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     if got.dtype != q.dtype or got.shape != q.shape:
         raise AssertionError(f"{where}: output {got.dtype} "
@@ -1051,7 +1099,133 @@ def flash_phase():
         rec[key] = {name: sub[name] for name in (
             "shape", "step", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")}
+    rec["decode"] = flash_positions_phase(rng)
     return rec
+
+
+def ring_positions(b, W, valid):
+    """Decode's positions over a ring of W slots of which ``valid`` are
+    written: the query at 1, written slots at 0, the others at 2**30
+    (``models.attention.decode_attention``)."""
+    import torch
+    from repro_torch.models.attention import UNWRITTEN
+    pos_k = torch.full((b, W), UNWRITTEN, dtype=torch.int32, device="cuda")
+    pos_k[:, :valid] = 0
+    return torch.ones((b, 1), dtype=torch.int32, device="cuda"), pos_k
+
+
+def prefill_positions(b, s, kind):
+    """Explicit prefill positions: rows offset by 5 + 300·row, or two
+    packed sequences per row, each counting from 0."""
+    import torch
+    ar = torch.arange(s, dtype=torch.int32, device="cuda")
+    if kind == "offset":
+        off = 5 + 300 * torch.arange(b, dtype=torch.int32, device="cuda")
+        return (ar[None] + off[:, None]).contiguous()
+    cut = s // 3
+    row = torch.where(ar < cut, ar, ar - cut)
+    return row[None].expand(b, s).contiguous()
+
+
+def flash_positions_phase(rng):
+    """Flash attention with explicit positions against its twin in float32
+    and bfloat16: every decode shape of the serving models (sq=1 over the
+    ring, with 1 to all slots written) and FLASH_POS_CASES; without
+    positions the same inputs give the implicit kernel's bits.  Times the
+    bfloat16 kernel at each decode shape from CUDA graphs (the ring a step
+    after the 1024-token prompt: 1025 slots written), beside the twin and
+    scaled_dot_product_attention with the equivalent boolean mask (a
+    yardstick only).  Returns the per-shape records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import attention_ref
+    b, W = SERVE["batch"], SERVE["seq"] + DECODE["headroom"]
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for h, kvh, hd in FLASH_DECODE_HEADS:
+            q, k, v = _flash_inputs(rng, b, 1, W, h, kvh, hd, dtype)
+            err = 0.0
+            for valid in FLASH_DECODE_VALID:
+                pq, pk = ring_positions(b, W, valid)
+                err = max(err, _flash_check(
+                    q, k, v, True, 0, dtype, f"flash {dtype} decode h={h} "
+                    f"kvh={kvh} hd={hd} ring {valid}/{W}", pq, pk))
+            worst[dtype] = max(worst[dtype], err)
+            if dtype != "bfloat16":
+                continue
+            valid = SERVE["seq"] + 1
+            pq, pk = ring_positions(b, W, valid)
+            ms = graph_ms(lambda: flash_attention_cuda(
+                q, k, v, pos_q=pq, pos_k=pk), 50)
+            plain_ms = cuda_ms(lambda: attention_ref(q, k, v, pos_q=pq,
+                                                     pos_k=pk), 5)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = (pk >= 0) & (pq >= pk)                  # (b, W)
+            mask = mask[:, None, None, :]
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 enable_gqa=True)
+            lib_err = float((lib.transpose(1, 2).float() - flash_attention_cuda(
+                q, k, v, pos_q=pq, pos_k=pk).float()).abs().max())
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 50)
+            # the visible keys' K and V, q and the output, the positions;
+            # QK^T and PV over the visible keys on bf16 tensor cores
+            kv_bytes = 2 * b * valid * kvh * hd * k.element_size()
+            rec = _record("flash_attention",
+                          "src/repro_torch/kernels/csrc/flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:87", err, ms,
+                          plain_ms, kv_bytes + _nbytes([q, q, pq, pk]),
+                          4.0 * b * h * hd * valid, peak=H100_BF16_S,
+                          library_ms=library_ms)
+            rec["shape"] = {"b": b, "sq": 1, "sk": W, "valid": valid, "h": h,
+                            "kvh": kvh, "hd": hd}
+            out[f"hd{hd}"] = {name: rec[name] for name in (
+                "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
+            log(f"flash_attention decode shape b={b} h={h} kvh={kvh} hd={hd}"
+                f" ring {valid}/{W}, bfloat16: {ms:.4f} ms/call (twin "
+                f"{plain_ms:.4f}, scaled_dot_product_attention with a "
+                f"boolean mask {library_ms:.4f} ms/call, which differs by "
+                f"{lib_err:.3e} at most), bound {rec['bound_ms']:.5f} ms "
+                f"({rec['bound_by']})")
+    # what explicit positions cost a prefill: TinyLlama's serving shape
+    # with positions 0..s-1 given (every key tile visited, every score
+    # masked by position) against the implicit ones, in turns
+    s = SERVE["seq"]
+    q, k, v = _flash_inputs(rng, b, s, s, 32, 4, 64, "bfloat16")
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").expand(
+        b, s).contiguous()
+    runs = {"implicit": [], "explicit": []}
+    for name in ("implicit", "explicit", "explicit", "implicit"):
+        kw = dict(pos_q=pos, pos_k=pos) if name == "explicit" else {}
+        runs[name].append(graph_ms(lambda: flash_attention_cuda(q, k, v,
+                                                                **kw), 20))
+    same = torch.equal(flash_attention_cuda(q, k, v),
+                       flash_attention_cuda(q, k, v, pos_q=pos, pos_k=pos))
+    out["prefill_positions_ms"] = runs
+    log(f"flash_attention at TinyLlama's prefill shape b={b} s={s} h=32 "
+        f"kvh=4 hd=64, bfloat16: implicit positions "
+        f"{[round(t, 5) for t in runs['implicit']]} ms/call, explicit 0..s-1 "
+        f"{[round(t, 5) for t in runs['explicit']]} ms/call (every key tile "
+        f"visited, every score masked); the same bits: {same}")
+    for b2, s2, h, kvh, hd, window, kind in FLASH_POS_CASES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _flash_inputs(rng, b2, s2, s2, h, kvh, hd, dtype)
+            pos = prefill_positions(b2, s2, kind)
+            err = _flash_check(q, k, v, True, window, dtype,
+                               f"flash {dtype} {kind} positions "
+                               f"{(b2, s2, h, kvh, hd)} window={window}",
+                               pos, pos)
+            worst[dtype] = max(worst[dtype], err)
+    log(f"flash_attention with explicit positions ({len(FLASH_DECODE_HEADS)}"
+        f" decode shapes x {len(FLASH_DECODE_VALID)} rings, "
+        f"{len(FLASH_POS_CASES)} offset / packed prefills) matches the twin:"
+        f" max abs err float32 {worst['float32']:.3e}, bfloat16 "
+        f"{worst['bfloat16']:.3e}, bitwise repeatable")
+    out["max_abs_err"] = max(worst.values())
+    return out
 
 
 def _flash_timed(where, q, k, v, window, err, ms):
@@ -1184,6 +1358,32 @@ def moe_route_phase():
         f"with CUDA events around wrapper calls; twin {plain_ms:.4f} "
         f"ms/call), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}); no "
         f"single PyTorch call computes it")
+    rec["decode"] = _moe_route_decode(rng)
+    return rec
+
+
+def _moe_route_decode(rng):
+    """moe_route at a decode step's shape (MOE_DECODE) against its twin,
+    timed from CUDA graphs; returns its record."""
+    from repro_torch.kernels.moe_route import moe_route_cuda, moe_route_plan
+    from repro_torch.kernels.ref import moe_route_ref
+    G, gs, E, k = MOE_DECODE
+    logits = _route_logits(rng, G, gs, E)
+    err = _route_check(logits, k, "moe_route decode shape")
+    out = moe_route_cuda(logits, k)
+    dec = _record("moe_route", "", "", err,
+                  graph_ms(lambda: moe_route_cuda(logits, k), 50),
+                  cuda_ms(lambda: moe_route_ref(logits, k), 5),
+                  _nbytes([logits] + list(out)), (3.0 + k) * logits.numel(),
+                  peak=H100_FP32_S)
+    rec = {name: dec[name] for name in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    rec["shape"] = {"G": G, "gs": gs, "E": E, "k": k}
+    rec["plan"] = moe_route_plan(gs, E, k)
+    log(f"moe_route at a decode step's shape G={G} gs={gs} E={E} k={k} "
+        f"({rec['plan']}): matches the twin, {dec['ms']:.4f} ms/call from "
+        f"CUDA graphs (twin {dec['plain_ms']:.4f}), bound "
+        f"{dec['bound_ms']:.6f} ms")
     return rec
 
 
@@ -1204,18 +1404,24 @@ def _scan_check(dA, dBx, C, where):
     from repro_torch.kernels.ref import selective_scan_ref
     from repro_torch.kernels.selective_scan import selective_scan_cuda
     got = selective_scan_cuda(dA, dBx, C)
-    again = selective_scan_cuda(dA, dBx, C)
-    want = selective_scan_ref(dA, dBx, C)
+    again, h = selective_scan_cuda(dA, dBx, C, final_state=True)
+    want, h_want = selective_scan_ref(dA, dBx, C, final_state=True)
     torch.cuda.synchronize()
     if got.dtype != torch.float32 or got.shape != want.shape:
         raise AssertionError(f"{where}: y {got.dtype} {tuple(got.shape)}")
+    if h.dtype != torch.float32 or h.shape != h_want.shape:
+        raise AssertionError(f"{where}: h_final {h.dtype} "
+                             f"{tuple(h.shape)}")
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=SCAN_TOL, atol=SCAN_TOL):
         raise AssertionError(f"{where}: kernel vs twin max abs err "
                              f"{err:.3e}")
+    if not torch.allclose(h, h_want, rtol=SCAN_TOL, atol=SCAN_TOL):
+        raise AssertionError(f"{where}: h_final vs twin max abs err "
+                             f"{float((h - h_want).abs().max()):.3e}")
     if not torch.equal(got, again):
         raise AssertionError(f"{where}: two runs differ")
-    return err
+    return max(err, float((h - h_want).abs().max()))
 
 
 def selective_scan_phase():
@@ -1233,7 +1439,8 @@ def selective_scan_phase():
                               f"selective_scan {case} {dtype}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
     log(f"selective_scan at the reference's {len(SCAN_CASES)} test shapes "
-        f"matches the twin (rtol/atol {SCAN_TOL}): max abs err float32 "
+        f"matches the twin, y and h_final (rtol/atol {SCAN_TOL}; y without "
+        f"h_final the same bits): max abs err float32 "
         f"{worst[torch.float32]:.3e}, bfloat16 inputs "
         f"{worst[torch.bfloat16]:.3e}; bitwise repeatable")
     b, s, d, n = SCAN_SERVING
@@ -1817,7 +2024,7 @@ def serving_path(arch):
                     f"({SERVE['branches']} branches)",
                     lambda: branch_forward(params, batch, cfg,
                                            SERVE["branches"]))
-    return launches
+    return launches, decode_path(arch, params, cfg)
 
 
 def real_routing_check(params, batch, cfg):
@@ -1892,10 +2099,11 @@ def _family(name):
     return "elementwise and other"
 
 
-def profile_run(label, fn):
+def profile_run(label, fn, shape=None):
     """Device time of one run of ``fn`` by kernel family, read from
     torch.profiler (CUPTI); the wall is the host clock around the same run
-    under the profiler, so the idle share is an upper bound."""
+    under the profiler, so the idle share is an upper bound.  ``shape``
+    names the tokens of the run (default SERVE's batch × seq)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1951,7 +2159,8 @@ def profile_run(label, fn):
         fams[other] = (ms0 - ms, n0 - n)
         fams[route] = (fams[route][0] + ms, fams[route][1] + n)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
-    log(f"profile of {label} ({SERVE['batch']} x {SERVE['seq']} tokens): "
+    shape = shape or f"{SERVE['batch']} x {SERVE['seq']} tokens"
+    log(f"profile of {label} ({shape}): "
         f"wall {wall_ms:.2f} ms under the profiler, device busy "
         f"{busy:.2f} ms (idle share at most {1 - busy / wall_ms:.3f}); "
         + "; ".join(f"{f} {ms:.2f} ms in {n} kernels "
@@ -2014,6 +2223,305 @@ def model_cross_check():
             f"{SERVE['branches']}-branch semantic plan on cuda match the cpu "
             "path at rtol=1e-4 / atol=1e-5; the layer plan equals the "
             "forward bitwise")
+
+
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for c in cache for t in c.values())
+
+
+def _lossless(cfg):
+    """``cfg`` with MoE capacity of a whole group (capacity factor E / k,
+    with a margin for the float product): no token is dropped, as none is
+    in decode's groups of b <= top_k tokens (capacity top_k, each token's
+    experts distinct)."""
+    import dataclasses
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k * 1.001))
+
+
+class RouteTap:
+    """Within its ``with``, keeps the expert ids of every ``moe_route``
+    call the model makes (``models.moe``'s name is wrapped; the kernel
+    and its launch count are untouched)."""
+
+    def __init__(self):
+        self.eids = []
+
+    def __enter__(self):
+        from repro_torch.models import moe as moe_mod
+        self._mod, self._route = moe_mod, moe_mod.moe_route
+
+        def route(logits, k):
+            out = self._route(logits, k)
+            self.eids.append(out[0])
+            return out
+
+        moe_mod.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.moe_route = self._route
+
+    def flips(self, stepped, b, s, n, layers):
+        """(b, n) bool: decode rows whose expert set differs from the
+        forward's (``self.eids``, one call per layer) in some layer;
+        ``stepped`` holds the decode steps' calls, n × layers."""
+        import torch
+        flips = torch.zeros((b, n), dtype=torch.bool, device="cuda")
+        for layer, fw in enumerate(self.eids[:layers]):
+            fw = fw.reshape(-1, fw.shape[-1])[:b * (s + n)]
+            fw = fw.reshape(b, s + n, -1)[:, s:].sort(-1).values
+            for i in range(n):
+                got = stepped[i * layers + layer].reshape(b, -1)
+                flips[:, i] |= (got.sort(-1).values != fw[:, i]).any(-1)
+        return flips
+
+
+def decode_path(arch, params, cfg):
+    """The decode main path of one served model at full width through
+    ``launch.steps``: ``make_prefill_step`` on SERVE's batch × seq prompt
+    (caches of seq + headroom positions), then ``make_serve_step`` for
+    DECODE["steps"] greedy tokens, every kernel's launch count set to 0
+    just before and read just after; each attention kernel must run once
+    per attention layer per call, moe_route once per MoE layer per call,
+    the scans once per layer in the prefill only.  Then the teacher-forced
+    forward of prompt + the generated tokens against the decode logits,
+    within DECODE["bf16_rel"] of the largest forward logit, and one decode
+    step under the profiler.  In an MoE model a router near-tie that bf16
+    rounding flips sends a row to other experts, and its logits then
+    differ by O(1) (the card's float32 gate shows none flips there); the
+    bound holds over the rows whose every layer picked the forward's
+    experts, and the flipped rows are counted and reported.  An MoE model's prefill routes its 4096-token
+    group at the model's capacity and drops tokens, which a forward over
+    prompt + generated tokens, grouped otherwise, does not drop alike; so
+    for it the check prefills and decodes the same tokens again with
+    lossless routing (``_lossless``) beside a lossless forward.  Returns
+    the launches."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import forward
+    b, s, n = SERVE["batch"], SERVE["seq"], DECODE["steps"]
+    prompt = torch.as_tensor(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (b, s)).astype(np.int32), device="cuda")
+    prefill_step = make_prefill_step(cfg, device="cuda",
+                                     max_ctx=s + DECODE["headroom"])
+    serve_step = make_serve_step(cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in _counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, cache = prefill_step(params, {"tokens": prompt})
+        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {name: fn.launches for name, fn in _counters().items()}
+    toks, rows, step_ms = [tok], [], []
+    with torch.no_grad():
+        for i in range(n):
+            t0 = time.perf_counter()
+            logits, cache = serve_step(params, toks[-1], cache, s + i)
+            toks.append(logits.argmax(-1, keepdim=True).to(torch.int32))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append(logits)
+    launches = {name: fn.launches for name, fn in _counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    kinds = cfg.layer_kinds
+    want = {name: sum(k in ks for k in kinds) * (1 + n)
+            for name, ks in LAYER_KERNELS.items()}
+    want["selective_scan"] = kinds.count("mamba")
+    want["rglru_scan"] = kinds.count("rglru")
+    for name in SIM_KERNELS + DRAW_KERNELS:
+        want[name] = 0
+    if launches != want:
+        raise AssertionError(f"{arch} decode: launches {launches}, the "
+                             f"prefill and {n} steps need {want}")
+    dec = torch.stack(rows, 1)                              # (b, n, V)
+    if not torch.isfinite(dec).all() or dec.shape != (b, n, cfg.vocab_size):
+        raise AssertionError(f"{arch} decode: logits {tuple(dec.shape)} "
+                             f"finite={bool(torch.isfinite(dec).all())}")
+    gen = torch.cat(toks[:n], 1)                            # (b, n)
+    check = _lossless(cfg)
+    tap = RouteTap()
+    with torch.no_grad(), tap:
+        if cfg.moe is not None:
+            # the check's own lossless prefill and teacher-forced decode
+            _, again = make_prefill_step(check, device="cuda",
+                                         max_ctx=s + DECODE["headroom"])(
+                params, {"tokens": prompt})
+            tap.eids.clear()
+            step = make_serve_step(check, device="cuda")
+            rows = []
+            for i in range(n):
+                logits, again = step(params, gen[:, i:i + 1], again, s + i)
+                rows.append(logits)
+            dec = torch.stack(rows, 1)
+            del again
+        stepped = list(tap.eids)
+        tap.eids.clear()
+        full = forward(params, {"tokens": torch.cat([prompt, gen], 1)},
+                       check)[:, s:]
+    # rows (batch row, step) whose experts differ from the forward's in
+    # some layer: a near-tie of the router that bf16 rounding flips
+    flips = tap.flips(stepped, b, s, n, kinds.count("attn_moe"))
+    err = (dec - full).abs().amax(-1) / full.abs().max()    # (b, n)
+    rel = float(err.max())
+    held = float(err[~flips].max()) if (~flips).any() else float("nan")
+    agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
+    del full
+    if not held <= DECODE["bf16_rel"]:
+        raise AssertionError(f"{arch} decode vs teacher-forced forward: "
+                             f"max |diff| / max |logit| {held:.4e} > "
+                             f"{DECODE['bf16_rel']} over the "
+                             f"{int((~flips).sum())} rows routed alike")
+    steady = sorted(step_ms[1:])
+    med = steady[len(steady) // 2]
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    per_step = {k: (v - prefill_launches[k]) / n for k, v in launches.items()
+                if v}
+    log(f"decode main path {arch} (launch.steps, {cfg.param_dtype}): prefill "
+        f"{b} x {s} tokens into caches of {s + DECODE['headroom']} positions "
+        f"in {prefill_ms:.2f} ms, then {n} greedy steps: per step median "
+        f"{med:.3f} ms, min {steady[0]:.3f}, max {steady[-1]:.3f} (first "
+        f"{step_ms[0]:.3f} left out), {b * 1e3 / med:.1f} tokens/s; bound per "
+        f"step {w_bytes / H100_BYTES_S * 1e3:.3f} ms (the {w_bytes / 1e9:.2f}"
+        f" GB of weights read once at 3.35 TB/s; the cache adds "
+        f"{_cache_bytes(cache) / H100_BYTES_S * 1e3:.3f} ms); cache "
+        f"{_cache_bytes(cache) / 1e6:.1f} MB; peak memory {peak / 1e9:.2f} "
+        f"GB; launches {launches} (per step {per_step}); decode vs the "
+        f"teacher-forced forward{' (lossless routing)' if cfg.moe else ''}: "
+        f"max |diff| / max |logit| {held:.4e} over the "
+        f"{int((~flips).sum())} of {b * n} rows whose every layer picked the "
+        f"forward's experts (bound {DECODE['bf16_rel']}), {rel:.4e} over all "
+        f"rows; {int(flips.sum())} rows with a flipped router near-tie; "
+        f"greedy tokens agree {agree:.4f}")
+    profile_run(f"{arch}: one decode step", lambda: serve_step(
+        params, toks[n - 1], cache, s + n - 1), shape=f"{b} x 1 tokens")
+    return launches
+
+
+def decode_f32_gate():
+    """Decode against the forward in float32 at full width (random weights
+    from a seeded CUDA generator): TinyLlama-1.1B at full depth (4.4 GB)
+    and qwen2-moe-a2.7b cut to DECODE["f32_moe_layers"] layers (its 24 in
+    float32 would be 57 GB; routing lossless, as decode's is).  Each
+    prefills SERVE's prompt, decodes DECODE["f32_steps"] teacher-forced
+    tokens through ``launch.steps`` (the float32 flash kernel with
+    explicit positions) and holds every decode logit row within
+    DECODE["f32_atol"] of the forward over the same tokens."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_eval_step, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models.model import init_params
+    b, s, n = SERVE["batch"], SERVE["seq"], DECODE["f32_steps"]
+    out = {}
+    for arch, layers in ((SERVE_ARCHS[0], None),
+                         ("qwen2-moe-a2.7b", DECODE["f32_moe_layers"])):
+        cfg = dataclasses.replace(get_config(arch), param_dtype="float32",
+                                  compute_dtype="float32")
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = _lossless(cfg)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+            0), device="cuda")
+        tok = torch.as_tensor(np.random.RandomState(3).randint(
+            0, cfg.vocab_size, (b, s + n)).astype(np.int32), device="cuda")
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            full = make_eval_step(cfg, device="cuda")(params,
+                                                      {"tokens": tok})[:, s:]
+            _, cache = make_prefill_step(cfg, device="cuda",
+                                         max_ctx=s + DECODE["headroom"])(
+                params, {"tokens": tok[:, :s]})
+            serve_step = make_serve_step(cfg, device="cuda")
+            err = 0.0
+            for i in range(n):
+                logits, cache = serve_step(params, tok[:, s + i:s + i + 1],
+                                           cache, s + i)
+                err = max(err, float((logits - full[:, i]).abs().max()))
+        torch.cuda.synchronize()
+        gb = sum(t.numel() for t in _leaves(params)) * 4 / 1e9
+        del params, cache, full
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not err <= DECODE["f32_atol"]:
+            raise AssertionError(f"float32 {arch} decode vs forward: max "
+                                 f"abs err {err:.3e} > {DECODE['f32_atol']}")
+        log(f"float32 gate: {arch} at full width, {cfg.num_layers} layers "
+            f"({gb:.2f} GB), prefill {b} x {s} and {n} teacher-forced decode "
+            f"steps match the forward within {err:.3e} (atol "
+            f"{DECODE['f32_atol']}) in {time.perf_counter() - t0:.2f} s")
+        out[arch] = err
+    return out
+
+
+def decode_cross(arch, device):
+    """One reduced float32 model's decode on ``device``: a prefill step
+    into a ring of the prompt's length, then DECODE_CROSS["steps"] steps
+    past it (the ring wraps); for TinyLlama also a zero cache of a
+    DECODE_CROSS["ring"]-slot ring decoded to position 2 × ring.  Returns
+    the logits and caches of every step, on the CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.model import init_cache, init_params
+    cfg = get_config(arch).reduced(max_d_model=256, max_layers=4)
+    b, s, n = DECODE_CROSS["batch"], DECODE_CROSS["prompt"], \
+        DECODE_CROSS["steps"]
+    params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    tok = torch.from_numpy(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (b, s + 2 * DECODE_CROSS["ring"])).astype(
+            np.int32))
+    serve_step = make_serve_step(cfg, device=device)
+
+    def snap(logits, cache):
+        # copies: the rings are written in place by the next step
+        return [t.to("cpu", copy=True) for t in
+                [logits] + [t for c in cache for t in c.values()]]
+
+    out = []
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, device=device)(
+            params, {"tokens": tok[:, :s]})
+        out.append(snap(logits, cache))
+        for i in range(n):
+            logits, cache = serve_step(params, tok[:, s + i:s + i + 1], cache,
+                                       s + i)
+            out.append(snap(logits, cache))
+        if arch == SERVE_ARCHS[0]:
+            W = DECODE_CROSS["ring"]
+            cache = init_cache(cfg, 1, ctx_len=64, sliding=W, device=device)
+            for pos in range(2 * W):
+                logits, cache = serve_step(params, tok[:1, pos:pos + 1],
+                                           cache, pos)
+                out.append(snap(logits, cache))
+    return out
+
+
+def decode_cross_check():
+    """The four reduced models' decode on the card against the CPU port,
+    every step's logits and caches at rtol 1e-4 / atol 1e-5 (TF32 off)."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on; the cross-check needs "
+                             "float32 products")
+    for arch in SERVE_ARCHS:
+        card, host = decode_cross(arch, "cuda"), decode_cross(arch, "cpu")
+        for i, (g, w) in enumerate(zip(card, host)):
+            for j, (a, b) in enumerate(zip(g, w)):
+                torch.testing.assert_close(
+                    a, b, rtol=1e-4, atol=1e-5,
+                    msg=lambda m: f"{arch} decode call {i} leaf {j}: {m}")
+        log(f"cross-check: the reduced {arch} prefill step and "
+            f"{len(card) - 1} decode steps on cuda match the cpu path "
+            f"(logits and every cache leaf) at rtol=1e-4 / atol=1e-5")
 
 
 def cross_checks():
@@ -3569,21 +4077,39 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    totals, flash_by_arch = {}, {}
+    totals, decoded, flash_by_arch = {}, {}, {}
+    t0 = time.perf_counter()
     for arch in SERVE_ARCHS:
-        launches = serving_path(arch)
+        launches, dec = serving_path(arch)
         for name, count in launches.items():
             totals[name] = totals.get(name, 0) + count
+        for name, count in dec.items():
+            decoded.setdefault(name, {})[arch] = count
         if arch in ("qwen2-moe-a2.7b", "recurrentgemma-9b"):
             flash_by_arch[arch] = launches["flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
+    log(f"serving and decode paths: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    decode_f32_gate()
+    gc.collect()
+    torch.cuda.empty_cache()
+    decode_cross_check()
+    log(f"decode gates (float32 full width, reduced card vs cpu): "
+        f"{time.perf_counter() - t0:.1f} s")
     for rec in records:
         if rec["name"] not in SIM_KERNELS + DRAW_KERNELS:
             rec["launches"] = totals[rec["name"]]
+            rec["launches_decode"] = decoded[rec["name"]]
         if rec["name"] == "flash_attention":
             rec["hd128"]["launches"] = flash_by_arch["qwen2-moe-a2.7b"]
             rec["hd256"]["launches"] = flash_by_arch["recurrentgemma-9b"]
+            for key, arch in (("hd64", SERVE_ARCHS[0]),
+                              ("hd128", "qwen2-moe-a2.7b"),
+                              ("hd256", "recurrentgemma-9b")):
+                rec["decode"][key]["launches"] = decoded[rec["name"]][arch]
+        if rec["name"] == "moe_route":
+            rec["decode"]["launches"] = decoded[rec["name"]]["qwen2-moe-a2.7b"]
 
     cross_checks()
     model_cross_check()

@@ -249,6 +249,17 @@ def interval_rewards_masked(state: MABState, apps, sla, resp, acc,
     return O.to(f32).reshape(G, 2, 2), cnt.to(f32).reshape(G, 2, 2)
 
 
+def interval_rewards(state: MABState, apps, sla, resp, acc, decisions):
+    """Per-(context, arm) mean rewards O^{c,d} and counts (eqs. 3–4) of
+    one interval, for a one-cell state (G=1) and (n,) rows, every row
+    kept: ``interval_rewards_masked`` unbatched.  Returns (O (2, 2),
+    cnt (2, 2)), float32."""
+    rows = [t[None] for t in (apps, sla, resp, acc, decisions)]
+    mask = torch.ones_like(rows[0], dtype=torch.bool)
+    O, cnt = interval_rewards_masked(state, *rows, mask)
+    return O[0], cnt[0]
+
+
 def update_q(state: MABState, O, cnt, gamma: float = 0.3,
              fused: bool = True) -> MABState:
     """Q <- Q + gamma (O - Q) where data exists (eq. 5), N += counts.

@@ -2,8 +2,9 @@
 algorithm, [32] §4): the part the serving plans use.
 
 A NumPy copy of ``repro.core.partitioner``'s ``LayerCost``,
-``model_layer_costs``, ``pipeline_latency`` and ``optimal_partition``
-(that module imports no JAX; the port keeps its own copy).  Given
+``model_layer_costs``, ``pipeline_latency``, ``optimal_partition`` and
+``memory_feasible_partition`` (that module imports no JAX; the port keeps
+its own copy).  Given
 per-layer costs (FLOPs + activation bytes forwarded between consecutive
 layers), find the contiguous partition of layers into at most K
 fragments that minimizes end-to-end pipeline latency:
@@ -98,3 +99,22 @@ def optimal_partition(costs: Sequence[LayerCost], max_fragments: int,
         k -= 1
     cuts.reverse()
     return cuts, float(dp[best_k][L])
+
+
+def memory_feasible_partition(costs: Sequence[LayerCost],
+                              ram_budget_bytes: float):
+    """Fewest contiguous fragments with per-fragment weights under budget
+    (Gillis memory-optimal serving mode).  Greedy is optimal here.
+    Returns the cuts [0, ..., L]; raises ValueError when one layer alone
+    exceeds the budget."""
+    cuts = [0]
+    acc = 0.0
+    for i, c in enumerate(costs):
+        if acc + c.param_bytes > ram_budget_bytes and acc > 0:
+            cuts.append(i)
+            acc = 0.0
+        acc += c.param_bytes
+        if c.param_bytes > ram_budget_bytes:
+            raise ValueError(f"layer {i} alone exceeds the RAM budget")
+    cuts.append(len(costs))
+    return cuts

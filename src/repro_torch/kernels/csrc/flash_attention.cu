@@ -7,9 +7,12 @@
 // repro_torch/kernels/ref.py::attention_ref's): q (b, sq, h, hd), k and v
 // (b, sk, kvh, hd), all contiguous and of one dtype; query head kv*g + gi
 // (g = h / kvh) reads kv head kv; positions are 0..s-1 on both sides, so the
-// causal mask is top-left aligned when sq != sk; key j is visible to query i
-// when (!causal || i >= j) && (window <= 0 || i - j < window); scores are
-// scaled by hd^-0.5; the output (b, sq, h, hd) has q's dtype.  A row that
+// causal mask is top-left aligned when sq != sk, or the int32 arrays pos_q
+// (b, sq) and pos_k (b, sk) (flash_attention_pos_launch); key j is visible
+// to query i when (!causal || pos_q[i] >= pos_k[j]) && (window <= 0 ||
+// pos_q[i] - pos_k[j] < window), the mask of the reference's
+// models/attention.py::full_attention; scores are scaled by hd^-0.5; the
+// output (b, sq, h, hd) has q's dtype.  A row that
 // sees no key gets the reference's answer for that case (its softmax over
 // all-masked scores is uniform): the mean of v over all sk keys.  One launch
 // per call, no atomics: two calls give the same bits.
@@ -48,6 +51,14 @@
 // of its first row, are never loaded; the CTAs with the most key tiles are
 // launched first.  The output is staged through shared memory and written
 // in 16-byte rows.
+//
+// Explicit positions (decode over a ring-buffer cache, packed or offset
+// prompts): a position array says nothing about which key tiles a row can
+// see, so both kernels then visit every key tile and mask every score by
+// the two positions; pos_k is read through the read-only cache.  A decode
+// step (sq = 1) fills only g rows of a tile's BM; the rest are padding,
+// whose position is read clamped to the last row and which are never
+// written.
 //
 // float32: flash_attention_kernel, on the CUDA cores (TF32 tensor cores
 // cannot hold the float32 tolerance of 2e-5), for the CPU-size float32
@@ -102,8 +113,10 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int sq, int sk, int h, int kvh, int bq, int causal,
-                           int window, float scale) {
+                           const int* __restrict__ pos_q,
+                           const int* __restrict__ pos_k, int sq, int sk,
+                           int h, int kvh, int bq, int causal, int window,
+                           float scale) {
   constexpr int THREADS = Tile<HD>::THREADS;
   constexpr int SPLIT = Tile<HD>::SPLIT;
   constexpr int ROWS = Tile<HD>::ROWS;
@@ -112,6 +125,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   float* qs = reinterpret_cast<float*>(smem4);  // [ROWS][HD + 1]
   float* ks = qs + ROWS * (HD + 1);             // [BK][HD]
   float* vs = ks + BK * HD;                     // [BK][HD]
+  __shared__ int kps[BK];                       // the K/V tile's positions
 
   const int g = h / kvh;
   const int kv = blockIdx.y;
@@ -137,8 +151,10 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   const int part = lane / WROWS;  // which float4 chunks of the row
   const int qi = row / g;
   const int gi = row - qi * g;
-  const int qpos = q0 + qi;
   const bool active = qi < nq;
+  const int qpos = pos_q == nullptr ? q0 + qi
+                   : active ? pos_q[(size_t)bi * sq + q0 + qi]
+                            : 0;
 
   // dims 4*(c*SPLIT + part) .. +3 of the row are this thread's chunk c
   float qr[DH];
@@ -155,11 +171,11 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   float m = -INFINITY;
   float l = 0.f;
 
-  // keys any row of this tile can see
+  // keys any row of this tile can see (every key with explicit positions)
   const int q_last = q0 + nq - 1;
-  int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  int lo = window > 0 && pos_k == nullptr ? max(0, q0 - window + 1) : 0;
   lo = (lo / BK) * BK;
-  const int hi = causal ? min(sk, q_last + 1) : sk;
+  const int hi = causal && pos_k == nullptr ? min(sk, q_last + 1) : sk;
 
   const float4* ks4 = reinterpret_cast<const float4*>(ks);
   const float4* vs4 = reinterpret_cast<const float4*>(vs);
@@ -179,6 +195,9 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
       ks[e] = kx;
       vs[e] = vx;
     }
+    for (int j = tid; j < BK; j += THREADS)
+      kps[j] = j >= nk ? 0 : pos_k == nullptr ? k0 + j
+                                              : pos_k[(size_t)bi * sk + k0 + j];
     __syncthreads();
     // with SPLIT > 1 every lane of the warp takes part in the shuffles, so
     // rows past the tile compute (and discard) their scores too
@@ -200,7 +219,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
 #pragma unroll
       for (int off = 1; off < SPLIT; off <<= 1)
         dot = dot + __shfl_xor_sync(0xffffffffu, dot, off * WROWS);
-      const int kpos = k0 + j;
+      const int kpos = kps[j];
       const bool ok = j < nk && (!causal || qpos >= kpos) &&
                       (window <= 0 || qpos - kpos < window);
       s[j] = ok ? dot * scale : -INFINITY;
@@ -230,7 +249,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   }
 
   if (!active) return;
-  float* dst = o + (((size_t)bi * sq + qpos) * h + kv * g + gi) * HD;
+  float* dst = o + (((size_t)bi * sq + q0 + qi) * h + kv * g + gi) * HD;
   if (l > 0.f) {
 #pragma unroll
     for (int c = 0; c < DH / 4; ++c)
@@ -595,8 +614,10 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
     flash_attention_mma_kernel(const bf16* __restrict__ q,
                                const bf16* __restrict__ k,
                                const bf16* __restrict__ v,
-                               bf16* __restrict__ o, int sq, int sk, int h,
-                               int kvh, int causal, int window,
+                               bf16* __restrict__ o,
+                               const int* __restrict__ pos_q,
+                               const int* __restrict__ pos_k, int sq, int sk,
+                               int h, int kvh, int causal, int window,
                                float scale_log2) {
   constexpr int BM = 16 * MmaTile<HD>::WARPS;  // rows per CTA
   constexpr int THREADS = 32 * MmaTile<HD>::WARPS;
@@ -642,12 +663,13 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
                ok);
   }
 
-  // keys any row of this tile can see
+  // keys any row of this tile can see (every key with explicit positions)
+  const bool explicit_pos = pos_k != nullptr;
   const int pos_first = r0 / g;
   const int pos_last = (min(r0 + BM, rows) - 1) / g;
-  int lo = window > 0 ? max(0, pos_first - window + 1) : 0;
+  int lo = window > 0 && !explicit_pos ? max(0, pos_first - window + 1) : 0;
   lo = lo / BN * BN;
-  const int hi = causal ? min(sk, pos_last + 1) : sk;
+  const int hi = causal && !explicit_pos ? min(sk, pos_last + 1) : sk;
   const int ntiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
 
   auto load_kv = [&](int t) {
@@ -678,7 +700,12 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
   const int wr = warp * 16;  // the warp's first row in the tile
   int pos_row[2];            // positions of the thread's rows grp, grp + 8
 #pragma unroll
-  for (int i = 0; i < 2; ++i) pos_row[i] = (r0 + wr + grp + 8 * i) / g;
+  for (int i = 0; i < 2; ++i) {
+    const int R = r0 + wr + grp + 8 * i;
+    pos_row[i] = explicit_pos
+                     ? __ldg(pos_q + (size_t)bi * sq + min(R, rows - 1) / g)
+                     : R / g;
+  }
 
   float oacc[HD / 8][4];
 #pragma unroll
@@ -693,16 +720,26 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
   // ex2; leaves p in s and rescales l and O
   auto softmax = [&](float (&s)[BN / 8][4], int t) {
     const int k0 = lo + t * BN;
-    if (!(k0 + BN <= sk && (!causal || k0 + BN - 1 <= pos_first) &&
-          (window <= 0 || pos_last - k0 < window))) {
+    if (explicit_pos || !(k0 + BN <= sk &&
+                          (!causal || k0 + BN - 1 <= pos_first) &&
+                          (window <= 0 || pos_last - k0 < window))) {
 #pragma unroll
       for (int nb = 0; nb < BN / 8; ++nb) {
+        int kpos[2];  // positions of keys 2 t4 and 2 t4 + 1 of n-block nb
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int key = k0 + nb * 8 + 2 * t4 + c;
+          kpos[c] = !explicit_pos || key >= sk
+                        ? key
+                        : __ldg(pos_k + (size_t)bi * sk + key);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + nb * 8 + 2 * t4 + (e & 1);
+          const int kp = kpos[e & 1];
           const int pos = pos_row[e >> 1];
-          if (!(key < sk && (!causal || key <= pos) &&
-                (window <= 0 || pos - key < window)))
+          if (!(key < sk && (!causal || kp <= pos) &&
+                (window <= 0 || pos - kp < window)))
             s[nb][e] = -INFINITY;
         }
       }
@@ -934,9 +971,9 @@ cudaError_t allow_smem(int bytes) {
 }
 
 template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
-               int sq, int sk, int h, int kvh, int causal, int window,
-               cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const int* pos_q, const int* pos_k, int b, int sq, int sk,
+               int h, int kvh, int causal, int window, cudaStream_t stream) {
   const int g = h / kvh;
   if (g > Tile<HD>::ROWS) return (int)cudaErrorInvalidValue;
   const int bq = Tile<HD>::ROWS / g;
@@ -945,15 +982,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int b,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + bq - 1) / bq, kvh, b);
   flash_attention_kernel<HD><<<grid, Tile<HD>::THREADS, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, sq, sk, h,
-      kvh, bq, causal, window, 1.0f / sqrtf((float)HD));
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, pos_q,
+      pos_k, sq, sk, h, kvh, bq, causal, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
-                int sq, int sk, int h, int kvh, int causal, int window,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const int* pos_q, const int* pos_k, int b, int sq, int sk,
+                int h, int kvh, int causal, int window, cudaStream_t stream) {
   constexpr int BM = 16 * MmaTile<HD>::WARPS;
   const long long rows = (long long)sq * (h / kvh);
   if (rows > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
@@ -965,13 +1002,14 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int b,
   const dim3 grid((unsigned)ctas);
   flash_attention_mma_kernel<HD><<<grid, 32 * MmaTile<HD>::WARPS, bytes,
                                    stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, sq, sk, h,
-      kvh, causal, window, 1.4426950408889634f / sqrtf((float)HD));
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, pos_q, pos_k,
+      sq, sk, h, kvh, causal, window, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
-typedef int (*Launcher)(const void*, const void*, const void*, void*, int,
-                        int, int, int, int, int, int, cudaStream_t);
+typedef int (*Launcher)(const void*, const void*, const void*, void*,
+                        const int*, const int*, int, int, int, int, int, int,
+                        int, cudaStream_t);
 
 // the launcher of head dim hd for one dtype, or null
 Launcher f32_launcher(int hd) {
@@ -999,21 +1037,35 @@ Launcher bf16_launcher(int hd) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
-// kernel).  Returns the launch's CUDA error code.
-extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int sq,
-                                      int sk, int h, int kvh, int hd,
-                                      int causal, int window, int dtype,
-                                      void* stream) {
+// kernel); pos_q (b, sq) and pos_k (b, sk) int32 positions, both or neither
+// (null: 0..s-1).  Returns the launch's CUDA error code.
+extern "C" int flash_attention_pos_launch(const void* q, const void* k,
+                                          const void* v, void* o,
+                                          const int* pos_q, const int* pos_k,
+                                          int b, int sq, int sk, int h,
+                                          int kvh, int hd, int causal,
+                                          int window, int dtype,
+                                          void* stream) {
   if (b < 1 || sq < 1 || sk < 0 || kvh < 1 || h % kvh != 0 ||
-      b > 65535 || kvh > 65535)
+      b > 65535 || kvh > 65535 || (pos_q == nullptr) != (pos_k == nullptr))
     return (int)cudaErrorInvalidValue;
   Launcher fn = dtype == 0 ? f32_launcher(hd)
                 : dtype == 1 ? bf16_launcher(hd)
                              : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, o, b, sq, sk, h, kvh, causal, window,
+  return fn(q, k, v, o, pos_q, pos_k, b, sq, sk, h, kvh, causal, window,
             (cudaStream_t)stream);
+}
+
+// The implicit positions 0..s-1 (tools/kernel_variants.py binds this one).
+extern "C" int flash_attention_launch(const void* q, const void* k,
+                                      const void* v, void* o, int b, int sq,
+                                      int sk, int h, int kvh, int hd,
+                                      int causal, int window, int dtype,
+                                      void* stream) {
+  return flash_attention_pos_launch(q, k, v, o, nullptr, nullptr, b, sq, sk,
+                                    h, kvh, hd, causal, window, dtype,
+                                    stream);
 }
 
 // Which tensor-core products serve bfloat16 at head dim hd: 1 = mma.sync,

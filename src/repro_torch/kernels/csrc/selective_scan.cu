@@ -7,7 +7,11 @@
 // the same function.  Contract (repro_torch/kernels/ref.py::
 // selective_scan_ref's): dA and dBx (b, s, d_in, n) of one dtype, C (b, s, n)
 // float32 (the wrapper converts a bfloat16 C, exactly), all contiguous; y
-// (b, s, d_in) float32; h_0 = 0; n <= 16.
+// (b, s, d_in) float32; h_0 = 0; n <= 16.  Optionally also the state after
+// the last step, h_final (b, d_in, n) float32: the decode cache that the
+// reference's models/ssm.py::mamba_prefill keeps (its selective_scan
+// returns (y, h_final)); each thread writes its n registers once, after
+// the walk.
 //
 // Design (a simple first kernel): one thread per (batch row, channel) keeps
 // that channel's n states in registers and walks the sequence in order, as
@@ -100,8 +104,8 @@ __device__ __forceinline__ float step(float* h, const float* a,
 template <typename T, int N>
 __global__ void __launch_bounds__(THREADS)
     scan_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
-                const float* __restrict__ C, float* __restrict__ y, int s,
-                int d_in) {
+                const float* __restrict__ C, float* __restrict__ y,
+                float* __restrict__ h_final, int s, int d_in) {
   __shared__ float cs[CH * N];
   const int bi = blockIdx.y;
   const int ch = blockIdx.x * THREADS + threadIdx.x;
@@ -145,25 +149,32 @@ __global__ void __launch_bounds__(THREADS)
       py[(size_t)(t0 + tt) * d_in] = step<N>(h, a, bx, cs + tt * N);
     }
   }
+  if (h_final != nullptr && active) {
+    float* ph = h_final + ((size_t)bi * d_in + ch) * N;
+#pragma unroll
+    for (int i = 0; i < N; ++i) ph[i] = h[i];
+  }
 }
 
 template <typename T, int N>
-int launch(const void* dA, const void* dBx, const void* C, void* y, int b,
-           int s, int d_in, cudaStream_t st) {
+int launch(const void* dA, const void* dBx, const void* C, void* y,
+           void* h_final, int b, int s, int d_in, cudaStream_t st) {
   const dim3 grid((d_in + THREADS - 1) / THREADS, b);
   scan_kernel<T, N><<<grid, THREADS, 0, st>>>(
       static_cast<const T*>(dA), static_cast<const T*>(dBx),
-      static_cast<const float*>(C), static_cast<float*>(y), s, d_in);
+      static_cast<const float*>(C), static_cast<float*>(y),
+      static_cast<float*>(h_final), s, d_in);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_n(const void* dA, const void* dBx, const void* C, void* y,
-               int b, int s, int d_in, int n, cudaStream_t st) {
+               void* h_final, int b, int s, int d_in, int n,
+               cudaStream_t st) {
   switch (n) {
 #define SCAN_CASE(NN) \
   case NN:            \
-    return launch<T, NN>(dA, dBx, C, y, b, s, d_in, st);
+    return launch<T, NN>(dA, dBx, C, y, h_final, b, s, d_in, st);
     SCAN_CASE(1) SCAN_CASE(2) SCAN_CASE(3) SCAN_CASE(4)
     SCAN_CASE(5) SCAN_CASE(6) SCAN_CASE(7) SCAN_CASE(8)
     SCAN_CASE(9) SCAN_CASE(10) SCAN_CASE(11) SCAN_CASE(12)
@@ -176,17 +187,19 @@ int dispatch_n(const void* dA, const void* dBx, const void* C, void* y,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (dA and dBx); C is float32.
+// dtype: 0 float32, 1 bfloat16 (dA and dBx); C is float32; h_final
+// (b, d_in, n) float32, or null for none.
 extern "C" int selective_scan_launch(const void* dA, const void* dBx,
-                                     const void* C, void* y, int b, int s,
-                                     int d_in, int n, int dtype,
-                                     void* stream) {
+                                     const void* C, void* y, void* h_final,
+                                     int b, int s, int d_in, int n,
+                                     int dtype, void* stream) {
   if (b < 1 || b > 65535 || s < 1 || d_in < 1 || n < 1 || n > MAX_N)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_n<float>(dA, dBx, C, y, b, s, d_in, n, st);
+    return dispatch_n<float>(dA, dBx, C, y, h_final, b, s, d_in, n, st);
   if (dtype == 1)
-    return dispatch_n<__nv_bfloat16>(dA, dBx, C, y, b, s, d_in, n, st);
+    return dispatch_n<__nv_bfloat16>(dA, dBx, C, y, h_final, b, s, d_in, n,
+                                     st);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,11 +5,13 @@ flash_attention`` (``pl.pallas_call`` at line 87), and in the model the
 jnp twins ``full_attention`` / ``blockwise_attention`` of
 ``src/repro/models/attention.py``, which compute the same function.
 
-``flash_attention(q, k, v, causal, window)`` takes q (b, sq, h, hd) and
-k, v (b, sk, kvh, hd) of one dtype (float32 or bfloat16) and returns
-(b, sq, h, hd) in q's dtype; query head ``kv*g + gi`` reads kv head
-``kv``, positions are ``0..s-1`` (top-left causal alignment when
-sq != sk), scores are scaled by ``hd**-0.5``.  A CUDA tensor launches a
+``flash_attention(q, k, v, causal, window, pos_q, pos_k)`` takes q (b,
+sq, h, hd) and k, v (b, sk, kvh, hd) of one dtype (float32 or bfloat16)
+and returns (b, sq, h, hd) in q's dtype; query head ``kv*g + gi`` reads
+kv head ``kv``; positions are ``0..s-1`` (top-left causal alignment when
+sq != sk), or the int32 ``pos_q`` (b, sq) and ``pos_k`` (b, sk) given
+together (the reference's ``full_attention`` mask: decode over a ring
+buffer, offset or packed prompts); scores are scaled by ``hd**-0.5``.  A CUDA tensor launches a
 kernel of ``csrc/flash_attention.cu``, one per dtype: bfloat16 runs on the
 tensor cores (bf16 operands, float32 accumulators, 16 rows of (position,
 head) pairs per warp, P rounded to bf16 before the P V product; ``wgmma``
@@ -35,6 +37,22 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: heads per kv head; the bfloat16 kernel takes any group
 MAX_GROUP = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_positions(q, k, pos_q, pos_k):
+    if (pos_q is None) != (pos_k is None):
+        raise ValueError("flash_attention: give pos_q and pos_k together")
+    if pos_q is None:
+        return
+    for name, t, want in (("pos_q", pos_q, q.shape[:2]),
+                          ("pos_k", pos_k, k.shape[:2])):
+        if tuple(t.shape) != tuple(want) or t.dtype != torch.int32:
+            raise ValueError(f"flash_attention: {name} must be int32 "
+                             f"{tuple(want)}, not {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
 
 
 def _check(q, k, v):
@@ -69,9 +87,9 @@ _LAUNCHER = []
 def _launcher():
     """The library's C entry point, typed once per process."""
     if not _LAUNCHER:
-        fn = LIBRARIES.get("flash_attention").flash_attention_launch
+        fn = LIBRARIES.get("flash_attention").flash_attention_pos_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         _LAUNCHER.append(fn)
     return _LAUNCHER[0]
@@ -86,10 +104,14 @@ def kernel_step(hd):
     return fn(hd)
 
 
-def flash_attention_cuda(q, k, v, causal=True, window=0):
+def flash_attention_cuda(q, k, v, causal=True, window=0, pos_q=None,
+                         pos_k=None):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
     allocated output."""
     _check(q, k, v)
+    _check_positions(q, k, pos_q, pos_k)
+    if pos_q is not None:
+        pos_q, pos_k = pos_q.contiguous(), pos_k.contiguous()
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPE_CODE:
@@ -116,6 +138,8 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if pos_q is None else pos_q.data_ptr(),
+                None if pos_k is None else pos_k.data_ptr(),
                 b, sq, sk, h, kvh, hd, int(bool(causal)), int(window),
                 _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
@@ -125,15 +149,18 @@ def flash_attention_cuda(q, k, v, causal=True, window=0):
     return out
 
 
-def flash_attention(q, k, v, causal=True, window=0):
+def flash_attention(q, k, v, causal=True, window=0, pos_q=None, pos_k=None):
     """Attention: the CUDA kernel on CUDA tensors, the eager twin on CPU
     tensors."""
     if q.device.type == "cpu":
         _check(q, k, v)
-        return attention_ref(q, k, v, causal=causal, window=window)
+        _check_positions(q, k, pos_q, pos_k)
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             pos_q=pos_q, pos_k=pos_k)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                pos_q=pos_q, pos_k=pos_k)
 
 
 flash_attention.launches = 0

@@ -5,9 +5,12 @@ with the same formulas in the same order, batched over an optional
 leading grid axis G.  It is the oracle of the hand-written CUDA kernel
 (``repro_torch.kernels.edge_substep``) and the path a CPU tensor takes.
 ``attention_ref`` is the port of ``repro.kernels.ref.attention_ref``, the
-oracle of ``repro_torch.kernels.flash_attention`` and its CPU path;
-``moe_route_ref``, ``selective_scan_ref`` and ``rglru_scan_ref`` are the
-ports of the reference's oracles of the same names, the oracles and CPU
+oracle of ``repro_torch.kernels.flash_attention`` and its CPU path, with
+the explicit positions of ``repro.models.attention.full_attention`` beside
+the implicit ones;
+``moe_route_ref``, ``selective_scan_ref`` (which also gives the final
+state, as ``repro.models.ssm.selective_scan`` does) and ``rglru_scan_ref``
+are the ports of the reference's oracles of the same names, the oracles and CPU
 paths of ``repro_torch.kernels.moe_route``,
 ``repro_torch.kernels.selective_scan`` and ``repro_torch.kernels.rglru_scan``.
 ``threefry_rows_ref``, built on ``repro_torch.core.prng``, is the oracle
@@ -32,20 +35,33 @@ f8 = torch.float64
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, causal=True, window=0):
+def attention_ref(q, k, v, causal=True, window=0, pos_q=None, pos_k=None):
     """q (b, sq, h, hd); k, v (b, sk, kvh, hd) -> (b, sq, h, hd) in q's
     dtype.  Fully materialized, float32 inside; query head ``kv*g + gi``
-    reads kv head ``kv``; positions are ``0..s-1`` on both sides, so the
-    causal mask is top-left aligned when sq != sk; masked scores are
-    ``-1e30``, so a row with no visible key averages every value."""
+    reads kv head ``kv``; scores are scaled by ``hd**-0.5``; masked scores
+    are ``-1e30``, so a row with no visible key averages every value.
+
+    Positions are ``0..s-1`` on both sides (the causal mask top-left
+    aligned when sq != sk), or the int32 ``pos_q`` (b, sq) and ``pos_k``
+    (b, sk) given together: key j is visible to query i when
+    ``(!causal || pos_q[i] >= pos_k[j]) && (window <= 0 ||
+    pos_q[i] - pos_k[j] < window)``, the mask of the reference's
+    ``models.attention.full_attention``."""
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, sq, kvh, g, hd)
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
-    qp = torch.arange(sq, device=q.device)[:, None]
-    kp = torch.arange(sk, device=q.device)[None, :]
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if (pos_q is None) != (pos_k is None):
+        raise ValueError("attention_ref: give pos_q and pos_k together")
+    if pos_q is None:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+    else:
+        qp = pos_q.long()[:, None, None, :, None]            # (b,1,1,sq,1)
+        kp = pos_k.long()[:, None, None, None, :]            # (b,1,1,1,sk)
+    mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                      dtype=torch.bool, device=q.device)
     if causal:
         mask &= qp >= kp
     if window:
@@ -97,21 +113,24 @@ def moe_route_ref(logits, top_k):
     return out if grouped else tuple(o[0] for o in out)
 
 
-def selective_scan_ref(dA, dBx, C):
+def selective_scan_ref(dA, dBx, C, final_state=False):
     """Sequential reference of h_t = dA_t h_{t-1} + dBx_t; y_t = <h_t, C_t>.
 
     dA, dBx (b, s, d_in, n) and C (b, s, n) of any float dtype; the state
-    and y (b, s, d_in) are float32."""
+    and y (b, s, d_in) are float32, h_0 = 0.  With ``final_state`` it
+    returns (y, h_s), h_s (b, d_in, n) float32 the state after the last
+    step (the decode cache of ``mamba_prefill``)."""
     b, s, d_in, n = dA.shape
     h = torch.zeros((b, d_in, n), dtype=torch.float32, device=dA.device)
     ys = []
     for t in range(s):
         h = dA[:, t].float() * h + dBx[:, t].float()
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t].float()))
-    if not ys:
-        return torch.zeros((b, 0, d_in), dtype=torch.float32,
-                           device=dA.device)
-    return torch.stack(ys, dim=1)
+    if ys:
+        y = torch.stack(ys, dim=1)
+    else:
+        y = torch.zeros((b, 0, d_in), dtype=torch.float32, device=dA.device)
+    return (y, h) if final_state else y
 
 
 def rglru_scan_ref(a, bx):

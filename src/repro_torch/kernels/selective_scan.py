@@ -5,10 +5,13 @@ selective_scan`` (``pl.pallas_call`` at line 61), and in the model the
 chunked associative scan ``src/repro/models/ssm.py::selective_scan``, which
 computes the same function.
 
-``selective_scan(dA, dBx, C)`` takes dA, dBx (b, s, d_in, n) of one dtype
-(float32 or bfloat16) and C (b, s, n), and returns y (b, s, d_in) float32
-of h_t = dA_t·h_{t-1} + dBx_t, y_t = <h_t, C_t>, h_0 = 0, with the state in
-float32.  A CUDA tensor launches the kernel (``csrc/selective_scan.cu``: one
+``selective_scan(dA, dBx, C, final_state=False)`` takes dA, dBx (b, s,
+d_in, n) of one dtype (float32 or bfloat16) and C (b, s, n), and returns
+y (b, s, d_in) float32 of h_t = dA_t·h_{t-1} + dBx_t, y_t = <h_t, C_t>,
+h_0 = 0, with the state in float32; with ``final_state`` it returns
+(y, h_s), the state after the last step (b, d_in, n) float32 that
+``models.ssm.mamba_prefill`` caches (the reference's
+``ssm.selective_scan`` returns it too).  A CUDA tensor launches the kernel (``csrc/selective_scan.cu``: one
 thread per (batch row, channel), its n <= 16 states in registers, the
 sequence walked in order); a CPU tensor runs the eager twin
 ``ref.selective_scan_ref``.  There is no fallback from one to the other.
@@ -51,15 +54,16 @@ def _launcher():
     if not _LAUNCHER:
         fn = LIBRARIES.get("selective_scan").selective_scan_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         _LAUNCHER.append(fn)
     return _LAUNCHER[0]
 
 
-def selective_scan_cuda(dA, dBx, C):
+def selective_scan_cuda(dA, dBx, C, final_state=False):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
-    allocated y.  A bfloat16 C is converted to float32 (exactly)."""
+    allocated y, or (y, h_final).  A bfloat16 C is converted to float32
+    (exactly)."""
     _check(dA, dBx, C)
     b, s, d_in, n = dA.shape
     if dA.dtype not in _DTYPE_CODE:
@@ -76,29 +80,32 @@ def selective_scan_cuda(dA, dBx, C):
                              f"aligned")
     C = C.float().contiguous()
     y = torch.empty((b, s, d_in), dtype=torch.float32, device=dA.device)
+    h = torch.zeros((b, d_in, n), dtype=torch.float32, device=dA.device) \
+        if final_state else None
     if y.numel() == 0:
-        return y
+        return (y, h) if final_state else y
     fn = _launcher()
     with torch.cuda.device(dA.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), y.data_ptr(),
+                None if h is None else h.data_ptr(),
                 b, s, d_in, n, _DTYPE_CODE[dA.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA "
                            f"error {rc}")
     selective_scan.launches += 1
-    return y
+    return (y, h) if final_state else y
 
 
-def selective_scan(dA, dBx, C):
+def selective_scan(dA, dBx, C, final_state=False):
     """The scan: the CUDA kernel on CUDA tensors, the eager twin on CPU
     tensors."""
     if dA.device.type == "cpu":
         _check(dA, dBx, C)
-        return selective_scan_ref(dA, dBx, C)
+        return selective_scan_ref(dA, dBx, C, final_state=final_state)
     if dA.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {dA.device}")
-    return selective_scan_cuda(dA, dBx, C)
+    return selective_scan_cuda(dA, dBx, C, final_state=final_state)
 
 
 selective_scan.launches = 0

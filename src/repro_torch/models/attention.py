@@ -1,13 +1,15 @@
-"""GQA self attention of the dense and MoE blocks.
+"""GQA self attention of the attention blocks, and its decode step.
 
-The port of ``repro.models.attention``'s prefill path.  Weights keep the
-reference's einsum layouts (``wq`` (d, h, hd), ``wk``/``wv`` (d, kvh, hd),
-``wo`` (h, hd, d), optional biases), so head slicing for the semantic
-plan ports line for line.  The reference picks ``full_attention`` up to
-2048 tokens and ``blockwise_attention`` above; both compute the function
-of the flash-attention kernel, which the port calls at any length
-(``repro_torch.kernels.flash_attention``: the CUDA kernel on the card,
-its eager twin on the CPU).
+The port of ``repro.models.attention``'s prefill and decode paths.
+Weights keep the reference's einsum layouts (``wq`` (d, h, hd),
+``wk``/``wv`` (d, kvh, hd), ``wo`` (h, hd, d), optional biases), so head
+slicing for the semantic plan ports line for line.  The reference picks
+``full_attention`` up to 2048 tokens and ``blockwise_attention`` above;
+both compute the function of the flash-attention kernel, which the port
+calls at any length (``repro_torch.kernels.flash_attention``: the CUDA
+kernel on the card, its eager twin on the CPU).  Decode attends one token
+to a ring-buffer cache through the same kernel, with the reference's
+position trick as the mask.
 """
 from __future__ import annotations
 
@@ -54,14 +56,63 @@ def _rope_qk(q, k, positions, cfg):
     return q, k
 
 
-def self_attention(p, x, positions, cfg, window=0):
+def self_attention(p, x, positions, cfg, window=0, explicit=False):
     """Full-sequence causal self attention (prefill).  x (b, s, d);
-    positions (b, s) are ``0..s-1``, the flash kernel's implicit ones.
-    Returns (y, (k, v))."""
+    positions (b, s) int32.  Without ``explicit`` the positions are
+    ``0..s-1``, the flash kernel's implicit ones; with it the kernel
+    masks by the given positions (offset or packed rows), as the
+    reference's ``full_attention`` does.  Returns (y, (k, v)), k after
+    the rotary embedding."""
     q, k, v = project_qkv(p, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
+    pos = positions.to(torch.int32).contiguous() if explicit else None
     out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                          causal=True, window=window)
+                          causal=True, window=window, pos_q=pos, pos_k=pos)
     h, hd, d = p["wo"].shape
     y = out.reshape(*out.shape[:2], h * hd) @ p["wo"].reshape(h * hd, d)
     return y, (k, v)
+
+
+# ------------------------------------------------------------- decoding
+
+#: the position of a ring slot not written yet: past every query, so the
+#: causal mask hides it (the reference's ``decode_attention`` trick)
+UNWRITTEN = 2 ** 30
+
+
+def init_attn_cache(cfg, batch, ctx_len, window=0, dtype=torch.bfloat16,
+                    device=None):
+    """A zero ring buffer of W = min(ctx_len, window) slots (ctx_len
+    without a window): ``{"k", "v"}`` each (batch, W, kvh, hd)."""
+    w = min(ctx_len, window) if window else ctx_len
+    shape = (batch, w, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p, x, cache, pos, cfg):
+    """One-token decode.  x (b, 1, d); pos the current position (a
+    Python int).  The token's k and v go to ring slot ``pos % W`` of the
+    cache, which is updated in place (one slot written, not the whole
+    buffer copied, unlike the reference's functional select) and
+    returned; attention is permutation-invariant over the slots, so the
+    ring needs no unrotation: the query sits at position 1, written slots
+    at 0 and the others at ``UNWRITTEN``, and the causal mask does the
+    rest."""
+    q, k, v = project_qkv(p, x, cfg)
+    b = x.shape[0]
+    pos_b = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k = _rope_qk(q, k, pos_b, cfg)
+    W = cache["k"].shape[1]
+    slot = pos % W
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    pos_k = torch.full((W,), UNWRITTEN, dtype=torch.int32, device=x.device)
+    pos_k[:min(pos + 1, W)] = 0
+    out = flash_attention(q.to(cache["k"].dtype).contiguous(), cache["k"],
+                          cache["v"], causal=True, window=0,
+                          pos_q=torch.ones_like(pos_b),
+                          pos_k=pos_k.expand(b, W).contiguous())
+    h, hd, d = p["wo"].shape
+    y = out.reshape(b, 1, h * hd).to(x.dtype) @ p["wo"].reshape(h * hd, d)
+    return y, cache

@@ -122,3 +122,24 @@ def causal_conv1d(x, weight, bias):
     pad = F.pad(x, (0, 0, k - 1, 0))
     out = sum(pad[:, i:i + x.shape[1], :] * weight[i] for i in range(k))
     return out + bias
+
+
+def conv_tail(x, k):
+    """The conv's decode state after a prefill: the last k-1 inputs of x
+    (b, s, d), zero-padded at the front when s < k-1."""
+    tail = x[:, -(k - 1):, :]
+    if tail.shape[1] < k - 1:
+        tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+    return tail
+
+
+def causal_conv1d_step(x_t, conv_state, weight, bias):
+    """One decode step of ``causal_conv1d``.  x_t (b, d); conv_state
+    (b, k-1, d) the past inputs, oldest first.  Returns (out (b, d), the
+    new state).  The reference's einsum over the k taps: products summed
+    in float32 and rounded once to the input's dtype, as a dot product
+    is."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (b, k, d)
+    out = sum(window[:, i].float() * weight[i].float()
+              for i in range(weight.shape[0]))
+    return out.to(x_t.dtype) + bias, window[:, 1:]

@@ -8,12 +8,22 @@ leading axis for ``lax.scan``; the port's forward is a plain loop over
 layers, and ``params_from_jax`` unstacks that axis).
 
 Public API:
-    init_params(cfg, generator, device)   -> params
-    params_from_jax(tree, cfg, device)    -> params
-    forward(params, batch, cfg)           -> logits (float32)
+    init_params(cfg, generator, device)            -> params
+    params_from_jax(tree, cfg, device)             -> params
+    forward(params, batch, cfg[, collect_cache])   -> logits (float32)
+                                                      [, cache]
+    prefill(params, batch, cfg, max_ctx)           -> (logits, cache)
+    init_cache(cfg, batch, ctx_len, sliding, device) -> cache
+    decode_step(params, tokens, cache, pos, cfg)   -> (logits, cache)
+    cache_from_jax(tree, cfg, device)              -> cache
 
-Other block kinds, explicit positions, M-RoPE, cross attention and
-decoding raise, naming the ROADMAP item that brings them.
+A batch holds ``tokens`` (b, s) and optionally explicit ``positions``
+(b, s) (offset or packed rows; without them they are ``0..s-1``).  A
+decode cache is a list with one dict per layer, as ``params["blocks"]``:
+``{"k", "v"}`` ring buffers for the attention blocks, ``{"h", "conv"}``
+states for the Mamba and RG-LRU blocks.  Other block kinds, M-RoPE,
+cross attention, codebooks and other batch entries raise, naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -31,33 +41,28 @@ from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
 #: the block kinds the port runs
 PORTED_KINDS = ("attn", "attn_moe", "mamba", "rglru", "local_attn")
 
-#: what the port does not run yet, and the ROADMAP queue-1 item that
-#: brings it; anything else not ported is item 18
-NOT_PORTED = {
-    "decode": "item 17 (decode and the KV cache)",
-    "positions": "item 17 (decode and the KV cache: explicit positions)",
-}
+#: the batch entries the port reads
+BATCH_KEYS = ("tokens", "positions")
 
 
 def _not_ported(what: str):
-    item = NOT_PORTED.get(what, "item 18 (the remaining model zoo)")
     return NotImplementedError(f"repro_torch does not run {what!r} yet "
-                               f"(ROADMAP queue 1 {item})")
+                               f"(ROADMAP queue 1 item 18, the remaining "
+                               f"model zoo)")
 
 
 def check_supported(cfg, batch=None):
     """Raise for a config or batch that needs what the port lacks: block
     kinds other than ``PORTED_KINDS``, position schemes other than rope or
-    none, and batch entries other than ``tokens``."""
+    none, and batch entries other than ``BATCH_KEYS``."""
     for kind in cfg.layer_kinds:
         if kind not in PORTED_KINDS:
             raise _not_ported(kind)
     if cfg.pos_emb not in ("rope", "none"):
         raise _not_ported(cfg.pos_emb)
     for key in batch or ():
-        if key != "tokens":
-            raise _not_ported("positions" if key.startswith("positions")
-                              else key)
+        if key not in BATCH_KEYS:
+            raise _not_ported(key)
 
 
 # ------------------------------------------------------------ parameters
@@ -137,6 +142,18 @@ def _index(tree, i):
     return tree[i]
 
 
+def _unstack(tree, cfg):
+    """The reference's (prefix, body periods stacked on a leading axis,
+    suffix) layout as one entry per layer, in that order."""
+    prefix, (pattern, periods), suffix = cfg.scan_segments
+    blocks = list(tree.get("prefix", []))
+    for i in range(periods):
+        period = _index(tree["body"], i)
+        blocks.extend(period[f"b{j}"] for j in range(len(pattern)))
+    blocks.extend(tree.get("suffix", []))
+    return blocks
+
+
 def params_from_jax(tree, cfg, device="cuda"):
     """The reference's parameter pytree (``repro.models.init_params``),
     given as NumPy arrays, as the port's parameters on ``device``: the
@@ -147,16 +164,18 @@ def params_from_jax(tree, cfg, device="cuda"):
     in float32 under a bfloat16 ``param_dtype``)."""
     check_supported(cfg)
     dev = resolve(device)
-    prefix, (pattern, periods), suffix = cfg.scan_segments
-    blocks = list(tree.get("prefix", []))
-    for i in range(periods):
-        period = _index(tree["body"], i)
-        blocks.extend(period[f"b{j}"] for j in range(len(pattern)))
-    blocks.extend(tree.get("suffix", []))
     params = {k: tree[k] for k in ("embed", "final_norm", "head")
               if k in tree}
-    params["blocks"] = blocks
+    params["blocks"] = _unstack(tree, cfg)
     return _to_tensors(params, dev)
+
+
+def cache_from_jax(tree, cfg, device="cuda"):
+    """The reference's decode cache (``repro.models.prefill`` /
+    ``init_cache`` / ``decode_step``), given as NumPy arrays, as the
+    port's per-layer list on ``device``, each leaf in its own dtype."""
+    check_supported(cfg)
+    return _to_tensors(_unstack(tree, cfg), resolve(device))
 
 
 # --------------------------------------------------------------- forward
@@ -166,6 +185,19 @@ def positions_of(tokens):
     b, s = tokens.shape[:2]
     return torch.arange(s, dtype=torch.int32,
                         device=tokens.device).expand(b, s)
+
+
+def batch_positions(batch):
+    """(positions (b, s) int32, explicit): the batch's own ``positions``,
+    or the implicit ``0..s-1``."""
+    tokens = batch["tokens"]
+    pos = batch.get("positions")
+    if pos is None:
+        return positions_of(tokens), False
+    if tuple(pos.shape) != tuple(tokens.shape[:2]):
+        raise ValueError(f"positions {tuple(pos.shape)} do not match "
+                         f"tokens {tuple(tokens.shape)}")
+    return pos.to(device=tokens.device, dtype=torch.int32), True
 
 
 def embed_tokens(params, tokens, cfg):
@@ -182,31 +214,63 @@ def block_window(kind, cfg):
     return cfg.sliding_window
 
 
-def apply_block(kind, p, x, positions, cfg):
-    """One block, each sub-layer pre-norm with a residual: ``"attn"`` and
-    ``"local_attn"`` are self attention then the MLP, ``"attn_moe"`` self
-    attention then the MoE FFN, ``"mamba"`` the Mamba mixer alone,
-    ``"rglru"`` the RG-LRU mixer then the MLP.  Returns the new residual
-    stream."""
+def _ring(t, w):
+    """The last w entries of t (b, s, ...) along axis 1, rolled so that
+    slot j holds the entry of index ≡ j (mod w); zero-padded to w when
+    s < w (the reference's ``apply_block`` cache layout)."""
+    s = t.shape[1]
+    if s >= w:
+        return torch.roll(t[:, s - w:], (s - w) % w, dims=1)
+    return torch.cat([t, t.new_zeros((t.shape[0], w - s) + t.shape[2:])],
+                     dim=1)
+
+
+def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None):
+    """One block; with ``cache_len`` also its decode cache.  Returns
+    (x, cache or None)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(kind)
+    collect = cache_len is not None
+    cache = None
     if kind == "mamba":
-        return x + ssm_mod.mamba_apply(
-            p["mamba"], rmsnorm(x, p["norm1"], cfg.norm_eps), cfg)
+        xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        if collect:
+            y, cache = ssm_mod.mamba_prefill(p["mamba"], xn, cfg)
+        else:
+            y = ssm_mod.mamba_apply(p["mamba"], xn, cfg)
+        return x + y, cache
     if kind == "rglru":
-        x = x + rglru_mod.rglru_apply(
-            p["rglru"], rmsnorm(x, p["norm1"], cfg.norm_eps), cfg)
+        xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        if collect:
+            y, cache = rglru_mod.rglru_prefill(p["rglru"], xn, cfg)
+        else:
+            y = rglru_mod.rglru_apply(p["rglru"], xn, cfg)
+        x = x + y
         return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
-                             cfg)
-    h, _ = attn.self_attention(p["attn"],
-                               rmsnorm(x, p["norm1"], cfg.norm_eps),
-                               positions, cfg,
-                               window=block_window(kind, cfg))
+                             cfg), cache
+    window = block_window(kind, cfg)
+    h, (k, v) = attn.self_attention(p["attn"],
+                                    rmsnorm(x, p["norm1"], cfg.norm_eps),
+                                    positions, cfg, window=window,
+                                    explicit=explicit)
+    if collect:
+        w = min(window or cache_len, cache_len)
+        dt = dtype_of(cfg.compute_dtype)
+        cache = {"k": _ring(k, w).to(dt), "v": _ring(v, w).to(dt)}
     x = x + h
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
-        return x + moe_mod.moe_apply(p["moe"], xn, cfg)
-    return x + mlp_apply(p["mlp"], xn, cfg)
+        return x + moe_mod.moe_apply(p["moe"], xn, cfg), cache
+    return x + mlp_apply(p["mlp"], xn, cfg), cache
+
+
+def apply_block(kind, p, x, positions, cfg, explicit=False):
+    """One block, each sub-layer pre-norm with a residual: ``"attn"`` and
+    ``"local_attn"`` are self attention then the MLP, ``"attn_moe"`` self
+    attention then the MoE FFN, ``"mamba"`` the Mamba mixer alone,
+    ``"rglru"`` the RG-LRU mixer then the MLP.  ``explicit`` says the
+    positions are not ``0..s-1``.  Returns the new residual stream."""
+    return _block(kind, p, x, positions, cfg, explicit)[0]
 
 
 def lm_head(params, x, cfg):
@@ -216,18 +280,100 @@ def lm_head(params, x, cfg):
     return (x @ w).float()
 
 
-def forward(params, batch, cfg):
-    """Full-sequence forward of ``batch["tokens"]`` (b, s); returns
-    float32 logits (b, s, vocab)."""
+def forward(params, batch, cfg, collect_cache=False, max_ctx=None):
+    """Full-sequence forward of ``batch["tokens"]`` (b, s), at the batch's
+    ``positions`` if it has them; returns float32 logits (b, s, vocab),
+    and with ``collect_cache`` also the decode cache of ``max_ctx``
+    (default s) slots per attention layer, each attention layer keeping
+    ``min(its window or max_ctx, max_ctx)`` of them."""
     check_supported(cfg, batch)
     tokens = batch["tokens"]
-    positions = positions_of(tokens)
+    positions, explicit = batch_positions(batch)
+    cache_len = (max_ctx or tokens.shape[1]) if collect_cache else None
     x = embed_tokens(params, tokens, cfg)
+    cache = []
     for kind, p in zip(cfg.layer_kinds, params["blocks"]):
-        x = apply_block(kind, p, x, positions, cfg)
-    return lm_head(params, x, cfg)
+        x, c = _block(kind, p, x, positions, cfg, explicit, cache_len)
+        cache.append(c)
+    logits = lm_head(params, x, cfg)
+    return (logits, cache) if collect_cache else logits
 
 
-def decode_step(params, tokens, cache, pos, cfg):
-    """One-token decode with a KV cache: not ported yet."""
-    raise _not_ported("decode")
+def prefill(params, batch, cfg, max_ctx=None):
+    """Full-sequence forward returning (logits, decode cache); ``max_ctx``
+    sets the attention caches' length, by default s + 32, so that decoding
+    continues past the prompt without wrapping the ring."""
+    if max_ctx is None:
+        max_ctx = batch["tokens"].shape[1] + 32
+    return forward(params, batch, cfg, collect_cache=True, max_ctx=max_ctx)
+
+
+# ---------------------------------------------------------------- decode
+
+def init_block_cache(kind, cfg, batch, ctx_len, sliding=None, device=None):
+    """A zero decode cache of one block for ``batch`` rows: attention
+    blocks keep a ring of ``min(ctx_len, W)`` slots, W the block's window
+    (``attn`` / ``attn_moe``: ``cfg.sliding_window``, else ``sliding``,
+    else ctx_len; ``local_attn``: the RG-LRU config's local window)."""
+    if kind not in PORTED_KINDS:
+        raise _not_ported(kind)
+    dtype = dtype_of(cfg.compute_dtype)
+    if kind in ("attn", "attn_moe"):
+        w = cfg.sliding_window or (sliding or ctx_len)
+        return attn.init_attn_cache(cfg, batch, ctx_len, window=w,
+                                    dtype=dtype, device=device)
+    if kind == "local_attn":
+        return attn.init_attn_cache(cfg, batch, ctx_len,
+                                    window=cfg.rglru.local_window,
+                                    dtype=dtype, device=device)
+    if kind == "mamba":
+        return ssm_mod.init_mamba_cache(cfg, batch, dtype, device=device)
+    return rglru_mod.init_rglru_cache(cfg, batch, dtype, device=device)
+
+
+def init_cache(cfg, batch, ctx_len, sliding=None, device="cuda"):
+    """A zero decode cache of every layer (``init_block_cache``)."""
+    check_supported(cfg)
+    dev = resolve(device)
+    return [init_block_cache(kind, cfg, batch, ctx_len, sliding, device=dev)
+            for kind in cfg.layer_kinds]
+
+
+def decode_block(kind, p, x, cache, pos, cfg):
+    """One block of one-token decode.  x (b, 1, d); returns (x, cache)."""
+    if kind not in PORTED_KINDS:
+        raise _not_ported(kind)
+    if kind == "mamba":
+        y, cache = ssm_mod.mamba_decode(
+            p["mamba"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, cfg)
+        return x + y, cache
+    if kind == "rglru":
+        y, cache = rglru_mod.rglru_decode(
+            p["rglru"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, cfg)
+        x = x + y
+        return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
+                             cfg), cache
+    h, cache = attn.decode_attention(
+        p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, pos, cfg)
+    x = x + h
+    xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
+    if kind == "attn_moe":
+        return x + moe_mod.moe_apply(p["moe"], xn, cfg), cache
+    return x + mlp_apply(p["mlp"], xn, cfg), cache
+
+
+def decode_step(params, tokens, cache, pos, cfg, batch_extras=None):
+    """One-token decode.  tokens (b, 1); pos the position of those tokens
+    (an int); cache from ``init_cache`` / ``prefill``, whose attention
+    ring buffers are written in place.  Returns (logits (b, 1, vocab)
+    float32, the new cache)."""
+    check_supported(cfg)
+    for key in batch_extras or ():
+        raise _not_ported(key)
+    pos = int(pos)
+    x = embed_tokens(params, tokens, cfg)
+    new_cache = []
+    for kind, p, c in zip(cfg.layer_kinds, params["blocks"], cache):
+        x, c = decode_block(kind, p, x, c, pos, cfg)
+        new_cache.append(c)
+    return lm_head(params, x, cfg), new_cache

@@ -16,9 +16,10 @@ w/gb), ``out`` (w, d)); ``b_a``, ``b_i`` and ``Lambda`` are float32
 whatever ``param_dtype`` says.  The recurrence is
 ``repro_torch.kernels.rglru_scan`` (the CUDA kernel on the card, its
 eager twin on the CPU), in place of the reference's chunked associative
-scan, which computes the same function.  The prefill that also returns a
-decode cache, the cache itself and one-token decode belong to ROADMAP
-queue 1 item 17 and raise naming it.
+scan, which computes the same function.  The prefill that also returns
+the decode cache takes the final state as the scan's last row; one-token
+decode is the recurrence's single step in eager PyTorch, as the
+reference writes it.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.layers import (activation_fn, causal_conv1d,
+                                       causal_conv1d_step, conv_tail,
                                        dense_init, softplus)
 
 _C = 8.0  # temperature of the a_t parameterization (Griffin)
@@ -91,22 +93,41 @@ def rglru_apply(p, x, cfg):
     return y @ p["out"]
 
 
-def _not_ported():
-    from repro_torch.models.model import _not_ported as raise_for
-    return raise_for("decode")
-
-
 def rglru_prefill(p, x, cfg):
-    """Full-sequence forward that also returns the decode cache: not
-    ported yet."""
-    raise _not_ported()
+    """Full-sequence forward that also returns the decode cache
+    ``{"h": the last state (b, w) float32, "conv": the last k-1 conv
+    inputs (b, k-1, w)}``."""
+    gelu = activation_fn("gelu")
+    xi = x @ p["in_x"]
+    gate = gelu(x @ p["in_gate"])
+    xc = causal_conv1d(xi, p["conv_w"], p["conv_b"])
+    a, bx = _gates(p, xc)
+    h = rglru_scan(a, bx)
+    del a, bx
+    y = h.to(x.dtype) * gate
+    cache = {"h": h[:, -1].clone(),
+             "conv": conv_tail(xi, cfg.rglru.conv_kernel).to(x.dtype)}
+    return y @ p["out"], cache
 
 
-def init_rglru_cache(cfg, batch, dtype=torch.float32):
-    """The decode cache: not ported yet."""
-    raise _not_ported()
+def init_rglru_cache(cfg, batch, dtype=torch.float32, device=None):
+    """A zero decode cache: the state (batch, w) float32 and the conv
+    inputs (batch, k-1, w) in ``dtype``."""
+    r = cfg.rglru
+    w = r.lru_width or cfg.d_model
+    return {"h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, r.conv_kernel - 1, w), dtype=dtype,
+                                device=device)}
 
 
 def rglru_decode(p, x, cache, cfg):
-    """One-token decode: not ported yet."""
-    raise _not_ported()
+    """One-token decode.  x (b, 1, d) -> ((b, 1, d), new cache)."""
+    gelu = activation_fn("gelu")
+    xi = x[:, 0] @ p["in_x"]
+    gate = gelu(x[:, 0] @ p["in_gate"])
+    xc, conv = causal_conv1d_step(xi, cache["conv"], p["conv_w"],
+                                  p["conv_b"])
+    a, bx = _gates(p, xc)
+    h = a * cache["h"] + bx
+    y = h.to(x.dtype) * gate
+    return (y @ p["out"])[:, None], {"h": h, "conv": conv}

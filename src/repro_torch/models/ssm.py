@@ -7,8 +7,9 @@ reference's layouts (``in_proj`` (d, 2·d_in), ``conv_w`` (k, d_in),
 says.  The scan is ``repro_torch.kernels.selective_scan`` (the CUDA kernel
 on the card, its eager twin on the CPU), in place of the reference's
 chunked associative scan, which computes the same function.  The prefill
-that also returns a decode cache, the cache itself and one-token decode
-belong to ROADMAP queue 1 item 17 and raise naming it.
+that also returns the decode cache takes the scan's final state from the
+same kernel; one-token decode is the recurrence's single step in eager
+PyTorch, as the reference writes it.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
-from repro_torch.models.layers import causal_conv1d, dense_init, softplus
+from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
+                                       conv_tail, dense_init, softplus)
 
 
 def mamba_init(generator, cfg, dtype, device=None):
@@ -78,22 +80,47 @@ def mamba_apply(p, x, cfg):
     return y @ p["out_proj"]
 
 
-def _not_ported():
-    from repro_torch.models.model import _not_ported as raise_for
-    return raise_for("decode")
-
-
 def mamba_prefill(p, x, cfg):
-    """Full-sequence forward that also returns the decode cache: not
-    ported yet."""
-    raise _not_ported()
+    """Full-sequence forward that also returns the decode cache
+    ``{"h": the scan's final state (b, d_in, n) float32, "conv": the last
+    k-1 conv inputs (b, k-1, d_in)}``."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    xz = x @ p["in_proj"]
+    xi, z = xz[..., :d_in], xz[..., d_in:]
+    xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    dA, dBx, C = _ssm_inputs(p, xc, cfg)
+    y, h_final = selective_scan(dA, dBx, C, final_state=True)
+    del dA, dBx
+    y = y + xc.float() * p["D"]
+    y = y.to(x.dtype) * F.silu(z)
+    cache = {"h": h_final,
+             "conv": conv_tail(xi, cfg.ssm.conv_kernel).to(x.dtype)}
+    return y @ p["out_proj"], cache
 
 
-def init_mamba_cache(cfg, batch, dtype=torch.float32):
-    """The decode cache: not ported yet."""
-    raise _not_ported()
+def init_mamba_cache(cfg, batch, dtype=torch.float32, device=None):
+    """A zero decode cache: the state (batch, d_in, n) float32 and the
+    conv inputs (batch, k-1, d_in) in ``dtype``; its size does not depend
+    on the context length."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    return {"h": torch.zeros((batch, d_in, s.state_dim), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, s.conv_kernel - 1, d_in),
+                                dtype=dtype, device=device)}
 
 
 def mamba_decode(p, x, cache, cfg):
-    """One-token decode: not ported yet."""
-    raise _not_ported()
+    """One-token decode.  x (b, 1, d) -> ((b, 1, d), new cache)."""
+    d_in = cfg.ssm.expand * cfg.d_model
+    xz = x[:, 0] @ p["in_proj"]
+    xi, z = xz[..., :d_in], xz[..., d_in:]
+    xc, conv = causal_conv1d_step(xi, cache["conv"], p["conv_w"],
+                                  p["conv_b"])
+    xc = F.silu(xc)
+    dA, dBx, C = _ssm_inputs(p, xc[:, None], cfg)
+    h = dA[:, 0].float() * cache["h"] + dBx[:, 0].float()
+    y = torch.einsum("bdn,bn->bd", h, C[:, 0].float())
+    y = y + xc.float() * p["D"]
+    y = y.to(x.dtype) * F.silu(z)
+    return (y @ p["out_proj"])[:, None], {"h": h, "conv": conv}

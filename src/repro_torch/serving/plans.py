@@ -57,13 +57,14 @@ def pipeline_forward(params, batch, cfg, num_stages: int, bounds=None):
     the serving engine passes Gillis-DP latency-balanced cuts."""
     M.check_supported(cfg, batch)
     tokens = batch["tokens"]
-    positions = M.positions_of(tokens)
+    positions, explicit = M.batch_positions(batch)
     x = M.embed_tokens(params, tokens, cfg)
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
     for lo, hi in (bounds or stage_bounds(len(kinds), num_stages)):
         for i in range(lo, hi):
-            x = M.apply_block(kinds[i], blocks[i], x, positions, cfg)
+            x = M.apply_block(kinds[i], blocks[i], x, positions, cfg,
+                              explicit)
     return M.lm_head(params, x, cfg)
 
 
@@ -115,7 +116,7 @@ def branch_forward(params, batch, cfg, num_branches: int):
     latency."""
     M.check_supported(cfg, batch)
     tokens = batch["tokens"]
-    positions = M.positions_of(tokens)
+    positions, explicit = M.batch_positions(batch)
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
 
@@ -123,8 +124,33 @@ def branch_forward(params, batch, cfg, num_branches: int):
         x = M.embed_tokens(params, tokens, cfg)
         for kind, block in zip(kinds, blocks):
             sliced = _slice_block_params(block, cfg, branch, num_branches)
-            x = M.apply_block(kind, sliced, x, positions, cfg)
+            x = M.apply_block(kind, sliced, x, positions, cfg, explicit)
         return M.lm_head(params, x, cfg)
 
     logits = [one_branch(b) for b in range(num_branches)]
     return sum(logits) / num_branches
+
+
+#: the card the napkin model prices (NVIDIA's data sheet, H100 SXM 80GB
+#: HBM3 at its 700 W limit): dense bfloat16 tensor-core peak and HBM rate
+PEAK_FLOPS_BF16 = 989e12
+HBM_BYTES_S = 3.35e12
+
+
+def plan_cost_model(cfg, plan: PlanSpec, seq: int, batch: int,
+                    chips_per_slice: int = 1):
+    """Napkin latency model (seconds) used to seed the MAB estimates:
+    the layer pipeline pays its sequential stages plus a hop per stage
+    boundary, the semantic plan one branch of 1/B of the work (the
+    branches run in parallel).  The reference's shape, priced for one
+    H100 instead of a TPU slice: compute at 40 % of the bf16 peak, and a
+    hop as the (batch, seq, d) bf16 activation written and read once in
+    HBM."""
+    flops = 2.0 * cfg.active_param_count() * seq * batch
+    rate = chips_per_slice * PEAK_FLOPS_BF16 * 0.4
+    if plan.kind == LAYER_PLAN:
+        hop_bytes = batch * seq * cfg.d_model * 2
+        per_stage = flops / plan.num_stages / rate
+        return plan.num_stages * per_stage + \
+            (plan.num_stages - 1) * 2 * hop_bytes / HBM_BYTES_S
+    return flops / plan.num_branches / rate

@@ -44,7 +44,8 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.core.daso", "repro_torch.launch.serve",
               "repro_torch.env.torchsim.reference", "repro_torch.obs",
               "repro_torch.obs.ledger", "repro_torch.env.legacy_sim",
-              "repro_torch.env.torchsim.stream"):
+              "repro_torch.env.torchsim.stream",
+              "repro_torch.launch.steps"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"
@@ -83,8 +84,9 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.env.torchsim import stream
+    from repro_torch.launch import steps
     from repro_torch.launch.experiments import run_grid_batched, run_stream
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import init_cache, init_params
     from repro_torch.serving.engine import SplitPlaceEngine
     cfg = get_config("tinyllama-1.1b").reduced()
     lit = {"Q": np.zeros((2, 2)), "N": np.zeros((2, 2)),
@@ -113,6 +115,10 @@ def _entry_points():
         "serve": lambda: stream.serve(eng, es0, feeder, target_tasks=4),
         "serve_stream_main": lambda: serve.main(["--stream", "--tasks",
                                                  "4"]),
+        "init_cache": lambda: init_cache(cfg, 1, ctx_len=4),
+        "make_prefill_step": lambda: steps.make_prefill_step(cfg),
+        "make_serve_step": lambda: steps.make_serve_step(cfg),
+        "make_eval_step": lambda: steps.make_eval_step(cfg),
     }
 
 
@@ -123,7 +129,9 @@ def _entry_points():
                                   "init_params", "SplitPlaceEngine",
                                   "serve_main", "run_stream",
                                   "StreamRunner", "serve",
-                                  "serve_stream_main"])
+                                  "serve_stream_main", "init_cache",
+                                  "make_prefill_step", "make_serve_step",
+                                  "make_eval_step"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -373,6 +373,7 @@ MOE_ROUTE_CASES = [  # (G, gs, E, k)
     (3, 77, 1024, 7),                                # the widest E
     (128, 512, 60, 4),       # more tiles than one wave: taken by ticket
     (1, 20000, 4, 2),        # a look-back longer than a CTA's threads
+    (1, 4, 60, 4),           # a decode step: 4 tokens, a partial tile
 ]
 
 
@@ -756,3 +757,91 @@ def test_stream_replay_matches_one_shot_on_cuda(cuda, policy):
     cs = chip_smoke()
     cs.stream_replay(policy, "cuda", mab_state=cs.MAB_LITERAL,
                      n_intervals=20, chunk=6, substeps=4)
+
+
+#: flash attention with explicit positions: decode shapes (sq=1 over a
+#: ring, g = 8, 1, 16; (b, W, h, kvh, hd, written slots)) and prefills
+#: with offset or packed rows (chip_smoke.FLASH_POS_CASES)
+FLASH_DECODE_CASES = [(4, 1056, 32, 4, 64, 1025), (4, 1056, 16, 16, 128, 1),
+                      (4, 1056, 16, 1, 256, 1056), (2, 40, 8, 2, 16, 23)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_positions_match_twin(cuda, case, dtype):
+    """The decode ring's position trick (query at 1, written slots at 0,
+    the others at 2**30) against the twin, at the reference's tolerance;
+    two runs bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, W, h, kvh, hd, valid = case
+    rng = np.random.RandomState(W + h + hd)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        cuda, dtype) for shape in ((b, 1, h, hd), (b, W, kvh, hd),
+                                   (b, W, kvh, hd)))
+    pq, pk = chip_smoke().ring_positions(b, W, valid)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, pos_q=pq, pos_k=pk)
+    again = flash_attention(q, k, v, pos_q=pq, pos_k=pk)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, pos_q=pq, pos_k=pk).float(), rtol=0, atol=atol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", chip_smoke().FLASH_POS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_prefill_positions_match_twin(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, s, h, kvh, hd, window, kind = case
+    rng = np.random.RandomState(s + hd)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        cuda, dtype) for shape in ((b, s, h, hd), (b, s, kvh, hd),
+                                   (b, s, kvh, hd)))
+    pos = chip_smoke().prefill_positions(b, s, kind)
+    got = flash_attention(q, k, v, window=window, pos_q=pos, pos_k=pos)
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), attention_ref(
+        q, k, v, window=window, pos_q=pos, pos_k=pos).float(), rtol=0,
+        atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SCAN_CASES + [(4, 1024, 8192, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_final_state_matches_twin(cuda, case, dtype):
+    """``h_final`` (the state ``mamba_prefill`` caches) against the twin's
+    at rtol/atol 1e-5, and y with it the bits of y without it."""
+    from repro_torch.kernels.ref import selective_scan_ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    b, s, d, n = case
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    dA, dBx, C = chip_smoke()._scan_inputs(gen, b, s, d, n, dtype)
+    y, h = selective_scan(dA, dBx, C, final_state=True)
+    want_y, want_h = selective_scan_ref(dA, dBx, C, final_state=True)
+    assert h.dtype == torch.float32 and h.shape == (b, d, n)
+    torch.testing.assert_close(h, want_h, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y, want_y, rtol=1e-5, atol=1e-5)
+    assert torch.equal(y, selective_scan(dA, dBx, C))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+def test_decode_matches_cpu(cuda, arch):
+    """The reduced model's prefill step and decode steps (the ring wraps;
+    TinyLlama also over a zero 8-slot ring to position 16) on the card
+    against the CPU, logits and every cache leaf at rtol 1e-4 / atol
+    1e-5 (``chip_smoke.decode_cross``)."""
+    cs = chip_smoke()
+    card, host = cs.decode_cross(arch, cuda), cs.decode_cross(arch, "cpu")
+    assert len(card) == len(host) > cs.DECODE_CROSS["steps"]
+    for g, w in zip(card, host):
+        for a, b in zip(g, w):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+

@@ -189,3 +189,43 @@ def test_mab_state_from_reference_fields():
     d = {k: np.asarray(getattr(ref, k)) for k in FIELDS}
     st = tmab.mab_state_from_numpy(d, device="cpu")
     _assert_state_equal(st, ref, "carried")
+
+
+def test_interval_rewards_bucketing():
+    """The reference test's four tasks (two high-SLA layer splits, two
+    low-SLA semantic ones): counts and mean rewards per bucket."""
+    s = tmab.init_state(1, device="cpu")
+    s = s._replace(R=torch.tensor([[10.0]]))
+    apps = torch.zeros(4, dtype=torch.int32)
+    sla = torch.tensor([20.0, 20.0, 5.0, 5.0])        # 2 high, 2 low
+    resp = torch.tensor([15.0, 25.0, 4.0, 6.0])       # met, miss, met, miss
+    acc = torch.tensor([0.9, 0.9, 0.8, 0.8])
+    dec = torch.tensor([0, 0, 1, 1], dtype=torch.int32)
+    O, cnt = tmab.interval_rewards(s, apps, sla, resp, acc, dec)
+    assert O.shape == cnt.shape == (2, 2) and O.dtype == torch.float32
+    np.testing.assert_allclose(cnt.numpy(), [[2, 0], [0, 2]])
+    np.testing.assert_allclose(float(O[tmab.HIGH, tmab.LAYER]), 0.7,
+                               rtol=1e-6)
+    np.testing.assert_allclose(float(O[tmab.LOW, tmab.SEMANTIC]), 0.65,
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_interval_rewards_matches_reference(seed):
+    """The unmasked form against ``repro.core.mab.interval_rewards`` on
+    fuzzed rows (12 of them: the reference's sums in row order)."""
+    rng = np.random.RandomState(seed)
+    d = _rand_state(rng)
+    n = 12
+    apps = rng.randint(0, 3, n).astype(np.int32)
+    sla = rng.uniform(100, 5000, n).astype(np.float32)
+    resp = rng.uniform(100, 5000, n).astype(np.float32)
+    acc = rng.uniform(0.5, 1.0, n).astype(np.float32)
+    dec = rng.randint(0, 2, n).astype(np.int32)
+    wO, wc = jmab.interval_rewards(_jax_state(d), *map(jnp.asarray, (
+        apps, sla, resp, acc, dec)))
+    gO, gc = tmab.interval_rewards(
+        tmab.mab_state_from_numpy(d, device="cpu"),
+        *map(torch.from_numpy, (apps, sla, resp, acc, dec)))
+    np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+    np.testing.assert_allclose(gO.numpy(), np.asarray(wO), rtol=1e-6)

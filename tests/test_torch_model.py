@@ -205,9 +205,10 @@ def test_branch_forward_matches_reference(small):
                                        ("musicgen-medium", "item 18"),
                                        ("qwen2-vl-7b", "item 18")])
 def test_unported_archs_raise(arch, item):
-    """MoE, Mamba and RG-LRU hybrid models build on the CPU at the reduced
-    size and raise only for decoding (item 17); the other archs raise at
-    init."""
+    """MoE, Mamba and RG-LRU hybrid models, which raised for decoding
+    until item 17 was ported, build on the CPU at the reduced size and
+    now decode one token from a zero cache; the other archs raise at
+    init, naming item 18."""
     cfg = get_config(arch).reduced()
     if item != "item 17":
         with pytest.raises(NotImplementedError, match=item):
@@ -220,8 +221,10 @@ def test_unported_archs_raise(arch, item):
     assert sum(a.numel() for a in _leaves(params).values()) == \
         cfg.param_count() + gates
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=item):
-        tmodel.decode_step(params, tok, None, 0, cfg)
+    cache = tmodel.init_cache(cfg, 1, ctx_len=4, device="cpu")
+    logits, cache = tmodel.decode_step(params, tok, cache, 0, cfg)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
 
 
 #: leaves the reference keeps in float32 whatever ``param_dtype`` says
@@ -282,11 +285,23 @@ def test_bfloat16_routing_matches_reference():
 
 
 def test_unported_batches_raise(small):
+    """Explicit positions and decoding run since item 17; M-RoPE's
+    ``positions3`` and cross attention's ``cond`` still raise, naming
+    item 18."""
     _, cfg, _, params, tok = small
     t = torch.from_numpy(tok)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmodel.forward(params, {"tokens": t, "positions": t}, cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmodel.decode_step(params, t[:, :1], None, 16, cfg)
+    pos = tmodel.positions_of(t)
+    assert torch.equal(tmodel.forward(params, {"tokens": t,
+                                               "positions": pos}, cfg),
+                       tmodel.forward(params, {"tokens": t}, cfg))
+    cache = tmodel.init_cache(cfg, t.shape[0], ctx_len=32, device="cpu")
+    logits, _ = tmodel.decode_step(params, t[:, :1], cache, 16, cfg)
+    assert torch.isfinite(logits).all()
+    for key in ("positions3", "cond"):
+        with pytest.raises(NotImplementedError, match="item 18"):
+            tmodel.forward(params, {"tokens": t, key: t}, cfg)
     with pytest.raises(NotImplementedError, match="item 18"):
         tplans.branch_forward(params, {"tokens": t, "cond": t}, cfg, 2)
+    with pytest.raises(NotImplementedError, match="item 18"):
+        tmodel.decode_step(params, t[:, :1], cache, 16, cfg,
+                           batch_extras={"cond": t})

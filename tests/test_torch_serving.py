@@ -234,3 +234,46 @@ def test_engine_matches_reference_over_20_requests():
     _close(teng.slice_load, jeng.slice_load, rtol=1e-6)
     for tl_, jl_ in zip(teng._theta, jeng._theta):
         _close(tl_["w"], jl_["w"], atol=1e-6)
+
+
+def test_memory_feasible_partition_respects_budget():
+    """The reference test's six 3-byte layers under a 7-byte budget, and a
+    budget no layer fits; the cuts equal the reference's."""
+    from repro.core import partitioner as jpart
+    from repro_torch.core import partitioner as tpart
+    costs = [tpart.LayerCost(1.0, 1.0, float(p)) for p in [3] * 6]
+    cuts = tpart.memory_feasible_partition(costs, ram_budget_bytes=7.0)
+    for a, b in zip(cuts[:-1], cuts[1:]):
+        assert sum(c.param_bytes for c in costs[a:b]) <= 7.0
+    with pytest.raises(ValueError):
+        tpart.memory_feasible_partition(costs, ram_budget_bytes=2.0)
+    assert cuts == jpart.memory_feasible_partition(
+        [jpart.LayerCost(1.0, 1.0, 3.0)] * 6, ram_budget_bytes=7.0)
+    real = tpart.model_layer_costs(get_config("tinyllama-1.1b"), seq=128,
+                                   batch=1)
+    jreal = [jpart.LayerCost(c.flops, c.out_bytes, c.param_bytes)
+             for c in real]
+    for layers in (1.5, 4.0, 9.0):
+        budget = layers * real[0].param_bytes
+        assert tpart.memory_feasible_partition(real, budget) == \
+            jpart.memory_feasible_partition(jreal, budget)
+
+
+def test_plan_cost_model_orders_latency():
+    """The semantic plan is quicker than the layer pipeline (the reference
+    test's ordering; the port prices one H100, not a TPU slice), and more
+    branches or stages move each plan the reference's way."""
+    from repro_torch.serving.plans import (LAYER_PLAN, SEMANTIC_PLAN,
+                                           PlanSpec, plan_cost_model)
+    cfg = get_config("tinyllama-1.1b")
+    lat = {(kind, n): plan_cost_model(
+        cfg, PlanSpec(kind, num_stages=n, num_branches=n), seq=128, batch=4)
+        for kind in (LAYER_PLAN, SEMANTIC_PLAN) for n in (2, 4)}
+    assert lat[(SEMANTIC_PLAN, 4)] < lat[(LAYER_PLAN, 4)]
+    assert lat[(SEMANTIC_PLAN, 4)] < lat[(SEMANTIC_PLAN, 2)]
+    assert lat[(LAYER_PLAN, 2)] < lat[(LAYER_PLAN, 4)]
+    jlat = {(kind, n): jplans.plan_cost_model(
+        jget_config("tinyllama-1.1b"), jplans.PlanSpec(
+            kind, num_stages=n, num_branches=n), seq=128, batch=4)
+        for kind, n in lat}
+    assert sorted(lat, key=lat.get) == sorted(jlat, key=jlat.get)

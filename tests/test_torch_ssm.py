@@ -106,13 +106,25 @@ def test_mamba_init_layout(block):
 
 
 def test_decode_paths_raise(block):
-    _, cfg, _, tp, x = block
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tssm.mamba_prefill(tp, torch.from_numpy(x), cfg)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tssm.init_mamba_cache(cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tssm.mamba_decode(tp, torch.from_numpy(x[:, :1]), None, cfg)
+    """The decode paths, which raised until ROADMAP item 17 was ported:
+    ``mamba_prefill`` (output and cache), ``init_mamba_cache`` and one
+    ``mamba_decode`` step from the prefill's cache match the reference
+    (the single-layer tolerance)."""
+    jcfg, cfg, jp, tp, x = block
+    wy, wc = jssm.mamba_prefill(jp, jnp.asarray(x), jcfg)
+    gy, gc = tssm.mamba_prefill(tp, torch.from_numpy(x), cfg)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **LAYER)
+    for k in ("h", "conv"):
+        np.testing.assert_allclose(gc[k].numpy(), np.asarray(wc[k]), **LAYER)
+    zero = tssm.init_mamba_cache(cfg, 2)
+    for k, w in jssm.init_mamba_cache(jcfg, 2).items():
+        assert tuple(zero[k].shape) == w.shape and not zero[k].any()
+    step = x[:, :1] * 0.7
+    wy, wc = jssm.mamba_decode(jp, jnp.asarray(step), wc, jcfg)
+    gy, gc = tssm.mamba_decode(tp, torch.from_numpy(step), gc, cfg)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(wy), **LAYER)
+    for k in ("h", "conv"):
+        np.testing.assert_allclose(gc[k].numpy(), np.asarray(wc[k]), **LAYER)
 
 
 @pytest.fixture(scope="module")
