@@ -76,7 +76,8 @@ to 0 just before and read just after:
 * interval telemetry (``telemetry``) — each simulator path above
   (``bestfit-rr``, ``mab``, ``splitplace``, ``splitplace`` and ``mab`` in
   train mode, ``gillis``, ``random+daso``) with ``telemetry="interval"``
-  beside its summary run, 3 interleaved calls each: equal summaries, a
+  beside its summary run, 3 interleaved calls each (1 on the paths with
+  a DASO stage): equal summaries, a
   finite (16, 100, 18 + engine columns) series whose ``n_fin`` and
   ``energy_j`` sum to the totals, no added host read, cell 0 against the
   port's host ``EdgeSim`` oracle (``torchsim.reference``) at
@@ -111,6 +112,29 @@ to 0 just before and read just after:
   step; each decode logit within 0.25 of the largest logit of the
   teacher-forced forward; TinyLlama-1.1B at full width in float32 within
   2e-3 of its forward over 8 teacher-forced steps;
+* training — the four backward kernels (flash attention's dQ and dK/dV
+  passes, both scans', ``moe_route``'s gates) against their twins at the
+  reference's kernel-test shapes, the training shape (bf16, b=8, s=256,
+  32/4 heads, hd=64), hd=128 at 16/16, hd=256 at 16/1 with window 2048
+  at s=4096, (4, 1024, 8192, 16), (4, 1024, 4096) and G=1, gs=4096, E=60,
+  k=4 (float32 atol 1e-4, bf16 2e-2 of each output's scale; flash also
+  against autograd of ``attention_ref``; two runs bitwise equal; the
+  flash forward with its logsumexp gives the serving forward's bits),
+  timed from CUDA graphs beside ``scaled_dot_product_attention``'s
+  backward; then ``launch.train.main`` at the reference's defaults on
+  TinyLlama-1.1B at full width and depth (100 steps of 8 × 256 tokens,
+  bf16, AdamW, remat): the loss must improve, every step launches flash
+  44 times forward and 22 backward, the state after step 50 is
+  checkpointed and restored bit-exactly, one step is profiled; three
+  steps of each reduced float32 model on the card against the CPU; ten
+  steps each of qwen2-moe-a2.7b (2 layers), falcon-mamba-7b (2) and
+  recurrentgemma-9b (3) at full width on 4 × 1024 tokens, each freed
+  before the next, whose losses must fall; then qwen2-moe's slow fall
+  probed (``train_moe_probe``): one step's float32 gradients through the
+  kernels against autograd through the twins, per group of leaves
+  (within 1e-4), the blocks' output rms at init, and the losses in
+  float32, without the clip, with the experts drawn at 1/√d, and over 30
+  steps;
 
 profiles one more ``bestfit-rr`` run for each simulator kernel's summed
 device time, and cross-checks the GPU driver against the committed golden
@@ -133,6 +157,7 @@ Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1523,6 +1548,1004 @@ def rglru_scan_phase():
         f"{rec['ms_bfloat16']:.4f} ms/call; bound {rec['bound_ms']:.5f} ms "
         f"({rec['bound_by']}); no single PyTorch call computes it")
     return rec
+
+
+# ------------------------------------------------------ training kernels
+
+#: the backward kernels' tolerance against their twins, of each output's
+#: largest entry
+TRAIN_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: flash backward shapes (b, s, h, kvh, hd, window): the training shape of
+#: TinyLlama-1.1B (the main path's), qwen2-moe's heads at hd=128 and
+#: recurrentgemma's at hd=256 where its 2048-token window bites
+TRAIN_FLASH = [(8, 256, 32, 4, 64, 0), (4, 1024, 16, 16, 128, 0),
+               (1, 4096, 16, 1, 256, 2048)]
+TRAIN_SCAN = (4, 1024, 8192, 16)
+TRAIN_RGLRU = (4, 1024, 4096)
+TRAIN_ROUTE = (1, 4096, 60, 4)
+
+
+def _scaled_err(got, want, where, atol, floor=1e-30):
+    """The largest |got - want|; raises past ``atol`` times want's largest
+    entry (at least ``floor``)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(float(want.float().abs().max()), floor)
+    if not err <= atol * scale:
+        raise AssertionError(f"{where}: max abs err {err:.3e} > {atol} x "
+                             f"scale {scale:.3e}")
+    return err
+
+
+def _flash_train_check(q, k, v, causal, window, dtype, where, pos_q=None,
+                       pos_k=None, autograd=True):
+    """The forward with its logsumexp (output bitwise the serving
+    forward's), the backward kernel against its twin (each fed its own
+    forward) and against autograd of ``attention_ref``, two backward runs
+    bitwise equal.  Returns (largest absolute error, do)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    kw = dict(causal=causal, window=window, pos_q=pos_q, pos_k=pos_k)
+    atol = TRAIN_ATOL[dtype]
+    out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+    if not torch.equal(out, flash_attention_cuda(q, k, v, **kw)):
+        raise AssertionError(f"{where}: the forward with lse differs from "
+                             f"the forward without")
+    want_o, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+    fin = torch.isfinite(want_lse)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError(f"{where}: lse's +inf rows differ")
+    worst = _scaled_err(lse[fin], want_lse[fin], f"{where} lse", 1e-5)
+    gen = torch.Generator(device="cuda").manual_seed(q.numel() % 9973)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    got = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    again = flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    want = attention_bwd_ref(q, k, v, want_o, want_lse, do, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype != q.dtype or a.shape != b.shape:
+            raise AssertionError(f"{where}: {name} {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        worst = max(worst, _scaled_err(a, b, f"{where} {name} vs twin",
+                                       atol))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{where}: two backward runs differ")
+    if autograd:
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        ref = torch.autograd.grad(attention_ref(qs, ks, vs, **kw),
+                                  (qs, ks, vs), do)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            worst = max(worst, _scaled_err(
+                a, b, f"{where} {name} vs autograd of attention_ref", atol))
+    torch.cuda.synchronize()
+    return worst, do
+
+
+def _flash_bwd_bound(b, s, h, kvh, hd, window, dtype_bytes, peak):
+    """(bytes, operations) of the backward at a causal self-attention
+    shape: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
+    five products over the visible pairs (S, dV, dP, dQ, dK)."""
+    pairs = _visible_pairs(s, window)
+    q_elems, kv_elems = b * s * h * hd, 2 * b * s * kvh * hd
+    reads = 3 * q_elems + kv_elems          # q, o, dO; k, v
+    writes = q_elems + kv_elems             # dq; dk, dv
+    nbytes = (reads + writes) * dtype_bytes + b * h * s * 4
+    return nbytes, 10.0 * b * h * hd * pairs
+
+
+def sdpa_bwd_ms(q, k, v, do, lib_kw, reps=5):
+    """Device ms of ``scaled_dot_product_attention``'s backward on (b, h,
+    s, hd) inputs that require grad: a CUDA graph of its forward and
+    backward (``autograd.grad``) less a graph of its forward alone, both
+    as ``graph_ms`` times them."""
+    import torch
+    import torch.nn.functional as F
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                              **lib_kw)
+    both = graph_ms(lambda: torch.autograd.grad(fwd(), (q, k, v), do),
+                    reps)
+    return both - graph_ms(fwd, reps)
+
+
+def train_flash_phase():
+    """The flash backward on the card: the reference's test shapes and the
+    bfloat16 kernel's tile edges (float32 and bfloat16), explicit
+    positions, then TRAIN_FLASH in bfloat16; timed (CUDA graphs) at the
+    training shape beside the twin and the library's
+    ``scaled_dot_product_attention`` backward (``sdpa_bwd_ms``; a
+    yardstick only, the port never calls it)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    rng = np.random.RandomState(3)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype in ("float32", "bfloat16"):
+        for b, sq, sk, h, kvh, hd, causal, window in FLASH_CASES + \
+                FLASH_EDGES:
+            q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype)
+            err, _ = _flash_train_check(
+                q, k, v, causal, window, dtype,
+                f"flash bwd {dtype} {(b, sq, sk, h, kvh, hd)} "
+                f"causal={causal} window={window}")
+            worst[dtype] = max(worst[dtype], err)
+            n += 1
+        for b, s, h, kvh, hd, window, kind in FLASH_POS_CASES:
+            q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, dtype)
+            pos = prefill_positions(b, s, kind)
+            err, _ = _flash_train_check(
+                q, k, v, True, window, dtype,
+                f"flash bwd {dtype} {kind} positions {(b, s, h, kvh, hd)}",
+                pos_q=pos, pos_k=pos)
+            worst[dtype] = max(worst[dtype], err)
+            n += 1
+    log(f"flash_attention backward at {n} shapes (the reference's test "
+        f"cases, the tile edges and explicit positions, float32 and "
+        f"bfloat16) matches its twin and autograd of attention_ref "
+        f"(atol {TRAIN_ATOL['float32']} / {TRAIN_ATOL['bfloat16']} of each "
+        f"output's scale): max abs err float32 {worst['float32']:.3e}, "
+        f"bfloat16 {worst['bfloat16']:.3e}; the "
+        f"forward with lse gives the serving forward's bits; two backward "
+        f"runs bitwise equal")
+    rec = None
+    for b, s, h, kvh, hd, window in TRAIN_FLASH:
+        q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, "bfloat16")
+        where = f"flash bwd bfloat16 b={b} s={s} h={h} kvh={kvh} hd={hd} " \
+                f"window={window}"
+        err, do = _flash_train_check(q, k, v, True, window, "bfloat16",
+                                     where, autograd=s <= 1024)
+        kw = dict(window=window)
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
+        ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                       do, **kw), 5)
+        fwd_ms = graph_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10)
+        fwd_lse_ms = graph_ms(lambda: flash_attention_cuda(
+            q, k, v, with_lse=True, **kw), 10)
+        want_o, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+        plain_ms = cuda_ms(lambda: attention_bwd_ref(
+            q, k, v, want_o, want_lse, do, **kw), 2)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        if window and window < s:
+            pos = torch.arange(s, device="cuda")
+            lag = pos[:, None] - pos[None, :]
+            lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
+        else:
+            lib_kw = dict(is_causal=True)
+        library_ms = sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2), lib_kw)
+        nbytes, flops = _flash_bwd_bound(b, s, h, kvh, hd, window, 2,
+                                         H100_BF16_S)
+        sub = _record("flash_attention_bwd",
+                      "src/repro_torch/kernels/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:87", err, ms,
+                      plain_ms, nbytes, flops, peak=H100_BF16_S,
+                      library_ms=library_ms)
+        sub["shape"] = {"b": b, "s": s, "h": h, "kvh": kvh, "hd": hd,
+                        "window": window}
+        sub["forward_ms"] = fwd_ms
+        sub["forward_lse_ms"] = fwd_lse_ms
+        log(f"{where}: backward {ms:.4f} ms/call (CUDA graphs; twin "
+            f"{plain_ms:.3f}, scaled_dot_product_attention's backward "
+            f"{library_ms:.4f} ms/call from graphs), bound "
+            f"{sub['bound_ms']:.5f} ms ({sub['bound_by']}), "
+            f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; forward without "
+            f"lse {fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms; max abs "
+            f"err {err:.3e}")
+        del qt, kt, vt, want_o, want_lse
+        if rec is None:
+            rec = sub
+            rec["gradient_of"] = "flash_attention"
+        else:
+            rec[f"hd{hd}"] = {key: sub[key] for key in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "forward_ms", "forward_lse_ms")}
+    return rec
+
+
+def train_scan_phase():
+    """selective_scan's and rglru_scan's backward kernels against their
+    twins: the reference's test shapes and the model's (float32 and
+    bfloat16 inputs), two runs bitwise equal; timed at TRAIN_SCAN and
+    TRAIN_RGLRU in float32 (CUDA graphs)."""
+    import torch
+    from repro_torch.kernels.ref import (rglru_scan_bwd_ref,
+                                         rglru_scan_ref,
+                                         selective_scan_bwd_ref)
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    recs = []
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in SCAN_CASES + [TRAIN_SCAN]:
+            dA, dBx, C = _scan_inputs(gen, *case, dtype)
+            gy = torch.randn(case[:3], generator=gen, device="cuda")
+            where = f"selective_scan bwd {case} {dtype}"
+            got = selective_scan_bwd_cuda(dA, dBx, C, gy)
+            again = selective_scan_bwd_cuda(dA, dBx, C, gy)
+            want = selective_scan_bwd_ref(dA, dBx, C, gy)
+            atol = TRAIN_ATOL[str(dtype).split(".")[-1]]
+            err = max(_scaled_err(a, b, f"{where} {name}", atol)
+                      for name, a, b in zip(("g_dA", "g_dBx", "g_C"), got,
+                                            want))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{where}: two runs differ")
+            if got[0].dtype != dtype or got[1].dtype != dtype:
+                raise AssertionError(f"{where}: dtypes {got[0].dtype}")
+            worst[("scan", dtype)] = max(worst.get(("scan", dtype), 0.0),
+                                         err)
+    args = (dA, dBx, C, gy) = (*_scan_inputs(gen, *TRAIN_SCAN,
+                                             torch.float32), gy.float())
+    ms = graph_ms(lambda: selective_scan_bwd_cuda(*args), 2)
+    plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args), 1)
+    outs = selective_scan_bwd_cuda(*args)
+    b, s, d, n = TRAIN_SCAN
+    rec = _record("selective_scan_bwd",
+                  "src/repro_torch/kernels/csrc/selective_scan.cu",
+                  "src/repro/kernels/selective_scan.py:61",
+                  worst[("scan", torch.float32)], ms, plain_ms,
+                  _nbytes(list(args) + list(outs)), 8.0 * b * s * d * n,
+                  peak=H100_FP32_S)
+    rec["gradient_of"] = "selective_scan"
+    rec["max_abs_err_bfloat16"] = worst[("scan", torch.bfloat16)]
+    log(f"selective_scan backward at the reference's {len(SCAN_CASES)} "
+        f"test shapes and {TRAIN_SCAN}: matches its twin (atol 1e-4 / 2e-2 "
+        f"of each output's scale; max abs err float32 "
+        f"{rec['max_abs_err']:.3e}, bfloat16 inputs "
+        f"{rec['max_abs_err_bfloat16']:.3e}), bitwise repeatable; float32 "
+        f"at {TRAIN_SCAN}: {ms:.4f} ms/call (graphs; twin {plain_ms:.2f}), "
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    recs.append(rec)
+    del args, outs, dA, dBx, C
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in RGLRU_CASES + [TRAIN_RGLRU]:
+            a = (0.8 + 0.2 * torch.rand(shape, generator=gen,
+                                        device="cuda")).to(dtype)
+            bx = (0.1 * torch.randn(shape, generator=gen,
+                                    device="cuda")).to(dtype)
+            h = rglru_scan_ref(a, bx)
+            gh = torch.randn(shape, generator=gen, device="cuda")
+            where = f"rglru_scan bwd {shape} {dtype}"
+            got = rglru_scan_bwd_cuda(a, h, gh)
+            again = rglru_scan_bwd_cuda(a, h, gh)
+            want = rglru_scan_bwd_ref(a, h, gh)
+            atol = TRAIN_ATOL[str(dtype).split(".")[-1]]
+            err = max(_scaled_err(x, y, f"{where} {name}", atol)
+                      for name, x, y in zip(("g_a", "g_bx"), got, want))
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise AssertionError(f"{where}: two runs differ")
+            if got[0].dtype != dtype:
+                raise AssertionError(f"{where}: dtype {got[0].dtype}")
+            worst[("rglru", dtype)] = max(
+                worst.get(("rglru", dtype), 0.0), err)
+    a = (0.8 + 0.2 * torch.rand(TRAIN_RGLRU, generator=gen, device="cuda"))
+    bx = 0.1 * torch.randn(TRAIN_RGLRU, generator=gen, device="cuda")
+    h = rglru_scan_ref(a, bx)
+    gh = torch.randn(TRAIN_RGLRU, generator=gen, device="cuda")
+    ms = graph_ms(lambda: rglru_scan_bwd_cuda(a, h, gh), 10)
+    plain_ms = cuda_ms(lambda: rglru_scan_bwd_ref(a, h, gh), 1)
+    outs = rglru_scan_bwd_cuda(a, h, gh)
+    b, s, w = TRAIN_RGLRU
+    rec = _record("rglru_scan_bwd",
+                  "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                  "src/repro/kernels/rglru_scan.py:53",
+                  worst[("rglru", torch.float32)], ms, plain_ms,
+                  _nbytes([a, h, gh] + list(outs)), 4.0 * b * s * w,
+                  peak=H100_FP32_S)
+    rec["gradient_of"] = "rglru_scan"
+    rec["max_abs_err_bfloat16"] = worst[("rglru", torch.bfloat16)]
+    log(f"rglru_scan backward at the reference's {len(RGLRU_CASES)} test "
+        f"shapes and {TRAIN_RGLRU}: matches its twin (max abs err "
+        f"float32 {rec['max_abs_err']:.3e}, bfloat16 inputs "
+        f"{rec['max_abs_err_bfloat16']:.3e}), bitwise repeatable; float32 "
+        f"{ms:.4f} ms/call (graphs; twin {plain_ms:.2f}), bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    recs.append(rec)
+    return recs
+
+
+def train_route_phase():
+    """moe_route's gate backward against its twin and against autograd of
+    ``moe_route_ref``'s gates, at the routing test shapes and the training
+    shape; two runs bitwise equal; timed from CUDA graphs at
+    TRAIN_ROUTE."""
+    import torch
+    from repro_torch.kernels.moe_route import (moe_route_bwd_cuda,
+                                               moe_route_cuda)
+    from repro_torch.kernels.ref import moe_route_bwd_ref, moe_route_ref
+    rng = np.random.RandomState(5)
+    worst = 0.0
+    for G, gs, E, k in MOE_ROUTE_CASES:
+        logits = _route_logits(rng, G, gs, E)
+        eid = moe_route_cuda(logits, k)[0]
+        g_gate = torch.from_numpy(rng.randn(G, gs, k)).float().cuda()
+        where = f"moe_route bwd {(G, gs, E, k)}"
+        got = moe_route_bwd_cuda(logits, eid, g_gate)
+        again = moe_route_bwd_cuda(logits, eid, g_gate)
+        want = moe_route_bwd_ref(logits, eid, g_gate)
+        err = _scaled_err(got, want, f"{where} vs twin",
+                          TRAIN_ATOL["float32"])
+        lg = logits.detach().requires_grad_()
+        ref = torch.autograd.grad(moe_route_ref(lg, k)[1], lg, g_gate)[0]
+        # at k=1 the gate is 1 and its gradient 0: autograd's is rounding,
+        # so the scale is at least the incoming gradient's
+        err = max(err, _scaled_err(got, ref, f"{where} vs autograd",
+                                   TRAIN_ATOL["float32"],
+                                   floor=float(g_gate.abs().max())))
+        if not torch.equal(got, again):
+            raise AssertionError(f"{where}: two runs differ")
+        worst = max(worst, err)
+    G, gs, E, k = TRAIN_ROUTE
+    logits = _route_logits(rng, G, gs, E)
+    eid = moe_route_cuda(logits, k)[0]
+    g_gate = torch.from_numpy(rng.randn(G, gs, k)).float().cuda()
+    ms = graph_ms(lambda: moe_route_bwd_cuda(logits, eid, g_gate), 20)
+    plain_ms = cuda_ms(lambda: moe_route_bwd_ref(logits, eid, g_gate), 5)
+    out = moe_route_bwd_cuda(logits, eid, g_gate)
+    rec = _record("moe_route_bwd",
+                  "src/repro_torch/kernels/csrc/moe_route.cu",
+                  "src/repro/kernels/moe_route.py:83", worst, ms, plain_ms,
+                  _nbytes([logits, eid, g_gate, out]),
+                  6.0 * G * gs * E, peak=H100_FP32_S)
+    rec["gradient_of"] = "moe_route"
+    log(f"moe_route's gate backward at the routing test shapes and "
+        f"{TRAIN_ROUTE}: matches its twin and autograd of moe_route_ref "
+        f"(atol 1e-4 of the scale; max abs err {worst:.3e}), bitwise "
+        f"repeatable; "
+        f"{ms:.5f} ms/call at {TRAIN_ROUTE} (graphs; twin {plain_ms:.3f}), "
+        f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def train_kernels_phase():
+    """Every backward kernel of the training path against its twin on the
+    card; returns their records."""
+    t0 = time.perf_counter()
+    recs = [train_flash_phase(), *train_scan_phase(), train_route_phase()]
+    log(f"train_kernels phase: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+# ------------------------------------------------------------- training
+
+#: the training CLI at the reference's defaults (TinyLlama-1.1B at full
+#: width and depth, 100 steps of 8 x 256 tokens, lr 3e-4, warmup 20) and
+#: the step whose state is checkpointed and restored
+TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--steps", "100", "--batch", "8",
+              "--seq", "256", "--lr", "3e-4", "--log-every", "10"]
+TRAIN_CKPT_STEP = 50
+#: the other families at full width and cut depth: layers, batch x seq,
+#: steps at a constant lr; a run is cut in batch only past TRAIN_MAX_BYTES
+TRAIN_CUT = {"qwen2-moe-a2.7b": 2, "falcon-mamba-7b": 2,
+             "recurrentgemma-9b": 3}
+TRAIN_CUT_RUN = dict(batch=4, seq=1024, steps=10, lr=3e-4)
+TRAIN_MAX_BYTES = 70e9
+#: the reduced card-vs-CPU train steps: batch x seq, steps, the CLI's
+#: schedule
+STEP_CROSS = dict(batch=2, seq=12, steps=3, peak=3e-4, warmup=20,
+                  total=100)
+
+
+def _train_counters():
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.moe_route import moe_route, moe_route_bwd
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.selective_scan import (selective_scan,
+                                                    selective_scan_bwd)
+    return {"flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
+            "moe_route": moe_route, "moe_route_bwd": moe_route_bwd,
+            "selective_scan": selective_scan,
+            "selective_scan_bwd": selective_scan_bwd,
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd}
+
+
+def _expected_train_launches(cfg):
+    """Launches of each training kernel per step: a forward kernel
+    (``LAYER_KERNELS``) twice per layer of its kinds (remat recomputes
+    it), its backward once, each times the microbatches."""
+    out = {}
+    for name, kinds in LAYER_KERNELS.items():
+        layers = sum(kind in kinds for kind in cfg.layer_kinds)
+        out[name] = (2 if cfg.remat else 1) * layers * cfg.grad_accum
+        out[f"{name}_bwd"] = layers * cfg.grad_accum
+    return out
+
+
+def _train_family(name):
+    if "flash_bwd" in name:
+        return "attention backward (flash kernels)"
+    if "flash_attention" in name:
+        return "attention forward (flash kernel)"
+    if "route_bwd" in name:
+        return "moe routing backward (kernel)"
+    if "scan_bwd" in name:
+        return "selective scan backward (kernels)"
+    if "rglru_bwd" in name:
+        return "rg-lru scan backward (kernel)"
+    return _family(name)
+
+
+def train_profile(label, step_fn, params, opt_state, batch, lr):
+    """Device time of one train step by kernel family from torch.profiler,
+    and the optimizer's share (the clip and the update, timed apart with
+    CUDA events on the same state); the idle share is 1 - busy / wall
+    under the profiler, an upper bound.  The step updates the state, as
+    a step of the run does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt_state, _ = step_fn(params, opt_state, batch, lr)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fams, busy = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        ms0, n0 = fams.get(_train_family(ev.key), (0.0, 0))
+        fams[_train_family(ev.key)] = (ms0 + us / 1e3, n0 + ev.count)
+        busy += us / 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": busy,
+           "idle_share": None if busy == 0 else 1 - busy / wall_ms,
+           "families_ms": {f: ms for f, (ms, _) in fams.items()}}
+    if busy == 0.0:
+        log(f"profile of {label}: the profiler recorded no device time "
+            f"(not measured)")
+    else:
+        log(f"profile of one {label} step: wall {wall_ms:.2f} ms under the "
+            f"profiler, device busy {busy:.2f} ms (idle share at most "
+            f"{1 - busy / wall_ms:.3f}); "
+            + "; ".join(f"{f} {ms:.2f} ms in {n} kernels "
+                        f"({ms / busy:.3f} of busy)"
+                        for f, (ms, n) in sorted(fams.items(),
+                                                 key=lambda kv: -kv[1][0])))
+    return out, params, opt_state
+
+
+def optimizer_ms(cfg, params, opt_state, reps=3):
+    """Device ms of the step's clip and optimizer update (in place) on the
+    run's state, with gradients of the parameters' shapes (CUDA events;
+    the state moves by reps steps of a zero gradient)."""
+    import torch
+    from repro_torch.models.model import stack_groups
+    from repro_torch.optim.optimizers import (clip_by_global_norm_,
+                                              make_optimizer)
+    from repro_torch.tree import tree_leaves
+    leaves = tree_leaves(params)
+    grads = [torch.zeros_like(p) for p in leaves]
+    _, update = make_optimizer(cfg.optimizer, stack_groups(params, cfg))
+
+    def run():
+        clip_by_global_norm_(grads, 1.0)
+        with torch.no_grad():
+            update(grads, opt_state, leaves, 1e-12)
+    ms = cuda_ms(run, reps)
+    del grads
+    return ms
+
+
+def _step_stats(times):
+    ms = sorted(t * 1e3 for t in times)
+    return {"median_ms": float(np.median(ms)), "min_ms": ms[0],
+            "max_ms": ms[-1]}
+
+
+def train_path():
+    """``launch.train.main`` at the reference's defaults on TinyLlama-1.1B
+    at full width and depth (bf16 parameters, AdamW in float32, remat):
+    it must print ``improved``; per step the host clock (synchronized),
+    the training kernels' launches against the remat arithmetic, peak
+    memory; the state after step 50 checkpointed and restored bit-exactly;
+    one more step profiled.  Returns the launches of the run and its
+    numbers."""
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.ckpt.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("tinyllama-1.1b")
+    expect = _expected_train_launches(cfg)
+    counters = _train_counters()
+    times, per_step, bad = [], [], []
+    last = [None]
+    ck = {}
+    keep = {}
+
+    def on_step(step, params, opt_state, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        times.append(now - last[0])
+        counts = {n: fn.launches for n, fn in counters.items()}
+        prev = per_step[-1][1] if per_step else {n: 0 for n in counts}
+        delta = {n: counts[n] - prev[n] for n in counts}
+        per_step.append((delta, counts))
+        if delta != expect:
+            bad.append((step, delta))
+        if step + 1 == TRAIN_CKPT_STEP:
+            tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+            try:
+                t0 = time.perf_counter()
+                save_checkpoint(tmp, (params, opt_state), step + 1)
+                save_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                got, at = restore_checkpoint(tmp, (params, opt_state))
+                restore_s = time.perf_counter() - t0
+                want = tree_leaves((params, opt_state))
+                same = at == step + 1 and all(
+                    a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b)
+                    for a, b in zip(tree_leaves(got), want))
+                nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                             for f in os.listdir(tmp))
+                ck.update(same=same, bytes=nbytes, save_s=save_s,
+                          restore_s=restore_s, leaves=len(want))
+                del got
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+        keep.update(params=params, opt_state=opt_state)
+        last[0] = time.perf_counter()
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    last[0] = t0
+    with contextlib.redirect_stdout(out):
+        losses = train.main(TRAIN_ARGV, on_step=on_step)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for line in out.getvalue().splitlines():
+        log(f"  [train] {line}")
+    if "(improved)" not in out.getvalue():
+        raise AssertionError("train_path: the loss did not improve")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("train_path: a loss is not finite")
+    if bad:
+        raise AssertionError(f"train_path: launches per step differ from "
+                             f"{expect}: {bad[:3]}")
+    if not ck.get("same"):
+        raise AssertionError(f"train_path: the step-{TRAIN_CKPT_STEP} "
+                             f"checkpoint did not restore bit-exactly: {ck}")
+    # the first step (kernel libraries loaded, allocator warm-up) and the
+    # checkpoint step stand apart from the steady steps
+    steady = [t for i, t in enumerate(times)
+              if i not in (0, TRAIN_CKPT_STEP - 1)]
+    stats = _step_stats(steady)
+    b, s = 8, 256
+    tokens_s = b * s / (stats["median_ms"] / 1e3)
+    params, opt_state = keep["params"], keep["opt_state"]
+    keep.clear()
+    batch = TokenPipeline(cfg.vocab_size, s, b, seed=1).next_batch()
+    step_fn = make_train_step(cfg, lr=3e-4)
+    prof, params, opt_state = train_profile(
+        "TinyLlama-1.1B training (8 x 256 tokens)", step_fn, params,
+        opt_state, batch, 3e-5)
+    opt_ms = optimizer_ms(cfg, params, opt_state)
+    log(f"train_path: TinyLlama-1.1B, {len(losses)} steps of {b} x {s} "
+        f"tokens at full width and depth ({cfg.num_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters, bf16, AdamW in "
+        f"float32, remat): wall {wall:.1f} s; ms per step median "
+        f"{stats['median_ms']:.2f}, min {stats['min_ms']:.2f}, max "
+        f"{stats['max_ms']:.2f} (first step {times[0] * 1e3:.1f}, "
+        f"checkpoint step left out); {tokens_s:.0f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB; loss {np.mean(losses[:10]):.4f} -> "
+        f"{np.mean(losses[-10:]):.4f}; launches per step {expect} (every "
+        f"step); optimizer (clip + AdamW update) {opt_ms:.2f} ms; "
+        f"checkpoint at step {TRAIN_CKPT_STEP}: {ck['leaves']} leaves, "
+        f"{ck['bytes'] / 1e9:.2f} GB, save {ck['save_s']:.1f} s, restore "
+        f"{ck['restore_s']:.1f} s, bit-exact")
+    del params, opt_state
+    return launches, {"steps": len(losses), "wall_s": wall, **stats,
+                      "tokens_s": tokens_s, "peak_gb": peak / 1e9,
+                      "loss_first10": float(np.mean(losses[:10])),
+                      "loss_last10": float(np.mean(losses[-10:])),
+                      "launches_per_step": expect, "optimizer_ms": opt_ms,
+                      "checkpoint": ck, "profile": prof}
+
+
+def _train_bytes(cfg, tokens):
+    """Bytes a training step holds, reckoned: per parameter its value,
+    its gradient, a float32 accumulator when microbatches accumulate and
+    the two AdamW moments (12 or 16 bytes); four float32 (tokens x vocab)
+    logit-sized buffers of a microbatch; 2 GB of an update slice's
+    temporaries."""
+    per_param = 2 + 2 + 8 + (4 if cfg.grad_accum > 1 else 0)
+    return cfg.param_count() * per_param \
+        + 4 * 4 * (tokens // cfg.grad_accum) * cfg.vocab_size + 2e9
+
+
+def train_cut(arch, layers):
+    """10 steps of ``arch`` at full width cut to ``layers`` layers on
+    TRAIN_CUT_RUN's tokens at a constant lr: finite losses that fall,
+    launches per step against the remat arithmetic, ms per step, peak
+    memory and a profiled step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params, stack_groups
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    b, s = TRAIN_CUT_RUN["batch"], TRAIN_CUT_RUN["seq"]
+    reckoned = _train_bytes(cfg, b * s)
+    while reckoned > TRAIN_MAX_BYTES and b > cfg.grad_accum:
+        b //= 2
+        reckoned = _train_bytes(cfg, b * s)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda")
+    init, _ = make_optimizer(cfg.optimizer, stack_groups(params, cfg))
+    opt_state = init(tree_leaves(params))
+    step_fn = make_train_step(cfg, lr=TRAIN_CUT_RUN["lr"])
+    pipe = TokenPipeline(cfg.vocab_size, s, b, seed=0)
+    counters = _train_counters()
+    expect = _expected_train_launches(cfg)
+    losses, gnorms, times = [], [], []
+    total = {n: 0 for n in counters}
+    for step in range(TRAIN_CUT_RUN["steps"]):
+        for fn in counters.values():
+            fn.launches = 0
+        batch = pipe.next_batch()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        got = {n: fn.launches for n, fn in counters.items()}
+        if got != expect:
+            raise AssertionError(f"train_cut {arch}: launches at step "
+                                 f"{step} {got} != {expect}")
+        total = {n: total[n] + got[n] for n in total}
+    peak = torch.cuda.max_memory_allocated()
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_cut {arch}: the loss does not fall: "
+                             f"{losses}")
+    rises = [i for i in range(1, len(losses)) if losses[i] > losses[i - 1]]
+    stats = _step_stats(times[1:])
+    prof, params, opt_state = train_profile(
+        f"{arch} ({layers} layers, {b} x {s} tokens)", step_fn, params,
+        opt_state, pipe.next_batch(), TRAIN_CUT_RUN["lr"])
+    cut = "" if b == TRAIN_CUT_RUN["batch"] else \
+        f" (batch cut from {TRAIN_CUT_RUN['batch']}: reckoned past " \
+        f"{TRAIN_MAX_BYTES / 1e9:.0f} GB)"
+    log(f"train_cut {arch}: full width, {layers} of "
+        f"{get_config(arch).num_layers} layers "
+        f"({cfg.param_count() / 1e9:.3f} B parameters), {b} x {s} tokens"
+        f"{cut}, grad_accum {cfg.grad_accum}, reckoned "
+        f"{reckoned / 1e9:.1f} GB, peak {peak / 1e9:.2f} GB; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f" (rises at steps {rises}); grad norms before the clip "
+        + " ".join(f"{x:.4g}" for x in gnorms)
+        + f"; ms per step median {stats['median_ms']:.1f} (min "
+        f"{stats['min_ms']:.1f}, max {stats['max_ms']:.1f}, first "
+        f"{times[0] * 1e3:.0f}), {b * s / (stats['median_ms'] / 1e3):.0f} "
+        f"tokens/s; launches per step {expect}")
+    del params, opt_state
+    return {"layers": layers, "batch": b, "seq": s,
+            "reckoned_gb": reckoned / 1e9, "peak_gb": peak / 1e9,
+            "losses": losses, "grad_norms": gnorms, **stats,
+            "tokens_s": b * s / (stats["median_ms"] / 1e3),
+            "launches_per_step": expect, "launches": total, "profile": prof}
+
+
+def _leaf_group(path):
+    """The part of the model a parameter path belongs to, for
+    ``train_moe_probe``'s per-group gradients."""
+    parts = path.split("/")
+    if parts[0] != "blocks":
+        return parts[0]
+    if parts[2] == "moe":
+        return {"router": "router", "shared": "shared expert",
+                "shared_gate": "shared gate"}.get(parts[3], "experts")
+    return parts[2] if parts[2] == "attn" else "norms"
+
+
+@contextlib.contextmanager
+def _through_twins():
+    """The model's attention and routing through autograd of their plain
+    twins (``attention_ref``, ``moe_route_ref``) on CUDA tensors, for
+    ``train_moe_probe``'s comparison only."""
+    from repro_torch.kernels.ref import attention_ref, moe_route_ref
+    from repro_torch.models import attention, moe
+    saved = attention.flash_attention, moe.moe_route
+    attention.flash_attention, moe.moe_route = attention_ref, moe_route_ref
+    try:
+        yield
+    finally:
+        attention.flash_attention, moe.moe_route = saved
+
+
+#: train_moe_probe's largest float32 gap, kernels against twins, of a
+#: group of leaves' gradients (the norm of the difference over the
+#: twins')
+PROBE_F32_RTOL = 1e-4
+
+
+def _grads_by_group(params, batch, cfg, through_twins=False):
+    """(float32 gradients of ``loss_fn`` over the flat leaves, the cross
+    entropy), through the kernels or through autograd of the twins."""
+    import torch
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    with _through_twins() if through_twins else contextlib.nullcontext():
+        wrt = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        total, m = loss_fn(tree_unflatten(params, wrt), batch, cfg)
+        grads = torch.autograd.grad(total, wrt)
+    return [g.float() for g in grads], float(m["ce"].detach())
+
+
+def _block_rms(params, batch, cfg):
+    """Each block's output rms (its residual update) at ``params``, and
+    the rms of the residual the head reads."""
+    import torch
+    from repro_torch.models import model as M
+    positions, explicit = M.batch_positions(batch)
+    with torch.no_grad():
+        x = M.embed_tokens(params, batch["tokens"], cfg)
+        out = []
+        for kind, p in zip(cfg.layer_kinds, params["blocks"]):
+            y, _ = M._block(kind, p, x, positions, cfg, explicit)
+            out.append(float((y - x).float().pow(2).mean().sqrt()))
+            x = y
+        return out, float(x.float().pow(2).mean().sqrt())
+
+
+def train_moe_probe(arch="qwen2-moe-a2.7b"):
+    """Why ``arch``'s loss falls slowly at full width and cut depth
+    (``train_cut``), on TRAIN_CUT_RUN's tokens from the same seeded
+    parameters.  (1) One step's gradients through the kernels against
+    autograd through the twins (``_through_twins``), per group of leaves
+    (``_leaf_group``): in float32 within PROBE_F32_RTOL, and in bf16 (not
+    gated: a router near-tie that flips reorders the slots of every later
+    token of that expert, so capacity drops other tokens).  (2) Each
+    block's output rms at init, beside TinyLlama-1.1B's at the same depth
+    and beside ``arch`` with the experts' ``w_gate`` and ``w_up`` scaled
+    from 1/√E to 1/√d: the reference's ``moe_init`` draws them with
+    ``dense_init``'s default fan-in, shape[0] = E.  (3) The losses of
+    TRAIN_CUT_RUN's steps with float32 parameters, in bf16 without the
+    clip, with the experts at 1/√d, and 30 steps at the reference's init.
+    Returns the numbers."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params, stack_groups
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.tree import tree_flatten, tree_leaves
+    cfg = dataclasses.replace(get_config(arch), num_layers=TRAIN_CUT[arch])
+    f32 = dataclasses.replace(cfg, param_dtype="float32",
+                              compute_dtype="float32")
+    b, s = TRAIN_CUT_RUN["batch"], TRAIN_CUT_RUN["seq"]
+
+    def fresh(c, experts_at_d=False):
+        params = init_params(
+            c, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        if experts_at_d:
+            with torch.no_grad():
+                for p in params["blocks"]:
+                    for key in ("w_gate", "w_up"):
+                        p["moe"][key].mul_(
+                            (c.moe.num_experts / c.d_model) ** 0.5)
+        return params
+
+    def first_batch(c):
+        return {k: torch.as_tensor(v, device="cuda") for k, v in
+                TokenPipeline(c.vocab_size, s, b, seed=0).next_batch()
+                .items()}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"grads": {}, "block_rms": {}, "losses": {}}
+    batch = first_batch(cfg)
+    for label, c in (("float32", f32), ("bf16", cfg)):
+        params = fresh(c)
+        names = [path for path, _ in tree_flatten(params)]
+        got, ce = _grads_by_group(params, batch, c)
+        want, ce_twin = _grads_by_group(params, batch, c, through_twins=True)
+        groups = {}
+        for name, g, w in zip(names, got, want):
+            acc = groups.setdefault(_leaf_group(name), [0.0] * 4)
+            acc[0] += float(torch.sum(g * g))
+            acc[1] += float(torch.sum(w * w))
+            acc[2] += float(torch.sum((g - w) ** 2))
+            acc[3] += float(torch.sum(g * w))
+        rows = {grp: {"rel_diff": (dd / max(ww, 1e-30)) ** 0.5,
+                      "cosine": gw / max((gg * ww) ** 0.5, 1e-30)}
+                for grp, (gg, ww, dd, gw) in groups.items()}
+        out["grads"][label] = {"ce": [ce, ce_twin], "groups": rows}
+        log(f"train_moe_probe {arch} {label}: one step's gradients, kernels "
+            f"against the twins (ce {ce:.5f} / {ce_twin:.5f}): "
+            + "; ".join(f"{grp} {v['rel_diff']:.3e} (cosine "
+                        f"{v['cosine']:.6f})" for grp, v in rows.items()))
+        if label == "float32":
+            worst = max(v["rel_diff"] for v in rows.values())
+            if not worst <= PROBE_F32_RTOL:
+                raise AssertionError(f"train_moe_probe {arch}: float32 "
+                                     f"gradients through the kernels differ "
+                                     f"from the twins' by {worst:.3e}")
+        del params, got, want
+        free()
+    tiny = dataclasses.replace(get_config("tinyllama-1.1b"),
+                               num_layers=cfg.num_layers)
+    for label, c, at_d in ((arch, cfg, False),
+                           (f"{arch}, experts at 1/sqrt(d)", cfg, True),
+                           ("tinyllama-1.1b", tiny, False)):
+        params = fresh(c, at_d)
+        blocks, head_in = _block_rms(params, first_batch(c), c)
+        out["block_rms"][label] = {"blocks": blocks, "head_input": head_in}
+        log(f"train_moe_probe block output rms at init, {label}, "
+            f"{c.num_layers} layers: "
+            + " ".join(f"{x:.4f}" for x in blocks)
+            + f"; the head reads rms {head_in:.4f}")
+        del params
+        free()
+    steps = TRAIN_CUT_RUN["steps"]
+    for label, c, clip, at_d, n in (
+            ("float32", f32, 1.0, False, steps),
+            ("bf16 without the clip", cfg, float("inf"), False, steps),
+            ("bf16, experts at 1/sqrt(d)", cfg, 1.0, True, steps),
+            ("bf16, the reference's init, 30 steps", cfg, 1.0, False, 30)):
+        params = fresh(c, at_d)
+        init, _ = make_optimizer(c.optimizer, stack_groups(params, c))
+        state = init(tree_leaves(params))
+        step_fn = make_train_step(c, lr=TRAIN_CUT_RUN["lr"], clip=clip,
+                                  device="cuda")
+        pipe = TokenPipeline(c.vocab_size, s, b, seed=0)
+        losses = []
+        for _ in range(n):
+            params, state, m = step_fn(params, state, pipe.next_batch())
+            losses.append(float(m["loss"]))
+        if not np.all(np.isfinite(losses)):
+            raise AssertionError(f"train_moe_probe {arch} {label}: "
+                                 f"{losses}")
+        out["losses"][label] = losses
+        log(f"train_moe_probe {arch} {label}: losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+        del params, state
+        free()
+    return out
+
+
+def _offset_zero_leaves(params, seed=5):
+    """``params`` with normal x 0.1 (seeded) added to every leaf that is
+    all 0 (norms, biases): AdamW's first step on such a leaf is g / (|g| +
+    eps), which magnifies two devices' float32 rounding of a near-zero
+    gradient entry to the whole step (tests/test_torch_train_step.py)."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    gen = torch.Generator().manual_seed(seed)
+    return tree_unflatten(params, [
+        p if bool(p.any()) else
+        (0.1 * torch.randn(p.shape, generator=gen)).to(p.dtype)
+        for p in tree_leaves(params)])
+
+
+def train_step_cross(arch):
+    """STEP_CROSS's steps of reduced float32 ``arch`` on the card and on
+    the CPU from one set of parameters (each device its own copy: the
+    step updates in place): parameters, optimizer state, loss and
+    gradient norm within rtol 1e-4 / atol 1e-5 of each leaf's largest
+    entry; returns (the largest error over scale, the leaves compared)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import init_params, stack_groups
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    cfg = get_config(arch).reduced()
+    c = STEP_CROSS
+    base = _offset_zero_leaves(init_params(cfg, device="cpu"))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_unflatten(base, [p.clone().to(dev)
+                                       for p in tree_leaves(base)])
+        init, _ = make_optimizer(cfg.optimizer, stack_groups(params, cfg))
+        state = init(tree_leaves(params))
+        step_fn = make_train_step(cfg, lr=c["peak"], device=dev)
+        pipe = TokenPipeline(cfg.vocab_size, c["seq"], c["batch"], seed=4)
+        metrics = []
+        for i in range(c["steps"]):
+            params, state, m = step_fn(
+                params, state, pipe.next_batch(),
+                warmup_cosine(i, c["peak"], c["warmup"], c["total"]))
+            metrics += [m["loss"], m["grad_norm"]]
+        runs[dev] = [t.cpu() for t in tree_leaves((params, state))
+                     + metrics]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        where = f"train_step_cross {arch}: leaf {i}"
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{where} {a.dtype} {tuple(a.shape)} vs "
+                                 f"{b.dtype} {tuple(b.shape)}")
+        if not a.dtype.is_floating_point:
+            if not torch.equal(a, b):
+                raise AssertionError(f"{where} differs")
+            continue
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((a - b).abs().max())
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-5 * scale):
+            raise AssertionError(f"{where} max abs err {err:.3e} (scale "
+                                 f"{scale:.3e})")
+        worst = max(worst, err / scale)
+    return worst, len(runs["cpu"])
+
+
+def train_phase():
+    """The training slice on the card: its backward kernels, the CLI's
+    main path on TinyLlama-1.1B, the reduced models on the card against
+    the CPU, and the three other families at full width and cut depth.
+    Returns the kernel records and the launches of the main path."""
+    import torch
+    t0 = time.perf_counter()
+    recs = train_kernels_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches, main = train_path()
+    log(f"train_path: {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    worst = {arch: train_step_cross(arch) for arch in SERVE_ARCHS}
+    log(f"train_step_cross: {STEP_CROSS['steps']} steps of each reduced "
+        f"float32 model on the card match the CPU (parameters, optimizer "
+        f"state, loss and grad norm within rtol 1e-4 / atol 1e-5 of each "
+        f"leaf's scale; zero-initialised leaves offset): largest error over "
+        f"scale, leaves: "
+        + ", ".join(f"{a} {e:.3e} / {n}" for a, (e, n) in worst.items())
+        + f" ({time.perf_counter() - t1:.1f} s)")
+    cuts = {}
+    for arch, layers in TRAIN_CUT.items():
+        t1 = time.perf_counter()
+        cuts[arch] = train_cut(arch, layers)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train_cut {arch}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    probe = train_moe_probe()
+    log(f"train_moe_probe: {time.perf_counter() - t1:.1f} s")
+    for rec in recs:
+        # the main path's launches where it runs the kernel, else the cut
+        # runs' (moe_route, the scans: each family's own 10 steps)
+        name = rec["name"]
+        rec["launches"] = launches[name] or sum(
+            c["launches"][name] for c in cuts.values())
+        rec["launches_per_step"] = main["launches_per_step"][name]
+        rec["launches_per_step_cut"] = {
+            a: c["launches_per_step"][name] for a, c in cuts.items()}
+        if not rec["launches"]:
+            raise AssertionError(f"{name} was launched no time in training")
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return recs, launches, {"tinyllama": main, "cut": cuts,
+                            "cross": worst, "moe_probe": probe}
 
 
 def _counters():
@@ -3149,8 +4172,14 @@ def table4_phase():
 #: telemetry="interval" beside its summary run, TELEMETRY_CALLS
 #: interleaved calls of each; the overhead is printed beside the
 #: reference's own ceiling (benchmarks/jaxsim_grid.py
-#: MAX_TELEMETRY_OVERHEAD), not gated
+#: MAX_TELEMETRY_OVERHEAD), not gated.  The paths with a DASO stage run
+#: one call: the stage's ascent is ~95 % of their ~10 s wall and their
+#: run-to-run spread (±10 %) is ~20 times the row's cost, so repeats
+#: cannot resolve the overhead there, and three calls of them (~200 s)
+#: took the script to 1162 s of its 1200 on an H100 80GB HBM3 machine
+#: (700 W) whose host-bound phases ran 1.3-1.5x slower than another's
 TELEMETRY_CALLS = 3
+TELEMETRY_DASO_CALLS = 1
 TELEMETRY_CEILING = 0.05
 #: the train path's finetune is chaotic past ~50 intervals at the main
 #: widths (θ0 perturbed by 1e-7 moves θ by 0.27 of a leaf's largest entry
@@ -3276,7 +4305,8 @@ def telemetry_phase(mab_state):
     ``tasks_completed`` and ``energy_j`` to the energy total (rtol 1e-12),
     no host read is added, and cell 0's summary and series match the
     port's host oracle at ``test_differential.py``'s rule; the walls of
-    ``TELEMETRY_CALLS`` interleaved calls in each mode are printed.
+    ``TELEMETRY_CALLS`` interleaved calls in each mode are printed
+    (``TELEMETRY_DASO_CALLS`` on the paths with a DASO stage).
     Returns the interval runs' launches per kernel, summed."""
     from repro_torch.core.mab import host_reads
     from repro_torch.env.metrics import TELEMETRY_COLS
@@ -3285,7 +4315,9 @@ def telemetry_phase(mab_state):
     for label, policy, kw, draws, ecols in telemetry_paths(mab_state):
         walls = {"summary": [], "interval": []}
         first = {}
-        for call in range(TELEMETRY_CALLS):
+        calls = TELEMETRY_DASO_CALLS if "daso_theta" in kw \
+            else TELEMETRY_CALLS
+        for call in range(calls):
             for mode in ("summary", "interval"):
                 r0 = host_reads()
                 with SeriesTap() as tap:
@@ -4110,6 +5142,13 @@ def main() -> int:
                 rec["decode"][key]["launches"] = decoded[rec["name"]][arch]
         if rec["name"] == "moe_route":
             rec["decode"]["launches"] = decoded[rec["name"]]["qwen2-moe-a2.7b"]
+
+    t0 = time.perf_counter()
+    train_recs, _, _ = train_phase()
+    records.extend(train_recs)
+    log(f"training phases: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cross_checks()
     model_cross_check()

@@ -75,6 +75,7 @@ class KernelLibraries:
         self.hits = 0
         self.misses = 0
         self.builds: Dict[str, int] = {}
+        self._entries = {}
 
     def build_all(self, names=SOURCES) -> Dict[str, str]:
         """Compile every missing library, one nvcc per source started
@@ -119,6 +120,20 @@ class KernelLibraries:
         self._libs[name] = lib
         self.builds.setdefault(path.name, 0)
         return lib
+
+    def entry(self, name: str, symbol: str, pointers: int, ints: int):
+        """The C entry point ``symbol`` of library ``name`` taking
+        ``pointers`` pointers, then ``ints`` ints, then a stream, and
+        returning an int (a CUDA error code), typed once per process."""
+        key = (name, symbol)
+        fn = self._entries.get(key)
+        if fn is None:
+            fn = getattr(self.get(name), symbol)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * pointers \
+                + [ctypes.c_int] * ints + [ctypes.c_void_p]
+            self._entries[key] = fn
+        return fn
 
     def cache_stats(self) -> dict:
         """The library counters in ``RunLedger.add_cache_stats``'s form:

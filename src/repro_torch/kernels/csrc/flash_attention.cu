@@ -113,6 +113,7 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse,
                            const int* __restrict__ pos_q,
                            const int* __restrict__ pos_k, int sq, int sk,
                            int h, int kvh, int bq, int causal, int window,
@@ -249,6 +250,9 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
   }
 
   if (!active) return;
+  if (lse != nullptr && part == 0)
+    lse[((size_t)bi * h + kv * g + gi) * sq + q0 + qi] =
+        l > 0.f ? m + logf(l) : INFINITY;
   float* dst = o + (((size_t)bi * sq + q0 + qi) * h + kv * g + gi) * HD;
   if (l > 0.f) {
 #pragma unroll
@@ -615,6 +619,7 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
                                const bf16* __restrict__ k,
                                const bf16* __restrict__ v,
                                bf16* __restrict__ o,
+                               float* __restrict__ lse,
                                const int* __restrict__ pos_q,
                                const int* __restrict__ pos_k, int sq, int sk,
                                int h, int kvh, int causal, int window,
@@ -912,6 +917,10 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int r = wr + grp + 8 * i;
     const int R = r0 + r;
+    if (lse != nullptr && t4 == 0 && R < rows)
+      lse[((size_t)bi * h + kv * g + R % g) * sq + R / g] =
+          l[i] > 0.f ? m[i] * (scale_log2 * 0.6931471805599453f) + logf(l[i])
+                     : INFINITY;
     if (l[i] > 0.f) {
       const float inv = 1.f / l[i];
 #pragma unroll
@@ -950,6 +959,276 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
   }
 }
 
+// --------------------------------------------------------------- backward
+//
+// The gradient of the function above, for float32 and bfloat16 q, k, v, o
+// and dO, computed in float32 on the CUDA cores (a simple first kernel):
+// with P = exp(S * scale - lse) recomputed from the forward's logsumexp and
+// D = rowsum(dO o), dV = P^T dO, dP = dO V^T, dS = P (dP - D), dQ = scale dS
+// K and dK = scale dS^T Q, where a masked score has P = 0 and a row that
+// sees no key (lse = +inf) has P = 1 / sk on every key and dS = 0, the
+// gradient of the reference's uniform softmax over its all-masked row.
+// Two launches, no atomics, so two calls give the same bits:
+//   1. flash_bwd_dq_kernel: one CTA per (batch, kv head, tile of ROWS rows),
+//      rows numbered position * g + head as in the forward; a row is SPLIT
+//      threads of DH dims each, whose partial dot products join by an xor
+//      butterfly (every lane ends with the same bits).  It forms D of its
+//      rows, writes it, walks the key tiles the rows can see (K and V staged
+//      in shared memory as float32) and writes dQ.
+//   2. flash_bwd_dkv_kernel: one CTA per (batch, kv head, tile of ROWS
+//      keys); a key is SPLIT threads as above.  It walks, in order, every
+//      (position, head) row of the kv head that can see one of its keys,
+//      staged in tiles of BQ rows (q, dO, lse, D), so dK and dV sum the g
+//      query heads of the kv head in one fixed order, and writes them.
+// The forward rounds P to bfloat16 before P V; this gradient is that of the
+// float32 function, as the twin's.
+
+template <int HD>
+struct BwdTile {
+  static constexpr int DH = 16;  // dims per thread
+  static constexpr int SPLIT = HD / DH;
+  static constexpr int THREADS = HD >= 128 ? 256 : 128;
+  static constexpr int ROWS = THREADS / SPLIT;  // rows or keys per CTA
+  static constexpr int BT = 4096 / HD;  // keys or rows per staged tile
+  static_assert(HD % DH == 0 && SPLIT <= 32, "a row is whole lanes of a warp");
+};
+
+template <int HD>
+constexpr int bwd_smem_bytes() {
+  return 2 * BwdTile<HD>::BT * HD * (int)sizeof(float);
+}
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// the sum over the SPLIT lanes of a row (consecutive lanes), in every lane
+template <int SPLIT>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < SPLIT; off <<= 1)
+    x = x + __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int causal,
+                                        int window) {
+  return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BwdTile<HD>::THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
+                        const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ dsum, T* __restrict__ dq,
+                        const int* __restrict__ pos_q,
+                        const int* __restrict__ pos_k, int sq, int sk, int h,
+                        int kvh, int causal, int window, float scale) {
+  constexpr int DH = BwdTile<HD>::DH;
+  constexpr int SPLIT = BwdTile<HD>::SPLIT;
+  constexpr int ROWS = BwdTile<HD>::ROWS;
+  constexpr int THREADS = BwdTile<HD>::THREADS;
+  constexpr int BK = BwdTile<HD>::BT;
+  extern __shared__ float4 bwd_smem4[];
+  float* ks = reinterpret_cast<float*>(bwd_smem4);  // [BK][HD]
+  float* vs = ks + BK * HD;                         // [BK][HD]
+  __shared__ int kps[BK];
+
+  const int g = h / kvh;
+  const int kv = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int rows = sq * g;
+  const int R0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x;
+  const int R = R0 + tid / SPLIT;
+  const int part = tid % SPLIT;
+  const bool active = R < rows;
+  const int pos = active ? R / g : 0;
+  const int head = kv * g + (active ? R % g : 0);
+  const int qpos = pos_q == nullptr ? pos : pos_q[(size_t)bi * sq + pos];
+  const size_t qoff = (((size_t)bi * sq + pos) * h + head) * HD + part * DH;
+
+  float qr[DH], dor[DH], acc[DH];
+  float dpart = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    qr[d] = active ? ld(q + qoff + d) : 0.f;
+    dor[d] = active ? ld(dout + qoff + d) : 0.f;
+    dpart = __fmaf_rn(dor[d], active ? ld(o + qoff + d) : 0.f, dpart);
+    acc[d] = 0.f;
+  }
+  const float D = row_sum<SPLIT>(dpart);
+  const size_t lidx = ((size_t)bi * h + head) * sq + pos;
+  const float L = active ? lse[lidx] : INFINITY;
+  const bool live = active && L != INFINITY;
+  if (active && part == 0) dsum[lidx] = D;
+
+  // keys any row of this tile can see (every key with explicit positions)
+  const int pos_first = R0 / g;
+  const int pos_last = (min(R0 + ROWS, rows) - 1) / g;
+  int lo = window > 0 && pos_k == nullptr ? max(0, pos_first - window + 1) : 0;
+  lo = lo / BK * BK;
+  const int hi = causal && pos_k == nullptr ? min(sk, pos_last + 1) : sk;
+
+  for (int k0 = lo; k0 < hi; k0 += BK) {
+    const int nk = min(BK, hi - k0);
+    __syncthreads();  // the previous tile is consumed
+    for (int e = tid; e < nk * HD; e += THREADS) {
+      const int j = e / HD;
+      const size_t src =
+          (((size_t)bi * sk + k0 + j) * kvh + kv) * HD + (e - j * HD);
+      ks[e] = ld(k + src);
+      vs[e] = ld(v + src);
+    }
+    for (int j = tid; j < nk; j += THREADS)
+      kps[j] = pos_k == nullptr ? k0 + j : pos_k[(size_t)bi * sk + k0 + j];
+    __syncthreads();
+    for (int j = 0; j < nk; ++j) {
+      const float* kr = ks + j * HD + part * DH;
+      const float* vr = vs + j * HD + part * DH;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        s = __fmaf_rn(qr[d], kr[d], s);
+        dp = __fmaf_rn(dor[d], vr[d], dp);
+      }
+      s = row_sum<SPLIT>(s);
+      dp = row_sum<SPLIT>(dp);
+      if (!live || !visible(qpos, kps[j], causal, window)) continue;
+      const float p = expf(s * scale - L);
+      const float ds = p * (dp - D);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) acc[d] = __fmaf_rn(ds, kr[d], acc[d]);
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) st(dq + qoff + d, acc[d] * scale);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(BwdTile<HD>::THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dsum, T* __restrict__ dk,
+                         T* __restrict__ dv, const int* __restrict__ pos_q,
+                         const int* __restrict__ pos_k, int sq, int sk,
+                         int h, int kvh, int causal, int window,
+                         float scale) {
+  constexpr int DH = BwdTile<HD>::DH;
+  constexpr int SPLIT = BwdTile<HD>::SPLIT;
+  constexpr int ROWS = BwdTile<HD>::ROWS;
+  constexpr int THREADS = BwdTile<HD>::THREADS;
+  constexpr int BQ = BwdTile<HD>::BT;
+  extern __shared__ float4 bwd_smem4[];
+  float* qs = reinterpret_cast<float*>(bwd_smem4);  // [BQ][HD]
+  float* dos = qs + BQ * HD;                        // [BQ][HD]
+  __shared__ float ls[BQ], ds_[BQ];
+  __shared__ int qps[BQ];
+
+  const int g = h / kvh;
+  const int kv = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int rows = sq * g;
+  const int k0 = blockIdx.x * ROWS;
+  const int tid = threadIdx.x;
+  const int key = k0 + tid / SPLIT;
+  const int part = tid % SPLIT;
+  const bool active = key < sk;
+  const int kpos = !active ? 0 : pos_k == nullptr
+                                     ? key
+                                     : pos_k[(size_t)bi * sk + key];
+  const size_t koff = (((size_t)bi * sk + (active ? key : 0)) * kvh + kv) *
+                          HD + part * DH;
+  const float inv_sk = 1.f / (float)sk;
+
+  float kr[DH], vr[DH], dka[DH], dva[DH];
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    kr[d] = active ? ld(k + koff + d) : 0.f;
+    vr[d] = active ? ld(v + koff + d) : 0.f;
+    dka[d] = 0.f;
+    dva[d] = 0.f;
+  }
+
+  // rows that can see a key of this tile (every row with explicit
+  // positions); rows past sk + window - 1 see no key at all and still give
+  // every key its uniform share of dV
+  const int key_last = min(k0 + ROWS, sk) - 1;
+  int rlo = 0, rhi = rows;
+  if (pos_k == nullptr) {
+    if (causal) rlo = min(rows, k0 * g);
+    if (window > 0 && sq - 1 < sk + window - 1)
+      rhi = min(rows, (key_last + window) * g);
+  }
+
+  for (int r0 = rlo; r0 < rhi; r0 += BQ) {
+    const int nr = min(BQ, rhi - r0);
+    __syncthreads();  // the previous tile is consumed
+    for (int e = tid; e < nr * HD; e += THREADS) {
+      const int r = e / HD;
+      const int R = r0 + r;
+      const int pos = R / g;
+      const size_t src =
+          (((size_t)bi * sq + pos) * h + kv * g + (R - pos * g)) * HD +
+          (e - r * HD);
+      qs[e] = ld(q + src);
+      dos[e] = ld(dout + src);
+    }
+    for (int r = tid; r < nr; r += THREADS) {
+      const int R = r0 + r;
+      const int pos = R / g;
+      const size_t lidx = ((size_t)bi * h + kv * g + (R - pos * g)) * sq + pos;
+      ls[r] = lse[lidx];
+      ds_[r] = dsum[lidx];
+      qps[r] = pos_q == nullptr ? pos : pos_q[(size_t)bi * sq + pos];
+    }
+    __syncthreads();
+    for (int r = 0; r < nr; ++r) {
+      const float* qrow = qs + r * HD + part * DH;
+      const float* drow = dos + r * HD + part * DH;
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        s = __fmaf_rn(qrow[d], kr[d], s);
+        dp = __fmaf_rn(drow[d], vr[d], dp);
+      }
+      s = row_sum<SPLIT>(s);
+      dp = row_sum<SPLIT>(dp);
+      if (!active) continue;
+      const float L = ls[r];
+      if (L == INFINITY) {  // a row that sees no key: uniform, dS = 0
+#pragma unroll
+        for (int d = 0; d < DH; ++d)
+          dva[d] = __fmaf_rn(inv_sk, drow[d], dva[d]);
+        continue;
+      }
+      if (!visible(qps[r], kpos, causal, window)) continue;
+      const float p = expf(s * scale - L);
+      const float dsc = p * (dp - ds_[r]);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) {
+        dva[d] = __fmaf_rn(p, drow[d], dva[d]);
+        dka[d] = __fmaf_rn(dsc, qrow[d], dka[d]);
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int d = 0; d < DH; ++d) {
+    st(dk + koff + d, dka[d] * scale);
+    st(dv + koff + d, dva[d]);
+  }
+}
+
 // ------------------------------------------------------------ launchers
 
 constexpr int MAX_DEVICES = 64;
@@ -972,7 +1251,7 @@ cudaError_t allow_smem(int bytes) {
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const int* pos_q, const int* pos_k, int b, int sq, int sk,
+               float* lse, const int* pos_q, const int* pos_k, int b, int sq, int sk,
                int h, int kvh, int causal, int window, cudaStream_t stream) {
   const int g = h / kvh;
   if (g > Tile<HD>::ROWS) return (int)cudaErrorInvalidValue;
@@ -982,14 +1261,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + bq - 1) / bq, kvh, b);
   flash_attention_kernel<HD><<<grid, Tile<HD>::THREADS, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, pos_q,
-      pos_k, sq, sk, h, kvh, bq, causal, window, 1.0f / sqrtf((float)HD));
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+      pos_q, pos_k, sq, sk, h, kvh, bq, causal, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const int* pos_q, const int* pos_k, int b, int sq, int sk,
+                float* lse, const int* pos_q, const int* pos_k, int b, int sq, int sk,
                 int h, int kvh, int causal, int window, cudaStream_t stream) {
   constexpr int BM = 16 * MmaTile<HD>::WARPS;
   const long long rows = (long long)sq * (h / kvh);
@@ -1002,13 +1281,13 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)ctas);
   flash_attention_mma_kernel<HD><<<grid, 32 * MmaTile<HD>::WARPS, bytes,
                                    stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, pos_q, pos_k,
-      sq, sk, h, kvh, causal, window, 1.4426950408889634f / sqrtf((float)HD));
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, pos_q,
+      pos_k, sq, sk, h, kvh, causal, window, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 typedef int (*Launcher)(const void*, const void*, const void*, void*,
-                        const int*, const int*, int, int, int, int, int, int,
+                        float*, const int*, const int*, int, int, int, int, int, int,
                         int, cudaStream_t);
 
 // the launcher of head dim hd for one dtype, or null
@@ -1034,13 +1313,62 @@ Launcher bf16_launcher(int hd) {
   }
 }
 
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* dsum, void* dq,
+               void* dk, void* dv, const int* pos_q, const int* pos_k, int b,
+               int sq, int sk, int h, int kvh, int causal, int window,
+               cudaStream_t stream) {
+  constexpr int ROWS = BwdTile<HD>::ROWS;
+  constexpr int THREADS = BwdTile<HD>::THREADS;
+  const int bytes = bwd_smem_bytes<HD>();
+  cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, HD>>(bytes);
+  if (err == cudaSuccess) err = allow_smem<flash_bwd_dkv_kernel<T, HD>>(bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)sq * (h / kvh);
+  if (rows > 0x7fffffffLL - ROWS) return (int)cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const dim3 grid_q((unsigned)((rows + ROWS - 1) / ROWS), kvh, b);
+  flash_bwd_dq_kernel<T, HD><<<grid_q, THREADS, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
+      dsum, (T*)dq, pos_q, pos_k, sq, sk, h, kvh, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sk == 0) return (int)err;
+  const dim3 grid_k((sk + ROWS - 1) / ROWS, kvh, b);
+  flash_bwd_dkv_kernel<T, HD><<<grid_k, THREADS, bytes, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
+      (T*)dk, (T*)dv, pos_q, pos_k, sq, sk, h, kvh, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+typedef int (*BwdLauncher)(const void*, const void*, const void*,
+                           const void*, const void*, const float*, float*,
+                           void*, void*, void*, const int*, const int*, int,
+                           int, int, int, int, int, int, cudaStream_t);
+
+template <typename T>
+BwdLauncher bwd_launcher(int hd) {
+  switch (hd) {
+    case 16: return launch_bwd<T, 16>;
+    case 32: return launch_bwd<T, 32>;
+    case 64: return launch_bwd<T, 64>;
+    case 128: return launch_bwd<T, 128>;
+    case 256: return launch_bwd<T, 256>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel); pos_q (b, sq) and pos_k (b, sk) int32 positions, both or neither
 // (null: 0..s-1).  Returns the launch's CUDA error code.
-extern "C" int flash_attention_pos_launch(const void* q, const void* k,
-                                          const void* v, void* o,
+// lse (b, h, sq) float32, or null: the natural-log logsumexp of each row's
+// scaled visible scores, +inf for a row that sees no key (the backward's
+// flag for the uniform row); the training forward asks for it.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k,
+                                          const void* v, void* o, float* lse,
                                           const int* pos_q, const int* pos_k,
                                           int b, int sq, int sk, int h,
                                           int kvh, int hd, int causal,
@@ -1053,8 +1381,20 @@ extern "C" int flash_attention_pos_launch(const void* q, const void* k,
                 : dtype == 1 ? bf16_launcher(hd)
                              : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
-  return fn(q, k, v, o, pos_q, pos_k, b, sq, sk, h, kvh, causal, window,
+  return fn(q, k, v, o, lse, pos_q, pos_k, b, sq, sk, h, kvh, causal, window,
             (cudaStream_t)stream);
+}
+
+extern "C" int flash_attention_pos_launch(const void* q, const void* k,
+                                          const void* v, void* o,
+                                          const int* pos_q, const int* pos_k,
+                                          int b, int sq, int sk, int h,
+                                          int kvh, int hd, int causal,
+                                          int window, int dtype,
+                                          void* stream) {
+  return flash_attention_lse_launch(q, k, v, o, nullptr, pos_q, pos_k, b, sq,
+                                    sk, h, kvh, hd, causal, window, dtype,
+                                    stream);
 }
 
 // The implicit positions 0..s-1 (tools/kernel_variants.py binds this one).
@@ -1079,4 +1419,25 @@ extern "C" int flash_attention_bf16_step(int hd) {
     case 256: return MmaTile<256>::STEP;
     default: return 0;
   }
+}
+
+// The backward: dq (b, sq, h, hd), dk and dv (b, sk, kvh, hd) in the
+// dtype of q, k, v, o and dout (0 float32, 1 bfloat16), from the forward's
+// lse (b, h, sq); dsum (b, h, sq) float32 is scratch (D = rowsum(dO o)).
+// Two launches on the stream.  Returns the first CUDA error code.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* dsum, void* dq, void* dk,
+    void* dv, const int* pos_q, const int* pos_k, int b, int sq, int sk,
+    int h, int kvh, int hd, int causal, int window, int dtype,
+    void* stream) {
+  if (b < 1 || sq < 1 || sk < 0 || kvh < 1 || h % kvh != 0 ||
+      b > 65535 || kvh > 65535 || (pos_q == nullptr) != (pos_k == nullptr))
+    return (int)cudaErrorInvalidValue;
+  BwdLauncher fn = dtype == 0 ? bwd_launcher<float>(hd)
+                   : dtype == 1 ? bwd_launcher<bf16>(hd)
+                                : nullptr;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return fn(q, k, v, o, dout, lse, dsum, dq, dk, dv, pos_q, pos_k, b, sq, sk,
+            h, kvh, causal, window, (cudaStream_t)stream);
 }

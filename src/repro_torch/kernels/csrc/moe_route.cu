@@ -422,3 +422,88 @@ extern "C" int moe_route_launch(const void* logits, void* eid, void* gate,
                           : launch_route<32>(p, G, logits, eid, gate, slot,
                                              scratch, gs, E, k, st));
 }
+
+// ------------------------------------------------------------- backward
+//
+// The gradient of the gates for g_gate (G, gs, k) float32 with the
+// forward's eid (eid and slot carry none): per token, with p the float32
+// softmax of its logits (recomputed: max-subtracted expf, the sum in
+// expert order, IEEE division), v_j = p[eid_j] and sum = v_1 + .. + v_k,
+// gate_j = v_j / max(sum, 1e-9), so
+//   g_v_j = (g_gate_j - sum_i g_gate_i gate_i) / sum   when sum >= 1e-9,
+//   g_v_j = g_gate_j / 1e-9                            otherwise (the
+//   clamp's gradient, as the twin's torch.clamp passes it),
+// and through the softmax g_logits_e = p_e (g_p_e - sum_j g_v_j v_j), with
+// g_p_e = g_v_j at e = eid_j and 0 elsewhere.  A simple first kernel: one
+// thread per token, each loop over the experts in order, so two calls give
+// the same bits.  (With finite logits the largest probability is at least
+// 1 / E, so the clamp cannot bind; the branch is kept for the contract.)
+
+namespace {
+
+constexpr int BWD_THREADS = 128;
+constexpr int MAX_K = 64;
+
+__global__ void __launch_bounds__(BWD_THREADS)
+    route_bwd_kernel(const float* __restrict__ logits,
+                     const int* __restrict__ eid,
+                     const float* __restrict__ g_gate,
+                     float* __restrict__ g_logits, long long tokens, int E,
+                     int k) {
+  const long long tok = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (tok >= tokens) return;
+  const float* lg = logits + tok * E;
+  float* out = g_logits + tok * E;
+  float mx = -INFINITY;
+  for (int e = 0; e < E; ++e) mx = fmaxf(mx, lg[e]);
+  float sum = 0.f;
+  for (int e = 0; e < E; ++e) sum = sum + expf(lg[e] - mx);
+  int ids[MAX_K];
+  float v[MAX_K], gv[MAX_K];
+  float vs = 0.f;
+  for (int j = 0; j < k; ++j) {
+    ids[j] = eid[tok * k + j];
+    v[j] = expf(lg[ids[j]] - mx) / sum;
+    vs = vs + v[j];
+  }
+  const bool free_sum = vs >= 1e-9f;
+  const float den = free_sum ? vs : 1e-9f;
+  float dot = 0.f;
+  if (free_sum) {
+    for (int j = 0; j < k; ++j)
+      dot = dot + g_gate[tok * k + j] * (v[j] / den);
+  }
+  float dot2 = 0.f;
+  for (int j = 0; j < k; ++j) {
+    gv[j] = (g_gate[tok * k + j] - dot) / den;
+    dot2 = dot2 + gv[j] * v[j];
+  }
+  for (int e = 0; e < E; ++e) {
+    float gp = 0.f;
+    for (int j = 0; j < k; ++j)
+      if (ids[j] == e) gp = gv[j];
+    out[e] = (expf(lg[e] - mx) / sum) * (gp - dot2);
+  }
+}
+
+}  // namespace
+
+// The gates' backward: logits (G, gs, E) float32, eid (G, gs, k) int32 and
+// g_gate (G, gs, k) float32 -> g_logits (G, gs, E) float32.  k <= 64.
+extern "C" int moe_route_bwd_launch(const void* logits, const void* eid,
+                                    const void* g_gate, void* g_logits,
+                                    int G, int gs, int E, int k,
+                                    void* stream) {
+  if (G < 1 || gs < 1 || E < 1 || E > MAX_E || k < 1 || k > E ||
+      k > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  const long long tokens = (long long)G * gs;
+  const long long blocks = (tokens + BWD_THREADS - 1) / BWD_THREADS;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  route_bwd_kernel<<<(unsigned)blocks, BWD_THREADS, 0,
+                     (cudaStream_t)stream>>>(
+      static_cast<const float*>(logits), static_cast<const int*>(eid),
+      static_cast<const float*>(g_gate), static_cast<float*>(g_logits),
+      tokens, E, k);
+  return (int)cudaGetLastError();
+}

@@ -110,6 +110,51 @@ int launch(const void* a, const void* bx, void* h, int b, int s, int w,
   return (int)cudaGetLastError();
 }
 
+
+// The backward, for the output's gradient gh_out (b, s, w) float32: the
+// state's gradient runs down the sequence, gh_t = gh_out_t + a_{t+1}
+// gh_{t+1} (0 past the end), and g_a_t = gh_t h_{t-1} (h_0 = 0),
+// g_bx_t = gh_t, each in the inputs' dtype; h is the forward's output.  A
+// simple first kernel: one thread per (batch row, channel) walks the
+// sequence backwards, a product then a sum per step as the twin computes.
+__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_as(uint16_t* p, float x) {
+  // round to nearest even, as torch's float32 -> bfloat16 cast (no NaNs
+  // reach here from finite inputs)
+  const uint32_t u = __float_as_uint(x);
+  *p = (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    rglru_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h,
+                     const float* __restrict__ gh_out, T* __restrict__ g_a,
+                     T* __restrict__ g_bx, int s, int w) {
+  const int ch = blockIdx.x * THREADS + threadIdx.x;
+  if (ch >= w) return;
+  const size_t base = (size_t)blockIdx.y * s * w + ch;
+  float carry = 0.0f;  // a_{t+1} gh_{t+1}
+  for (int t = s - 1; t >= 0; --t) {
+    const size_t at = base + (size_t)t * w;
+    const float gh = __fadd_rn(gh_out[at], carry);
+    const float hp = t > 0 ? h[at - w] : 0.0f;
+    store_as(g_bx + at, gh);
+    store_as(g_a + at, __fmul_rn(gh, hp));
+    carry = __fmul_rn(load_f32(a + at), gh);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* a, const void* h, const void* gh, void* g_a,
+               void* g_bx, int b, int s, int w, cudaStream_t st) {
+  const dim3 grid((w + THREADS - 1) / THREADS, b);
+  rglru_bwd_kernel<T><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(gh), static_cast<T*>(g_a),
+      static_cast<T*>(g_bx), s, w);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (a and bx); h is float32.  Returns the
@@ -121,5 +166,20 @@ extern "C" int rglru_scan_launch(const void* a, const void* bx, void* h,
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return launch<float>(a, bx, h, b, s, w, st);
   if (dtype == 1) return launch<uint16_t>(a, bx, h, b, s, w, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: a (b, s, w) in dtype (0 float32, 1 bfloat16), h and gh
+// (b, s, w) float32 -> g_a, g_bx (b, s, w) in dtype.  Returns the launch's
+// CUDA error code.
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
+                                     const void* gh, void* g_a, void* g_bx,
+                                     int b, int s, int w, int dtype,
+                                     void* stream) {
+  if (b < 1 || b > 65535 || s < 1 || w < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_bwd<float>(a, h, gh, g_a, g_bx, b, s, w, st);
+  if (dtype == 1)
+    return launch_bwd<uint16_t>(a, h, gh, g_a, g_bx, b, s, w, st);
   return (int)cudaErrorInvalidValue;
 }

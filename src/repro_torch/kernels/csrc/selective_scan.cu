@@ -185,6 +185,180 @@ int dispatch_n(const void* dA, const void* dBx, const void* C, void* y,
   }
 }
 
+
+// ------------------------------------------------------------- backward
+//
+// The gradient of the scan for the output's gradient gy (b, s, d_in)
+// float32: with the state's gradient running backwards,
+//   gh_t = C_t gy_t + dA_{t+1} gh_{t+1}   (gh_s = 0 past the end),
+//   g_dA_t = gh_t h_{t-1},  g_dBx_t = gh_t,  g_C_t = sum_d gy_t[d] h_t[d],
+// g_dA and g_dBx in the inputs' dtype, g_C float32.  A simple first kernel:
+// one thread per (batch row, channel), as the forward, in two passes over
+// the sequence.  The forward pass recomputes the states, keeps each h_{t-1}
+// in hbuf (b, s, d_in, n) float32 (for float32 inputs that is the g_dA
+// buffer itself, overwritten by the reverse pass) and reduces gy_t h_t over
+// the CTA's 128 channels: an xor butterfly per state within each warp, then
+// the four warps in order, one partial per (batch row, step, CTA, state).
+// The reverse pass walks gh down the sequence.  A second kernel sums each
+// step's partials over the CTAs in order, so g_C is the same on every run:
+// no atomics anywhere.
+
+template <typename T>
+__device__ __forceinline__ void store(T* p, float x);
+template <>
+__device__ __forceinline__ void store<float>(float* p, float x) {
+  *p = x;
+}
+template <>
+__device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p,
+                                                     float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+constexpr int WARPS = THREADS / 32;
+
+template <typename T, int N>
+__global__ void __launch_bounds__(THREADS)
+    scan_bwd_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
+                    const float* __restrict__ C, const float* __restrict__ gy,
+                    float* hbuf, T* g_dA, T* __restrict__ g_dBx,
+                    float* __restrict__ partial, int s, int d_in) {
+  __shared__ float wsum[CH][WARPS][N];
+  const int bi = blockIdx.y;
+  const int blk = blockIdx.x;
+  const int nblk = gridDim.x;
+  const int ch = blk * THREADS + threadIdx.x;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool active = ch < d_in;
+  const size_t row = (size_t)d_in * N;
+  const size_t base = (size_t)bi * s * row + (size_t)ch * N;
+  const float* pc = C + (size_t)bi * s * N;
+  const float* pg = gy + (size_t)bi * s * d_in + ch;
+
+  float h[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) h[i] = 0.0f;
+  for (int t0 = 0; t0 < s; t0 += CH) {
+    const int nt = min(CH, s - t0);
+    for (int tt = 0; tt < nt; ++tt) {
+      const int t = t0 + tt;
+      float c[N];
+      if (active) {
+        float a[N], bx[N];
+        load_row<T, N>(dA + base + (size_t)t * row, a);
+        load_row<T, N>(dBx + base + (size_t)t * row, bx);
+        float* ph = hbuf + base + (size_t)t * row;
+        const float g = pg[(size_t)t * d_in];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          ph[i] = h[i];
+          h[i] = a[i] * h[i] + bx[i];
+          c[i] = g * h[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < N; ++i) c[i] = 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          c[i] = c[i] + __shfl_xor_sync(0xffffffffu, c[i], off);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) wsum[tt][warp][i] = c[i];
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < nt * N; e += THREADS) {
+      const int tt = e / N;
+      const int i = e - tt * N;
+      float acc = wsum[tt][0][i];
+      for (int w = 1; w < WARPS; ++w) acc = acc + wsum[tt][w][i];
+      partial[(((size_t)bi * s + t0 + tt) * nblk + blk) * N + i] = acc;
+    }
+    __syncthreads();
+  }
+  if (!active) return;
+
+  float carry[N];  // dA_{t+1} gh_{t+1}
+#pragma unroll
+  for (int i = 0; i < N; ++i) carry[i] = 0.0f;
+  for (int t = s - 1; t >= 0; --t) {
+    float a[N];
+    load_row<T, N>(dA + base + (size_t)t * row, a);
+    const float g = pg[(size_t)t * d_in];
+    const float* ph = hbuf + base + (size_t)t * row;
+    float hp[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) hp[i] = ph[i];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float gh = pc[(size_t)t * N + i] * g + carry[i];
+      store<T>(g_dBx + base + (size_t)t * row + i, gh);
+      store<T>(g_dA + base + (size_t)t * row + i, gh * hp[i]);
+      carry[i] = a[i] * gh;
+    }
+  }
+}
+
+// g_C (b, s, n) = the sum of the nblk partials of each (row, step, state),
+// in CTA order
+__global__ void scan_bwd_gc_kernel(const float* __restrict__ partial,
+                                   float* __restrict__ g_C, long long total,
+                                   int nblk, int n) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= total) return;
+  const long long bt = e / n;
+  const int i = (int)(e - bt * n);
+  const float* p = partial + (size_t)bt * nblk * n + i;
+  float acc = p[0];
+  for (int k = 1; k < nblk; ++k) acc = acc + p[(size_t)k * n];
+  g_C[e] = acc;
+}
+
+template <typename T, int N>
+int launch_bwd(const void* dA, const void* dBx, const void* C, const void* gy,
+               void* hbuf, void* g_dA, void* g_dBx, void* partial, void* g_C,
+               int b, int s, int d_in, cudaStream_t st) {
+  const int nblk = (d_in + THREADS - 1) / THREADS;
+  const dim3 grid(nblk, b);
+  scan_bwd_kernel<T, N><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(dA), static_cast<const T*>(dBx),
+      static_cast<const float*>(C), static_cast<const float*>(gy),
+      static_cast<float*>(hbuf), static_cast<T*>(g_dA),
+      static_cast<T*>(g_dBx), static_cast<float*>(partial), s, d_in);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)b * s * N;
+  scan_bwd_gc_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(g_C), total,
+      nblk, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_bwd(const void* dA, const void* dBx, const void* C,
+                 const void* gy, void* hbuf, void* g_dA, void* g_dBx,
+                 void* partial, void* g_C, int b, int s, int d_in, int n,
+                 cudaStream_t st) {
+  switch (n) {
+#define SCAN_BWD_CASE(NN)                                                 \
+  case NN:                                                                \
+    return launch_bwd<T, NN>(dA, dBx, C, gy, hbuf, g_dA, g_dBx, partial, \
+                             g_C, b, s, d_in, st);
+    SCAN_BWD_CASE(1) SCAN_BWD_CASE(2) SCAN_BWD_CASE(3) SCAN_BWD_CASE(4)
+    SCAN_BWD_CASE(5) SCAN_BWD_CASE(6) SCAN_BWD_CASE(7) SCAN_BWD_CASE(8)
+    SCAN_BWD_CASE(9) SCAN_BWD_CASE(10) SCAN_BWD_CASE(11) SCAN_BWD_CASE(12)
+    SCAN_BWD_CASE(13) SCAN_BWD_CASE(14) SCAN_BWD_CASE(15) SCAN_BWD_CASE(16)
+#undef SCAN_BWD_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (dA and dBx); C is float32; h_final
@@ -201,5 +375,27 @@ extern "C" int selective_scan_launch(const void* dA, const void* dBx,
   if (dtype == 1)
     return dispatch_n<__nv_bfloat16>(dA, dBx, C, y, h_final, b, s, d_in, n,
                                      st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: gy (b, s, d_in) float32 -> g_dA, g_dBx (b, s, d_in, n) in
+// the inputs' dtype and g_C (b, s, n) float32.  hbuf (b, s, d_in, n)
+// float32 holds the recomputed states (for float32 inputs pass g_dA itself);
+// partial (b, s, ceil(d_in / 128), n) float32 is scratch.  Two launches.
+extern "C" int selective_scan_bwd_launch(const void* dA, const void* dBx,
+                                         const void* C, const void* gy,
+                                         void* hbuf, void* g_dA, void* g_dBx,
+                                         void* partial, void* g_C, int b,
+                                         int s, int d_in, int n, int dtype,
+                                         void* stream) {
+  if (b < 1 || b > 65535 || s < 1 || d_in < 1 || n < 1 || n > MAX_N)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dispatch_bwd<float>(dA, dBx, C, gy, hbuf, g_dA, g_dBx, partial,
+                               g_C, b, s, d_in, n, st);
+  if (dtype == 1)
+    return dispatch_bwd<__nv_bfloat16>(dA, dBx, C, gy, hbuf, g_dA, g_dBx,
+                                       partial, g_C, b, s, d_in, n, st);
   return (int)cudaErrorInvalidValue;
 }

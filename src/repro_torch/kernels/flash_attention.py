@@ -21,6 +21,17 @@ per thread, four threads per row at hd=256), for the float32
 cross-checks.  A CPU tensor runs the eager twin ``ref.attention_ref``.
 There is no fallback from one to another.  ``flash_attention.launches``
 counts kernel launches.
+
+Training: when grad is enabled and q, k or v requires it, the call goes
+through ``FlashAttentionFn`` (on both devices), whose forward also asks
+the kernel for each row's logsumexp (b, h, sq) float32 and whose backward
+is ``flash_attention_bwd``: on a CUDA tensor the two backward kernels of
+``csrc/flash_attention.cu`` (dQ over query tiles; dK and dV over key
+tiles, summed over each kv head's g query heads; float32 on the CUDA
+cores, no atomics, the same bits on every run), on a CPU tensor the twin
+``ref.attention_bwd_ref``.  Without grad the forward launches as it
+always did, with no logsumexp.  ``flash_attention_bwd.launches`` counts
+backward calls (two kernels each).
 """
 from __future__ import annotations
 
@@ -29,7 +40,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import LIBRARIES
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
 #: head dims the kernel is compiled for (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -81,18 +92,14 @@ def max_group(dtype, hd):
     return MAX_GROUP[hd] if dtype == torch.float32 else None
 
 
-_LAUNCHER = []
+def _entry(symbol, pointers, ints):
+    """The library's C entry point ``symbol``, typed once per process."""
+    return LIBRARIES.entry("flash_attention", symbol, pointers, ints)
 
 
 def _launcher():
-    """The library's C entry point, typed once per process."""
-    if not _LAUNCHER:
-        fn = LIBRARIES.get("flash_attention").flash_attention_pos_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
-            + [ctypes.c_void_p]
-        _LAUNCHER.append(fn)
-    return _LAUNCHER[0]
+    """The forward's C entry point, typed once per process."""
+    return _entry("flash_attention_pos_launch", 6, 9)
 
 
 def kernel_step(hd):
@@ -105,9 +112,10 @@ def kernel_step(hd):
 
 
 def flash_attention_cuda(q, k, v, causal=True, window=0, pos_q=None,
-                         pos_k=None):
+                         pos_k=None, with_lse=False):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns a freshly
-    allocated output."""
+    allocated output, or with ``with_lse`` (output, lse (b, h, sq)
+    float32)."""
     _check(q, k, v)
     _check_positions(q, k, pos_q, pos_k)
     if pos_q is not None:
@@ -132,26 +140,133 @@ def flash_attention_cuda(q, k, v, causal=True, window=0, pos_q=None,
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned")
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if b == 0 or sq == 0:
-        return out
-    fn = _launcher()
+        return (out, lse) if with_lse else out
+    pos = (None if pos_q is None else pos_q.data_ptr(),
+           None if pos_k is None else pos_k.data_ptr())
+    shape = (b, sq, sk, h, kvh, hd, int(bool(causal)), int(window),
+             _DTYPE_CODE[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        if with_lse:
+            rc = _entry("flash_attention_lse_launch", 7, 9)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *pos, *shape, stream)
+        else:
+            rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             out.data_ptr(), *pos, *shape, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0,
+                             pos_q=None, pos_k=None):
+    """Launch the two backward kernels on contiguous CUDA tensors: q, k, v,
+    the forward's output o and the output's gradient do of one dtype, lse
+    (b, h, sq) float32 from the forward; returns freshly allocated (dq, dk,
+    dv)."""
+    _check(q, k, v)
+    _check_positions(q, k, pos_q, pos_k)
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: {q.dtype} at head dim {hd} "
+                         f"is not built")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} is not q's")
+    if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse must be float32 "
+                         f"{(b, h, sq)}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do),
+                    ("lse", lse)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if b == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _entry("flash_attention_bwd_launch", 12, 9)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 None if pos_q is None else pos_q.data_ptr(),
                 None if pos_k is None else pos_k.data_ptr(),
                 b, sq, sk, h, kvh, hd, int(bool(causal)), int(window),
                 _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
-    return out
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=0,
+                        pos_q=None, pos_k=None):
+    """The backward: the CUDA kernels on CUDA tensors, the eager twin on
+    CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window, pos_q=pos_q, pos_k=pos_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=causal,
+                                    window=window, pos_q=pos_q, pos_k=pos_k)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its gradient: the forward keeps each row's
+    logsumexp; the backward is ``flash_attention_bwd`` (positions carry no
+    gradient)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, pos_q, pos_k):
+        if q.device.type == "cpu":
+            out, lse = attention_ref(q, k, v, causal=causal, window=window,
+                                     pos_q=pos_q, pos_k=pos_k,
+                                     return_lse=True)
+        else:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, pos_q=pos_q,
+                                            pos_k=pos_k, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, pos_q, pos_k)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, pos_q, pos_k = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, do.to(q.dtype).contiguous(),
+            causal=ctx.causal, window=ctx.window, pos_q=pos_q, pos_k=pos_k)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, window=0, pos_q=None, pos_k=None):
     """Attention: the CUDA kernel on CUDA tensors, the eager twin on CPU
-    tensors."""
+    tensors; through ``FlashAttentionFn`` when a gradient is wanted."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _check(q, k, v)
+        _check_positions(q, k, pos_q, pos_k)
+        if q.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"flash_attention: unsupported device "
+                             f"{q.device}")
+        return FlashAttentionFn.apply(q, k, v, causal, window, pos_q, pos_k)
     if q.device.type == "cpu":
         _check(q, k, v)
         _check_positions(q, k, pos_q, pos_k)

@@ -35,11 +35,15 @@ f8 = torch.float64
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, causal=True, window=0, pos_q=None, pos_k=None):
+def attention_ref(q, k, v, causal=True, window=0, pos_q=None, pos_k=None,
+                  return_lse=False):
     """q (b, sq, h, hd); k, v (b, sk, kvh, hd) -> (b, sq, h, hd) in q's
     dtype.  Fully materialized, float32 inside; query head ``kv*g + gi``
     reads kv head ``kv``; scores are scaled by ``hd**-0.5``; masked scores
     are ``-1e30``, so a row with no visible key averages every value.
+    With ``return_lse`` it returns (out, lse): lse (b, h, sq) float32 the
+    natural-log logsumexp of each row's scaled visible scores, +inf for a
+    row that sees no key (the kernel's, and the backward's, flag).
 
     Positions are ``0..s-1`` on both sides (the causal mask top-left
     aligned when sq != sk), or the int32 ``pos_q`` (b, sq) and ``pos_k``
@@ -54,22 +58,94 @@ def attention_ref(q, k, v, causal=True, window=0, pos_q=None, pos_k=None):
     s = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) * hd ** -0.5
     if (pos_q is None) != (pos_k is None):
         raise ValueError("attention_ref: give pos_q and pos_k together")
+    mask = _attention_mask(b, sq, sk, causal, window, pos_q, pos_k, q.device)
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    o = o.reshape(b, sq, h, hd).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(mask.any(-1), torch.logsumexp(s, dim=-1),
+                      float("inf"))
+    return o, lse.expand(b, kvh, g, sq).reshape(b, h, sq)
+
+
+def _attention_mask(b, sq, sk, causal, window, pos_q, pos_k, device):
+    """The visibility mask of ``attention_ref``, broadcastable to (b, kvh,
+    g, sq, sk)."""
     if pos_q is None:
-        qp = torch.arange(sq, device=q.device)[:, None]
-        kp = torch.arange(sk, device=q.device)[None, :]
+        qp = torch.arange(sq, device=device)[:, None]
+        kp = torch.arange(sk, device=device)[None, :]
     else:
-        qp = pos_q.long()[:, None, None, :, None]            # (b,1,1,sq,1)
-        kp = pos_k.long()[:, None, None, None, :]            # (b,1,1,1,sk)
+        qp = pos_q.long()[:, None, None, :, None]
+        kp = pos_k.long()[:, None, None, None, :]
     mask = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
-                      dtype=torch.bool, device=q.device)
+                      dtype=torch.bool, device=device)
     if causal:
         mask &= qp >= kp
     if window:
         mask &= (qp - kp) < window
-    s = torch.where(mask, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    return mask
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=0,
+                      pos_q=None, pos_k=None):
+    """The gradient of ``attention_ref`` for the output's gradient ``do``,
+    as the backward kernel forms it, in float32: P = exp(S·scale - lse)
+    from the forward's logsumexp (0 where masked), D = rowsum(dO∘o),
+    dV = Pᵀ dO, dS = P∘(dO Vᵀ - D), dQ = scale·dS K, dK = scale·dSᵀ Q,
+    dK and dV summed over the g query heads of each kv head.  A row with
+    lse = +inf saw no key: its P is 1/sk on every key and its dS is 0 (the
+    gradient of the uniform softmax over all-masked scores).  Returns (dq,
+    dk, dv) in the dtypes of q, k and v."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = hd ** -0.5
+    qg = q.reshape(b, sq, kvh, g, hd).float()
+    dog = do.reshape(b, sq, kvh, g, hd).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, kf) * scale
+    mask = _attention_mask(b, sq, sk, causal, window, pos_q, pos_k, q.device)
+    L = lse.reshape(b, kvh, g, sq)[..., None]
+    uniform = torch.isinf(L)
+    p = torch.where(mask, torch.exp(s - torch.where(uniform, 0.0, L)), 0.0)
+    p = torch.where(uniform, 1.0 / max(sk, 1), p)
+    D = (do.float() * o.float()).sum(-1).reshape(b, sq, kvh, g)
+    D = D.permute(0, 2, 3, 1)[..., None]                    # (b,kvh,g,sq,1)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, vf)
+    ds = torch.where(uniform, 0.0, p * (dp - D))
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg) * scale
+    return (dq.reshape(b, sq, h, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def moe_route_bwd_ref(logits, eid, g_gate):
+    """The gradient of ``moe_route_ref``'s gates with respect to the
+    logits, as the backward kernel forms it: per token, with p the float32
+    softmax, v_j = p[eid_j] and sum = Σ v_j, g_v = (g_gate - Σ g_gate·gate)
+    / sum (g_gate / 1e-9 where the clamp holds, sum < 1e-9), then
+    g_logits = p∘(g_p - Σ_j g_v_j v_j), g_p = g_v at the picked experts
+    and 0 elsewhere.  logits (..., E), eid and g_gate (..., k); returns
+    float32 (..., E)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    v = torch.gather(probs, -1, eid.long())
+    g_v = gate_norm_vjp(v, g_gate.float())
+    g_p = torch.zeros_like(probs).scatter_(-1, eid.long(), g_v)
+    return probs * (g_p - (g_v * v).sum(-1, keepdim=True))
+
+
+def gate_norm_vjp(v, g, eps=1e-9):
+    """The vjp of ``v / max(Σ v, eps)`` (over the last axis) at v for g:
+    (g - Σ g·v/Σ) / Σ where Σ >= eps, else g / eps (the clamp's gradient
+    as torch's ``clamp`` passes it)."""
+    total = v.sum(-1, keepdim=True)
+    free = total >= eps
+    den = torch.where(free, total, eps)
+    dot = torch.where(free, (g * (v / den)).sum(-1, keepdim=True), 0.0)
+    return (g - dot) / den
 
 
 def topk_distinct(probs, k):
@@ -131,6 +207,50 @@ def selective_scan_ref(dA, dBx, C, final_state=False):
     else:
         y = torch.zeros((b, 0, d_in), dtype=torch.float32, device=dA.device)
     return (y, h) if final_state else y
+
+
+def selective_scan_bwd_ref(dA, dBx, C, gy):
+    """The gradient of ``selective_scan_ref``'s y for gy (b, s, d_in)
+    float32, as the backward kernel forms it: the states recomputed, then
+    gh_t = C_t·gy_t + dA_{t+1}·gh_{t+1} walked down the sequence, g_dA_t =
+    gh_t·h_{t-1}, g_dBx_t = gh_t and g_C_t = Σ_d gy_t[d]·h_t[d].  Returns
+    (g_dA, g_dBx) in the inputs' dtype and g_C (b, s, n) float32."""
+    b, s, d_in, n = dA.shape
+    h = torch.zeros((b, d_in, n), dtype=torch.float32, device=dA.device)
+    hs = []
+    for t in range(s):
+        hs.append(h)
+        h = dA[:, t].float() * h + dBx[:, t].float()
+    hs.append(h)
+    gy = gy.float()
+    g_dA = torch.empty(dA.shape, dtype=torch.float32, device=dA.device)
+    g_dBx = torch.empty_like(g_dA)
+    g_C = torch.empty((b, s, n), dtype=torch.float32, device=dA.device)
+    carry = torch.zeros((b, d_in, n), dtype=torch.float32, device=dA.device)
+    for t in range(s - 1, -1, -1):
+        gh = C[:, t, None, :].float() * gy[:, t, :, None] + carry
+        g_dBx[:, t] = gh
+        g_dA[:, t] = gh * hs[t]
+        g_C[:, t] = torch.einsum("bd,bdn->bn", gy[:, t], hs[t + 1])
+        carry = dA[:, t].float() * gh
+    return g_dA.to(dA.dtype), g_dBx.to(dBx.dtype), g_C
+
+
+def rglru_scan_bwd_ref(a, h, gh_out):
+    """The gradient of ``rglru_scan_ref`` for gh_out (b, s, w) float32,
+    as the backward kernel forms it from the forward's output h: gh_t =
+    gh_out_t + a_{t+1}·gh_{t+1} walked down the sequence, g_a_t =
+    gh_t·h_{t-1} (h_0 = 0) and g_bx_t = gh_t, each in a's dtype."""
+    b, s, w = a.shape
+    g_a = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    g_bx = torch.empty_like(g_a)
+    carry = torch.zeros((b, w), dtype=torch.float32, device=a.device)
+    for t in range(s - 1, -1, -1):
+        gh = gh_out[:, t].float() + carry
+        g_bx[:, t] = gh
+        g_a[:, t] = gh * (h[:, t - 1] if t > 0 else 0.0)
+        carry = a[:, t].float() * gh
+    return g_a.to(a.dtype), g_bx.to(a.dtype)
 
 
 def rglru_scan_ref(a, bx):

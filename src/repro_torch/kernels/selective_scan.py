@@ -16,15 +16,22 @@ thread per (batch row, channel), its n <= 16 states in registers, the
 sequence walked in order); a CPU tensor runs the eager twin
 ``ref.selective_scan_ref``.  There is no fallback from one to the other.
 ``selective_scan.launches`` counts kernel launches.
+
+Training: when grad is enabled and an input requires it, the call goes
+through ``SelectiveScanFn`` (on both devices; y only, not the final
+state), whose backward is ``selective_scan_bwd``: on a CUDA tensor the
+backward kernels of ``csrc/selective_scan.cu`` (the states recomputed in a
+forward pass, gh walked down the sequence, g_C summed over channel blocks
+through written partials; no atomics), on a CPU tensor the twin
+``ref.selective_scan_bwd_ref``.  ``selective_scan_bwd.launches`` counts
+backward calls.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels.build import LIBRARIES
-from repro_torch.kernels.ref import selective_scan_ref
+from repro_torch.kernels.ref import selective_scan_bwd_ref, selective_scan_ref
 
 #: the kernel keeps at most this many states per channel in registers
 MAX_STATE = 16
@@ -46,18 +53,14 @@ def _check(dA, dBx, C):
         raise ValueError("selective_scan: operands on different devices")
 
 
-_LAUNCHER = []
+def _entry(symbol, pointers, ints):
+    """The library's C entry point ``symbol``, typed once per process."""
+    return LIBRARIES.entry("selective_scan", symbol, pointers, ints)
 
 
 def _launcher():
-    """The library's C entry point, typed once per process."""
-    if not _LAUNCHER:
-        fn = LIBRARIES.get("selective_scan").selective_scan_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        _LAUNCHER.append(fn)
-    return _LAUNCHER[0]
+    """The forward's C entry point, typed once per process."""
+    return _entry("selective_scan_launch", 5, 5)
 
 
 def selective_scan_cuda(dA, dBx, C, final_state=False):
@@ -97,9 +100,98 @@ def selective_scan_cuda(dA, dBx, C, final_state=False):
     return (y, h) if final_state else y
 
 
+#: channels per CTA of the kernels (csrc/selective_scan.cu THREADS)
+CTA_CHANNELS = 128
+
+
+def selective_scan_bwd_cuda(dA, dBx, C, gy):
+    """Launch the backward kernels on CUDA tensors: gy (b, s, d_in) the
+    gradient of y; returns freshly allocated (g_dA, g_dBx) in the inputs'
+    dtype and g_C (b, s, n) float32."""
+    _check(dA, dBx, C)
+    b, s, d_in, n = dA.shape
+    if dA.dtype not in _DTYPE_CODE or not 1 <= n <= MAX_STATE:
+        raise ValueError(f"selective_scan_bwd: {dA.dtype} with state dim "
+                         f"{n} is not built")
+    if tuple(gy.shape) != (b, s, d_in):
+        raise ValueError(f"selective_scan_bwd: gy {tuple(gy.shape)} is not "
+                         f"{(b, s, d_in)}")
+    for name, t in (("dA", dA), ("dBx", dBx)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"selective_scan_bwd: {name} must be "
+                             f"contiguous and 16-byte aligned")
+    C = C.float().contiguous()
+    gy = gy.float().contiguous()
+    g_dA, g_dBx = torch.empty_like(dA), torch.empty_like(dBx)
+    g_C = torch.empty((b, s, n), dtype=torch.float32, device=dA.device)
+    if g_dA.numel() == 0:
+        return g_dA, g_dBx, g_C.zero_()
+    # the recomputed states: g_dA itself when it is float32
+    hbuf = g_dA if dA.dtype == torch.float32 else \
+        torch.empty(dA.shape, dtype=torch.float32, device=dA.device)
+    nblk = -(-d_in // CTA_CHANNELS)
+    partial = torch.empty((b, s, nblk, n), dtype=torch.float32,
+                          device=dA.device)
+    with torch.cuda.device(dA.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _entry("selective_scan_bwd_launch", 9, 5)(
+            dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), gy.data_ptr(),
+            hbuf.data_ptr(), g_dA.data_ptr(), g_dBx.data_ptr(),
+            partial.data_ptr(), g_C.data_ptr(), b, s, d_in, n,
+            _DTYPE_CODE[dA.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan backward launch failed: CUDA "
+                           f"error {rc}")
+    selective_scan_bwd.launches += 1
+    return g_dA, g_dBx, g_C
+
+
+def selective_scan_bwd(dA, dBx, C, gy):
+    """The backward: the CUDA kernels on CUDA tensors, the eager twin on
+    CPU tensors."""
+    if dA.device.type == "cpu":
+        _check(dA, dBx, C)
+        return selective_scan_bwd_ref(dA, dBx, C, gy)
+    if dA.device.type != "cuda":
+        raise ValueError(f"selective_scan_bwd: unsupported device "
+                         f"{dA.device}")
+    return selective_scan_bwd_cuda(dA, dBx, C, gy)
+
+
+selective_scan_bwd.launches = 0
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """y of the scan with its gradient (``selective_scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, dA, dBx, C):
+        ctx.save_for_backward(dA, dBx, C)
+        if dA.device.type == "cpu":
+            return selective_scan_ref(dA, dBx, C)
+        return selective_scan_cuda(dA, dBx, C)
+
+    @staticmethod
+    def backward(ctx, gy):
+        dA, dBx, C = ctx.saved_tensors
+        g_dA, g_dBx, g_C = selective_scan_bwd(dA, dBx, C, gy)
+        return g_dA, g_dBx, g_C.to(C.dtype)
+
+
 def selective_scan(dA, dBx, C, final_state=False):
     """The scan: the CUDA kernel on CUDA tensors, the eager twin on CPU
-    tensors."""
+    tensors; through ``SelectiveScanFn`` when a gradient is wanted (of y:
+    a final state asked for with a gradient raises)."""
+    if torch.is_grad_enabled() and (dA.requires_grad or dBx.requires_grad
+                                    or C.requires_grad):
+        _check(dA, dBx, C)
+        if final_state:
+            raise ValueError("selective_scan: the gradient covers y, not "
+                             "the final state")
+        if dA.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"selective_scan: unsupported device "
+                             f"{dA.device}")
+        return SelectiveScanFn.apply(dA, dBx, C)
     if dA.device.type == "cpu":
         _check(dA, dBx, C)
         return selective_scan_ref(dA, dBx, C, final_state=final_state)

@@ -10,15 +10,22 @@ layers, and ``params_from_jax`` unstacks that axis).
 Public API:
     init_params(cfg, generator, device)            -> params
     params_from_jax(tree, cfg, device)             -> params
+    opt_state_from_jax(state, cfg, device)         -> optimizer state
+    stack_groups(params, cfg)                      -> Adafactor's groups
     forward(params, batch, cfg[, collect_cache])   -> logits (float32)
                                                       [, cache]
+    forward(params, batch, cfg, with_aux=True)     -> (logits, aux)
+    loss_fn(params, batch, cfg[, aux_weight])      -> (total, {"ce", "aux"})
     prefill(params, batch, cfg, max_ctx)           -> (logits, cache)
     init_cache(cfg, batch, ctx_len, sliding, device) -> cache
     decode_step(params, tokens, cache, pos, cfg)   -> (logits, cache)
     cache_from_jax(tree, cfg, device)              -> cache
 
-A batch holds ``tokens`` (b, s) and optionally explicit ``positions``
-(b, s) (offset or packed rows; without them they are ``0..s-1``).  A
+A batch holds ``tokens`` (b, s), optionally explicit ``positions`` (b, s)
+(offset or packed rows; without them they are ``0..s-1``) and, for
+``loss_fn``, ``labels`` (b, s).  With grad enabled and ``cfg.remat`` each
+layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
+reference's ``jax.checkpoint`` of each scanned period.  A
 decode cache is a list with one dict per layer, as ``params["blocks"]``:
 ``{"k", "v"}`` ring buffers for the attention blocks, ``{"h", "conv"}``
 states for the Mamba and RG-LRU blocks.  Other block kinds, M-RoPE,
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
@@ -37,12 +45,14 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
                                        mlp_init, rmsnorm)
+from repro_torch.optim.optimizers import AdafactorState, AdamWState
+from repro_torch.tree import tree_flatten, tree_leaves
 
 #: the block kinds the port runs
 PORTED_KINDS = ("attn", "attn_moe", "mamba", "rglru", "local_attn")
 
 #: the batch entries the port reads
-BATCH_KEYS = ("tokens", "positions")
+BATCH_KEYS = ("tokens", "positions", "labels")
 
 
 def _not_ported(what: str):
@@ -170,6 +180,69 @@ def params_from_jax(tree, cfg, device="cuda"):
     return _to_tensors(params, dev)
 
 
+def opt_state_from_jax(state, cfg, device="cuda"):
+    """The reference's optimizer state (``AdamWState`` or
+    ``AdafactorState`` of ``repro.optim.optimizers``, given with NumPy
+    leaves) as the port's on ``device``: AdamW's moments unstacked like
+    ``params_from_jax`` into the flat order of the port's parameters
+    (``tree_leaves(params)``); Adafactor's statistics kept per reference
+    leaf, in the order of ``stack_groups``."""
+    dev = resolve(device)
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=dev)
+    if hasattr(state, "m"):
+        return AdamWState(
+            step=step,
+            m=tree_leaves(params_from_jax(state.m, cfg, device=dev)),
+            v=tree_leaves(params_from_jax(state.v, cfg, device=dev)))
+    return AdafactorState(step=step,
+                          vr=_to_tensors(tree_leaves(state.vr), dev),
+                          vc=_to_tensors(tree_leaves(state.vc), dev))
+
+
+class _Stacked:
+    """The port's flat indices of one stacked reference leaf."""
+
+    def __init__(self):
+        self.indices = []
+
+
+def _parent(tree, path):
+    """The dict of ``tree`` that holds ``path``'s last key (made as
+    needed)."""
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    return tree
+
+
+def stack_groups(params, cfg):
+    """Adafactor's groups (``optim.optimizers``): for each leaf of the
+    reference's parameter tree, in JAX's flattening order, the index of
+    the port's flat parameter (``tree_leaves(params)``) that is that leaf,
+    or the list of the per-layer indices that its body periods stack."""
+    prefix, (pattern, periods), suffix = cfg.scan_segments
+    npre, width = len(prefix), len(pattern)
+    ref = {"prefix": [{} for _ in prefix], "suffix": [{} for _ in suffix]}
+    for idx, (path, _) in enumerate(tree_flatten(params)):
+        parts = path.split("/")
+        if parts[0] != "blocks":
+            ref[parts[0]] = idx
+            continue
+        li, rest = int(parts[1]), parts[2:]
+        if li < npre:
+            _parent(ref["prefix"][li], rest)[rest[-1]] = idx
+        elif li < npre + periods * width:
+            body = ref.setdefault("body", {}).setdefault(
+                f"b{(li - npre) % width}", {})
+            _parent(body, rest).setdefault(rest[-1], _Stacked()) \
+                .indices.append(idx)
+        else:
+            _parent(ref["suffix"][li - npre - periods * width],
+                    rest)[rest[-1]] = idx
+    return [leaf.indices if isinstance(leaf, _Stacked) else leaf
+            for leaf in tree_leaves(ref)]
+
+
 def cache_from_jax(tree, cfg, device="cuda"):
     """The reference's decode cache (``repro.models.prefill`` /
     ``init_cache`` / ``decode_step``), given as NumPy arrays, as the
@@ -225,9 +298,11 @@ def _ring(t, w):
                      dim=1)
 
 
-def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None):
-    """One block; with ``cache_len`` also its decode cache.  Returns
-    (x, cache or None)."""
+def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None,
+           aux=None):
+    """One block; with ``cache_len`` also its decode cache; with ``aux``
+    (a list) an ``attn_moe`` block appends its load-balance loss to it.
+    Returns (x, cache or None)."""
     if kind not in PORTED_KINDS:
         raise _not_ported(kind)
     collect = cache_len is not None
@@ -260,8 +335,20 @@ def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None):
     x = x + h
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
+        if aux is not None:
+            aux.append(moe_mod.aux_load_balance_loss(p["moe"], xn, cfg))
         return x + moe_mod.moe_apply(p["moe"], xn, cfg), cache
     return x + mlp_apply(p["mlp"], xn, cfg), cache
+
+
+def _remat_block(kind, p, x, positions, cfg, explicit):
+    """One block under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward.  Returns (x, aux)."""
+    def run(x):
+        aux = []
+        x, _ = _block(kind, p, x, positions, cfg, explicit, aux=aux)
+        return x, (aux[0] if aux else x.new_zeros((), dtype=torch.float32))
+    return checkpoint(run, x, use_reentrant=False)
 
 
 def apply_block(kind, p, x, positions, cfg, explicit=False):
@@ -280,23 +367,61 @@ def lm_head(params, x, cfg):
     return (x @ w).float()
 
 
-def forward(params, batch, cfg, collect_cache=False, max_ctx=None):
+def _needs_grad(p):
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tree_leaves(p))
+
+
+def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
+            with_aux=False):
     """Full-sequence forward of ``batch["tokens"]`` (b, s), at the batch's
     ``positions`` if it has them; returns float32 logits (b, s, vocab),
     and with ``collect_cache`` also the decode cache of ``max_ctx``
     (default s) slots per attention layer, each attention layer keeping
-    ``min(its window or max_ctx, max_ctx)`` of them."""
+    ``min(its window or max_ctx, max_ctx)`` of them.  With ``with_aux`` it
+    returns (logits, aux): aux the () float32 sum of every ``attn_moe``
+    block's load-balance loss (the reference's ``forward`` returns it
+    beside the logits)."""
     check_supported(cfg, batch)
+    if collect_cache and with_aux:
+        raise ValueError("forward: with_aux and collect_cache together")
     tokens = batch["tokens"]
     positions, explicit = batch_positions(batch)
     cache_len = (max_ctx or tokens.shape[1]) if collect_cache else None
     x = embed_tokens(params, tokens, cfg)
-    cache = []
+    cache, aux = [], []
     for kind, p in zip(cfg.layer_kinds, params["blocks"]):
-        x, c = _block(kind, p, x, positions, cfg, explicit, cache_len)
+        if cfg.remat and not collect_cache and _needs_grad(p):
+            x, a = _remat_block(kind, p, x, positions, cfg, explicit)
+            if kind == "attn_moe" and with_aux:
+                aux.append(a)
+            continue
+        x, c = _block(kind, p, x, positions, cfg, explicit, cache_len,
+                      aux=aux if with_aux else None)
         cache.append(c)
     logits = lm_head(params, x, cfg)
+    if with_aux:
+        total = torch.zeros((), dtype=torch.float32, device=logits.device)
+        for a in aux:
+            total = total + a
+        return logits, total
     return (logits, cache) if collect_cache else logits
+
+
+def loss_fn(params, batch, cfg, aux_weight=0.01):
+    """Next-token cross entropy of ``batch["labels"]`` (b, s): the float32
+    logsumexp of the logits minus the label's logit, averaged, plus
+    ``aux_weight`` times the MoE load-balance loss.  Returns (total,
+    {"ce": the mean cross entropy, "aux": the aux loss})."""
+    labels = batch["labels"]
+    if cfg.num_codebooks or labels.dim() != 2:
+        raise _not_ported("codebook labels")
+    logits, aux = forward(params, batch, cfg, with_aux=True)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1,
+                               labels.to(logits.device).long()[..., None])
+    loss = (lse - label_logit[..., 0]).mean()
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg, max_ctx=None):

@@ -16,8 +16,10 @@ is kept when its slot is below the capacity C, is scattered to row
 ``eid·C + slot`` of a (G, E·C + 1, d) buffer whose last row is a sink for
 the dropped ones, the experts run as batched products over (E, G·C, d),
 and the outputs are gathered back and weighted by ``gate · keep``.
-The auxiliary load-balance loss belongs to training, which is not ported
-yet.
+In training the gates carry the router's gradient (``moe_route``'s
+backward kernel on the card), and ``aux_load_balance_loss`` is the
+reference's Switch-style auxiliary loss in plain PyTorch (the reference
+also computes it outside any kernel).
 """
 from __future__ import annotations
 
@@ -125,3 +127,15 @@ def moe_apply(p, x, cfg):
     y = y.reshape(-1, d)[:S]
     y = _add_shared(p, x.reshape(S, d), y, cfg)
     return y.reshape(b, s, d)
+
+
+def aux_load_balance_loss(p, x, cfg):
+    """Switch-style auxiliary load-balance loss of x (b, s, d): E · Σ_e
+    (the fraction of the tokens' top-k picks on e) · (the mean router
+    probability of e), over the b·s tokens ungrouped, as the reference."""
+    m = cfg.moe
+    b, s, d = x.shape
+    _, top_idx, probs = router_topk(p, x.reshape(b * s, d), m)
+    frac = torch.nn.functional.one_hot(top_idx, m.num_experts).sum(1) \
+        .float().mean(0)                                     # (E,)
+    return m.num_experts * torch.sum(frac * probs.mean(0))

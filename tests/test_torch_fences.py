@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.env.torchsim.reference", "repro_torch.obs",
               "repro_torch.obs.ledger", "repro_torch.env.legacy_sim",
               "repro_torch.env.torchsim.stream",
-              "repro_torch.launch.steps"):
+              "repro_torch.launch.steps", "repro_torch.launch.train",
+              "repro_torch.optim.optimizers", "repro_torch.ckpt.checkpoint",
+              "repro_torch.data.pipeline", "repro_torch.tree"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"
@@ -84,7 +86,7 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.env.torchsim import stream
-    from repro_torch.launch import steps
+    from repro_torch.launch import steps, train
     from repro_torch.launch.experiments import run_grid_batched, run_stream
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.serving.engine import SplitPlaceEngine
@@ -119,6 +121,8 @@ def _entry_points():
         "make_prefill_step": lambda: steps.make_prefill_step(cfg),
         "make_serve_step": lambda: steps.make_serve_step(cfg),
         "make_eval_step": lambda: steps.make_eval_step(cfg),
+        "make_train_step": lambda: steps.make_train_step(cfg),
+        "train_main": lambda: train.main(["--reduced", "--steps", "1"]),
     }
 
 
@@ -131,7 +135,8 @@ def _entry_points():
                                   "StreamRunner", "serve",
                                   "serve_stream_main", "init_cache",
                                   "make_prefill_step", "make_serve_step",
-                                  "make_eval_step"])
+                                  "make_eval_step", "make_train_step",
+                                  "train_main"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

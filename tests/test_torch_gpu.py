@@ -845,3 +845,111 @@ def test_decode_matches_cpu(cuda, arch):
         for a, b in zip(g, w):
             torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
+
+
+# ------------------------------------------------------------- training
+
+#: flash backward shapes (b, sq, sk, h, kvh, hd, causal, window): GQA,
+#: every head dim, a window, rows that see no key, non-causal
+FLASH_BWD_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
+                   (1, 130, 130, 8, 1, 64, True, 0),
+                   (1, 90, 90, 4, 4, 128, True, 17),
+                   (1, 70, 70, 4, 1, 256, True, 0),
+                   (2, 50, 50, 2, 2, 16, True, 5),
+                   (1, 24, 8, 2, 1, 16, True, 4),
+                   (1, 40, 56, 2, 2, 64, False, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_backward_matches_twin(cuda, case, dtype):
+    """The backward kernels against ``attention_bwd_ref`` and autograd of
+    ``attention_ref`` (atol 1e-4 / 2e-2 of each output's scale), the
+    forward with its logsumexp giving the serving forward's bits, two
+    backward runs bitwise equal (``chip_smoke._flash_train_check``)."""
+    cs = chip_smoke()
+    b, sq, sk, h, kvh, hd, causal, window = case
+    q, k, v = cs._flash_inputs(np.random.RandomState(sq + hd), b, sq, sk, h,
+                               kvh, hd, dtype)
+    cs._flash_train_check(q, k, v, causal, window, dtype, f"{case} {dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["offset", "packed"])
+def test_flash_attention_backward_explicit_positions(cuda, kind):
+    cs = chip_smoke()
+    q, k, v = cs._flash_inputs(np.random.RandomState(9), 2, 77, 77, 8, 2,
+                               64, "bfloat16")
+    pos = cs.prefill_positions(2, 77, kind)
+    cs._flash_train_check(q, k, v, True, 5, "bfloat16", kind, pos_q=pos,
+                          pos_k=pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 37, 16, 4), (1, 128, 200, 16),
+                                  (3, 15, 8, 2)])
+def test_selective_scan_backward_matches_twin(cuda, case, dtype):
+    from repro_torch.kernels.ref import selective_scan_bwd_ref
+    from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
+    cs = chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(sum(case))
+    dA, dBx, C = cs._scan_inputs(gen, *case, dtype)
+    gy = torch.randn(case[:3], generator=gen, device=cuda)
+    got = selective_scan_bwd_cuda(dA, dBx, C, gy)
+    want = selective_scan_bwd_ref(dA, dBx, C, gy)
+    atol = cs.TRAIN_ATOL[str(dtype).split(".")[-1]]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        cs._scaled_err(a, b, f"{case}", atol)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, selective_scan_bwd_cuda(dA, dBx, C, gy)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 37, 24), (1, 64, 128), (3, 9, 70)])
+def test_rglru_scan_backward_matches_twin(cuda, shape, dtype):
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    a = (0.8 + 0.2 * torch.rand(shape, generator=gen, device=cuda)).to(dtype)
+    bx = (0.1 * torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    h = rglru_scan_ref(a, bx)
+    gh = torch.randn(shape, generator=gen, device=cuda)
+    got = rglru_scan_bwd_cuda(a, h, gh)
+    want = rglru_scan_bwd_ref(a, h, gh)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(1, 64, 8, 2), (2, 150, 60, 4),
+                                  (3, 77, 1024, 7), (1, 33, 4, 1)])
+def test_moe_route_backward_matches_twin(cuda, case):
+    from repro_torch.kernels.moe_route import (moe_route_bwd_cuda,
+                                               moe_route_cuda)
+    from repro_torch.kernels.ref import moe_route_bwd_ref
+    cs = chip_smoke()
+    rng = np.random.RandomState(sum(case))
+    G, gs, E, k = case
+    logits = cs._route_logits(rng, G, gs, E)
+    eid = moe_route_cuda(logits, k)[0]
+    g_gate = torch.from_numpy(rng.randn(G, gs, k)).float().to(cuda)
+    got = moe_route_bwd_cuda(logits, eid, g_gate)
+    cs._scaled_err(got, moe_route_bwd_ref(logits, eid, g_gate), f"{case}",
+                   cs.TRAIN_ATOL["float32"])
+    assert torch.equal(got, moe_route_bwd_cuda(logits, eid, g_gate))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+def test_train_steps_match_cpu(cuda, arch):
+    """Three train steps of the reduced float32 model on the card against
+    the CPU: parameters, optimizer state, loss and grad norm within rtol
+    1e-4 / atol 1e-5 of each leaf's scale (``chip_smoke.train_step_cross``)."""
+    worst, leaves = chip_smoke().train_step_cross(arch)
+    assert worst <= 1e-4 and leaves > 0
