@@ -1561,6 +1561,8 @@ TRAIN_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_FLASH = [(8, 256, 32, 4, 64, 0), (4, 1024, 16, 16, 128, 0),
                (1, 4096, 16, 1, 256, 2048)]
 TRAIN_SCAN = (4, 1024, 8192, 16)
+#: the shape the falcon-mamba training path launches (b=1 per microbatch)
+TRAIN_SCAN_STEP = (1, 1024, 8192, 16)
 TRAIN_RGLRU = (4, 1024, 4096)
 TRAIN_ROUTE = (1, 4096, 60, 4)
 
@@ -1731,7 +1733,8 @@ def train_flash_phase():
             f"{plain_ms:.3f}, scaled_dot_product_attention's backward "
             f"{library_ms:.4f} ms/call from graphs), bound "
             f"{sub['bound_ms']:.5f} ms ({sub['bound_by']}), "
-            f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; forward without "
+            f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s (five products); "
+            f"forward without "
             f"lse {fwd_ms:.4f} ms, with lse {fwd_lse_ms:.4f} ms; max abs "
             f"err {err:.3e}")
         del qt, kt, vt, want_o, want_lse
@@ -1741,7 +1744,8 @@ def train_flash_phase():
         else:
             rec[f"hd{hd}"] = {key: sub[key] for key in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "forward_ms", "forward_lse_ms")}
+                "bound_by", "library_ms", "forward_ms",
+                "forward_lse_ms")}
     return rec
 
 
@@ -1760,7 +1764,7 @@ def train_scan_phase():
     recs = []
     worst = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for case in SCAN_CASES + [TRAIN_SCAN]:
+        for case in SCAN_CASES + [TRAIN_SCAN_STEP, TRAIN_SCAN]:
             dA, dBx, C = _scan_inputs(gen, *case, dtype)
             gy = torch.randn(case[:3], generator=gen, device="cuda")
             where = f"selective_scan bwd {case} {dtype}"
@@ -1777,9 +1781,16 @@ def train_scan_phase():
                 raise AssertionError(f"{where}: dtypes {got[0].dtype}")
             worst[("scan", dtype)] = max(worst.get(("scan", dtype), 0.0),
                                          err)
-    args = (dA, dBx, C, gy) = (*_scan_inputs(gen, *TRAIN_SCAN,
-                                             torch.float32), gy.float())
-    ms = graph_ms(lambda: selective_scan_bwd_cuda(*args), 2)
+    del got, again, want
+    step_ms = None
+    for shape in (TRAIN_SCAN_STEP, TRAIN_SCAN):
+        del dA, dBx, C
+        args = (dA, dBx, C, gy) = (
+            *_scan_inputs(gen, *shape, torch.float32),
+            torch.randn(shape[:3], generator=gen, device="cuda"))
+        ms = graph_ms(lambda: selective_scan_bwd_cuda(*args), 2)
+        if shape == TRAIN_SCAN_STEP:
+            step_ms = ms
     plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args), 1)
     outs = selective_scan_bwd_cuda(*args)
     b, s, d, n = TRAIN_SCAN
@@ -1791,13 +1802,20 @@ def train_scan_phase():
                   peak=H100_FP32_S)
     rec["gradient_of"] = "selective_scan"
     rec["max_abs_err_bfloat16"] = worst[("scan", torch.bfloat16)]
+    sb, ss, sd, sn = TRAIN_SCAN_STEP
+    step_bytes = 4 * (4 * sb * ss * sd * sn + 2 * sb * ss * sn + sb * ss * sd)
+    rec["training_shape"] = {"shape": list(TRAIN_SCAN_STEP), "ms": step_ms,
+                             "bound_ms": step_bytes / H100_BYTES_S * 1e3,
+                             "bound_by": "bytes"}
     log(f"selective_scan backward at the reference's {len(SCAN_CASES)} "
-        f"test shapes and {TRAIN_SCAN}: matches its twin (atol 1e-4 / 2e-2 "
-        f"of each output's scale; max abs err float32 "
-        f"{rec['max_abs_err']:.3e}, bfloat16 inputs "
+        f"test shapes, {TRAIN_SCAN_STEP} and {TRAIN_SCAN}: matches its "
+        f"twin (atol 1e-4 / 2e-2 of each output's scale; max abs err "
+        f"float32 {rec['max_abs_err']:.3e}, bfloat16 inputs "
         f"{rec['max_abs_err_bfloat16']:.3e}), bitwise repeatable; float32 "
         f"at {TRAIN_SCAN}: {ms:.4f} ms/call (graphs; twin {plain_ms:.2f}), "
-        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}); at the training "
+        f"path's {TRAIN_SCAN_STEP}: {step_ms:.4f} ms/call, bound "
+        f"{rec['training_shape']['bound_ms']:.5f} ms (bytes)")
     recs.append(rec)
     del args, outs, dA, dBx, C
     for dtype in (torch.float32, torch.bfloat16):
@@ -1963,7 +1981,7 @@ def _train_family(name):
         return "attention forward (flash kernel)"
     if "route_bwd" in name:
         return "moe routing backward (kernel)"
-    if "scan_bwd" in name:
+    if "scan_bwd" in name or "scan_ckpt" in name:
         return "selective scan backward (kernels)"
     if "rglru_bwd" in name:
         return "rg-lru scan backward (kernel)"
@@ -4177,8 +4195,11 @@ def table4_phase():
 #: run-to-run spread (±10 %) is ~20 times the row's cost, so repeats
 #: cannot resolve the overhead there, and three calls of them (~200 s)
 #: took the script to 1162 s of its 1200 on an H100 80GB HBM3 machine
-#: (700 W) whose host-bound phases ran 1.3-1.5x slower than another's
-TELEMETRY_CALLS = 3
+#: (700 W) whose host-bound phases ran 1.3-1.5x slower than another's.
+#: The other paths run two calls each (three took the telemetry phase to
+#: 115-327 s of a 651-1162 s script), so the whole script keeps ~25 % of
+#: its limit spare on a slow host
+TELEMETRY_CALLS = 2
 TELEMETRY_DASO_CALLS = 1
 TELEMETRY_CEILING = 0.05
 #: the train path's finetune is chaotic past ~50 intervals at the main
@@ -5032,6 +5053,7 @@ def stream_phase(mab_state):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5055,15 +5077,18 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
 
+    t0 = time.perf_counter()
     records = kernel_phase()
     records.append(flash_phase())
     records.append(moe_route_phase())
     records.append(selective_scan_phase())
     records.append(rglru_scan_phase())
     records.append(threefry_phase())
+    log(f"forward kernel phases: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     _, _, launches, _ = main_path("bestfit-rr")
     device = sim_profile("bestfit-rr")
     for rec in records:
@@ -5080,6 +5105,7 @@ def main() -> int:
             rec["launches"] = draws["splitplace train"]
             rec["max_abs_err"] = max(rec["max_abs_err"], draw_err_main)
             rec["launches_by_path"] = draws
+    log(f"simulator main paths: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5150,14 +5176,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
     cross_checks()
     model_cross_check()
+    log(f"cross checks: {time.perf_counter() - t0:.1f} s")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
     if leaked:
         raise AssertionError(f"JAX or the JAX package was imported: {leaked}")
 
+    log(f"whole script: {time.perf_counter() - t_main:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -961,27 +961,53 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
 
 // --------------------------------------------------------------- backward
 //
-// The gradient of the function above, for float32 and bfloat16 q, k, v, o
-// and dO, computed in float32 on the CUDA cores (a simple first kernel):
-// with P = exp(S * scale - lse) recomputed from the forward's logsumexp and
-// D = rowsum(dO o), dV = P^T dO, dP = dO V^T, dS = P (dP - D), dQ = scale dS
-// K and dK = scale dS^T Q, where a masked score has P = 0 and a row that
-// sees no key (lse = +inf) has P = 1 / sk on every key and dS = 0, the
-// gradient of the reference's uniform softmax over its all-masked row.
-// Two launches, no atomics, so two calls give the same bits:
-//   1. flash_bwd_dq_kernel: one CTA per (batch, kv head, tile of ROWS rows),
-//      rows numbered position * g + head as in the forward; a row is SPLIT
-//      threads of DH dims each, whose partial dot products join by an xor
-//      butterfly (every lane ends with the same bits).  It forms D of its
-//      rows, writes it, walks the key tiles the rows can see (K and V staged
-//      in shared memory as float32) and writes dQ.
-//   2. flash_bwd_dkv_kernel: one CTA per (batch, kv head, tile of ROWS
-//      keys); a key is SPLIT threads as above.  It walks, in order, every
-//      (position, head) row of the kv head that can see one of its keys,
-//      staged in tiles of BQ rows (q, dO, lse, D), so dK and dV sum the g
-//      query heads of the kv head in one fixed order, and writes them.
-// The forward rounds P to bfloat16 before P V; this gradient is that of the
-// float32 function, as the twin's.
+// The gradient of the function above: with P = exp(S * scale - lse)
+// recomputed from the forward's logsumexp and D = rowsum(dO o), dV = P^T
+// dO, dP = dO V^T, dS = P (dP - D), dQ = scale dS K and dK = scale dS^T Q,
+// where a masked score has P = 0 and a row that sees no key (lse = +inf)
+// has P = 1 / sk on every key and dS = 0, the gradient of the reference's
+// uniform softmax over its all-masked row.  Two launches, no atomics, so
+// two calls give the same bits; the first writes D into dsum, the second
+// reads it.  Rows are numbered position * g + head, as in the forward.
+//
+// bfloat16: two tiled kernels on the tensor cores (mma.sync.m16n8k16 with
+// ldmatrix from 16-byte-padded shared memory, the forward's STEP 1), bf16
+// operands and float32 accumulators.  P and dS are rounded to bf16 as the
+// operands of their products, as FlashAttention-2 does.  S and dP are
+// formed in both kernels: seven products against the minimal five, the
+// price of dQ without atomics.
+//   1. flash_bwd_dq_mma_kernel: one CTA of QWARPS warps (16 rows each) per
+//      (batch, kv head, tile of rows), the tiles with the most keys first.
+//      Q and dO stay in shared memory; K/V tiles of QN keys go through a
+//      two-stage cp.async ring, as in the forward, over the keys the rows
+//      can see.  Per tile each warp forms S = Q K^T and dP = dO V^T, then
+//      dS in registers, repacked into bf16 A fragments, and dQ += dS K
+//      (K read with ldmatrix.trans).
+//   2. flash_bwd_dkv_mma_kernel: one CTA of KWARPS warps per (batch, kv
+//      head, tile of BN keys), key tile 0 (the most rows, when causal)
+//      first.  K and V stay in shared memory; the rows that can see a key
+//      of the tile go through a two-stage ring of BM-row tiles (Q, dO and
+//      each row's lse, D and position), in order, so dK and dV sum the g
+//      heads of the kv head in one fixed order.  Warp w takes keys 16 (w %
+//      KW) .. +15 (KW = BN / 16); for each row tile it forms S^T = K Q^T and
+//      dP^T = V dO^T over its share of the rows, writes P^T and dS^T in bf16
+//      to shared memory, and after a barrier adds P^T dO and dS^T Q into
+//      its share of the head dim's dV and dK accumulators (dims split over
+//      the warps of a key group, so hd=256 fits in registers).
+// Tiles wholly outside the causal diagonal or the window are skipped (the
+// forward's lo / hi bounds for the keys, rlo / rhi for the rows); with
+// explicit positions every tile is visited and every score masked.
+// Bound: the five products over the visible pairs at the bf16 tensor-core
+// rate, or q, k, v, o, dO and lse read and dq, dk, dv written once; at
+// TinyLlama-1.1B's training shape (b=8, s=256, 32/4 heads, hd=64) the
+// bytes, 0.0114 ms on an H100.  No warp specialisation, TMA or wgmma yet;
+// the times are in PERF.md.
+//
+// float32: flash_bwd_dq_kernel and flash_bwd_dkv_kernel, on the CUDA cores,
+// for the CPU-size float32 cross-checks (the float32 forward's reasons): a
+// row or key is SPLIT threads of DH dims each, whose partial dot products
+// join by an xor butterfly (every lane ends with the same bits); K/V or
+// Q/dO tiles staged in shared memory; the same launches and order.
 
 template <int HD>
 struct BwdTile {
@@ -998,15 +1024,6 @@ constexpr int bwd_smem_bytes() {
   return 2 * BwdTile<HD>::BT * HD * (int)sizeof(float);
 }
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(bf16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 // the sum over the SPLIT lanes of a row (consecutive lanes), in every lane
 template <int SPLIT>
 __device__ __forceinline__ float row_sum(float x) {
@@ -1021,13 +1038,15 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int causal,
   return (!causal || qpos >= kpos) && (window <= 0 || qpos - kpos < window);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
                         const float* __restrict__ lse,
-                        float* __restrict__ dsum, T* __restrict__ dq,
+                        float* __restrict__ dsum, float* __restrict__ dq,
                         const int* __restrict__ pos_q,
                         const int* __restrict__ pos_k, int sq, int sk, int h,
                         int kvh, int causal, int window, float scale) {
@@ -1059,9 +1078,9 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
   float dpart = 0.f;
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
-    qr[d] = active ? ld(q + qoff + d) : 0.f;
-    dor[d] = active ? ld(dout + qoff + d) : 0.f;
-    dpart = __fmaf_rn(dor[d], active ? ld(o + qoff + d) : 0.f, dpart);
+    qr[d] = active ? q[qoff + d] : 0.f;
+    dor[d] = active ? dout[qoff + d] : 0.f;
+    dpart = __fmaf_rn(dor[d], active ? o[qoff + d] : 0.f, dpart);
     acc[d] = 0.f;
   }
   const float D = row_sum<SPLIT>(dpart);
@@ -1084,8 +1103,8 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
       const int j = e / HD;
       const size_t src =
           (((size_t)bi * sk + k0 + j) * kvh + kv) * HD + (e - j * HD);
-      ks[e] = ld(k + src);
-      vs[e] = ld(v + src);
+      ks[e] = k[src];
+      vs[e] = v[src];
     }
     for (int j = tid; j < nk; j += THREADS)
       kps[j] = pos_k == nullptr ? k0 + j : pos_k[(size_t)bi * sk + k0 + j];
@@ -1110,16 +1129,19 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
   }
   if (!active) return;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) st(dq + qoff + d, acc[d] * scale);
+  for (int d = 0; d < DH; ++d) dq[qoff + d] = acc[d] * scale;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkv_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
                          const float* __restrict__ lse,
-                         const float* __restrict__ dsum, T* __restrict__ dk,
-                         T* __restrict__ dv, const int* __restrict__ pos_q,
+                         const float* __restrict__ dsum,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         const int* __restrict__ pos_q,
                          const int* __restrict__ pos_k, int sq, int sk,
                          int h, int kvh, int causal, int window,
                          float scale) {
@@ -1153,8 +1175,8 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
   float kr[DH], vr[DH], dka[DH], dva[DH];
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
-    kr[d] = active ? ld(k + koff + d) : 0.f;
-    vr[d] = active ? ld(v + koff + d) : 0.f;
+    kr[d] = active ? k[koff + d] : 0.f;
+    vr[d] = active ? v[koff + d] : 0.f;
     dka[d] = 0.f;
     dva[d] = 0.f;
   }
@@ -1180,8 +1202,8 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
       const size_t src =
           (((size_t)bi * sq + pos) * h + kv * g + (R - pos * g)) * HD +
           (e - r * HD);
-      qs[e] = ld(q + src);
-      dos[e] = ld(dout + src);
+      qs[e] = q[src];
+      dos[e] = dout[src];
     }
     for (int r = tid; r < nr; r += THREADS) {
       const int R = r0 + r;
@@ -1224,8 +1246,553 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
   if (!active) return;
 #pragma unroll
   for (int d = 0; d < DH; ++d) {
-    st(dk + koff + d, dka[d] * scale);
-    st(dv + koff + d, dva[d]);
+    dk[koff + d] = dka[d] * scale;
+    dv[koff + d] = dva[d];
+  }
+}
+
+// The bfloat16 kernels' tiles per head dim: QWARPS warps of 16 rows per dQ
+// CTA over K/V tiles of QN keys; KWARPS warps per dK/dV CTA of BN keys over
+// row tiles of BM rows.  At hd 64 and 128 the fastest of a sweep of text
+// variants at the training shapes on an H100 (hd=128's dK/dV kernel spills
+// a few bytes and is still the fastest).
+template <int HD>
+struct BwdMma;
+template <>
+struct BwdMma<16> {
+  static constexpr int QWARPS = 4, QN = 64, KWARPS = 4, BN = 64, BM = 64;
+};
+template <>
+struct BwdMma<32> {
+  static constexpr int QWARPS = 4, QN = 64, KWARPS = 4, BN = 64, BM = 64;
+};
+template <>
+struct BwdMma<64> {
+  static constexpr int QWARPS = 4, QN = 32, KWARPS = 8, BN = 64, BM = 64;
+};
+template <>
+struct BwdMma<128> {
+  static constexpr int QWARPS = 4, QN = 32, KWARPS = 16, BN = 128, BM = 64;
+};
+template <>
+struct BwdMma<256> {
+  static constexpr int QWARPS = 4, QN = 32, KWARPS = 8, BN = 32, BM = 64;
+};
+
+template <int HD>
+constexpr int bwd_dq_smem_bytes() {
+  return (2 * 16 * BwdMma<HD>::QWARPS + 4 * BwdMma<HD>::QN) * (HD + 8) *
+         (int)sizeof(bf16);
+}
+
+template <int HD>
+constexpr int bwd_dkv_smem_bytes() {
+  constexpr int BN = BwdMma<HD>::BN, BM = BwdMma<HD>::BM;
+  return (2 * BN + 4 * BM) * (HD + 8) * (int)sizeof(bf16) +
+         2 * BN * (BM + 8) * (int)sizeof(bf16) + 2 * 3 * BM * 4;
+}
+
+// ldmatrix addresses in a row-major bf16 matrix of LD elements per row:
+// the A fragment (16 x 16) at (row0, k0); the B fragments of the two n8
+// blocks n0 .. n0+15 at k0 from a matrix stored [n][k] (ldmatrix, as K in
+// the forward's S = Q K^T) or from one stored [k][n] (ldmatrix.trans, as V
+// in its P V): x4 registers 0, 1 are the first block's b0, b1, 2, 3 the
+// second's.
+template <int LD>
+__device__ __forceinline__ uint32_t a_frag(const bf16* m, int row0, int k0,
+                                           int lane) {
+  return smem_u32(m + (row0 + (lane & 15)) * LD + k0 + (lane >> 4) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t b_frag(const bf16* m, int n0, int k0,
+                                           int lane) {
+  return smem_u32(m + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + k0 +
+                  ((lane >> 3) & 1) * 8);
+}
+
+template <int LD>
+__device__ __forceinline__ uint32_t bt_frag(const bf16* m, int k0, int n0,
+                                            int lane) {
+  return smem_u32(m + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+                  n0 + (lane >> 4) * 8);
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int HD>
+__global__ void __launch_bounds__(32 * BwdMma<HD>::QWARPS)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ o,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            float* __restrict__ dsum, bf16* __restrict__ dq,
+                            const int* __restrict__ pos_q,
+                            const int* __restrict__ pos_k, int sq, int sk,
+                            int h, int kvh, int causal, int window,
+                            float scale_log2, float scale) {
+  constexpr int BM = 16 * BwdMma<HD>::QWARPS;
+  constexpr int THREADS = 32 * BwdMma<HD>::QWARPS;
+  constexpr int BN = BwdMma<HD>::QN;
+  constexpr int LD = HD + 8;
+  constexpr int CH = HD / 8;  // 16-byte chunks of a row
+  static_assert(BN % 16 == 0 && HD % 16 == 0, "whole mma tiles");
+  extern __shared__ uint4 smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BM][LD]
+  bf16* dos = qs + BM * LD;                       // [BM][LD]
+  bf16* ks = dos + BM * LD;                       // [2][BN][LD]
+  bf16* vs = ks + 2 * BN * LD;                    // [2][BN][LD]
+
+  const int g = h / kvh;
+  const int rows = sq * g;
+  const int tiles = (rows + BM - 1) / BM;
+  const int per_tile = gridDim.x / tiles;  // b * kvh
+  const int kv = blockIdx.x % kvh;
+  const int bi = (blockIdx.x % per_tile) / kvh;
+  const int r0 = (tiles - 1 - (int)(blockIdx.x / per_tile)) * BM;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int grp = lane >> 2;
+  const int t4 = lane & 3;
+  const int wr = warp * 16;
+
+  for (int c = tid; c < BM * CH; c += THREADS) {
+    const int r = c / CH;
+    const int ch = c - r * CH;
+    const int R = r0 + r;
+    const bool ok = R < rows;
+    const int pos = ok ? R / g : 0;
+    const int gi = ok ? R - pos * g : 0;
+    const size_t off = (((size_t)bi * sq + pos) * h + kv * g + gi) * HD +
+                       ch * 8;
+    cp_async16(smem_u32(qs + r * LD + ch * 8), q + off, ok);
+    cp_async16(smem_u32(dos + r * LD + ch * 8), dout + off, ok);
+  }
+
+  // keys any row of this tile can see (every key with explicit positions)
+  const bool explicit_pos = pos_k != nullptr;
+  const int pos_first = r0 / g;
+  const int pos_last = (min(r0 + BM, rows) - 1) / g;
+  int lo = window > 0 && !explicit_pos ? max(0, pos_first - window + 1) : 0;
+  lo = lo / BN * BN;
+  const int hi = causal && !explicit_pos ? min(sk, pos_last + 1) : sk;
+  const int ntiles = hi > lo ? (hi - lo + BN - 1) / BN : 0;
+
+  auto load_kv = [&](int t) {
+    const int k0 = lo + t * BN;
+    bf16* kd = ks + (t & 1) * BN * LD;
+    bf16* vd = vs + (t & 1) * BN * LD;
+    for (int c = tid; c < BN * CH; c += THREADS) {
+      const int j = c / CH;
+      const int ch = c - j * CH;
+      const bool ok = k0 + j < sk;  // zeros past the end
+      const size_t off =
+          (((size_t)bi * sk + (ok ? k0 + j : 0)) * kvh + kv) * HD + ch * 8;
+      cp_async16(smem_u32(kd + j * LD + ch * 8), k + off, ok);
+      cp_async16(smem_u32(vd + j * LD + ch * 8), v + off, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();  // group 0: Q, dO and K/V tile 0
+
+  // D = rowsum(dO o) of the warp's 16 rows, from device memory: lanes l
+  // and l + 16 take the two halves of row wr + (l & 15); every lane then
+  // holds D of its mma rows grp and grp + 8
+  float Drow[2], L2[2];
+  int pos_row[2];
+  {
+    const int r = wr + (lane & 15);
+    const int R = r0 + r;
+    const bool ok = R < rows;
+    const int pos = ok ? R / g : 0;
+    const int gi = ok ? R - pos * g : 0;
+    const size_t off = (((size_t)bi * sq + pos) * h + kv * g + gi) * HD;
+    const int c0 = (lane >> 4) * (CH / 2);
+    float part = 0.f;
+    if (ok) {
+#pragma unroll
+      for (int c = c0; c < c0 + CH / 2; ++c) {
+        const uint4 a = *reinterpret_cast<const uint4*>(dout + off + c * 8);
+        const uint4 b = *reinterpret_cast<const uint4*>(o + off + c * 8);
+        const bf16* ea = reinterpret_cast<const bf16*>(&a);
+        const bf16* eb = reinterpret_cast<const bf16*>(&b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          part = __fmaf_rn(__bfloat162float(ea[e]), __bfloat162float(eb[e]),
+                           part);
+      }
+    }
+    const float D = part + __shfl_xor_sync(0xffffffffu, part, 16);
+    if (ok && lane < 16) dsum[((size_t)bi * h + kv * g + gi) * sq + pos] = D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      Drow[i] = __shfl_sync(0xffffffffu, D, grp + 8 * i);
+      const int Ri = r0 + wr + grp + 8 * i;
+      const bool oki = Ri < rows;
+      const int pi = oki ? Ri / g : 0;
+      // a row that sees no key, or a padding row: L2 = +inf gives P = 0
+      // and dS = 0
+      L2[i] = oki ? lse[((size_t)bi * h + kv * g + Ri - pi * g) * sq + pi] *
+                        LOG2E
+                  : INFINITY;
+      pos_row[i] = explicit_pos ? __ldg(pos_q + (size_t)bi * sq + pi) : pi;
+    }
+  }
+
+  float dqa[HD / 8][4];
+#pragma unroll
+  for (int db = 0; db < HD / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[db][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < ntiles) load_kv(t + 1);
+    cp_async_commit();
+    const int k0 = lo + t * BN;
+    const bf16* kt = ks + (t & 1) * BN * LD;
+    const bf16* vt = vs + (t & 1) * BN * LD;
+
+    // S = Q K^T and dP = dO V^T
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t aq[4], ad[4];
+      ldsm_x4(aq, a_frag<LD>(qs, wr, kk * 16, lane));
+      ldsm_x4(ad, a_frag<LD>(dos, wr, kk * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < BN / 8; nb += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, b_frag<LD>(kt, nb * 8, kk * 16, lane));
+        mma_bf16(s[nb], aq, b[0], b[1]);
+        mma_bf16(s[nb + 1], aq, b[2], b[3]);
+        ldsm_x4(b, b_frag<LD>(vt, nb * 8, kk * 16, lane));
+        mma_bf16(dp[nb], ad, b[0], b[1]);
+        mma_bf16(dp[nb + 1], ad, b[2], b[3]);
+      }
+    }
+
+    // dS = P (dP - D), P = 2^(S scale log2 e - lse log2 e), 0 where masked
+    const bool masked = explicit_pos ||
+                        !(k0 + BN <= sk &&
+                          (!causal || k0 + BN - 1 <= pos_first) &&
+                          (window <= 0 || pos_last - k0 < window));
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb) {
+      int kpos[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int key = k0 + nb * 8 + 2 * t4 + c;
+        kpos[c] = !explicit_pos || key >= sk
+                      ? key
+                      : __ldg(pos_k + (size_t)bi * sk + key);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nb * 8 + 2 * t4 + (e & 1);
+        const int i = e >> 1;
+        const bool ok = !masked || (key < sk && visible(pos_row[i],
+                                                        kpos[e & 1], causal,
+                                                        window));
+        const float p =
+            ok ? ex2(__fmaf_rn(s[nb][e], scale_log2, -L2[i])) : 0.f;
+        s[nb][e] = p * (dp[nb][e] - Drow[i]);
+      }
+    }
+
+    // dQ += dS K: dS in bf16 A fragments, K through ldmatrix.trans
+#pragma unroll
+    for (int kb = 0; kb < BN / 16; ++kb) {
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kb][0], s[2 * kb][1]);
+      a[1] = pack_bf16(s[2 * kb][2], s[2 * kb][3]);
+      a[2] = pack_bf16(s[2 * kb + 1][0], s[2 * kb + 1][1]);
+      a[3] = pack_bf16(s[2 * kb + 1][2], s[2 * kb + 1][3]);
+#pragma unroll
+      for (int db = 0; db < HD / 8; db += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, bt_frag<LD>(kt, kb * 16, db * 8, lane));
+        mma_bf16(dqa[db], a, b[0], b[1]);
+        mma_bf16(dqa[db + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's copies into the Q buffer are in
+
+  // epilogue: scale dQ into the warp's own rows of the Q buffer (no other
+  // warp reads them), then 16-byte rows to device memory
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = wr + grp + 8 * i;
+#pragma unroll
+    for (int db = 0; db < HD / 8; ++db)
+      *reinterpret_cast<uint32_t*>(qs + r * LD + db * 8 + 2 * t4) =
+          pack_bf16(dqa[db][2 * i] * scale, dqa[db][2 * i + 1] * scale);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = wr + c / CH;
+    const int ch = c % CH;
+    const int R = r0 + r;
+    if (R >= rows) continue;
+    const int pos = R / g;
+    const int gi = R - pos * g;
+    *reinterpret_cast<uint4*>(
+        dq + (((size_t)bi * sq + pos) * h + kv * g + gi) * HD + ch * 8) =
+        *reinterpret_cast<const uint4*>(qs + r * LD + ch * 8);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * BwdMma<HD>::KWARPS)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ dsum,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             const int* __restrict__ pos_q,
+                             const int* __restrict__ pos_k, int sq, int sk,
+                             int h, int kvh, int causal, int window,
+                             float scale_log2, float scale) {
+  constexpr int WARPS = BwdMma<HD>::KWARPS;
+  constexpr int THREADS = 32 * WARPS;
+  constexpr int BN = BwdMma<HD>::BN;
+  constexpr int BM = BwdMma<HD>::BM;
+  constexpr int LD = HD + 8;
+  constexpr int LDP = BM + 8;
+  constexpr int CH = HD / 8;
+  constexpr int KW = BN / 16;      // key groups of 16
+  constexpr int DW = WARPS / KW;   // warps per key group
+  constexpr int RN = BM / DW;      // a warp's rows of S^T and dP^T
+  constexpr int DN = HD / DW;      // a warp's dims of dK and dV
+  static_assert(KW * DW == WARPS && RN % 16 == 0 && DN % 16 == 0,
+                "whole mma tiles per warp");
+  extern __shared__ uint4 smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BN][LD]
+  bf16* vs = ks + BN * LD;                        // [BN][LD]
+  bf16* qs = vs + BN * LD;                        // [2][BM][LD]
+  bf16* dos = qs + 2 * BM * LD;                   // [2][BM][LD]
+  bf16* pt = dos + 2 * BM * LD;                   // P^T [BN][LDP]
+  bf16* dst = pt + BN * LDP;                      // dS^T [BN][LDP]
+  float* l2s = reinterpret_cast<float*>(dst + BN * LDP);  // [2][BM]
+  float* dds = l2s + 2 * BM;                               // [2][BM]
+  int* rps = reinterpret_cast<int*>(dds + 2 * BM);         // [2][BM]
+
+  const int g = h / kvh;
+  const int rows = sq * g;
+  const int ktiles = (sk + BN - 1) / BN;
+  const int per_tile = gridDim.x / ktiles;  // b * kvh
+  const int kv = blockIdx.x % kvh;
+  const int bi = (blockIdx.x % per_tile) / kvh;
+  const int k0 = (int)(blockIdx.x / per_tile) * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int grp = lane >> 2;
+  const int t4 = lane & 3;
+  const int kw = warp % KW;
+  const int dw = warp / KW;
+  const bool explicit_pos = pos_k != nullptr;
+
+  for (int c = tid; c < BN * CH; c += THREADS) {
+    const int j = c / CH;
+    const int ch = c - j * CH;
+    const bool ok = k0 + j < sk;
+    const size_t off =
+        (((size_t)bi * sk + (ok ? k0 + j : 0)) * kvh + kv) * HD + ch * 8;
+    cp_async16(smem_u32(ks + j * LD + ch * 8), k + off, ok);
+    cp_async16(smem_u32(vs + j * LD + ch * 8), v + off, ok);
+  }
+
+  // rows that can see a key of this tile (every row with explicit
+  // positions); rows past sk + window - 1 see no key at all and still give
+  // every key its uniform share of dV
+  const int key_last = min(k0 + BN, sk) - 1;
+  int rlo = 0, rhi = rows;
+  if (!explicit_pos) {
+    if (causal) rlo = min(rows, k0 * g);
+    if (window > 0 && sq - 1 < sk + window - 1)
+      rhi = min(rows, (key_last + window) * g);
+  }
+  const int ntiles = rhi > rlo ? (rhi - rlo + BM - 1) / BM : 0;
+
+  // row tile t into stage t & 1: Q and dO by cp.async, and per row lse
+  // log2 e (+inf for a row that sees no key, and for padding rows, whose
+  // Q and dO are zeros), D and the position
+  auto load_rows = [&](int t) {
+    const int r0 = rlo + t * BM;
+    bf16* qd = qs + (t & 1) * BM * LD;
+    bf16* dd = dos + (t & 1) * BM * LD;
+    for (int c = tid; c < BM * CH; c += THREADS) {
+      const int r = c / CH;
+      const int ch = c - r * CH;
+      const int R = r0 + r;
+      const bool ok = R < rhi;
+      const int pos = ok ? R / g : 0;
+      const int gi = ok ? R - pos * g : 0;
+      const size_t off = (((size_t)bi * sq + pos) * h + kv * g + gi) * HD +
+                         ch * 8;
+      cp_async16(smem_u32(qd + r * LD + ch * 8), q + off, ok);
+      cp_async16(smem_u32(dd + r * LD + ch * 8), dout + off, ok);
+    }
+    for (int r = tid; r < BM; r += THREADS) {
+      const int R = r0 + r;
+      const bool ok = R < rhi;
+      const int pos = ok ? R / g : 0;
+      const size_t lidx = ((size_t)bi * h + kv * g + R - pos * g) * sq + pos;
+      l2s[(t & 1) * BM + r] = ok ? lse[lidx] * LOG2E : INFINITY;
+      dds[(t & 1) * BM + r] = ok ? dsum[lidx] : 0.f;
+      rps[(t & 1) * BM + r] =
+          explicit_pos && ok ? __ldg(pos_q + (size_t)bi * sq + pos) : pos;
+    }
+  };
+  if (ntiles > 0) load_rows(0);
+  cp_async_commit();  // group 0: K, V and row tile 0
+
+  // the positions of the thread's keys grp and grp + 8 of its group
+  int kpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + 16 * kw + grp + 8 * i;
+    kpos[i] = explicit_pos && key < sk ? __ldg(pos_k + (size_t)bi * sk + key)
+                                       : key;
+  }
+  const float inv_sk = 1.f / (float)sk;
+
+  float dka[DN / 8][4], dva[DN / 8][4];
+#pragma unroll
+  for (int db = 0; db < DN / 8; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[db][e] = dva[db][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    if (t + 1 < ntiles) load_rows(t + 1);
+    cp_async_commit();
+    const int r0 = rlo + t * BM;
+    const bf16* qt = qs + (t & 1) * BM * LD;
+    const bf16* dt = dos + (t & 1) * BM * LD;
+    const float* l2 = l2s + (t & 1) * BM;
+    const float* dd = dds + (t & 1) * BM;
+    const int* rp = rps + (t & 1) * BM;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys 16 kw.., rows dw RN..
+    float s[RN / 8][4], dp[RN / 8][4];
+#pragma unroll
+    for (int nb = 0; nb < RN / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      ldsm_x4(ak, a_frag<LD>(ks, 16 * kw, kk * 16, lane));
+      ldsm_x4(av, a_frag<LD>(vs, 16 * kw, kk * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < RN / 8; nb += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, b_frag<LD>(qt, dw * RN + nb * 8, kk * 16, lane));
+        mma_bf16(s[nb], ak, b[0], b[1]);
+        mma_bf16(s[nb + 1], ak, b[2], b[3]);
+        ldsm_x4(b, b_frag<LD>(dt, dw * RN + nb * 8, kk * 16, lane));
+        mma_bf16(dp[nb], av, b[0], b[1]);
+        mma_bf16(dp[nb + 1], av, b[2], b[3]);
+      }
+    }
+
+    // P^T and dS^T in bf16 to shared memory
+    const int pos_first = r0 / g;
+    const int pos_last = (min(r0 + BM, rhi) - 1) / g;
+    const bool masked = explicit_pos ||
+                        !(k0 + BN <= sk &&
+                          (!causal || k0 + BN - 1 <= pos_first) &&
+                          (window <= 0 || pos_last - k0 < window));
+#pragma unroll
+    for (int nb = 0; nb < RN / 8; ++nb) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int r = dw * RN + nb * 8 + 2 * t4 + (e & 1);
+        const float L2 = l2[r];
+        const bool ok = !masked || (k0 + 16 * kw + grp + 8 * i < sk &&
+                                    visible(rp[r], kpos[i], causal, window));
+        if (L2 == INFINITY) {  // uniform row (or padding: dO is zero)
+          p[e] = inv_sk;
+          ds[e] = 0.f;
+        } else {
+          p[e] = ok ? ex2(__fmaf_rn(s[nb][e], scale_log2, -L2)) : 0.f;
+          ds[e] = p[e] * (dp[nb][e] - dd[r]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = (16 * kw + grp + 8 * i) * LDP + dw * RN + nb * 8 +
+                       2 * t4;
+        *reinterpret_cast<uint32_t*>(pt + at) =
+            pack_bf16(p[2 * i], p[2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dst + at) =
+            pack_bf16(ds[2 * i], ds[2 * i + 1]);
+      }
+    }
+    __syncthreads();  // every warp's P^T and dS^T are in
+
+    // dV += P^T dO and dK += dS^T Q: keys 16 kw.., dims dw DN..
+#pragma unroll
+    for (int kb = 0; kb < BM / 16; ++kb) {
+      uint32_t ap[4], ads[4];
+      ldsm_x4(ap, a_frag<LDP>(pt, 16 * kw, kb * 16, lane));
+      ldsm_x4(ads, a_frag<LDP>(dst, 16 * kw, kb * 16, lane));
+#pragma unroll
+      for (int db = 0; db < DN / 8; db += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, bt_frag<LD>(dt, kb * 16, dw * DN + db * 8, lane));
+        mma_bf16(dva[db], ap, b[0], b[1]);
+        mma_bf16(dva[db + 1], ap, b[2], b[3]);
+        ldsm_x4_trans(b, bt_frag<LD>(qt, kb * 16, dw * DN + db * 8, lane));
+        mma_bf16(dka[db], ads, b[0], b[1]);
+        mma_bf16(dka[db + 1], ads, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with K and V
+
+  // epilogue: scale dK; dK and dV in bf16 into the K and V buffers, then
+  // 16-byte rows to device memory
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = 16 * kw + grp + 8 * i;
+#pragma unroll
+    for (int db = 0; db < DN / 8; ++db) {
+      const int at = j * LD + dw * DN + db * 8 + 2 * t4;
+      *reinterpret_cast<uint32_t*>(ks + at) =
+          pack_bf16(dka[db][2 * i] * scale, dka[db][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(vs + at) =
+          pack_bf16(dva[db][2 * i], dva[db][2 * i + 1]);
+    }
+  }
+  __syncthreads();
+  for (int c = tid; c < BN * CH; c += THREADS) {
+    const int j = c / CH;
+    const int ch = c - j * CH;
+    if (k0 + j >= sk) continue;
+    const size_t off = (((size_t)bi * sk + k0 + j) * kvh + kv) * HD + ch * 8;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(ks + j * LD + ch * 8);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(vs + j * LD + ch * 8);
   }
 }
 
@@ -1314,31 +1881,71 @@ Launcher bf16_launcher(int hd) {
 }
 
 
-template <typename T, int HD>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* dsum, void* dq,
-               void* dk, void* dv, const int* pos_q, const int* pos_k, int b,
-               int sq, int sk, int h, int kvh, int causal, int window,
-               cudaStream_t stream) {
+template <int HD>
+int launch_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                   const void* dout, const float* lse, float* dsum, void* dq,
+                   void* dk, void* dv, const int* pos_q, const int* pos_k,
+                   int b, int sq, int sk, int h, int kvh, int causal,
+                   int window, cudaStream_t stream) {
   constexpr int ROWS = BwdTile<HD>::ROWS;
   constexpr int THREADS = BwdTile<HD>::THREADS;
   const int bytes = bwd_smem_bytes<HD>();
-  cudaError_t err = allow_smem<flash_bwd_dq_kernel<T, HD>>(bytes);
-  if (err == cudaSuccess) err = allow_smem<flash_bwd_dkv_kernel<T, HD>>(bytes);
+  cudaError_t err = allow_smem<flash_bwd_dq_kernel<HD>>(bytes);
+  if (err == cudaSuccess) err = allow_smem<flash_bwd_dkv_kernel<HD>>(bytes);
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)sq * (h / kvh);
   if (rows > 0x7fffffffLL - ROWS) return (int)cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)HD);
   const dim3 grid_q((unsigned)((rows + ROWS - 1) / ROWS), kvh, b);
-  flash_bwd_dq_kernel<T, HD><<<grid_q, THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
-      dsum, (T*)dq, pos_q, pos_k, sq, sk, h, kvh, causal, window, scale);
+  flash_bwd_dq_kernel<HD><<<grid_q, THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)o,
+      (const float*)dout, lse, dsum, (float*)dq, pos_q, pos_k, sq, sk, h,
+      kvh, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || sk == 0) return (int)err;
   const dim3 grid_k((sk + ROWS - 1) / ROWS, kvh, b);
-  flash_bwd_dkv_kernel<T, HD><<<grid_k, THREADS, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, dsum,
-      (T*)dk, (T*)dv, pos_q, pos_k, sq, sk, h, kvh, causal, window, scale);
+  flash_bwd_dkv_kernel<HD><<<grid_k, THREADS, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      lse, dsum, (float*)dk, (float*)dv, pos_q, pos_k, sq, sk, h, kvh,
+      causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd_bf16(const void* q, const void* k, const void* v,
+                    const void* o, const void* dout, const float* lse,
+                    float* dsum, void* dq, void* dk, void* dv,
+                    const int* pos_q, const int* pos_k, int b, int sq, int sk,
+                    int h, int kvh, int causal, int window,
+                    cudaStream_t stream) {
+  constexpr int BM = 16 * BwdMma<HD>::QWARPS;
+  constexpr int BN = BwdMma<HD>::BN;
+  const int qbytes = bwd_dq_smem_bytes<HD>();
+  const int kbytes = bwd_dkv_smem_bytes<HD>();
+  cudaError_t err = allow_smem<flash_bwd_dq_mma_kernel<HD>>(qbytes);
+  if (err == cudaSuccess)
+    err = allow_smem<flash_bwd_dkv_mma_kernel<HD>>(kbytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = (long long)sq * (h / kvh);
+  if (rows > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
+  const long long q_ctas = (rows + BM - 1) / BM * b * kvh;
+  const long long k_ctas = (long long)((sk + BN - 1) / BN) * b * kvh;
+  if (q_ctas > 0x7fffffffLL || k_ctas > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf((float)HD);
+  const float scale_log2 = LOG2E / sqrtf((float)HD);
+  flash_bwd_dq_mma_kernel<HD><<<(unsigned)q_ctas, 32 * BwdMma<HD>::QWARPS,
+                                qbytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+      (const bf16*)dout, lse, dsum, (bf16*)dq, pos_q, pos_k, sq, sk, h, kvh,
+      causal, window, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || sk == 0) return (int)err;
+  flash_bwd_dkv_mma_kernel<HD><<<(unsigned)k_ctas, 32 * BwdMma<HD>::KWARPS,
+                                 kbytes, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
+      dsum, (bf16*)dk, (bf16*)dv, pos_q, pos_k, sq, sk, h, kvh, causal,
+      window, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1347,14 +1954,14 @@ typedef int (*BwdLauncher)(const void*, const void*, const void*,
                            void*, void*, void*, const int*, const int*, int,
                            int, int, int, int, int, int, cudaStream_t);
 
-template <typename T>
-BwdLauncher bwd_launcher(int hd) {
+BwdLauncher bwd_launcher(int hd, int dtype) {
+  const bool bf = dtype == 1;
   switch (hd) {
-    case 16: return launch_bwd<T, 16>;
-    case 32: return launch_bwd<T, 32>;
-    case 64: return launch_bwd<T, 64>;
-    case 128: return launch_bwd<T, 128>;
-    case 256: return launch_bwd<T, 256>;
+    case 16: return bf ? launch_bwd_bf16<16> : launch_bwd_f32<16>;
+    case 32: return bf ? launch_bwd_bf16<32> : launch_bwd_f32<32>;
+    case 64: return bf ? launch_bwd_bf16<64> : launch_bwd_f32<64>;
+    case 128: return bf ? launch_bwd_bf16<128> : launch_bwd_f32<128>;
+    case 256: return bf ? launch_bwd_bf16<256> : launch_bwd_f32<256>;
     default: return nullptr;
   }
 }
@@ -1434,9 +2041,8 @@ extern "C" int flash_attention_bwd_launch(
   if (b < 1 || sq < 1 || sk < 0 || kvh < 1 || h % kvh != 0 ||
       b > 65535 || kvh > 65535 || (pos_q == nullptr) != (pos_k == nullptr))
     return (int)cudaErrorInvalidValue;
-  BwdLauncher fn = dtype == 0 ? bwd_launcher<float>(hd)
-                   : dtype == 1 ? bwd_launcher<bf16>(hd)
-                                : nullptr;
+  BwdLauncher fn = dtype == 0 || dtype == 1 ? bwd_launcher(hd, dtype)
+                                             : nullptr;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return fn(q, k, v, o, dout, lse, dsum, dq, dk, dv, pos_q, pos_k, b, sq, sk,
             h, kvh, causal, window, (cudaStream_t)stream);

@@ -192,22 +192,34 @@ int dispatch_n(const void* dA, const void* dBx, const void* C, void* y,
 // float32: with the state's gradient running backwards,
 //   gh_t = C_t gy_t + dA_{t+1} gh_{t+1}   (gh_s = 0 past the end),
 //   g_dA_t = gh_t h_{t-1},  g_dBx_t = gh_t,  g_C_t = sum_d gy_t[d] h_t[d],
-// g_dA and g_dBx in the inputs' dtype, g_C float32.  A simple first kernel:
-// one thread per (batch row, channel), as the forward, in two passes over
-// the sequence.  The forward pass recomputes the states, keeps each h_{t-1}
-// in hbuf (b, s, d_in, n) float32 (for float32 inputs that is the g_dA
-// buffer itself, overwritten by the reverse pass) and reduces gy_t h_t over
-// the CTA's 128 channels: an xor butterfly per state within each warp, then
-// the four warps in order, one partial per (batch row, step, CTA, state).
-// The reverse pass walks gh down the sequence.  A second kernel sums each
-// step's partials over the CTAs in order, so g_C is the same on every run:
-// no atomics anywhere.
+// g_dA and g_dBx in the inputs' dtype, g_C float32.  Apart from g_C the
+// recurrences are independent per state, so one thread per (batch row,
+// channel, state): NP lanes per channel (n rounded up to a power of two),
+// 32 / NP channels per warp, whose step t of dA or dBx is one contiguous
+// span, read with loads issued several steps ahead.  Three launches, no
+// atomics, so g_C is the same on every run:
+//   1. scan_ckpt_kernel, forward: recompute h_t, keep h before every
+//      CKPT-th step in ckpt (b, ceil(s / CKPT), d_in, n) float32, 1 / CKPT
+//      of the states, and reduce gy_t h_t over the CTA's channels: an xor
+//      butterfly over the warp's channels, then the warps in order through
+//      shared memory, one partial per (batch row, step, CTA, state);
+//   2. scan_bwd_kernel, backward, chunk by chunk from the last: load the
+//      chunk's CKPT steps of dA, dBx and C gy into registers, recompute its
+//      states from its checkpoint (the same product, then sum, as pass 1,
+//      so the same bits), then walk gh down the chunk.  A kernel of its
+//      own, so each pass has its own registers and occupancy;
+//   3. scan_bwd_gc_kernel: each step's partials summed over the CTAs in
+//      order.
+// The function must read dA, dBx and write g_dA, g_dBx once (bound by
+// bytes, 2.604 ms at (4, 1024, 8192, 16) float32 on an H100); this design
+// reads dA and dBx twice (two thirds of the bound at best).  Keeping the
+// checkpoints from the training forward would drop pass 1's reads.
 
 template <typename T>
 __device__ __forceinline__ void store(T* p, float x);
 template <>
 __device__ __forceinline__ void store<float>(float* p, float x) {
-  *p = x;
+  __stcs(p, x);
 }
 template <>
 __device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p,
@@ -215,91 +227,138 @@ __device__ __forceinline__ void store<__nv_bfloat16>(__nv_bfloat16* p,
   *p = __float2bfloat16_rn(x);
 }
 
-constexpr int WARPS = THREADS / 32;
+template <typename T>
+__device__ __forceinline__ float load1(const T* p) {
+  return to_f32(__ldcs(p));
+}
 
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int CKPT = 8;   // steps per checkpoint (a chunk of pass 2)
+constexpr int GC = 32;    // steps of g_C partials per CTA barrier (pass 1)
+constexpr int UB = 16;    // steps loaded ahead in pass 1
+// (CKPT and UB: the fastest of a sweep of text variants at (4 and 1, 1024,
+// 8192, 16) float32 on an H100)
+
+// lanes per channel: n rounded up to a power of two
+__host__ __device__ constexpr int lanes_per_channel(int n) {
+  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : 16;
+}
+
+// Pass 1: one thread per (batch row, channel, state); the checkpoints and
+// the g_C partials
 template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
-    scan_bwd_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
-                    const float* __restrict__ C, const float* __restrict__ gy,
-                    float* hbuf, T* g_dA, T* __restrict__ g_dBx,
-                    float* __restrict__ partial, int s, int d_in) {
-  __shared__ float wsum[CH][WARPS][N];
+__global__ void __launch_bounds__(BWD_THREADS)
+    scan_ckpt_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
+                     const float* __restrict__ gy, float* __restrict__ ckpt,
+                     float* __restrict__ partial, int s, int d_in) {
+  constexpr int NP = lanes_per_channel(N);
+  constexpr int CPC = BWD_THREADS / NP;  // channels per CTA
+  static_assert(GC % CKPT == 0 && GC % UB == 0, "chunks nest");
+  __shared__ float wsum[GC][BWD_WARPS][NP];
   const int bi = blockIdx.y;
   const int blk = blockIdx.x;
   const int nblk = gridDim.x;
-  const int ch = blk * THREADS + threadIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const bool active = ch < d_in;
-  const size_t row = (size_t)d_in * N;
-  const size_t base = (size_t)bi * s * row + (size_t)ch * N;
-  const float* pc = C + (size_t)bi * s * N;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int i = tid % NP;  // the state
+  const int ch = blk * CPC + tid / NP;
+  const bool live_ch = ch < d_in;
+  const bool active = live_ch && i < N;
+  const size_t row = (size_t)d_in * N;  // elements of one step
+  const size_t base = (size_t)bi * s * row + (size_t)ch * N + i;
   const float* pg = gy + (size_t)bi * s * d_in + ch;
+  const int nck = (s + CKPT - 1) / CKPT;
+  float* pk = ckpt + (size_t)bi * nck * row + (size_t)ch * N + i;
 
-  float h[N];
+  float h = 0.0f;
+  for (int t0 = 0; t0 < s; t0 += GC) {
+    const int nt = min(GC, s - t0);
+    for (int tt = 0; tt < nt; tt += UB) {
+      float a[UB], bx[UB], gg[UB];
 #pragma unroll
-  for (int i = 0; i < N; ++i) h[i] = 0.0f;
-  for (int t0 = 0; t0 < s; t0 += CH) {
-    const int nt = min(CH, s - t0);
-    for (int tt = 0; tt < nt; ++tt) {
-      const int t = t0 + tt;
-      float c[N];
-      if (active) {
-        float a[N], bx[N];
-        load_row<T, N>(dA + base + (size_t)t * row, a);
-        load_row<T, N>(dBx + base + (size_t)t * row, bx);
-        float* ph = hbuf + base + (size_t)t * row;
-        const float g = pg[(size_t)t * d_in];
-#pragma unroll
-        for (int i = 0; i < N; ++i) {
-          ph[i] = h[i];
-          h[i] = a[i] * h[i] + bx[i];
-          c[i] = g * h[i];
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) c[i] = 0.0f;
+      for (int u = 0; u < UB; ++u) {
+        const size_t t = (size_t)(t0 + tt + u);
+        const bool ok = tt + u < nt;
+        a[u] = ok && active ? to_f32(dA[base + t * row]) : 0.0f;
+        bx[u] = ok && active ? to_f32(dBx[base + t * row]) : 0.0f;
+        gg[u] = ok && live_ch ? pg[t * d_in] : 0.0f;
       }
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
+      for (int u = 0; u < UB; ++u) {
+        if (tt + u >= nt) break;  // the same for the whole CTA
+        if ((tt + u) % CKPT == 0 && active)
+          pk[(size_t)((t0 + tt + u) / CKPT) * row] = h;
+        h = a[u] * h + bx[u];
+        float c = gg[u] * h;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          c[i] = c[i] + __shfl_xor_sync(0xffffffffu, c[i], off);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) wsum[tt][warp][i] = c[i];
+        for (int off = NP; off < 32; off <<= 1)
+          c = c + __shfl_xor_sync(0xffffffffu, c, off);
+        if (lane < NP) wsum[tt + u][warp][lane] = c;
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < nt * N; e += THREADS) {
+    for (int e = tid; e < nt * N; e += BWD_THREADS) {
       const int tt = e / N;
-      const int i = e - tt * N;
-      float acc = wsum[tt][0][i];
-      for (int w = 1; w < WARPS; ++w) acc = acc + wsum[tt][w][i];
-      partial[(((size_t)bi * s + t0 + tt) * nblk + blk) * N + i] = acc;
+      const int j = e - tt * N;
+      float acc = wsum[tt][0][j];
+      for (int w = 1; w < BWD_WARPS; ++w) acc = acc + wsum[tt][w][j];
+      partial[(((size_t)bi * s + t0 + tt) * nblk + blk) * N + j] = acc;
     }
     __syncthreads();
   }
-  if (!active) return;
+}
 
-  float carry[N];  // dA_{t+1} gh_{t+1}
+// Pass 2: the same threads, chunk by chunk from the last
+template <typename T, int N>
+__global__ void __launch_bounds__(BWD_THREADS)
+    scan_bwd_kernel(const T* __restrict__ dA, const T* __restrict__ dBx,
+                    const float* __restrict__ C, const float* __restrict__ gy,
+                    const float* __restrict__ ckpt, T* __restrict__ g_dA,
+                    T* __restrict__ g_dBx, int s, int d_in) {
+  constexpr int NP = lanes_per_channel(N);
+  constexpr int CPC = BWD_THREADS / NP;
+  const int bi = blockIdx.y;
+  const int i = threadIdx.x % NP;
+  const int ch = blockIdx.x * CPC + threadIdx.x / NP;
+  if (ch >= d_in || i >= N) return;
+  const size_t row = (size_t)d_in * N;
+  const size_t base = (size_t)bi * s * row + (size_t)ch * N + i;
+  const float* pc = C + (size_t)bi * s * N + i;
+  const float* pg = gy + (size_t)bi * s * d_in + ch;
+  const int nck = (s + CKPT - 1) / CKPT;
+  const float* pk = ckpt + (size_t)bi * nck * row + (size_t)ch * N + i;
+
+  float carry = 0.0f;  // dA_{t+1} gh_{t+1}
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * CKPT;
+    const int nt = min(CKPT, s - t0);
+    float a[CKPT], hp[CKPT], cg[CKPT];
 #pragma unroll
-  for (int i = 0; i < N; ++i) carry[i] = 0.0f;
-  for (int t = s - 1; t >= 0; --t) {
-    float a[N];
-    load_row<T, N>(dA + base + (size_t)t * row, a);
-    const float g = pg[(size_t)t * d_in];
-    const float* ph = hbuf + base + (size_t)t * row;
-    float hp[N];
+    for (int u = 0; u < CKPT; ++u) {
+      const size_t t = (size_t)(t0 + u);
+      const bool ok = u < nt;
+      a[u] = ok ? load1(dA + base + t * row) : 0.0f;
+      hp[u] = ok ? load1(dBx + base + t * row) : 0.0f;
+      cg[u] = ok ? pc[t * N] * pg[t * d_in] : 0.0f;
+    }
+    // the chunk's states from its checkpoint: hp[u] = h before step u
+    float hh = pk[(size_t)c * row];
 #pragma unroll
-    for (int i = 0; i < N; ++i) hp[i] = ph[i];
+    for (int u = 0; u < CKPT; ++u) {
+      const float bx = hp[u];
+      hp[u] = hh;
+      hh = a[u] * hh + bx;
+    }
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float gh = pc[(size_t)t * N + i] * g + carry[i];
-      store<T>(g_dBx + base + (size_t)t * row + i, gh);
-      store<T>(g_dA + base + (size_t)t * row + i, gh * hp[i]);
-      carry[i] = a[i] * gh;
+    for (int u = CKPT - 1; u >= 0; --u) {
+      if (u >= nt) continue;
+      const size_t off = base + (size_t)(t0 + u) * row;
+      const float gh = cg[u] + carry;
+      store<T>(g_dBx + off, gh);
+      store<T>(g_dA + off, gh * hp[u]);
+      carry = a[u] * gh;
     }
   }
 }
@@ -321,16 +380,23 @@ __global__ void scan_bwd_gc_kernel(const float* __restrict__ partial,
 
 template <typename T, int N>
 int launch_bwd(const void* dA, const void* dBx, const void* C, const void* gy,
-               void* hbuf, void* g_dA, void* g_dBx, void* partial, void* g_C,
+               void* ckpt, void* g_dA, void* g_dBx, void* partial, void* g_C,
                int b, int s, int d_in, cudaStream_t st) {
-  const int nblk = (d_in + THREADS - 1) / THREADS;
+  constexpr int CPC = BWD_THREADS / lanes_per_channel(N);
+  const int nblk = (d_in + CPC - 1) / CPC;
   const dim3 grid(nblk, b);
-  scan_bwd_kernel<T, N><<<grid, THREADS, 0, st>>>(
+  scan_ckpt_kernel<T, N><<<grid, BWD_THREADS, 0, st>>>(
+      static_cast<const T*>(dA), static_cast<const T*>(dBx),
+      static_cast<const float*>(gy), static_cast<float*>(ckpt),
+      static_cast<float*>(partial), s, d_in);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  scan_bwd_kernel<T, N><<<grid, BWD_THREADS, 0, st>>>(
       static_cast<const T*>(dA), static_cast<const T*>(dBx),
       static_cast<const float*>(C), static_cast<const float*>(gy),
-      static_cast<float*>(hbuf), static_cast<T*>(g_dA),
-      static_cast<T*>(g_dBx), static_cast<float*>(partial), s, d_in);
-  cudaError_t err = cudaGetLastError();
+      static_cast<const float*>(ckpt), static_cast<T*>(g_dA),
+      static_cast<T*>(g_dBx), s, d_in);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)b * s * N;
   scan_bwd_gc_kernel<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
@@ -341,13 +407,13 @@ int launch_bwd(const void* dA, const void* dBx, const void* C, const void* gy,
 
 template <typename T>
 int dispatch_bwd(const void* dA, const void* dBx, const void* C,
-                 const void* gy, void* hbuf, void* g_dA, void* g_dBx,
+                 const void* gy, void* ckpt, void* g_dA, void* g_dBx,
                  void* partial, void* g_C, int b, int s, int d_in, int n,
                  cudaStream_t st) {
   switch (n) {
 #define SCAN_BWD_CASE(NN)                                                 \
   case NN:                                                                \
-    return launch_bwd<T, NN>(dA, dBx, C, gy, hbuf, g_dA, g_dBx, partial, \
+    return launch_bwd<T, NN>(dA, dBx, C, gy, ckpt, g_dA, g_dBx, partial, \
                              g_C, b, s, d_in, st);
     SCAN_BWD_CASE(1) SCAN_BWD_CASE(2) SCAN_BWD_CASE(3) SCAN_BWD_CASE(4)
     SCAN_BWD_CASE(5) SCAN_BWD_CASE(6) SCAN_BWD_CASE(7) SCAN_BWD_CASE(8)
@@ -378,13 +444,28 @@ extern "C" int selective_scan_launch(const void* dA, const void* dBx,
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward's scratch at (s, d_in, n): writes into dims[2] the
+// checkpoints per row, ceil(s / CKPT), and the channel blocks of the g_C
+// partials, ceil(d_in / channels per CTA).  The stream is unused (the
+// signature is the launchers').
+extern "C" int selective_scan_bwd_scratch(void* dims, int s, int d_in, int n,
+                                          void* stream) {
+  (void)stream;
+  if (s < 1 || d_in < 1 || n < 1 || n > MAX_N)
+    return (int)cudaErrorInvalidValue;
+  const int cpc = BWD_THREADS / lanes_per_channel(n);
+  ((int*)dims)[0] = (s + CKPT - 1) / CKPT;
+  ((int*)dims)[1] = (d_in + cpc - 1) / cpc;
+  return 0;
+}
+
 // The backward: gy (b, s, d_in) float32 -> g_dA, g_dBx (b, s, d_in, n) in
-// the inputs' dtype and g_C (b, s, n) float32.  hbuf (b, s, d_in, n)
-// float32 holds the recomputed states (for float32 inputs pass g_dA itself);
-// partial (b, s, ceil(d_in / 128), n) float32 is scratch.  Two launches.
+// the inputs' dtype and g_C (b, s, n) float32.  ckpt (b, ceil(s / CKPT),
+// d_in, n) float32 and partial (b, s, ceil(d_in / cta_channels), n)
+// float32 are scratch.  Three launches.
 extern "C" int selective_scan_bwd_launch(const void* dA, const void* dBx,
                                          const void* C, const void* gy,
-                                         void* hbuf, void* g_dA, void* g_dBx,
+                                         void* ckpt, void* g_dA, void* g_dBx,
                                          void* partial, void* g_C, int b,
                                          int s, int d_in, int n, int dtype,
                                          void* stream) {
@@ -392,10 +473,10 @@ extern "C" int selective_scan_bwd_launch(const void* dA, const void* dBx,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return dispatch_bwd<float>(dA, dBx, C, gy, hbuf, g_dA, g_dBx, partial,
+    return dispatch_bwd<float>(dA, dBx, C, gy, ckpt, g_dA, g_dBx, partial,
                                g_C, b, s, d_in, n, st);
   if (dtype == 1)
-    return dispatch_bwd<__nv_bfloat16>(dA, dBx, C, gy, hbuf, g_dA, g_dBx,
+    return dispatch_bwd<__nv_bfloat16>(dA, dBx, C, gy, ckpt, g_dA, g_dBx,
                                        partial, g_C, b, s, d_in, n, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -27,11 +27,13 @@ through ``FlashAttentionFn`` (on both devices), whose forward also asks
 the kernel for each row's logsumexp (b, h, sq) float32 and whose backward
 is ``flash_attention_bwd``: on a CUDA tensor the two backward kernels of
 ``csrc/flash_attention.cu`` (dQ over query tiles; dK and dV over key
-tiles, summed over each kv head's g query heads; float32 on the CUDA
-cores, no atomics, the same bits on every run), on a CPU tensor the twin
-``ref.attention_bwd_ref``.  Without grad the forward launches as it
-always did, with no logsumexp.  ``flash_attention_bwd.launches`` counts
-backward calls (two kernels each).
+tiles, summed over each kv head's g query heads in one fixed order; no
+atomics, the same bits on every run; bfloat16 on the tensor cores with P
+and dS rounded to bf16 before their products, float32 on the CUDA
+cores), on a CPU tensor the twin ``ref.attention_bwd_ref``.  Without grad
+the forward launches as it always did, with no logsumexp.
+``flash_attention_bwd.launches`` counts backward calls (two kernels
+each).
 """
 from __future__ import annotations
 
@@ -189,6 +191,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=0,
         if not t.is_contiguous():
             raise ValueError(f"flash_attention_bwd: {name} must be "
                              f"contiguous")
+        # the bfloat16 kernels copy and store 16-byte rows
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} is not 16-byte "
+                             f"aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if b == 0 or sq == 0:

@@ -20,13 +20,16 @@ sequence walked in order); a CPU tensor runs the eager twin
 Training: when grad is enabled and an input requires it, the call goes
 through ``SelectiveScanFn`` (on both devices; y only, not the final
 state), whose backward is ``selective_scan_bwd``: on a CUDA tensor the
-backward kernels of ``csrc/selective_scan.cu`` (the states recomputed in a
-forward pass, gh walked down the sequence, g_C summed over channel blocks
-through written partials; no atomics), on a CPU tensor the twin
-``ref.selective_scan_bwd_ref``.  ``selective_scan_bwd.launches`` counts
-backward calls.
+backward kernels of ``csrc/selective_scan.cu`` (a thread per (channel,
+state); a forward pass keeps the state at every L-th step, then each chunk
+of L steps is recomputed from its checkpoint and gh walked down it; g_C
+summed over channel blocks through written partials; no atomics), on a CPU
+tensor the twin ``ref.selective_scan_bwd_ref``.
+``selective_scan_bwd.launches`` counts backward calls.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -100,8 +103,17 @@ def selective_scan_cuda(dA, dBx, C, final_state=False):
     return (y, h) if final_state else y
 
 
-#: channels per CTA of the kernels (csrc/selective_scan.cu THREADS)
-CTA_CHANNELS = 128
+def _bwd_scratch(b, s, d_in, n):
+    """Shapes of the backward's float32 scratch, from the built library:
+    the checkpoints (b, ceil(s / L), d_in, n), h before every L-th step,
+    and the g_C partials (b, s, ceil(d_in / channels per CTA), n)."""
+    dims = (ctypes.c_int * 2)()
+    rc = _entry("selective_scan_bwd_scratch", 1, 3)(
+        ctypes.addressof(dims), s, d_in, n, None)
+    if rc != 0:
+        raise RuntimeError(f"selective_scan backward scratch: CUDA error "
+                           f"{rc}")
+    return (b, dims[0], d_in, n), (b, s, dims[1], n)
 
 
 def selective_scan_bwd_cuda(dA, dBx, C, gy):
@@ -117,26 +129,24 @@ def selective_scan_bwd_cuda(dA, dBx, C, gy):
         raise ValueError(f"selective_scan_bwd: gy {tuple(gy.shape)} is not "
                          f"{(b, s, d_in)}")
     for name, t in (("dA", dA), ("dBx", dBx)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous():
             raise ValueError(f"selective_scan_bwd: {name} must be "
-                             f"contiguous and 16-byte aligned")
+                             f"contiguous")
     C = C.float().contiguous()
     gy = gy.float().contiguous()
     g_dA, g_dBx = torch.empty_like(dA), torch.empty_like(dBx)
     g_C = torch.empty((b, s, n), dtype=torch.float32, device=dA.device)
     if g_dA.numel() == 0:
         return g_dA, g_dBx, g_C.zero_()
-    # the recomputed states: g_dA itself when it is float32
-    hbuf = g_dA if dA.dtype == torch.float32 else \
-        torch.empty(dA.shape, dtype=torch.float32, device=dA.device)
-    nblk = -(-d_in // CTA_CHANNELS)
-    partial = torch.empty((b, s, nblk, n), dtype=torch.float32,
+    ckpt_shape, partial_shape = _bwd_scratch(b, s, d_in, n)
+    ckpt = torch.empty(ckpt_shape, dtype=torch.float32, device=dA.device)
+    partial = torch.empty(partial_shape, dtype=torch.float32,
                           device=dA.device)
     with torch.cuda.device(dA.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _entry("selective_scan_bwd_launch", 9, 5)(
             dA.data_ptr(), dBx.data_ptr(), C.data_ptr(), gy.data_ptr(),
-            hbuf.data_ptr(), g_dA.data_ptr(), g_dBx.data_ptr(),
+            ckpt.data_ptr(), g_dA.data_ptr(), g_dBx.data_ptr(),
             partial.data_ptr(), g_C.data_ptr(), b, s, d_in, n,
             _DTYPE_CODE[dA.dtype], stream)
     if rc != 0:

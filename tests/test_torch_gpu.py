@@ -850,14 +850,22 @@ def test_decode_matches_cpu(cuda, arch):
 # ------------------------------------------------------------- training
 
 #: flash backward shapes (b, sq, sk, h, kvh, hd, causal, window): GQA,
-#: every head dim, a window, rows that see no key, non-causal
+#: every head dim, a window, rows that see no key, non-causal; then the
+#: bfloat16 kernels' tile edges: s a multiple of neither the row nor the
+#: key tiles, g = 16 with kvh = 1, hd=256 with a window, row tiles that
+#: straddle the window's edge, rows past sk + window - 1 across tiles
 FLASH_BWD_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
                    (1, 130, 130, 8, 1, 64, True, 0),
                    (1, 90, 90, 4, 4, 128, True, 17),
                    (1, 70, 70, 4, 1, 256, True, 0),
                    (2, 50, 50, 2, 2, 16, True, 5),
                    (1, 24, 8, 2, 1, 16, True, 4),
-                   (1, 40, 56, 2, 2, 64, False, 0)]
+                   (1, 40, 56, 2, 2, 64, False, 0),
+                   (1, 150, 150, 4, 2, 64, True, 0),
+                   (1, 77, 77, 16, 1, 128, True, 0),
+                   (1, 200, 200, 16, 1, 256, True, 70),
+                   (2, 190, 190, 4, 2, 32, True, 45),
+                   (1, 150, 60, 8, 2, 64, True, 30)]
 
 
 @pytest.mark.gpu
@@ -889,8 +897,13 @@ def test_flash_attention_backward_explicit_positions(cuda, kind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [(2, 37, 16, 4), (1, 128, 200, 16),
-                                  (3, 15, 8, 2)])
+                                  (3, 15, 8, 2), (1, 1001, 96, 16),
+                                  (1, 45, 40, 5), (1, 5, 33, 1)])
 def test_selective_scan_backward_matches_twin(cuda, case, dtype):
+    """The backward kernels against their twin (atol 1e-4 / 2e-2 of each
+    output's scale), two runs bitwise equal: the reference's shapes, then
+    b=1 with s a multiple of no checkpoint chunk, n < 16 (lanes idle in
+    each channel's group), s shorter than one chunk."""
     from repro_torch.kernels.ref import selective_scan_bwd_ref
     from repro_torch.kernels.selective_scan import selective_scan_bwd_cuda
     cs = chip_smoke()
