@@ -212,12 +212,27 @@ FLASH_EDGES = [(1, 200, 200, 16, 16, 128, True, 0),
                (1, 90, 40, 8, 1, 256, False, 0),
                (1, 200, 200, 8, 2, 64, True, 5),
                (1, 20, 20, 128, 1, 64, True, 0),
-               (1, 24, 8, 2, 1, 16, True, 4)]
+               (1, 24, 8, 2, 1, 16, True, 4),
+               # kimi-k2's hd=112 (mma.sync, 7 k-steps) and nemotron-4's
+               # hd=192 (wgmma, three 64-column swizzle blocks)
+               (1, 150, 150, 8, 1, 112, True, 0),
+               (1, 70, 70, 16, 2, 112, True, 5),
+               (1, 130, 130, 12, 1, 192, True, 17),
+               (1, 90, 40, 4, 2, 192, False, 0)]
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the serving paths: each model at full width, the engine's plans,
 #: batch × seq tokens per request
 SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
                "recurrentgemma-9b")
+#: the models whose attention head dims (112, 192) no serving path runs:
+#: flash at their full heads, and one decoder block of each at full width
+#: (``wide_block_phase``: kimi-k2's layer 0, which is dense, and one
+#: nemotron-4 block), bf16, seeded weights, batch × seq tokens, held
+#: against the same block through the twins within ``atol`` of each
+#: output's scale (the bf16 flash tolerance); one decode_attention step
+#: over a ring of ``ring`` slots, 1025 written
+WIDE_ARCHS = ("kimi-k2-1t-a32b", "nemotron-4-340b")
+WIDE_BLOCK = dict(batch=4, seq=1024, ring=1056, atol=2e-2, reps=3)
 #: flash attention where recurrentgemma's local window bites: (b, s, h,
 #: kvh, hd, window), bfloat16
 FLASH_WINDOWED = (1, 4096, 16, 1, 256, 2048)
@@ -241,7 +256,8 @@ DECODE_CROSS = dict(batch=2, prompt=12, steps=6, ring=8)
 #: flash attention at decode's shapes (explicit positions, sq=1, a ring of
 #: seq + headroom slots, g = 8, 1, 16): (h, kvh, hd) of TinyLlama-1.1B,
 #: qwen2-moe-a2.7b and recurrentgemma-9b; the ring's written slots
-FLASH_DECODE_HEADS = [(32, 4, 64), (16, 16, 128), (16, 1, 256)]
+FLASH_DECODE_HEADS = [(32, 4, 64), (16, 16, 128), (16, 1, 256),
+                      (64, 8, 112), (96, 8, 192)]
 FLASH_DECODE_VALID = (1, 517, 1025, 1056)
 #: flash attention at prefill shapes with explicit positions: (b, s, h,
 #: kvh, hd, window, kind), offset rows or two packed sequences per row
@@ -249,7 +265,9 @@ FLASH_POS_CASES = [(2, 200, 32, 4, 64, 0, "offset"),
                    (2, 200, 16, 16, 128, 17, "offset"),
                    (1, 300, 16, 1, 256, 0, "packed"),
                    (2, 77, 8, 2, 64, 5, "packed"),
-                   (1, 130, 4, 4, 32, 0, "offset")]
+                   (1, 130, 4, 4, 32, 0, "offset"),
+                   (2, 150, 16, 2, 112, 0, "packed"),
+                   (1, 140, 24, 2, 192, 9, "offset")]
 #: moe_route: the reference's test shapes (tests/test_kernels.py), the
 #: serving shape of qwen2-moe (one group of 4 × 1024 tokens, 60 experts,
 #: top-4), several groups with capacity factor 1.0 (overflowing), groups
@@ -1041,7 +1059,8 @@ def flash_phase():
     """Flash attention vs its twin on the card at the reference's test
     shapes and the bfloat16 kernel's tile edges, at every serving shape
     (the full forward's heads and one semantic branch's, with the model's
-    window), in float32 and bfloat16, and at FLASH_WINDOWED in bfloat16;
+    window; WIDE_ARCHS' heads at the same b × s), in float32 and bfloat16,
+    and at FLASH_WINDOWED in bfloat16;
     times the kernel at each serving shape, and the twin and the library's
     scaled_dot_product_attention (a yardstick only: the port never calls
     it) at each attention model's full forward's and at FLASH_WINDOWED, in
@@ -1049,10 +1068,11 @@ def flash_phase():
     (``graph_ms``): at ~0.07 ms a call is as short as the Python call that
     launches it."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_cuda,
                                                      kernel_step)
     from repro_torch.models.model import block_window
-    steps = {hd: kernel_step(hd) for hd in (16, 32, 64, 128, 256)}
+    steps = {hd: kernel_step(hd) for hd in HEAD_DIMS}
     log(f"flash_attention library SASS: {flash_sass_counts()} tensor-core "
         f"instructions; bfloat16 step per head dim {steps}")
     rng = np.random.RandomState(0)
@@ -1073,7 +1093,7 @@ def flash_phase():
 
     b, s = SERVE["batch"], SERVE["seq"]
     at = {}
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + WIDE_ARCHS:
         cfg = get_config(arch)
         windows = {block_window(kind, cfg) for kind in cfg.layer_kinds
                    if kind in ATTN_KINDS}
@@ -1102,11 +1122,13 @@ def flash_phase():
                 f"tensor-core step {kernel_step(hd)}")
     # the record holds TinyLlama's full forward's shape; its "hd128" entry
     # qwen2-moe's, "hd256" recurrentgemma's (whose branches run the same
-    # 16/1 heads), and "hd256_windowed" a 4096-token shape where the
-    # 2048-token window bites
+    # 16/1 heads), "hd112" kimi-k2's, "hd192" nemotron-4's, and
+    # "hd256_windowed" a 4096-token shape where the 2048-token window bites
     records = {}
     for arch, key in ((SERVE_ARCHS[0], None), ("qwen2-moe-a2.7b", "hd128"),
-                      ("recurrentgemma-9b", "hd256")):
+                      ("recurrentgemma-9b", "hd256"),
+                      ("kimi-k2-1t-a32b", "hd112"),
+                      ("nemotron-4-340b", "hd192")):
         label = serving_heads(get_config(arch))[0][0]
         q, k, v, window, errs, ms = at[(arch, label)]
         records[key] = _flash_timed(f"{arch}'s full forward's shape", q, k,
@@ -1556,15 +1578,27 @@ def rglru_scan_phase():
 #: largest entry
 TRAIN_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: flash backward shapes (b, s, h, kvh, hd, window): the training shape of
-#: TinyLlama-1.1B (the main path's), qwen2-moe's heads at hd=128 and
-#: recurrentgemma's at hd=256 where its 2048-token window bites
+#: TinyLlama-1.1B (the main path's), qwen2-moe's heads at hd=128,
+#: recurrentgemma's at hd=256 where its 2048-token window bites, and the
+#: wide blocks' (WIDE_ARCHS): kimi-k2's 64/8 at hd=112, nemotron-4's 96/8
+#: at hd=192
 TRAIN_FLASH = [(8, 256, 32, 4, 64, 0), (4, 1024, 16, 16, 128, 0),
-               (1, 4096, 16, 1, 256, 2048)]
+               (1, 4096, 16, 1, 256, 2048), (4, 1024, 64, 8, 112, 0),
+               (4, 1024, 96, 8, 192, 0)]
 TRAIN_SCAN = (4, 1024, 8192, 16)
 #: the shape the falcon-mamba training path launches (b=1 per microbatch)
 TRAIN_SCAN_STEP = (1, 1024, 8192, 16)
 TRAIN_RGLRU = (4, 1024, 4096)
+#: the shape the recurrentgemma training path launches (b=1 per
+#: microbatch)
+TRAIN_RGLRU_STEP = (1, 1024, 4096)
+#: an rglru backward shape whose s the kernel's register buffers do not
+#: divide
+RGLRU_BWD_RAGGED = (1, 1001, 96)
 TRAIN_ROUTE = (1, 4096, 60, 4)
+#: the gate backward at kimi-k2's routing (384 experts, top-8) and the
+#: widest E, beside MOE_ROUTE_CASES
+ROUTE_BWD_WIDE = [(1, 512, 384, 8), (1, 256, 1024, 8)]
 
 
 def _scaled_err(got, want, where, atol, floor=1e-30):
@@ -1819,7 +1853,7 @@ def train_scan_phase():
     recs.append(rec)
     del args, outs, dA, dBx, C
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in RGLRU_CASES + [TRAIN_RGLRU]:
+        for shape in RGLRU_CASES + [RGLRU_BWD_RAGGED, TRAIN_RGLRU]:
             a = (0.8 + 0.2 * torch.rand(shape, generator=gen,
                                         device="cuda")).to(dtype)
             bx = (0.1 * torch.randn(shape, generator=gen,
@@ -1835,15 +1869,21 @@ def train_scan_phase():
                       for name, x, y in zip(("g_a", "g_bx"), got, want))
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise AssertionError(f"{where}: two runs differ")
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"{where}: not bitwise the twin's")
             if got[0].dtype != dtype:
                 raise AssertionError(f"{where}: dtype {got[0].dtype}")
             worst[("rglru", dtype)] = max(
                 worst.get(("rglru", dtype), 0.0), err)
-    a = (0.8 + 0.2 * torch.rand(TRAIN_RGLRU, generator=gen, device="cuda"))
-    bx = 0.1 * torch.randn(TRAIN_RGLRU, generator=gen, device="cuda")
-    h = rglru_scan_ref(a, bx)
-    gh = torch.randn(TRAIN_RGLRU, generator=gen, device="cuda")
-    ms = graph_ms(lambda: rglru_scan_bwd_cuda(a, h, gh), 10)
+    step_ms = None
+    for shape in (TRAIN_RGLRU_STEP, TRAIN_RGLRU):
+        a = (0.8 + 0.2 * torch.rand(shape, generator=gen, device="cuda"))
+        bx = 0.1 * torch.randn(shape, generator=gen, device="cuda")
+        h = rglru_scan_ref(a, bx)
+        gh = torch.randn(shape, generator=gen, device="cuda")
+        ms = graph_ms(lambda: rglru_scan_bwd_cuda(a, h, gh), 10)
+        if shape == TRAIN_RGLRU_STEP:
+            step_ms = ms
     plain_ms = cuda_ms(lambda: rglru_scan_bwd_ref(a, h, gh), 1)
     outs = rglru_scan_bwd_cuda(a, h, gh)
     b, s, w = TRAIN_RGLRU
@@ -1855,12 +1895,19 @@ def train_scan_phase():
                   peak=H100_FP32_S)
     rec["gradient_of"] = "rglru_scan"
     rec["max_abs_err_bfloat16"] = worst[("rglru", torch.bfloat16)]
+    sb, ss, sw = TRAIN_RGLRU_STEP
+    rec["training_shape"] = {"shape": list(TRAIN_RGLRU_STEP), "ms": step_ms,
+                             "bound_ms": 20 * sb * ss * sw / H100_BYTES_S
+                             * 1e3, "bound_by": "bytes"}
     log(f"rglru_scan backward at the reference's {len(RGLRU_CASES)} test "
-        f"shapes and {TRAIN_RGLRU}: matches its twin (max abs err "
-        f"float32 {rec['max_abs_err']:.3e}, bfloat16 inputs "
-        f"{rec['max_abs_err_bfloat16']:.3e}), bitwise repeatable; float32 "
+        f"shapes, {RGLRU_BWD_RAGGED} and {TRAIN_RGLRU}: equals its twin "
+        f"bitwise in float32 and bfloat16 (max abs err "
+        f"{rec['max_abs_err']:.3e} / {rec['max_abs_err_bfloat16']:.3e}), "
+        f"bitwise repeatable; float32 "
         f"{ms:.4f} ms/call (graphs; twin {plain_ms:.2f}), bound "
-        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}); at the training "
+        f"path's {TRAIN_RGLRU_STEP}: {step_ms:.4f} ms/call, bound "
+        f"{rec['training_shape']['bound_ms']:.5f} ms (bytes)")
     recs.append(rec)
     return recs
 
@@ -1876,7 +1923,7 @@ def train_route_phase():
     from repro_torch.kernels.ref import moe_route_bwd_ref, moe_route_ref
     rng = np.random.RandomState(5)
     worst = 0.0
-    for G, gs, E, k in MOE_ROUTE_CASES:
+    for G, gs, E, k in MOE_ROUTE_CASES + ROUTE_BWD_WIDE:
         logits = _route_logits(rng, G, gs, E)
         eid = moe_route_cuda(logits, k)[0]
         g_gate = torch.from_numpy(rng.randn(G, gs, k)).float().cuda()
@@ -1909,8 +1956,8 @@ def train_route_phase():
                   _nbytes([logits, eid, g_gate, out]),
                   6.0 * G * gs * E, peak=H100_FP32_S)
     rec["gradient_of"] = "moe_route"
-    log(f"moe_route's gate backward at the routing test shapes and "
-        f"{TRAIN_ROUTE}: matches its twin and autograd of moe_route_ref "
+    log(f"moe_route's gate backward at the routing test shapes, "
+        f"{ROUTE_BWD_WIDE} and {TRAIN_ROUTE}: matches its twin and autograd of moe_route_ref "
         f"(atol 1e-4 of the scale; max abs err {worst:.3e}), bitwise "
         f"repeatable; "
         f"{ms:.5f} ms/call at {TRAIN_ROUTE} (graphs; twin {plain_ms:.3f}), "
@@ -2564,6 +2611,133 @@ def train_phase():
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return recs, launches, {"tinyllama": main, "cut": cuts,
                             "cross": worst, "moe_probe": probe}
+
+
+def wide_block(arch):
+    """One decoder block of ``arch`` (its layer 0) at full width on the
+    card, bf16, weights from a seeded CUDA generator: the forward and the
+    gradients of every parameter and of the input at WIDE_BLOCK's tokens
+    through the kernels (flash forward with its logsumexp, the backward
+    kernels) against the same block through the twins (``_through_twins``:
+    autograd of ``attention_ref`` on the card), each within ``atol`` of
+    its scale; one ``decode_attention`` step over a ring of ``ring``
+    slots (1025 written) against the twin.  The kernels' counts are set to
+    0 just before the kernel run and the decode step, and read just after.
+    Returns the report."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.models.model import apply_block, init_block
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    cfg = get_config(arch)
+    kind = cfg.layer_kinds[0]
+    b, s, W, atol = (WIDE_BLOCK[key] for key in ("batch", "seq", "ring",
+                                                  "atol"))
+    dt = dtype_of(cfg.compute_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_block(gen, kind, cfg, device="cuda")
+    named = tree_flatten(p)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(dt)
+    gy = torch.randn(x.shape, generator=gen, device="cuda").to(dt)
+    positions = torch.arange(s, dtype=torch.int32, device="cuda").expand(
+        b, s).contiguous()
+
+    def run(twins):
+        with _through_twins() if twins else contextlib.nullcontext():
+            leaves = [t.detach().requires_grad_() for _, t in named]
+            xs = x.detach().requires_grad_()
+            y = apply_block(kind, tree_unflatten(p, leaves), xs, positions,
+                            cfg)
+            grads = torch.autograd.grad(y, [xs] + leaves, gy)
+        return y.detach(), grads
+
+    fa.flash_attention.launches = fa.flash_attention_bwd.launches = 0
+    y, grads = run(False)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd": fa.flash_attention_bwd.launches}
+    want_y, want = run(True)
+    torch.cuda.synchronize()
+    if y.dtype != dt or y.shape != x.shape or not torch.isfinite(y).all():
+        raise AssertionError(f"wide_block {arch}: output {y.dtype} "
+                             f"{tuple(y.shape)} not finite or of x's shape")
+    def rel(got, want, what):
+        # the largest |got - want| over want's largest entry (raises past
+        # atol)
+        err = _scaled_err(got, want, f"wide_block {arch} {what}", atol)
+        return err / max(float(want.float().abs().max()), 1e-30)
+
+    errs = {"y": rel(y, want_y, "output")}
+    for name, g, w in zip(["x"] + [n for n, _ in named], grads, want):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"wide_block {arch}: d{name} not finite")
+        errs[f"d{name}"] = rel(g, w, f"d{name}")
+    del grads, want, want_y
+    walls = {}
+    for label, twins in (("kernels", False), ("twins", True),
+                         ("twins", True), ("kernels", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(twins)
+        torch.cuda.synchronize()
+        walls.setdefault(label, []).append((time.perf_counter() - t0) * 1e3)
+        del out
+
+    # one decode step at position s over the ring: slots 0..s written
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = {key: torch.randn((b, W, kvh, hd), generator=gen,
+                              device="cuda").to(dt) for key in ("k", "v")}
+    x1 = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda").to(dt)
+    with torch.no_grad():
+        fa.flash_attention.launches = 0
+        got, got_cache = decode_attention(
+            p["attn"], x1, {k: t.clone() for k, t in cache.items()}, s, cfg)
+        torch.cuda.synchronize()
+        launches["decode"] = fa.flash_attention.launches
+        with _through_twins():
+            ref, ref_cache = decode_attention(
+                p["attn"], x1, {k: t.clone() for k, t in cache.items()}, s,
+                cfg)
+    errs["decode"] = rel(got, ref, "decode")
+    if not all(torch.equal(got_cache[k], ref_cache[k]) for k in cache):
+        raise AssertionError(f"wide_block {arch}: the decode step's ring "
+                             f"writes differ")
+    if launches != {"flash_attention": 1, "flash_attention_bwd": 1,
+                    "decode": 1}:
+        raise AssertionError(f"wide_block {arch}: launches {launches}")
+    n_params = sum(t.numel() for _, t in named)
+    worst = max(errs, key=lambda k: errs[k])
+    rep = {"kind": kind, "params": n_params, "hd": hd, "heads": (h, kvh),
+           "err_over_scale": errs, "launches": launches,
+           "fwd_bwd_ms": {k: float(np.median(v)) for k, v in walls.items()}}
+    log(f"wide_block {arch}: layer 0 ({kind}, d={cfg.d_model}, {h}/{kvh} "
+        f"heads, hd={hd}, d_ff={cfg.d_ff}, {cfg.activation}, "
+        f"{n_params / 1e9:.3f} B parameters, {dt}) at {b} x {s} tokens: "
+        f"forward and {len(named) + 1} gradients through the kernels match "
+        f"the twins within {atol} of each scale (error over scale: "
+        f"largest {errs[worst]:.3e} at {worst}, output {errs['y']:.3e}, dx "
+        f"{errs['dx']:.3e}); decode step over a {W}-slot ring ({s + 1} "
+        f"written) {errs['decode']:.3e}, ring writes equal; forward + "
+        f"backward ms through the kernels "
+        f"{[round(t, 2) for t in walls['kernels']]}, through the twins "
+        f"{[round(t, 2) for t in walls['twins']]}; launches {launches}")
+    return rep
+
+
+def wide_block_phase():
+    """``wide_block`` for each of WIDE_ARCHS, freeing each block before
+    the next; returns the reports by arch."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    for arch in WIDE_ARCHS:
+        out[arch] = wide_block(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"wide_block phase: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _counters():
@@ -5078,12 +5252,13 @@ def main() -> int:
             log(f"  [{name}] {line}")
 
     t0 = time.perf_counter()
-    records = kernel_phase()
-    records.append(flash_phase())
-    records.append(moe_route_phase())
-    records.append(selective_scan_phase())
-    records.append(rglru_scan_phase())
-    records.append(threefry_phase())
+    records = []
+    for phase in (kernel_phase, flash_phase, moe_route_phase,
+                  selective_scan_phase, rglru_scan_phase, threefry_phase):
+        t1 = time.perf_counter()
+        out = phase()
+        records.extend(out if isinstance(out, list) else [out])
+        log(f"{phase.__name__}: {time.perf_counter() - t1:.1f} s")
     log(f"forward kernel phases: {time.perf_counter() - t0:.1f} s")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5173,6 +5348,21 @@ def main() -> int:
     train_recs, _, _ = train_phase()
     records.extend(train_recs)
     log(f"training phases: {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the head dims 112 and 192 run only in the wide blocks: their flash
+    # entries take those runs' launches
+    wide = wide_block_phase()
+    for rec in records:
+        for arch, key in zip(WIDE_ARCHS, ("hd112", "hd192")):
+            n = wide[arch]["launches"]
+            if rec["name"] == "flash_attention":
+                rec[key]["launches"] = n["flash_attention"]
+                rec["decode"][key]["launches"] = n["decode"]
+                rec[key]["wide_block"] = wide[arch]
+            elif rec["name"] == "flash_attention_bwd":
+                rec[key]["launches"] = n["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
 

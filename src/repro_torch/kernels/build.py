@@ -9,7 +9,10 @@ in ``.gitignore``):
 
 The library name carries a hash of the source, so an edited source is
 rebuilt and a stale library is never loaded.  ``build_all`` starts one
-nvcc per source, all at once, and waits for them together.
+nvcc per source, all at once, and waits for them together.  A source in
+``PARTS`` (flash attention, the slowest to compile) is compiled as that
+many objects in parallel, each with ``-DFLASH_PART=<i>`` selecting its
+kernels, and the objects are linked into the one library.
 
 ``cache_stats()`` counts how this process got its libraries: a hit is a
 request served by a library already loaded, a miss one that loaded it
@@ -40,6 +43,9 @@ SOURCES = ("edge_substep", "placement", "flash_attention", "moe_route",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: sources compiled as several objects in parallel: objects per source
+#: (flash_attention.cu: the forward's kernels, then the backward's)
+PARTS = {"flash_attention": 2}
 
 
 def nvcc_path() -> str:
@@ -60,8 +66,25 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS.get(name, 1)}"
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def _compile_cmds(name: str, tmp: Path):
+    """The nvcc commands that build library ``name`` into ``tmp``: one,
+    or with PARTS one per object (``-c``, run together), then the link
+    command and its objects (None without PARTS)."""
+    src = str(CSRC / f"{name}.cu")
+    parts = PARTS.get(name, 1)
+    if parts == 1:
+        return [[nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), src]], None
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [tmp.with_suffix(f".part{i}.o") for i in range(parts)]
+    cmds = [[nvcc_path(), *compile_flags, f"-DFLASH_PART={i}", "-c", "-o",
+             str(obj), src] for i, obj in enumerate(objs)]
+    link = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+    return cmds, (link, objs)
 
 
 class KernelLibraries:
@@ -87,19 +110,27 @@ class KernelLibraries:
             if out.exists():
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(
+            cmds, link = _compile_cmds(name, tmp)
+            procs[name] = ([subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
+                text=True) for cmd in cmds], link, tmp, out)
         failed = []
         with get_ledger().span("kernel_build", sources=sorted(procs)):
-            for name, (proc, tmp, out) in procs.items():
-                log, _ = proc.communicate()
+            for name, (running, link, tmp, out) in procs.items():
+                logs = [proc.communicate()[0] for proc in running]
+                rc = max(proc.returncode for proc in running)
+                if link is not None:
+                    if rc == 0:
+                        done = subprocess.run(link[0], capture_output=True,
+                                              text=True)
+                        logs.append(done.stdout + done.stderr)
+                        rc = done.returncode
+                    for obj in link[1]:
+                        obj.unlink(missing_ok=True)
+                log = "".join(logs)
                 self.logs[name] = log
-                if proc.returncode != 0:
-                    failed.append(f"{name}: nvcc exited {proc.returncode}"
-                                  f"\n{log}")
+                if rc != 0:
+                    failed.append(f"{name}: nvcc exited {rc}\n{log}")
                     continue
                 os.replace(tmp, out)
                 self.builds[out.name] = self.builds.get(out.name, 0) + 1

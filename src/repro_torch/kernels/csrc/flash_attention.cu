@@ -31,16 +31,19 @@
 // O += P V take bf16 operands and float32 accumulators, by one of two
 // products (MmaTile<hd>::STEP, chosen per head dim on the card by
 // tools/kernel_variants.py):
-//   STEP 1, mma.sync.m16n8k16 (HMMA) per warp: rows padded by 16 bytes so
-//     that ldmatrix (ldmatrix.trans for V, the B operand of P V) reads
-//     eight rows from eight distinct bank groups; up to hd=128 a warp
-//     keeps its Q fragments in registers, at hd=256 it reads them again
-//     per key tile;
-//   STEP 2, wgmma.m64nNk16 (HGMMA) per warpgroup of four warps: Q, K and V
-//     in wgmma's 128-byte-swizzled layout; Q K^T with both operands from
-//     shared memory (K-major), P V with P from registers and V from shared
-//     memory (MN-major, the transpose bit); at hd=256 the 64 x 256 float32
-//     accumulator is 128 registers per thread.
+//   STEP 1, mma.sync.m16n8k16 (HMMA) per warp (hd 16, 32 and 112): rows
+//     padded by 16 bytes so that ldmatrix (ldmatrix.trans for V, the B
+//     operand of P V) reads eight rows from eight distinct bank groups (at
+//     hd=112 a 240-byte row is 15 such groups, odd, so eight rows still
+//     land in eight); up to hd=128 a warp keeps its Q fragments in
+//     registers, above it reads them again per key tile;
+//   STEP 2, wgmma.m64nNk16 (HGMMA) per warpgroup of four warps (hd 64,
+//     128, 192 and 256: whole 128-byte rows, which hd=112's 224-byte rows
+//     are not): Q, K and V in wgmma's 128-byte-swizzled layout; Q K^T with
+//     both operands from shared memory (K-major), P V with P from
+//     registers and V from shared memory (MN-major, the transpose bit); at
+//     hd=256 the 64 x 256 float32 accumulator is 128 registers per thread,
+//     at hd=192 96.
 // After the online-softmax update (the row max and sum joined across the
 // four lanes of a quad by shuffles; p = 2^(s * scale * log2 e - max) by one
 // fma and one ex2; the accumulator's rescale skipped when no row of the warp
@@ -64,10 +67,10 @@
 // cannot hold the float32 tolerance of 2e-5), for the CPU-size float32
 // cross-checks only.  One CTA per (batch, kv head, q tile) packed as above;
 // up to hd=128 a query row belongs to one thread (ROWS = 128 threads); at
-// hd=256 SPLIT = 4 threads of one warp share a row, 64 dims each, joining
-// their partial dot products with __shfl_xor_sync (a butterfly, so all four
-// hold the same sum bitwise); K/V tiles of BK keys are staged in shared
-// memory and read back as broadcasts.  All products are fmaf(); the build's
+// hd 192 and 256 SPLIT = 4 threads of one warp share a row, 48 or 64 dims
+// each, joining their partial dot products with __shfl_xor_sync (a
+// butterfly, so all four hold the same sum bitwise); K/V tiles of BK keys
+// are staged in shared memory and read back as broadcasts.  All products are fmaf(); the build's
 // -fmad=false leaves the other arithmetic uncontracted.
 //
 // Bound: for TinyLlama-1.1B's prefill shape (b=4, sq=sk=1024, h=32, kvh=4,
@@ -84,6 +87,20 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+// FLASH_PART: kernels/build.py compiles this file as two objects in
+// parallel, the forward's kernels and entry points (0) and the backward's
+// (1), and links them into one library; unset, one object holds both.
+#if !defined(FLASH_PART) || FLASH_PART == 0
+#define FLASH_FORWARD 1
+#else
+#define FLASH_FORWARD 0
+#endif
+#if !defined(FLASH_PART) || FLASH_PART == 1
+#define FLASH_BACKWARD 1
+#else
+#define FLASH_BACKWARD 0
+#endif
 
 namespace {
 
@@ -279,8 +296,9 @@ __global__ void __launch_bounds__(Tile<HD>::THREADS)
 // Warps per CTA (16 rows each; a warpgroup of four runs a wgmma over its
 // 64 rows), keys per K/V tile, cp.async ring depth, and the products of a
 // head dim: STEP 1 is mma.sync, STEP 2 wgmma (head dims that are whole
-// 128-byte rows).  At hd 64/128/256 the values are the fastest of
-// tools/kernel_variants.py's sweep at the serving shapes on an H100.
+// 128-byte rows).  The values are the fastest of tools/kernel_variants.py's
+// sweeps at the serving shapes on an H100 (hd 64/128/256: `flash`; hd 112
+// and 192, kimi-k2's and nemotron-4's heads: `all wide`, PERF.md).
 template <int HD>
 struct MmaTile;
 template <>
@@ -296,8 +314,16 @@ struct MmaTile<64> {
   static constexpr int WARPS = 4, BN = 64, STAGES = 2, STEP = 2;
 };
 template <>
+struct MmaTile<112> {
+  static constexpr int WARPS = 4, BN = 32, STAGES = 2, STEP = 1;
+};
+template <>
 struct MmaTile<128> {
   static constexpr int WARPS = 8, BN = 128, STAGES = 2, STEP = 2;
+};
+template <>
+struct MmaTile<192> {
+  static constexpr int WARPS = 8, BN = 64, STAGES = 3, STEP = 2;
 };
 template <>
 struct MmaTile<256> {
@@ -550,6 +576,46 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[24][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -1009,14 +1075,20 @@ __global__ void __launch_bounds__(32 * MmaTile<HD>::WARPS)
 // join by an xor butterfly (every lane ends with the same bits); K/V or
 // Q/dO tiles staged in shared memory; the same launches and order.
 
+// the largest power of two not above x
+constexpr int pow2_floor(int x) { return x < 2 ? 1 : 2 * pow2_floor(x / 2); }
+
 template <int HD>
 struct BwdTile {
-  static constexpr int DH = 16;  // dims per thread
-  static constexpr int SPLIT = HD / DH;
+  // lanes per row: a power of two (row_sum's butterfly), 16 dims each at
+  // hd 16/32/64/128/256, 28 at hd=112 (4 lanes), 24 at hd=192 (8 lanes)
+  static constexpr int SPLIT = pow2_floor(HD / 16);
+  static constexpr int DH = HD / SPLIT;  // dims per thread
   static constexpr int THREADS = HD >= 128 ? 256 : 128;
   static constexpr int ROWS = THREADS / SPLIT;  // rows or keys per CTA
   static constexpr int BT = 4096 / HD;  // keys or rows per staged tile
-  static_assert(HD % DH == 0 && SPLIT <= 32, "a row is whole lanes of a warp");
+  static_assert(HD % SPLIT == 0 && DH % 4 == 0 && SPLIT <= 32,
+                "a row is whole lanes of a warp, each whole float4 chunks");
 };
 
 template <int HD>
@@ -1253,9 +1325,11 @@ __global__ void __launch_bounds__(BwdTile<HD>::THREADS)
 
 // The bfloat16 kernels' tiles per head dim: QWARPS warps of 16 rows per dQ
 // CTA over K/V tiles of QN keys; KWARPS warps per dK/dV CTA of BN keys over
-// row tiles of BM rows.  At hd 64 and 128 the fastest of a sweep of text
-// variants at the training shapes on an H100 (hd=128's dK/dV kernel spills
-// a few bytes and is still the fastest).
+// row tiles of BM rows.  At hd 64, 112, 128 and 192 the fastest of a sweep
+// of text variants at the training shapes on an H100 (hd=128's dK/dV
+// kernel spills a few bytes and is still the fastest).  hd=112's dK/dV
+// keeps the whole head dim in one warp (112 / 16 = 7 d-blocks of 16 admit
+// no split into warps), 254 registers; hd=192's splits it over two.
 template <int HD>
 struct BwdMma;
 template <>
@@ -1271,8 +1345,16 @@ struct BwdMma<64> {
   static constexpr int QWARPS = 4, QN = 32, KWARPS = 8, BN = 64, BM = 64;
 };
 template <>
+struct BwdMma<112> {
+  static constexpr int QWARPS = 4, QN = 32, KWARPS = 4, BN = 64, BM = 64;
+};
+template <>
 struct BwdMma<128> {
   static constexpr int QWARPS = 4, QN = 32, KWARPS = 16, BN = 128, BM = 64;
+};
+template <>
+struct BwdMma<192> {
+  static constexpr int QWARPS = 8, QN = 32, KWARPS = 8, BN = 64, BM = 64;
 };
 template <>
 struct BwdMma<256> {
@@ -1853,6 +1935,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+#if FLASH_FORWARD
 typedef int (*Launcher)(const void*, const void*, const void*, void*,
                         float*, const int*, const int*, int, int, int, int, int, int,
                         int, cudaStream_t);
@@ -1863,7 +1946,9 @@ Launcher f32_launcher(int hd) {
     case 16: return launch_f32<16>;
     case 32: return launch_f32<32>;
     case 64: return launch_f32<64>;
+    case 112: return launch_f32<112>;
     case 128: return launch_f32<128>;
+    case 192: return launch_f32<192>;
     case 256: return launch_f32<256>;
     default: return nullptr;
   }
@@ -1874,11 +1959,14 @@ Launcher bf16_launcher(int hd) {
     case 16: return launch_bf16<16>;
     case 32: return launch_bf16<32>;
     case 64: return launch_bf16<64>;
+    case 112: return launch_bf16<112>;
     case 128: return launch_bf16<128>;
+    case 192: return launch_bf16<192>;
     case 256: return launch_bf16<256>;
     default: return nullptr;
   }
 }
+#endif  // FLASH_FORWARD
 
 
 template <int HD>
@@ -1949,6 +2037,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+#if FLASH_BACKWARD
 typedef int (*BwdLauncher)(const void*, const void*, const void*,
                            const void*, const void*, const float*, float*,
                            void*, void*, void*, const int*, const int*, int,
@@ -1960,14 +2049,18 @@ BwdLauncher bwd_launcher(int hd, int dtype) {
     case 16: return bf ? launch_bwd_bf16<16> : launch_bwd_f32<16>;
     case 32: return bf ? launch_bwd_bf16<32> : launch_bwd_f32<32>;
     case 64: return bf ? launch_bwd_bf16<64> : launch_bwd_f32<64>;
+    case 112: return bf ? launch_bwd_bf16<112> : launch_bwd_f32<112>;
     case 128: return bf ? launch_bwd_bf16<128> : launch_bwd_f32<128>;
+    case 192: return bf ? launch_bwd_bf16<192> : launch_bwd_f32<192>;
     case 256: return bf ? launch_bwd_bf16<256> : launch_bwd_f32<256>;
     default: return nullptr;
   }
 }
+#endif  // FLASH_BACKWARD
 
 }  // namespace
 
+#if FLASH_FORWARD
 // dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core
 // kernel); pos_q (b, sq) and pos_k (b, sk) int32 positions, both or neither
 // (null: 0..s-1).  Returns the launch's CUDA error code.
@@ -2022,12 +2115,17 @@ extern "C" int flash_attention_bf16_step(int hd) {
     case 16: return MmaTile<16>::STEP;
     case 32: return MmaTile<32>::STEP;
     case 64: return MmaTile<64>::STEP;
+    case 112: return MmaTile<112>::STEP;
     case 128: return MmaTile<128>::STEP;
+    case 192: return MmaTile<192>::STEP;
     case 256: return MmaTile<256>::STEP;
     default: return 0;
   }
 }
 
+#endif  // FLASH_FORWARD
+
+#if FLASH_BACKWARD
 // The backward: dq (b, sq, h, hd), dk and dv (b, sk, kvh, hd) in the
 // dtype of q, k, v, o and dout (0 float32, 1 bfloat16), from the forward's
 // lse (b, h, sq); dsum (b, h, sq) float32 is scratch (D = rowsum(dO o)).
@@ -2047,3 +2145,4 @@ extern "C" int flash_attention_bwd_launch(
   return fn(q, k, v, o, dout, lse, dsum, dq, dk, dv, pos_q, pos_k, b, sq, sk,
             h, kvh, causal, window, (cudaStream_t)stream);
 }
+#endif  // FLASH_BACKWARD

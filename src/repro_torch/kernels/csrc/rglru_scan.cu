@@ -114,41 +114,112 @@ int launch(const void* a, const void* bx, void* h, int b, int s, int w,
 // The backward, for the output's gradient gh_out (b, s, w) float32: the
 // state's gradient runs down the sequence, gh_t = gh_out_t + a_{t+1}
 // gh_{t+1} (0 past the end), and g_a_t = gh_t h_{t-1} (h_0 = 0),
-// g_bx_t = gh_t, each in the inputs' dtype; h is the forward's output.  A
-// simple first kernel: one thread per (batch row, channel) walks the
-// sequence backwards, a product then a sum per step as the twin computes.
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
+// g_bx_t = gh_t, each in the inputs' dtype; h is the forward's output.
+//
+// Design: the forward's, walked downwards.  One
+// thread per (batch row, channel) keeps the carry a_{t+1} gh_{t+1} in a
+// register and walks t = s-1 .. 0 in order, a sum then a product per step
+// as the twin (ref.rglru_scan_bwd_ref) forms them, __fadd_rn / __fmul_rn,
+// so the kernel equals the twin bitwise.  Only b * w threads exist (16384
+// at recurrentgemma-9b's (4, 1024, 4096)), so each keeps three streams in
+// flight: two register buffers of U steps of a_t, h_{t-1} and gh_out_t,
+// the next U steps loading while the current ones are consumed, each
+// value read once (__ldcs: h_{t-1} is read by step t only) and both
+// gradients written with streaming stores.  A CTA is BWD_THREADS
+// neighbouring channels (one warp), so each step of a warp reads and
+// writes contiguous spans.  U is BWD_U_F32 = 16 steps for float32 inputs
+// (what the model passes) and BWD_U_BF16 = 8 for bfloat16, the fastest of
+// tools/kernel_variants.py's sweep (CTA sizes 32/64/128 x U 4/8/16) on an
+// H100 for each (PERF.md).
+//
+// Bound: a, h and gh_out read once, g_a and g_bx written once: 20 bytes
+// per element in float32, 335 MB at (4, 1024, 4096), 0.100 ms at 3.35
+// TB/s; two operations per element, so bytes bound it.
+constexpr int BWD_THREADS = 32;  // channels per CTA
+constexpr int BWD_U_F32 = 16;    // steps per register buffer, float32
+constexpr int BWD_U_BF16 = 8;    // and bfloat16 inputs
+
+template <typename T>
+struct BwdU {
+  static constexpr int value =
+      sizeof(T) == sizeof(float) ? BWD_U_F32 : BWD_U_BF16;
+};
+
+__device__ __forceinline__ void store_as(float* p, float x) { __stcs(p, x); }
 __device__ __forceinline__ void store_as(uint16_t* p, float x) {
   // round to nearest even, as torch's float32 -> bfloat16 cast (no NaNs
   // reach here from finite inputs)
   const uint32_t u = __float_as_uint(x);
-  *p = (uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16);
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         (unsigned short)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16));
+}
+
+// U steps from t0 down (t0, t0 - 1, ..): a_t, h_{t-1} and gh_out_t, 0
+// before the start of the sequence (and h_{-1} = h_0 = 0).
+template <int U, typename T>
+__device__ __forceinline__ void load_back(const T* __restrict__ pa,
+                                          const float* __restrict__ ph,
+                                          const float* __restrict__ pg,
+                                          int t0, size_t stride, float* a,
+                                          float* hp, float* g) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = t0 - u;
+    a[u] = t >= 0 ? load_f32(pa + (size_t)t * stride) : 0.0f;
+    hp[u] = t >= 1 ? __ldcs(ph + (size_t)(t - 1) * stride) : 0.0f;
+    g[u] = t >= 0 ? __ldcs(pg + (size_t)t * stride) : 0.0f;
+  }
+}
+
+template <int U, typename T>
+__device__ __forceinline__ void run_back(float& carry, const float* a,
+                                         const float* hp, const float* g,
+                                         int t0, size_t stride,
+                                         T* __restrict__ pga,
+                                         T* __restrict__ pgb) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = t0 - u;
+    if (t >= 0) {
+      const float gh = __fadd_rn(g[u], carry);
+      store_as(pgb + (size_t)t * stride, gh);
+      store_as(pga + (size_t)t * stride, __fmul_rn(gh, hp[u]));
+      carry = __fmul_rn(a[u], gh);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BWD_THREADS)
     rglru_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h,
                      const float* __restrict__ gh_out, T* __restrict__ g_a,
                      T* __restrict__ g_bx, int s, int w) {
-  const int ch = blockIdx.x * THREADS + threadIdx.x;
+  const int ch = blockIdx.x * BWD_THREADS + threadIdx.x;
   if (ch >= w) return;
   const size_t base = (size_t)blockIdx.y * s * w + ch;
+  const T* pa = a + base;
+  const float* ph = h + base;
+  const float* pg = gh_out + base;
+  T* pga = g_a + base;
+  T* pgb = g_bx + base;
+
+  constexpr int U = BwdU<T>::value;
   float carry = 0.0f;  // a_{t+1} gh_{t+1}
-  for (int t = s - 1; t >= 0; --t) {
-    const size_t at = base + (size_t)t * w;
-    const float gh = __fadd_rn(gh_out[at], carry);
-    const float hp = t > 0 ? h[at - w] : 0.0f;
-    store_as(g_bx + at, gh);
-    store_as(g_a + at, __fmul_rn(gh, hp));
-    carry = __fmul_rn(load_f32(a + at), gh);
+  float a0[U], h0[U], g0[U], a1[U], h1[U], g1[U];
+  load_back<U>(pa, ph, pg, s - 1, (size_t)w, a0, h0, g0);
+  for (int t0 = s - 1; t0 >= 0; t0 -= 2 * U) {
+    load_back<U>(pa, ph, pg, t0 - U, (size_t)w, a1, h1, g1);
+    run_back<U>(carry, a0, h0, g0, t0, (size_t)w, pga, pgb);
+    load_back<U>(pa, ph, pg, t0 - 2 * U, (size_t)w, a0, h0, g0);
+    run_back<U>(carry, a1, h1, g1, t0 - U, (size_t)w, pga, pgb);
   }
 }
 
 template <typename T>
 int launch_bwd(const void* a, const void* h, const void* gh, void* g_a,
                void* g_bx, int b, int s, int w, cudaStream_t st) {
-  const dim3 grid((w + THREADS - 1) / THREADS, b);
-  rglru_bwd_kernel<T><<<grid, THREADS, 0, st>>>(
+  const dim3 grid((w + BWD_THREADS - 1) / BWD_THREADS, b);
+  rglru_bwd_kernel<T><<<grid, BWD_THREADS, 0, st>>>(
       static_cast<const T*>(a), static_cast<const float*>(h),
       static_cast<const float*>(gh), static_cast<T*>(g_a),
       static_cast<T*>(g_bx), s, w);

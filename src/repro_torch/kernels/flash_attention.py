@@ -15,10 +15,11 @@ buffer, offset or packed prompts); scores are scaled by ``hd**-0.5``.  A CUDA te
 kernel of ``csrc/flash_attention.cu``, one per dtype: bfloat16 runs on the
 tensor cores (bf16 operands, float32 accumulators, 16 rows of (position,
 head) pairs per warp, P rounded to bf16 before the P V product; ``wgmma``
-at head dims 64, 128 and 256, ``mma.sync`` at 16 and 32, as
+at head dims 64, 128, 192 and 256, ``mma.sync`` at 16, 32 and 112, as
 ``kernel_step`` reports); float32 runs on the CUDA cores (one query row
-per thread, four threads per row at hd=256), for the float32
-cross-checks.  A CPU tensor runs the eager twin ``ref.attention_ref``.
+per thread, four threads per row at hd 192 and 256), for the float32
+cross-checks.  Head dims: ``HEAD_DIMS``; any other raises on a CUDA
+tensor.  A CPU tensor runs the eager twin ``ref.attention_ref``.
 There is no fallback from one to another.  ``flash_attention.launches``
 counts kernel launches.
 
@@ -44,11 +45,13 @@ import torch
 from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
 
-#: head dims the kernel is compiled for (csrc/flash_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the kernels are compiled for (csrc/flash_attention.cu): every
+#: registered model's (kimi-k2-1t-a32b's 112, nemotron-4-340b's 192)
+HEAD_DIMS = (16, 32, 64, 112, 128, 192, 256)
 #: query rows of the float32 kernel's CTA, per head dim, bound its query
 #: heads per kv head; the bfloat16 kernel takes any group
-MAX_GROUP = {16: 128, 32: 128, 64: 128, 128: 128, 256: 64}
+MAX_GROUP = {16: 128, 32: 128, 64: 128, 112: 128, 128: 128, 192: 64,
+             256: 64}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

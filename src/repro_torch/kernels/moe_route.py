@@ -22,9 +22,10 @@ Training: when grad is enabled and the logits require it, the call goes
 through ``MoeRouteFn`` (on both devices); eid and slot carry no gradient,
 and the gates' backward is ``moe_route_bwd``: on a CUDA tensor the kernel
 ``route_bwd_kernel`` of ``csrc/moe_route.cu`` (through the normalisation by
-max(Σ, 1e-9), then the softmax; a thread per token), on a CPU tensor the
-twin ``ref.moe_route_bwd_ref``.  ``moe_route_bwd.launches`` counts its
-launches.
+max(Σ, 1e-9), then the softmax; the forward's layout: a sub-warp of lanes
+per token, the row in registers, the picks broadcast by shuffles), on a
+CPU tensor the twin ``ref.moe_route_bwd_ref``.  ``moe_route_bwd.launches``
+counts its launches.
 """
 from __future__ import annotations
 

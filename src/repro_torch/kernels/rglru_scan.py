@@ -17,7 +17,9 @@ Training: when grad is enabled and a or bx requires it, the call goes
 through ``RglruScanFn`` (on both devices), which keeps a and the output h
 and whose backward is ``rglru_scan_bwd``: on a CUDA tensor the backward
 kernel of ``csrc/rglru_scan.cu`` (gh walked down the sequence, one thread
-per channel), on a CPU tensor the twin ``ref.rglru_scan_bwd_ref``.
+per channel, the forward's register buffers of steps loaded ahead; equal
+to the twin bitwise), on a CPU tensor the twin
+``ref.rglru_scan_bwd_ref``.
 ``rglru_scan_bwd.launches`` counts backward launches.
 """
 from __future__ import annotations

@@ -52,10 +52,12 @@ def _autograd(fn, args, cot):
 
 
 #: (b, sq, sk, h, kvh, hd, causal, window): GQA, MHA, a window, sq != sk
-#: (the rows past sk + window - 1 see no key), non-causal
+#: (the rows past sk + window - 1 see no key), non-causal; kimi-k2's and
+#: nemotron-4's head dims (112, 192) at their groups of 8 and 12
 FLASH = [(2, 12, 12, 4, 2, 16, True, 0), (1, 16, 16, 4, 4, 32, True, 0),
          (2, 14, 14, 8, 2, 16, True, 5), (1, 11, 6, 4, 1, 16, True, 3),
-         (1, 7, 10, 2, 2, 16, False, 0)]
+         (1, 7, 10, 2, 2, 16, False, 0), (1, 10, 10, 8, 1, 112, True, 0),
+         (1, 9, 9, 12, 1, 192, True, 4)]
 
 
 @pytest.mark.parametrize("case", FLASH)

@@ -176,7 +176,9 @@ def _hold(got, want, where):
 
 
 def test_kernel_tiles_read_for_every_head_dim():
-    assert sorted(KERNEL_TILES) == [16, 32, 64, 128, 256]
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    assert sorted(KERNEL_TILES) == [16, 32, 64, 112, 128, 192, 256]
+    assert sorted(KERNEL_TILES) == sorted(HEAD_DIMS)
 
 
 @pytest.mark.parametrize("tiles", TILES, ids=TILE_IDS)

@@ -85,6 +85,37 @@ def test_head_dim_256_matches_pallas_and_ref(window, dtype):
     _check(jax_side, port_side, dtype, 16, 16, causal=True, window=window)
 
 
+@pytest.mark.parametrize("window", [0, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd,h", [(112, 8), (192, 12)])
+def test_head_dims_112_192_match_pallas_and_ref(hd, h, window, dtype):
+    """kimi-k2-1t-a32b's and nemotron-4-340b's head dims, each with its
+    model's query heads per kv head (8 and 12) over one kv head, with and
+    without a window that bites at 40 tokens."""
+    jax_side, port_side = _inputs(9, 1, 40, 40, h, 1, hd, dtype)
+    _check(jax_side, port_side, dtype, 16, 16, causal=True, window=window)
+
+
+def test_every_attention_model_head_dim_is_built():
+    """Every registered config with attention layers runs them at a head
+    dim the kernels are compiled for, so no model raises on the card for
+    its head dim; the float32 kernel's group limit covers each model's
+    query heads per kv head."""
+    from repro_torch.configs import all_configs, get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, MAX_GROUP
+    assert set(MAX_GROUP) == set(HEAD_DIMS)
+    seen = {}
+    for name in all_configs():
+        cfg = get_config(name)
+        if not any("attn" in kind for kind in cfg.layer_kinds):
+            continue
+        hd = cfg.resolved_head_dim
+        assert hd in HEAD_DIMS, f"{name}: head dim {hd} not in {HEAD_DIMS}"
+        assert cfg.num_heads // cfg.num_kv_heads <= MAX_GROUP[hd], name
+        seen[name] = hd
+    assert seen["kimi-k2-1t-a32b"] == 112 and seen["nemotron-4-340b"] == 192
+
+
 def test_cuda_wrapper_refuses_what_the_kernel_lacks():
     """The CUDA wrapper's checks come before any launch: a head dim the
     kernels are not compiled for; in float32, more query heads per kv head

@@ -307,6 +307,15 @@ FLASH_CASES = [  # (b, sq, sk, h, kvh, hd, causal, window)
     (1, 90, 40, 8, 1, 256, False, 0),       # hd=256, sq > sk, non-causal
     (1, 200, 200, 8, 2, 64, True, 5),       # a window inside one key tile
     (1, 20, 20, 128, 1, 64, True, 0),       # g=128: a position spans 2 tiles
+    # kimi-k2's hd=112 (mma.sync, 7 k-steps) at its 64/8 heads and
+    # nemotron-4's hd=192 (wgmma, three 64-column swizzle blocks) at one
+    # semantic branch's 48/4
+    (1, 257, 257, 64, 8, 112, True, 0),
+    (1, 200, 200, 48, 4, 192, True, 0),
+    (1, 90, 40, 8, 1, 112, False, 0),       # sq > sk, non-causal
+    (2, 80, 80, 12, 2, 192, True, 8),       # a window that bites
+    (1, 33, 77, 4, 4, 112, True, 0),        # ragged, g=1
+    (1, 130, 130, 12, 1, 192, True, 0),     # g=12 over one kv head
 ]
 
 
@@ -763,7 +772,9 @@ def test_stream_replay_matches_one_shot_on_cuda(cuda, policy):
 #: ring, g = 8, 1, 16; (b, W, h, kvh, hd, written slots)) and prefills
 #: with offset or packed rows (chip_smoke.FLASH_POS_CASES)
 FLASH_DECODE_CASES = [(4, 1056, 32, 4, 64, 1025), (4, 1056, 16, 16, 128, 1),
-                      (4, 1056, 16, 1, 256, 1056), (2, 40, 8, 2, 16, 23)]
+                      (4, 1056, 16, 1, 256, 1056), (2, 40, 8, 2, 16, 23),
+                      (4, 1056, 64, 8, 112, 1025), (4, 1056, 96, 8, 192, 1),
+                      (2, 70, 96, 8, 192, 70)]
 
 
 @pytest.mark.gpu
@@ -865,7 +876,14 @@ FLASH_BWD_CASES = [(2, 64, 64, 4, 2, 32, True, 0),
                    (1, 77, 77, 16, 1, 128, True, 0),
                    (1, 200, 200, 16, 1, 256, True, 70),
                    (2, 190, 190, 4, 2, 32, True, 45),
-                   (1, 150, 60, 8, 2, 64, True, 30)]
+                   (1, 150, 60, 8, 2, 64, True, 30),
+                   # kimi-k2's and nemotron-4's head dims: ragged tiles, a
+                   # window, non-causal, rows that see no key
+                   (1, 130, 130, 8, 1, 112, True, 0),
+                   (1, 150, 150, 12, 1, 192, True, 17),
+                   (1, 70, 90, 4, 2, 112, False, 0),
+                   (1, 150, 60, 12, 2, 192, True, 30),
+                   (2, 64, 64, 8, 8, 192, True, 0)]
 
 
 @pytest.mark.gpu
@@ -922,8 +940,13 @@ def test_selective_scan_backward_matches_twin(cuda, case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 37, 24), (1, 64, 128), (3, 9, 70)])
+@pytest.mark.parametrize("shape", [(2, 37, 24), (1, 64, 128), (3, 9, 70),
+                                   (4, 1024, 4096), (1, 1001, 96),
+                                   (2, 5, 33)])
 def test_rglru_scan_backward_matches_twin(cuda, shape, dtype):
+    """Bitwise equal to the twin: the reference's shapes, recurrentgemma's
+    (4, 1024, 4096), s that the kernel's register buffers do not divide,
+    s shorter than one buffer; two runs bitwise equal."""
     from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
     from repro_torch.kernels.rglru_scan import rglru_scan_bwd_cuda
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
@@ -936,12 +959,20 @@ def test_rglru_scan_backward_matches_twin(cuda, shape, dtype):
     for x, y in zip(got, want):
         assert x.dtype == dtype
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert all(torch.equal(x, y) for x, y in
+               zip(got, rglru_scan_bwd_cuda(a, h, gh)))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [(1, 64, 8, 2), (2, 150, 60, 4),
-                                  (3, 77, 1024, 7), (1, 33, 4, 1)])
+                                  (3, 77, 1024, 7), (1, 33, 4, 1),
+                                  (1, 512, 384, 8), (1, 256, 1024, 8),
+                                  (2, 45, 40, 40), (1, 7, 2, 2)])
 def test_moe_route_backward_matches_twin(cuda, case):
+    """Against the twin within 1e-4 of the scale, two runs bitwise
+    equal: the routing test shapes, kimi-k2's routing (384 experts, top-8),
+    the widest E, more picks than lanes per token (40 of 40 over 16
+    lanes), fewer experts than one lane holds."""
     from repro_torch.kernels.moe_route import (moe_route_bwd_cuda,
                                                moe_route_cuda)
     from repro_torch.kernels.ref import moe_route_bwd_ref

@@ -305,3 +305,28 @@ def test_unported_batches_raise(small):
     with pytest.raises(NotImplementedError, match="item 18"):
         tmodel.decode_step(params, t[:, :1], cache, 16, cfg,
                            batch_extras={"cond": t})
+
+
+@pytest.mark.parametrize("arch,hd", [("kimi-k2-1t-a32b", 112),
+                                     ("nemotron-4-340b", 192)])
+def test_real_head_dim_cut_matches_reference(arch, hd):
+    """A narrow cut of kimi-k2 (its dense layer 0 and one MoE layer) and
+    of nemotron-4 (one relu² layer, half-rotary) at their real head dims,
+    where ``reduced()`` alone sets 32: the forward against the
+    reference's."""
+    jcfg = dataclasses.replace(jget_config(arch).reduced(max_layers=1),
+                               head_dim=hd)
+    cfg = dataclasses.replace(get_config(arch).reduced(max_layers=1),
+                              head_dim=hd)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    assert cfg.resolved_head_dim == hd
+    jparams = jmodel.init_params(jax.random.PRNGKey(5), jcfg)
+    params = tmodel.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                    device="cpu")
+    assert params["blocks"][0]["attn"]["wq"].shape[-1] == hd
+    tok = np.random.RandomState(6).randint(0, cfg.vocab_size,
+                                           (2, 24)).astype(np.int32)
+    want, _ = jmodel.forward(jparams, {"tokens": jnp.asarray(tok)}, jcfg)
+    got = tmodel.forward(params, {"tokens": torch.from_numpy(tok)}, cfg)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(_np(got), _np(want), **LOGITS)

@@ -414,3 +414,53 @@ def test_kernel_library_counters(tmp_path, monkeypatch):
     again.get("threefry")
     assert list(again.cache_stats()["keys"].values()) == [0]
     shutil.rmtree(tmp_path / "_build")
+
+
+def test_kernel_library_builds_parts_and_links(tmp_path, monkeypatch):
+    """A source in ``build.PARTS`` compiles as one object per part, each
+    with its ``-DFLASH_PART`` and ``-c`` (no ``-shared``), started
+    together, then one link of those objects into the library, which
+    loads; the objects are removed.  A stand-in compiler logs its
+    arguments and writes torch's own shared library where the link's
+    output goes."""
+    import json
+    from pathlib import Path
+
+    import torch
+
+    from repro_torch.kernels import build
+    lib = next(Path(torch.__file__).parent.joinpath("lib").glob(
+        "libc10.so*"))
+    calls = tmp_path / "calls.jsonl"
+    fake = tmp_path / "fake_nvcc.py"
+    fake.write_text(
+        "import json, shutil, sys\n"
+        f"open({str(calls)!r}, 'a').write(json.dumps(sys.argv[1:]) + '\\n')\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "if '-c' in sys.argv:\n"
+        "    open(out, 'w').write('object')\n"
+        "else:\n"
+        f"    shutil.copy({str(lib)!r}, out)\n")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "nvcc_path", lambda: sys.executable)
+    monkeypatch.setattr(build, "NVCC_FLAGS", (str(fake), "-shared", "-O3"))
+    assert build.PARTS == {"flash_attention": 2}
+    libs = build.KernelLibraries()
+    libs.get("flash_attention")
+    argvs = [json.loads(line) for line in calls.read_text().splitlines()]
+    parts, link = argvs[:2], argvs[2]
+    assert len(argvs) == 3
+    objs = []
+    for i, argv in enumerate(sorted(parts, key=lambda a: a[1])):
+        assert argv[:3] == ["-O3", f"-DFLASH_PART={i}", "-c"]
+        assert "-shared" not in argv
+        assert argv[-1].endswith("flash_attention.cu")
+        objs.append(argv[argv.index("-o") + 1])
+    assert "-shared" in link and link[-2:] == objs
+    assert not any(Path(o).exists() for o in objs)
+    (name,) = libs.cache_stats()["keys"]
+    assert name.startswith("libflash_attention-")
+    # the parts are in the library's name: another split is another library
+    before = build._lib_path("flash_attention")
+    monkeypatch.setattr(build, "PARTS", {})
+    assert build._lib_path("flash_attention") != before

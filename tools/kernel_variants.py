@@ -2,7 +2,7 @@
 """Time variants of the port's CUDA kernels side by side on one GPU.
 
     PYTHONPATH=src python3 tools/kernel_variants.py \
-        [flash|rglru|sim|bestfit|route [NAME ...]]
+        [flash|rglru|sim|bestfit|route|all [NAME ...]]
 
 Builds text variants of ``csrc/rglru_scan.cu`` (CTA size 32/64/128 ×
 steps per register buffer 4/8/16) and of the bfloat16 tensor-core kernel
@@ -61,6 +61,18 @@ moe_route_two_pass.cu``); holds each against the twin at
 exactly, gates within 1e-5, bitwise repeatable) and times them at
 qwen2-moe's serving shape (G=1, gs=4096, E=60, k=4) from CUDA graphs.
 The committed values are the fastest.
+
+``all wide`` builds seven libraries of ``csrc/flash_attention.cu``, the
+i-th carrying option i of the forward and backward tile lists of head dims
+112 and 192 (``WIDE_FWD``, ``WIDE_BWD``: kimi-k2-1t-a32b's and
+nemotron-4-340b's heads), holds each kernel against the twins at
+``WIDE_EDGES`` and the serving shapes and times forward and backward there
+from CUDA graphs.  ``all bwd`` builds the rglru_scan backward at 32/64/128
+channels per CTA × 4/8/16 steps per register buffer and the moe_route
+backward at 4–32 tokens per CTA, each beside its earlier design
+(``tools/kernel_baselines/``), holds them against the twins (rglru
+bitwise) and times them from CUDA graphs.  (``all`` alone runs every
+sweep.)
 """
 from __future__ import annotations
 
@@ -444,6 +456,8 @@ def variants(csrc):
                  f"constexpr int THREADS = {threads};"),
                 ("constexpr int U = 8;", f"constexpr int U = {u};")]),
                 "rglru")
+    out.update(wide_variants(fa))
+    out.update(bwd_variants(csrc))
     for hd, options in FLASH_OPTIONS.items():
         line = re.search(rf"struct MmaTile<{hd}> {{\n  static constexpr int "
                          rf"WARPS = \d+, BN = \d+, STAGES = \d+, STEP = "
@@ -478,15 +492,20 @@ def build(names_sources, out_dir):
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n"
                                f"{log}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
-        # ptxas -v: registers and spills of the variant's kernel
+        # ptxas -v: registers and spills of the variant's kernel (the
+        # bf16 kernels of the swept head dims for a flash variant)
         hd = re.search(r"flash_hd(\d+)_", name)
+        dims = [hd.group(1)] if hd else ["112", "192"] \
+            if name.startswith("flash_wide") else None
         entry = None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line
             elif entry and ("Used" in line or "spill" in line) and (
-                    hd is None or f"mma_kernelILi{hd.group(1)}E" in entry):
-                print(f"{name}: {line.strip()}", flush=True)
+                    dims is None or any(f"mma_kernelILi{d}E" in entry
+                                        for d in dims)):
+                print(f"{name}: {entry.split()[-1]} {line.strip()}",
+                      flush=True)
     return libs
 
 
@@ -865,12 +884,323 @@ def sim_main(table, libs, times):
                   f"{st[0, 7] - st[0, 6]} cycles to the end", flush=True)
 
 
+# ------------------------------ flash hd 112 / 192; the redesigned backwards
+
+#: kimi-k2-1t-a32b's (hd=112) and nemotron-4-340b's (hd=192) serving
+#: heads, bfloat16, b=4, s=1024, causal: (b, s, h, kvh)
+WIDE_SERVING = {112: (4, 1024, 64, 8), 192: (4, 1024, 96, 8)}
+#: their bfloat16 tiles: forward (step, warps, keys per K/V tile, stages)
+#: and backward (QWARPS, QN, KWARPS, BN, BM) per head dim, the committed
+#: ones first; library i carries option i of each of the four lists (the
+#: head dims' kernels are independent), so the sweep builds 7 libraries
+#: for 28 kernel variants
+WIDE_FWD = {112: [(1, 4, 32, 2), (1, 4, 128, 2), (1, 8, 64, 2),
+                  (1, 8, 128, 2), (1, 4, 64, 3), (1, 4, 64, 2),
+                  (1, 8, 128, 3)],
+            192: [(2, 8, 64, 3), (2, 4, 64, 2), (2, 8, 32, 2), (2, 4, 32, 2),
+                  (2, 8, 64, 2), (2, 4, 128, 2), (1, 4, 64, 2)]}
+WIDE_BWD = {112: [(4, 32, 4, 64, 64), (4, 64, 4, 64, 64), (4, 64, 8, 128, 64),
+                  (8, 64, 4, 64, 64), (4, 64, 2, 32, 64),
+                  (4, 32, 8, 128, 64), (4, 64, 4, 64, 32)],
+            192: [(8, 32, 8, 64, 64), (4, 64, 8, 64, 64), (4, 32, 8, 32, 64),
+                  (4, 32, 8, 64, 64), (4, 32, 16, 64, 64),
+                  (4, 64, 16, 64, 64), (4, 32, 8, 64, 32)]}
+#: shapes each wide variant is also held at, forward and backward:
+#: (b, sq, sk, h, kvh, causal, window)
+WIDE_EDGES = [(1, 150, 150, 8, 1, True, 0), (1, 130, 130, 12, 2, True, 17),
+              (1, 90, 40, 4, 2, False, 0), (1, 20, 20, 96, 1, True, 0)]
+
+
+def _wide_lines(src, hd, fwd, bwd):
+    step, warps, bn, stages = fwd
+    qw, qn, kw, kbn, bm = bwd
+    for struct, body in (
+            ("MmaTile", f"WARPS = {warps}, BN = {bn}, STAGES = {stages}, "
+                        f"STEP = {step};"),
+            ("BwdMma", f"QWARPS = {qw}, QN = {qn}, KWARPS = {kw}, BN = "
+                       f"{kbn}, BM = {bm};")):
+        src, n = re.subn(rf"(struct {struct}<{hd}> {{\n  static constexpr "
+                         rf"int )[^;]*;", rf"\g<1>{body}", src)
+        if n != 1:
+            raise AssertionError(f"{struct}<{hd}>: {n} definitions")
+    return src
+
+
+def wide_variants(fa):
+    """{name: (source, kind)}: flash_attention.cu with option i of each of
+    WIDE_FWD's and WIDE_BWD's lists."""
+    n = len(WIDE_FWD[112])
+    if any(len(v) != n for v in (*WIDE_FWD.values(), *WIDE_BWD.values())):
+        raise AssertionError("WIDE_FWD / WIDE_BWD lists differ in length")
+    out = {}
+    for i in range(n):
+        src = fa
+        for hd in WIDE_FWD:
+            src = _wide_lines(src, hd, WIDE_FWD[hd][i], WIDE_BWD[hd][i])
+        out[f"flash_wide_v{i}"] = (src, "flashwide")
+    return out
+
+
+def bwd_variants(csrc):
+    """{name: (source, kind)}: rglru_scan.cu's backward with BWD_THREADS
+    channels per CTA and U steps per register buffer (both dtypes),
+    moe_route.cu's
+    with BWD_TOKENS tokens per CTA, and the earlier designs of both
+    (``tools/kernel_baselines``)."""
+    rg = (csrc / "rglru_scan.cu").read_text()
+    mr = (csrc / "moe_route.cu").read_text()
+    out = {}
+    for threads in (32, 64, 128):
+        for u in (4, 8, 16):
+            src = _set(rg, "BWD_THREADS", threads)
+            out[f"rglru_bwd_t{threads}_u{u}"] = (
+                _set(_set(src, "BWD_U_F32", u), "BWD_U_BF16", u), "rglrubwd")
+    out["rglru_bwd_thread_walk"] = (_baseline("rglru_bwd_thread_walk.cu"),
+                                    "rglrubwd")
+    for tokens in (4, 8, 16, 32):
+        out[f"route_bwd_tok{tokens}"] = (_set(mr, "BWD_TOKENS", tokens),
+                                         "routebwd")
+    out["route_bwd_thread"] = (_baseline("moe_route_bwd_thread.cu"),
+                               "routebwd")
+    return out
+
+
+def _entry(lib, symbol, pointers, ints):
+    fn = getattr(lib, symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints \
+        + [ctypes.c_void_p]
+    return fn
+
+
+def _wide_fwd(lib, q, k, v, o, lse, causal, window):
+    import torch
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rc = _entry(lib, "flash_attention_lse_launch", 7, 9)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), None, None, b, sq, sk, h,
+        kvh, hd, int(causal), window, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash forward: CUDA error {rc}")
+
+
+def _wide_bwd(lib, q, k, v, o, lse, do, dsum, grads, causal, window):
+    import torch
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rc = _entry(lib, "flash_attention_bwd_launch", 12, 9)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
+        *[g.data_ptr() for g in grads], None, None, b, sq, sk, h, kvh, hd,
+        int(causal), window, 1, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash backward: CUDA error {rc}")
+
+
+def wide_main(table, libs, times):
+    """Hold each wide variant's hd 112 and 192 bf16 kernels against the
+    twins (forward at 2e-2, backward at 2e-2 of each output's scale, both
+    bitwise repeatable) at WIDE_EDGES and the serving shape, and time the
+    forward and the backward at WIDE_SERVING from CUDA graphs, in turns."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
+    names = [n for n, (_, k) in table.items() if k == "flashwide"]
+    if not names:
+        return
+    rng = np.random.RandomState(0)
+
+    def inputs(b, sq, sk, h, kvh, hd):
+        return [torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                .to("cuda", torch.bfloat16)
+                for shape in ((b, sq, h, hd), (b, sk, kvh, hd),
+                              (b, sk, kvh, hd), (b, sq, h, hd))]
+
+    def run(lib, q, k, v, do, causal, window):
+        b, sq, h, _ = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device="cuda")
+        dsum = torch.empty_like(lse)
+        grads = [torch.empty_like(t) for t in (q, k, v)]
+        _wide_fwd(lib, q, k, v, o, lse, causal, window)
+        _wide_bwd(lib, q, k, v, o, lse, do, dsum, grads, causal, window)
+        return o, lse, grads
+
+    serving = {}
+    for hd, (b, s, h, kvh) in WIDE_SERVING.items():
+        shapes = [(bb, sq, sk, hh, kk, c, w)
+                  for bb, sq, sk, hh, kk, c, w in WIDE_EDGES] + [
+            (b, s, s, h, kvh, True, 0)]
+        for shape in shapes:
+            q, k, v, do = inputs(*shape[:5], hd)
+            causal, window = shape[5:]
+            want_o, want_lse = attention_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+            want = attention_bwd_ref(q, k, v, want_o, want_lse, do,
+                                     causal=causal, window=window)
+            for name in names:
+                o, _, grads = run(libs[name], q, k, v, do, causal, window)
+                o2, _, again = run(libs[name], q, k, v, do, causal, window)
+                torch.cuda.synchronize()
+                where = f"{name} hd={hd} at {shape}"
+                err = float((o.float() - want_o.float()).abs().max())
+                if not err <= 2e-2 or not torch.equal(o, o2):
+                    raise AssertionError(f"{where}: forward max abs err "
+                                         f"{err:.3e} or not repeatable")
+                for g, w in zip(grads, want):
+                    chip_smoke._scaled_err(g, w, f"{where} backward", 2e-2)
+                if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+                    raise AssertionError(f"{where}: backward not "
+                                         f"repeatable")
+        serving[hd] = (q, k, v, do)
+    print(f"flash wide: every variant's hd 112 and 192 kernels match the "
+          f"twins at {len(WIDE_EDGES)} edge shapes and the serving shapes "
+          f"{WIDE_SERVING}, bitwise repeatable", flush=True)
+    for rnd in range(2):
+        for hd, (q, k, v, do) in serving.items():
+            b, s, h, _ = q.shape
+            pairs = s * (s + 1) / 2
+            for name in names if rnd == 0 else names[::-1]:
+                i = int(name.rsplit("v", 1)[1])
+                lib = libs[name]
+                o = torch.empty_like(q)
+                lse = torch.empty((b, h, s), dtype=torch.float32,
+                                  device="cuda")
+                dsum = torch.empty_like(lse)
+                grads = [torch.empty_like(t) for t in (q, k, v)]
+                fwd = chip_smoke.graph_ms(lambda: _wide_fwd(
+                    lib, q, k, v, o, None, True, 0), 20)
+                _wide_fwd(lib, q, k, v, o, lse, True, 0)
+                bwd = chip_smoke.graph_ms(lambda: _wide_bwd(
+                    lib, q, k, v, o, lse, do, dsum, grads, True, 0), 5)
+                for key, ms, n_prod in (
+                        (f"fwd hd{hd} {WIDE_FWD[hd][i]}", fwd, 4.0),
+                        (f"bwd hd{hd} {WIDE_BWD[hd][i]}", bwd, 10.0)):
+                    times.setdefault(key, []).append(ms)
+                    tflops = n_prod * b * h * hd * pairs / (ms * 1e-3) / 1e12
+                    print(f"round {rnd} {name} {key}: {ms:.4f} ms/call, "
+                          f"{tflops:.1f} TFLOP/s", flush=True)
+
+
+def rglru_bwd_main(table, libs, times):
+    """The rglru_scan backward variants and the earlier design: bitwise
+    the twin's at TRAIN_RGLRU and a ragged s, in float32 and bfloat16;
+    timed from CUDA graphs at TRAIN_RGLRU, in turns."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
+    names = [n for n, (_, k) in table.items() if k == "rglrubwd"]
+    if not names:
+        return
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    timed = {}
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for shape in (chip_smoke.RGLRU_BWD_RAGGED, chip_smoke.TRAIN_RGLRU):
+            a = (0.8 + 0.2 * torch.rand(shape, generator=gen,
+                                        device="cuda")).to(dtype)
+            bx = (0.1 * torch.randn(shape, generator=gen,
+                                    device="cuda")).to(dtype)
+            h = rglru_scan_ref(a, bx)
+            gh = torch.randn(shape, generator=gen, device="cuda")
+            want = rglru_scan_bwd_ref(a, h, gh)
+            outs = [torch.empty_like(a), torch.empty_like(a)]
+
+            def call(name, a=a, h=h, gh=gh, outs=outs, code=code):
+                rc = _entry(libs[name], "rglru_scan_bwd_launch", 5, 4)(
+                    a.data_ptr(), h.data_ptr(), gh.data_ptr(),
+                    outs[0].data_ptr(), outs[1].data_ptr(), *a.shape, code,
+                    torch.cuda.current_stream().cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            for name in names:
+                call(name)
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(outs, want)):
+                    raise AssertionError(f"{name} {shape} {dtype}: not "
+                                         f"bitwise the twin's")
+            timed[dtype] = (call, 20 * a.numel())
+    print(f"rglru bwd: every variant equals the twin bitwise at "
+          f"{chip_smoke.RGLRU_BWD_RAGGED} and {chip_smoke.TRAIN_RGLRU}",
+          flush=True)
+    for rnd in range(2):
+        for dtype, (call, nbytes) in timed.items():
+            for name in names if rnd == 0 else names[::-1]:
+                ms = chip_smoke.graph_ms(lambda: call(name), 10)
+                key = f"{name} {str(dtype).split('.')[1]}"
+                times.setdefault(key, []).append(ms)
+                print(f"round {rnd} {key}: {ms:.5f} ms/call, "
+                      f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s of the "
+                      f"float32 bound's bytes", flush=True)
+
+
+def route_bwd_main(table, libs, times):
+    """The gate backward variants and the earlier design against the twin
+    (1e-4 of the scale; the new ones bitwise repeatable) at the routing
+    test shapes and kimi-k2's / the widest routing; timed from CUDA graphs
+    at TRAIN_ROUTE and kimi-k2's (1, 4096, 384, 8), in turns."""
+    import torch
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from repro_torch.kernels.moe_route import moe_route_cuda
+    from repro_torch.kernels.ref import moe_route_bwd_ref
+    names = [n for n, (_, k) in table.items() if k == "routebwd"]
+    if not names:
+        return
+    rng = np.random.RandomState(5)
+
+    def call(name, logits, eid, g_gate, out):
+        G, gs, E = logits.shape
+        rc = _entry(libs[name], "moe_route_bwd_launch", 4, 4)(
+            logits.data_ptr(), eid.data_ptr(), g_gate.data_ptr(),
+            out.data_ptr(), G, gs, E, eid.shape[-1],
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+
+    cases = {}
+    for G, gs, E, k in chip_smoke.MOE_ROUTE_CASES + \
+            chip_smoke.ROUTE_BWD_WIDE + [chip_smoke.TRAIN_ROUTE,
+                                         (1, 4096, 384, 8)]:
+        logits = chip_smoke._route_logits(rng, G, gs, E)
+        eid = moe_route_cuda(logits, k)[0]
+        g_gate = torch.from_numpy(rng.randn(G, gs, k)).float().cuda()
+        want = moe_route_bwd_ref(logits, eid, g_gate)
+        for name in names:
+            out, again = torch.empty_like(want), torch.empty_like(want)
+            call(name, logits, eid, g_gate, out)
+            call(name, logits, eid, g_gate, again)
+            torch.cuda.synchronize()
+            chip_smoke._scaled_err(out, want, f"{name} {(G, gs, E, k)}",
+                                   1e-4)
+            if not torch.equal(out, again):
+                raise AssertionError(f"{name} {(G, gs, E, k)}: two runs "
+                                     f"differ")
+        cases[(G, gs, E, k)] = (logits, eid, g_gate, want)
+    print(f"route bwd: every variant matches the twin at {len(cases)} "
+          f"shapes, bitwise repeatable", flush=True)
+    for rnd in range(2):
+        for shape in (chip_smoke.TRAIN_ROUTE, (1, 4096, 384, 8)):
+            logits, eid, g_gate, want = cases[shape]
+            out = torch.empty_like(want)
+            for name in names if rnd == 0 else names[::-1]:
+                ms = chip_smoke.graph_ms(
+                    lambda: call(name, logits, eid, g_gate, out), 50)
+                key = f"{name} {shape}"
+                times.setdefault(key, []).append(ms)
+                print(f"round {rnd} {key}: {ms:.5f} ms/call", flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
     only = sys.argv[1] if len(sys.argv) > 1 else None
+    only = None if only == "all" else only
     if only not in (None, "flash", "rglru", "sim", "bestfit", "route"):
         print(f"kernel_variants: unknown kernel {only!r}", file=sys.stderr)
         return 2
@@ -892,6 +1222,9 @@ def main() -> int:
     sim_main(table, libs, times)
     bestfit_main(table, libs, times)
     route_main(table, libs, times)
+    route_bwd_main(table, libs, times)
+    rglru_bwd_main(table, libs, times)
+    wide_main(table, libs, times)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     shape = (4, 1024, 4096)
