@@ -20,10 +20,12 @@ bitwise identical over two runs; BestFit also at the run's longest walk);
 flash attention (bfloat16 on the
 tensor cores, float32 on the CUDA cores) at the reference's test shapes,
 at the tile edges of the bfloat16 kernel, at every attention shape of the
-serving paths, full forward and one semantic branch, and at a 4096-token
-shape where recurrentgemma's 2048-token window bites (atol 2e-5 in
-float32, 2e-2 in bfloat16, bitwise repeatable), and with explicit
-positions at every decode shape of the served models (one query per row
+serving paths, full forward and one semantic branch (qwen2-vl-7b's 28/4
+heads, g = 7, among them), at a 4096-token shape where recurrentgemma's
+2048-token window bites and at musicgen-medium's cross attention
+(non-causal, 1024 queries or one over 64 keys) (atol 2e-5 in float32,
+2e-2 in bfloat16, bitwise repeatable), and with explicit positions at
+every decode shape of the served models (one query per row
 over a ring of 1056 slots, 1 to all of them written, the unwritten ones
 at 2**30) and at offset and packed prefills (timed at the decode shapes
 beside scaled_dot_product_attention with a boolean mask);
@@ -98,9 +100,17 @@ to 0 just before and read just after:
   equals the one-shot program to every digit (``bestfit-rr``,
   ``splitplace``, ``gillis``), and ``mc`` and ``gillis`` at 1500 tasks
   give the CPU's counters and its summaries within rtol 1e-9;
+* the paper's splits (``splitnets``) — Fig. 2's protocol through
+  ``core.splitnets`` on the card: per app (mnist, fashionmnist, cifar100)
+  a trained MLP classifier, its 3-fragment layer split (bitwise equal to
+  the monolithic output) and min(4, classes) semantic branches, each
+  strategy's test accuracy and latency (the semantic one its slowest
+  branch);
 * serving — ``SplitPlaceEngine`` over TinyLlama-1.1B, qwen2-moe-a2.7b,
-  falcon-mamba-7b and recurrentgemma-9b, one after another, each at full
-  width and depth
+  falcon-mamba-7b, recurrentgemma-9b, qwen2-vl-7b (M-RoPE ids walking a
+  16 × 16 patch block under random visual embeds) and musicgen-medium (a
+  random conditioning sequence, 4 codebooks), one after another, each at
+  full width and depth
   (bfloat16, random weights from seed 0), 2 stages / 2 branches, batch
   4 × 1024 tokens, 20 requests under the reference's tight/loose deadline
   rule;
@@ -109,7 +119,8 @@ to 0 just before and read just after:
   ``make_serve_step`` calls: prefill and per-step times, tokens/s, cache
   bytes, peak memory, launches (flash and ``moe_route`` once per layer
   per call, the scans once per layer in the prefill) and a profiled
-  step; each decode logit within 0.25 of the largest logit of the
+  step (musicgen: one token per codebook, its ``cond`` each step); each
+  decode logit within 0.25 of the largest logit of the
   teacher-forced forward; TinyLlama-1.1B at full width in float32 within
   2e-3 of its forward over 8 teacher-forced steps;
 * training — the four backward kernels (flash attention's dQ and dK/dV
@@ -145,8 +156,8 @@ policies at G=4, T=12 with the train gates lowered, where decisions must
 be equal, summaries within rtol 1e-9, the finetuned θ within 1e-5, and a
 placement that flips must be a near-tie), qwen2-moe's real router
 logits between the routing kernel
-and its twin, the four models and both serving plans against the
-CPU at a reduced size, and the four reduced models' prefill and decode
+and its twin, the six served models and both serving plans against the
+CPU at a reduced size, and the six reduced models' prefill and decode
 steps (their rings wrapping) against the CPU, logits and every cache leaf.
 
 Prints the card (``nvidia-smi`` name and power limit), per-phase
@@ -232,6 +243,19 @@ SERVE_ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
 #: output's scale (the bf16 flash tolerance); one decode_attention step
 #: over a ring of ``ring`` slots, 1025 written
 WIDE_ARCHS = ("kimi-k2-1t-a32b", "nemotron-4-340b")
+#: the served families that read batch entries beside the tokens:
+#: qwen2-vl-7b (M-RoPE ids walking a grid × grid patch block under random
+#: visual embeds) and musicgen-medium (a random conditioning sequence for
+#: its cross attention; 4 codebooks), with ``launch.serve.request_extras``'
+#: seeded inputs; served, decoded and cross-checked as SERVE_ARCHS, not
+#: trained (codebook labels are a later slice)
+EXTRA_ARCHS = ("qwen2-vl-7b", "musicgen-medium")
+EXTRA_GRID = 16
+#: flash attention at musicgen's cross attention, non-causal over its
+#: conditioning sequence: (b, sq, sk, h, kvh, hd) at a prefill and at a
+#: decode step, and the record's keys
+FLASH_CROSS = [("cross", (4, 1024, 64, 24, 24, 64)),
+               ("cross_decode", (4, 1, 64, 24, 24, 64))]
 WIDE_BLOCK = dict(batch=4, seq=1024, ring=1056, atol=2e-2, reps=3)
 #: flash attention where recurrentgemma's local window bites: (b, s, h,
 #: kvh, hd, window), bfloat16
@@ -254,10 +278,13 @@ DECODE = dict(steps=32, headroom=32, bf16_rel=0.25, f32_steps=8,
 #: slots to position 2 × ring
 DECODE_CROSS = dict(batch=2, prompt=12, steps=6, ring=8)
 #: flash attention at decode's shapes (explicit positions, sq=1, a ring of
-#: seq + headroom slots, g = 8, 1, 16): (h, kvh, hd) of TinyLlama-1.1B,
-#: qwen2-moe-a2.7b and recurrentgemma-9b; the ring's written slots
-FLASH_DECODE_HEADS = [(32, 4, 64), (16, 16, 128), (16, 1, 256),
-                      (64, 8, 112), (96, 8, 192)]
+#: seq + headroom slots): (h, kvh, hd, the record's key) of TinyLlama-1.1B,
+#: qwen2-moe-a2.7b, recurrentgemma-9b, kimi-k2, nemotron-4, qwen2-vl-7b
+#: (g = 7) and musicgen-medium; the ring's written slots
+FLASH_DECODE_HEADS = [(32, 4, 64, "hd64"), (16, 16, 128, "hd128"),
+                      (16, 1, 256, "hd256"), (64, 8, 112, "hd112"),
+                      (96, 8, 192, "hd192"), (28, 4, 128, "hd128_g7"),
+                      (24, 24, 64, "hd64_g1")]
 FLASH_DECODE_VALID = (1, 517, 1025, 1056)
 #: flash attention at prefill shapes with explicit positions: (b, s, h,
 #: kvh, hd, window, kind), offset rows or two packed sequences per row
@@ -1093,7 +1120,7 @@ def flash_phase():
 
     b, s = SERVE["batch"], SERVE["seq"]
     at = {}
-    for arch in SERVE_ARCHS + WIDE_ARCHS:
+    for arch in SERVE_ARCHS + WIDE_ARCHS + EXTRA_ARCHS:
         cfg = get_config(arch)
         windows = {block_window(kind, cfg) for kind in cfg.layer_kinds
                    if kind in ATTN_KINDS}
@@ -1122,13 +1149,17 @@ def flash_phase():
                 f"tensor-core step {kernel_step(hd)}")
     # the record holds TinyLlama's full forward's shape; its "hd128" entry
     # qwen2-moe's, "hd256" recurrentgemma's (whose branches run the same
-    # 16/1 heads), "hd112" kimi-k2's, "hd192" nemotron-4's, and
-    # "hd256_windowed" a 4096-token shape where the 2048-token window bites
+    # 16/1 heads), "hd112" kimi-k2's, "hd192" nemotron-4's, "hd128_g7"
+    # qwen2-vl's (28/4 heads), "hd64_g1" musicgen's self attention (24/24),
+    # "hd256_windowed" a 4096-token shape where the 2048-token window
+    # bites, "cross" and "cross_decode" musicgen's cross attention
     records = {}
     for arch, key in ((SERVE_ARCHS[0], None), ("qwen2-moe-a2.7b", "hd128"),
                       ("recurrentgemma-9b", "hd256"),
                       ("kimi-k2-1t-a32b", "hd112"),
-                      ("nemotron-4-340b", "hd192")):
+                      ("nemotron-4-340b", "hd192"),
+                      ("qwen2-vl-7b", "hd128_g7"),
+                      ("musicgen-medium", "hd64_g1")):
         label = serving_heads(get_config(arch))[0][0]
         q, k, v, window, errs, ms = at[(arch, label)]
         records[key] = _flash_timed(f"{arch}'s full forward's shape", q, k,
@@ -1141,6 +1172,20 @@ def flash_phase():
     records["hd256_windowed"] = _flash_timed(
         f"a windowed shape b={b} s={s} h={h} kvh={kvh} hd={hd} "
         f"window={window}", q, k, v, window, err, ms)
+    for key, (b, sq, sk, h, kvh, hd) in FLASH_CROSS:
+        errs = {}
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, dtype)
+            errs[dtype] = _flash_check(
+                q, k, v, False, 0, dtype, f"flash {dtype} musicgen's cross "
+                f"attention {(b, sq, sk, h, kvh, hd)} non-causal")
+        ms = graph_ms(lambda: flash_attention_cuda(q, k, v, causal=False),
+                      50)
+        records[key] = _flash_timed(
+            f"musicgen's cross attention b={b} sq={sq} sk={sk} h={h} "
+            f"kvh={kvh} hd={hd} non-causal (float32 err "
+            f"{errs['float32']:.3e})", q, k, v, 0, errs["bfloat16"], ms,
+            causal=False)
     rec = records.pop(None)
     for key, sub in records.items():
         rec[key] = {name: sub[name] for name in (
@@ -1191,7 +1236,7 @@ def flash_positions_phase(rng):
     worst = {"float32": 0.0, "bfloat16": 0.0}
     out = {}
     for dtype in ("float32", "bfloat16"):
-        for h, kvh, hd in FLASH_DECODE_HEADS:
+        for h, kvh, hd, key in FLASH_DECODE_HEADS:
             q, k, v = _flash_inputs(rng, b, 1, W, h, kvh, hd, dtype)
             err = 0.0
             for valid in FLASH_DECODE_VALID:
@@ -1228,7 +1273,7 @@ def flash_positions_phase(rng):
                           library_ms=library_ms)
             rec["shape"] = {"b": b, "sq": 1, "sk": W, "valid": valid, "h": h,
                             "kvh": kvh, "hd": hd}
-            out[f"hd{hd}"] = {name: rec[name] for name in (
+            out[key] = {name: rec[name] for name in (
                 "shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
             log(f"flash_attention decode shape b={b} h={h} kvh={kvh} hd={hd}"
@@ -1275,30 +1320,35 @@ def flash_positions_phase(rng):
     return out
 
 
-def _flash_timed(where, q, k, v, window, err, ms):
+def _flash_timed(where, q, k, v, window, err, ms, causal=True):
     """The flash record at one bfloat16 shape the kernel was held at: the
     twin's time and the library's scaled_dot_product_attention's beside the
-    kernel's, and the bound from the visible (query, key) pairs."""
+    kernel's, and the bound from the visible (query, key) pairs (every
+    pair when not ``causal``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      kernel_step)
     from repro_torch.kernels.ref import attention_ref
     b, s, h, hd = q.shape
-    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, window=window), 2)
+    sk = k.shape[1]
+    plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                             window=window), 2)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if window and window < s:
+    if not causal:
+        lib_kw = {}
+    elif window and window < s:
         pos = torch.arange(s, device="cuda")
         lag = pos[:, None] - pos[None, :]
         lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
     else:
         lib_kw = dict(is_causal=True)
     # visible (query, key) pairs: every query sees min(i + 1, window)
-    pairs = _visible_pairs(s, window)
+    pairs = _visible_pairs(s, window) if causal else s * sk
     lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
                                          **lib_kw)
     lib_err = float((lib.transpose(1, 2).float() - flash_attention_cuda(
-        q, k, v, window=window).float()).abs().max())
+        q, k, v, causal=causal, window=window).float()).abs().max())
     library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, enable_gqa=True, **lib_kw), 10)
     # QK^T and PV over the visible pairs, on bf16 tensor cores; bytes: q,
@@ -1311,6 +1361,8 @@ def _flash_timed(where, q, k, v, window, err, ms):
                   library_ms=library_ms)
     rec["shape"] = {"b": b, "s": s, "h": h, "kvh": k.shape[2], "hd": hd,
                     "window": window}
+    if not causal:
+        rec["shape"].update(sk=sk, causal=False)
     rec["step"] = kernel_step(hd)
     log(f"flash_attention at {where}, bfloat16, tensor-core step "
         f"{rec['step']}: {ms:.4f} ms/call (twin "
@@ -2014,8 +2066,8 @@ def _expected_train_launches(cfg):
     (``LAYER_KERNELS``) twice per layer of its kinds (remat recomputes
     it), its backward once, each times the microbatches."""
     out = {}
-    for name, kinds in LAYER_KERNELS.items():
-        layers = sum(kind in kinds for kind in cfg.layer_kinds)
+    for name in LAYER_KERNELS:
+        layers = per_forward(name, cfg.layer_kinds)
         out[name] = (2 if cfg.remat else 1) * layers * cfg.grad_accum
         out[f"{name}_bwd"] = layers * cfg.grad_accum
     return out
@@ -2367,12 +2419,12 @@ def _block_rms(params, batch, cfg):
     the rms of the residual the head reads."""
     import torch
     from repro_torch.models import model as M
-    positions, explicit = M.batch_positions(batch)
+    ctx = M.make_ctx(batch, cfg)
     with torch.no_grad():
-        x = M.embed_tokens(params, batch["tokens"], cfg)
+        x = M.embed_tokens(params, batch, cfg, ctx["positions"])
         out = []
         for kind, p in zip(cfg.layer_kinds, params["blocks"]):
-            y, _ = M._block(kind, p, x, positions, cfg, explicit)
+            y, _ = M._block(kind, p, x, ctx, cfg)
             out.append(float((y - x).float().pow(2).mean().sqrt()))
             x = y
         return out, float(x.float().pow(2).mean().sqrt())
@@ -2641,15 +2693,15 @@ def wide_block(arch):
     named = tree_flatten(p)
     x = torch.randn((b, s, cfg.d_model), generator=gen, device="cuda").to(dt)
     gy = torch.randn(x.shape, generator=gen, device="cuda").to(dt)
-    positions = torch.arange(s, dtype=torch.int32, device="cuda").expand(
-        b, s).contiguous()
+    ctx = {"positions": torch.arange(s, dtype=torch.int32,
+                                     device="cuda").expand(b, s).contiguous(),
+           "explicit": False}
 
     def run(twins):
         with _through_twins() if twins else contextlib.nullcontext():
             leaves = [t.detach().requires_grad_() for _, t in named]
             xs = x.detach().requires_grad_()
-            y = apply_block(kind, tree_unflatten(p, leaves), xs, positions,
-                            cfg)
+            y = apply_block(kind, tree_unflatten(p, leaves), xs, ctx, cfg)
             grads = torch.autograd.grad(y, [xs] + leaves, gy)
         return y.detach(), grads
 
@@ -2740,6 +2792,122 @@ def wide_block_phase():
     return out
 
 
+#: the paper's Fig. 2 protocol (``benchmarks/splitnets_fig2.py``): per
+#: app a monolithic MLP classifier (depth 4 on 6000 rows for ``steps``
+#: steps; depth 2 on 20000 rows for at least ``big_steps`` when it has
+#: more than 10 classes) trained at ``batch``, the layer split into
+#: ``fragments`` and min(max_branches, classes) semantic branches, held on
+#: ``test_rows`` rows; each strategy's latency the median of ``reps``
+#: CUDA-synchronized runs
+SPLITNETS = dict(apps=("mnist", "fashionmnist", "cifar100"), hidden=256,
+                 steps=500, big_steps=800, batch=512, fragments=3,
+                 max_branches=4, test_rows=2000, reps=5)
+
+
+def _synced_ms(fn, device, reps):
+    """Median of ``reps`` host-clock runs of ``fn``, each synchronized on
+    ``device``'s card."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def splitnets_phase(device="cuda"):
+    """The paper's own splits, Fig. 2 from first principles, through the
+    port's ``core.splitnets`` (SPLITNETS' protocol): per app the
+    monolithic classifier's, the layer split's and the semantic split's
+    test accuracy and latency, the layer split bitwise equal to the
+    monolithic output, the semantic split's time that of its slowest
+    branch (its branches stand for parallel placements).  Returns the
+    rows by app."""
+    import torch
+    from repro_torch.core import splitnets as sn
+    from repro_torch.data.pipeline import APPS, synthetic_classification
+    from repro_torch.device import resolve
+    dev = resolve(device)
+    P = SPLITNETS
+    rows = {}
+    for app in P["apps"]:
+        spec = APPS[app]
+        big = spec.num_classes > 10
+        depth, n_train = (2, 20000) if big else (4, 6000)
+        steps = max(P["steps"], P["big_steps"]) if big else P["steps"]
+        cfg = sn.ClassifierConfig(input_dim=spec.input_dim,
+                                  num_classes=spec.num_classes,
+                                  hidden=P["hidden"], depth=depth)
+        x, y = synthetic_classification(app, n_train, seed=0)
+        xt, yt = synthetic_classification(app, P["test_rows"], seed=1)
+        t0 = time.perf_counter()
+        params = sn.train_classifier(
+            torch.Generator(device=dev).manual_seed(0), cfg, x, y,
+            steps=steps, batch=P["batch"], device=dev)
+        train_s = time.perf_counter() - t0
+        xd = torch.as_tensor(xt, device=dev)
+        frags = sn.layer_split(params, P["fragments"])
+        with torch.no_grad():
+            mono = sn.mlp_apply(params, xd)
+            layer = sn.layer_split_apply(frags, xd)
+            t_full = _synced_ms(lambda: sn.mlp_apply(params, xd), dev,
+                                P["reps"])
+            t_layer = _synced_ms(lambda: sn.layer_split_apply(frags, xd),
+                                 dev, P["reps"])
+        if not torch.equal(layer, mono):
+            raise AssertionError(f"splitnets {app}: the layer split differs "
+                                 f"from the monolithic output")
+        acc_full = sn.accuracy(params, xt, yt)
+        acc_layer = sn.accuracy(frags, xt, yt, apply=sn.layer_split_apply)
+        nb = min(P["max_branches"], spec.num_classes)
+        t0 = time.perf_counter()
+        branches, groups = sn.train_semantic_split(
+            [torch.Generator(device=dev).manual_seed(1 + i)
+             for i in range(nb)], cfg, x, y, num_branches=nb, steps=steps,
+            device=dev)
+        train_sem_s = time.perf_counter() - t0
+        with torch.no_grad():
+            logits = sn.semantic_split_apply(branches, groups, xd)
+            t_branch = [_synced_ms(lambda: sn.mlp_apply(b, xd[:, lo:hi]),
+                                   dev, P["reps"])
+                        for b, (lo, hi) in zip(branches, groups[1])]
+        acc_sem = float((logits.argmax(-1).cpu() == torch.as_tensor(
+            yt).long()).float().mean())
+        n_full = sum(p["w"].numel() for p in params)
+        n_branch = max(sum(p["w"].numel() for p in b) for b in branches)
+        if not (acc_layer == acc_full and bool(torch.isfinite(logits).all())
+                and acc_full > 2.0 / spec.num_classes
+                and n_branch < n_full):
+            raise AssertionError(f"splitnets {app}: accuracy full "
+                                 f"{acc_full} layer {acc_layer} semantic "
+                                 f"{acc_sem}; branch {n_branch} of "
+                                 f"{n_full} weights")
+        rows[app] = dict(acc_full=acc_full, acc_layer=acc_layer,
+                         acc_semantic=acc_sem, latency_full_ms=t_full,
+                         latency_layer_ms=t_layer,
+                         latency_semantic_ms=max(t_branch),
+                         branch_ms=t_branch, train_s=train_s,
+                         train_semantic_s=train_sem_s)
+        log(f"splitnets {app} ({spec.input_dim} inputs, {spec.num_classes} "
+            f"classes; depth {depth}, hidden {P['hidden']}, {n_train} rows, "
+            f"{steps} steps at batch {P['batch']}; {len(frags)} fragments, "
+            f"{nb} branches of {n_branch} weights against {n_full}) on "
+            f"{dev}: accuracy on {P['test_rows']} test rows full "
+            f"{acc_full:.4f} layer {acc_layer:.4f} semantic {acc_sem:.4f}; "
+            f"latency (median of {P['reps']}, synchronized) full "
+            f"{t_full:.4f} ms, layer {t_layer:.4f} ms, semantic "
+            f"{max(t_branch):.4f} ms (slowest of branches "
+            f"{[round(t, 4) for t in t_branch]}); the layer split equals the "
+            f"monolithic output bitwise; training {train_s:.2f} s, branches "
+            f"{train_sem_s:.2f} s")
+    return rows
+
+
 def _counters():
     from repro_torch.kernels import placement
     from repro_torch.kernels.edge_substep import edge_substep
@@ -2762,11 +2930,20 @@ def _counters():
 #: the learners that draw: ``DRAW_KERNELS``)
 SIM_KERNELS = ("edge_substep", "bestfit_scan", "repair_scan")
 DRAW_KERNELS = ("threefry_rows",)
-#: block kinds that run attention, and the serving kernel each kind runs
-#: once per layer per forward
-ATTN_KINDS = {"attn", "attn_moe", "local_attn"}
-LAYER_KERNELS = {"flash_attention": ATTN_KINDS, "moe_route": {"attn_moe"},
-                 "selective_scan": {"mamba"}, "rglru_scan": {"rglru"}}
+#: the serving kernels each block kind launches per layer per forward
+#: (an ``xattn`` block runs flash twice: self and cross attention)
+LAYER_KERNELS = {"flash_attention": {"attn": 1, "attn_moe": 1,
+                                     "local_attn": 1, "xattn": 2},
+                 "moe_route": {"attn_moe": 1}, "selective_scan": {"mamba": 1},
+                 "rglru_scan": {"rglru": 1}}
+#: block kinds that run attention
+ATTN_KINDS = set(LAYER_KERNELS["flash_attention"])
+
+
+def per_forward(name, kinds):
+    """Launches of serving kernel ``name`` in one forward over layers of
+    ``kinds``."""
+    return sum(LAYER_KERNELS[name].get(k, 0) for k in kinds)
 
 
 class CompileClock:
@@ -3126,17 +3303,25 @@ def _expected_params(cfg):
     return cfg.param_count() + gates
 
 
+def _extras_on_card(extras):
+    import torch
+    return {k: torch.as_tensor(v, device="cuda") for k, v in extras.items()}
+
+
 def serving_path(arch):
     """One serving main path: ``arch`` at full width through
     ``SplitPlaceEngine`` (the port's ``launch.serve`` request loop), with
-    every kernel's launch count set to 0 just before and read just after;
-    returns the launches."""
+    ``request_extras``' seeded inputs for EXTRA_ARCHS and every kernel's
+    launch count set to 0 just before and read just after; returns the
+    launches."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.serve import request_extras, serve_requests
     from repro_torch.models.model import forward, init_params
     from repro_torch.serving.plans import branch_forward
     cfg = get_config(arch)
+    extras = request_extras(cfg, SERVE["batch"], SERVE["seq"],
+                            grid=EXTRA_GRID)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3152,7 +3337,8 @@ def serving_path(arch):
         f"heads {cfg.num_heads}/{cfg.num_kv_heads} "
         f"hd={cfg.resolved_head_dim} d_ff={cfg.d_ff} moe={cfg.moe} "
         f"ssm={cfg.ssm} rglru={cfg.rglru} vocab {cfg.vocab_size} "
-        f"{cfg.param_dtype}: "
+        f"pos_emb={cfg.pos_emb} codebooks={cfg.num_codebooks} inputs "
+        f"{['tokens'] + sorted(extras)} {cfg.param_dtype}: "
         f"{n_params} parameters (param_count() {cfg.param_count()}, "
         f"{n_bytes / 1e9:.3f} GB) made in {time.perf_counter() - t0:.2f} s")
     torch.cuda.synchronize()
@@ -3162,7 +3348,7 @@ def serving_path(arch):
     out = serve_requests(params, cfg, requests=SERVE["requests"],
                          batch=SERVE["batch"], seq=SERVE["seq"],
                          stages=SERVE["stages"], branches=SERVE["branches"],
-                         device="cuda", log=log)
+                         device="cuda", log=log, extras=extras)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
@@ -3174,8 +3360,8 @@ def serving_path(arch):
     for name in SIM_KERNELS:
         if launches[name]:
             raise AssertionError(f"{arch}: {name} launched while serving")
-    for name, kinds in LAYER_KERNELS.items():
-        want = sum(k in kinds for k in cfg.layer_kinds) * forwards
+    for name in LAYER_KERNELS:
+        want = per_forward(name, cfg.layer_kinds) * forwards
         if launches[name] != want:
             raise AssertionError(f"{arch}: {name} launched "
                                  f"{launches[name]} times, the path's "
@@ -3193,14 +3379,15 @@ def serving_path(arch):
     Q = eng.state.Q[0].cpu().numpy()
     if not np.isfinite(Q).all():
         raise AssertionError(f"{arch}: MAB Q not finite: {Q}")
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     tok = torch.as_tensor(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (SERVE["batch"], SERVE["seq"])).astype(np.int32),
-        device="cuda")
-    batch = {"tokens": tok}
+        0, cfg.vocab_size, (SERVE["batch"], SERVE["seq"]) + cb).astype(
+            np.int32), device="cuda")
+    batch = {"tokens": tok, **_extras_on_card(extras)}
     with torch.no_grad():
         logits = forward(params, batch, cfg)
-    if logits.shape != (SERVE["batch"], SERVE["seq"], cfg.vocab_size) or \
-            not torch.isfinite(logits).all():
+    if logits.shape != (SERVE["batch"], SERVE["seq"]) + cb + (
+            cfg.vocab_size,) or not torch.isfinite(logits).all():
         raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
                              f"finite={bool(torch.isfinite(logits).all())}")
     del logits
@@ -3234,12 +3421,12 @@ def serving_path(arch):
         real_routing_check(params, batch, cfg)
     profile_run(f"{arch}: one monolithic forward",
                 lambda: forward(params, batch, cfg))
-    if arch == SERVE_ARCHS[0]:
+    if arch in (SERVE_ARCHS[0],) + EXTRA_ARCHS:
         profile_run(f"{arch}: one semantic-plan run "
                     f"({SERVE['branches']} branches)",
                     lambda: branch_forward(params, batch, cfg,
                                            SERVE["branches"]))
-    return launches, decode_path(arch, params, cfg)
+    return launches, decode_path(arch, params, cfg, extras)
 
 
 def real_routing_check(params, batch, cfg):
@@ -3395,12 +3582,25 @@ def _leaves(tree):
     return [tree]
 
 
+def logit_atol(cfg, atol=1e-5):
+    """The float32 cross-checks' atol for ``cfg``'s logits: ``atol``
+    times the logits' scale at init, which is 1 where the head is drawn
+    at fan-in d and √(d / cb) where the reference draws musicgen's (cb, d,
+    V) head at fan-in cb (``dense_init``'s ``shape[0]``)."""
+    if not cfg.num_codebooks or cfg.tie_embeddings:
+        return atol
+    return atol * (cfg.d_model / cfg.num_codebooks) ** 0.5
+
+
 def model_cross_check():
     """Each serving model and both plans on the card against the CPU at the
     reference's CPU size in float32 (rtol 1e-4 / atol 1e-5, TF32 off on
-    both); the layer plan equals the forward bitwise on the card."""
+    both; EXTRA_ARCHS with ``request_extras``' inputs on a 2 × 2 patch
+    grid; musicgen's atol scaled with its logits, ``logit_atol``); the
+    layer plan equals the forward bitwise on the card."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import request_extras
     from repro_torch.models.model import forward, init_params
     from repro_torch.serving.plans import (branch_forward,
                                            optimal_stage_bounds,
@@ -3408,13 +3608,18 @@ def model_cross_check():
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the cross-check needs "
                              "float32 products")
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + EXTRA_ARCHS:
         cfg = get_config(arch).reduced(max_d_model=256, max_layers=4)
+        cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         tok = torch.from_numpy(np.random.RandomState(1).randint(
-            0, cfg.vocab_size, (2, 64)).astype(np.int32))
+            0, cfg.vocab_size, (2, 64) + cb).astype(np.int32))
         params = {dev: init_params(cfg, torch.Generator().manual_seed(0),
                                    device=dev) for dev in ("cuda", "cpu")}
-        batch = {"cuda": {"tokens": tok.cuda()}, "cpu": {"tokens": tok}}
+        ex = {k: torch.from_numpy(v) for k, v in
+              request_extras(cfg, 2, 64, grid=2).items()}
+        batch = {dev: {"tokens": tok.to(dev),
+                       **{k: v.to(dev) for k, v in ex.items()}}
+                 for dev in ("cuda", "cpu")}
         bounds = optimal_stage_bounds(cfg, seq=256, batch=1,
                                       num_stages=SERVE["stages"])
         runs = {
@@ -3429,15 +3634,16 @@ def model_cross_check():
             with torch.no_grad():
                 out[name] = run("cuda")
                 torch.testing.assert_close(
-                    out[name].cpu(), run("cpu"), rtol=1e-4, atol=1e-5,
+                    out[name].cpu(), run("cpu"), rtol=1e-4,
+                    atol=logit_atol(cfg),
                     msg=lambda m: f"{arch} {name}: {m}")
         if not torch.equal(out["pipeline_forward"], out["forward"]):
             raise AssertionError(f"{arch}: pipeline_forward differs from "
                                  f"forward on cuda")
         log(f"cross-check: the reduced {arch} forward, layer plan and "
             f"{SERVE['branches']}-branch semantic plan on cuda match the cpu "
-            "path at rtol=1e-4 / atol=1e-5; the layer plan equals the "
-            "forward bitwise")
+            f"path at rtol=1e-4 / atol={logit_atol(cfg):.3g}; the layer "
+            "plan equals the forward bitwise")
 
 
 def _cache_bytes(cache):
@@ -3495,14 +3701,47 @@ class RouteTap:
         return flips
 
 
-def decode_path(arch, params, cfg):
+def _next_tokens(last):
+    """Greedy next tokens of last-position logits (b, vocab) or (b, cb,
+    vocab): (b, 1) or (b, 1, cb) int32."""
+    import torch
+    return last.argmax(-1).to(torch.int32)[:, None]
+
+
+def _decode_batches(extras, s, n):
+    """The prompt's batch entries (``extras``, on the card), each decode
+    step's (musicgen's ``cond``) and the teacher-forced forward's over
+    prompt + n generated tokens: qwen2-vl's visual block stays in the
+    prompt, and the generated tokens sit at their decode position on all
+    three M-RoPE streams, as decode rotates them."""
+    import torch
+    ex = _extras_on_card(extras)
+    step = {k: v for k, v in ex.items() if k == "cond"}
+    full = dict(step)
+    if "visual_embeds" in ex:
+        ve, vm = ex["visual_embeds"], ex["visual_mask"]
+        full["visual_embeds"] = torch.cat(
+            [ve, ve.new_zeros((ve.shape[0], n, ve.shape[2]))], 1)
+        full["visual_mask"] = torch.cat(
+            [vm, vm.new_zeros((vm.shape[0], n))], 1)
+    if "positions3" in ex:
+        p3 = ex["positions3"]
+        gen = torch.arange(s, s + n, dtype=p3.dtype, device=p3.device)
+        full["positions3"] = torch.cat(
+            [p3, gen.expand(p3.shape[0], 3, n)], 2)
+    return ex, step, full
+
+
+def decode_path(arch, params, cfg, extras=None):
     """The decode main path of one served model at full width through
     ``launch.steps``: ``make_prefill_step`` on SERVE's batch × seq prompt
-    (caches of seq + headroom positions), then ``make_serve_step`` for
-    DECODE["steps"] greedy tokens, every kernel's launch count set to 0
-    just before and read just after; each attention kernel must run once
-    per attention layer per call, moe_route once per MoE layer per call,
-    the scans once per layer in the prefill only.  Then the teacher-forced
+    (with ``extras``, the serving path's inputs; caches of seq + headroom
+    positions), then ``make_serve_step`` for DECODE["steps"] greedy tokens
+    (musicgen: one per codebook, with its ``cond``), every kernel's launch
+    count set to 0 just before and read just after; each attention kernel
+    must run once per attention layer per call (twice per ``xattn``
+    layer), moe_route once per MoE layer per call, the scans once per
+    layer in the prefill only.  Then the teacher-forced
     forward of prompt + the generated tokens against the decode logits,
     within DECODE["bf16_rel"] of the largest forward logit, and one decode
     step under the profiler.  In an MoE model a router near-tie that bf16
@@ -3519,8 +3758,10 @@ def decode_path(arch, params, cfg):
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import forward
     b, s, n = SERVE["batch"], SERVE["seq"], DECODE["steps"]
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     prompt = torch.as_tensor(np.random.RandomState(2).randint(
-        0, cfg.vocab_size, (b, s)).astype(np.int32), device="cuda")
+        0, cfg.vocab_size, (b, s) + cb).astype(np.int32), device="cuda")
+    ex, step_ex, full_ex = _decode_batches(extras or {}, s, n)
     prefill_step = make_prefill_step(cfg, device="cuda",
                                      max_ctx=s + DECODE["headroom"])
     serve_step = make_serve_step(cfg, device="cuda")
@@ -3530,8 +3771,8 @@ def decode_path(arch, params, cfg):
         fn.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
-        last, cache = prefill_step(params, {"tokens": prompt})
-        tok = last.argmax(-1, keepdim=True).to(torch.int32)
+        last, cache = prefill_step(params, {"tokens": prompt, **ex})
+        tok = _next_tokens(last)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = {name: fn.launches for name, fn in _counters().items()}
@@ -3539,16 +3780,17 @@ def decode_path(arch, params, cfg):
     with torch.no_grad():
         for i in range(n):
             t0 = time.perf_counter()
-            logits, cache = serve_step(params, toks[-1], cache, s + i)
-            toks.append(logits.argmax(-1, keepdim=True).to(torch.int32))
+            logits, cache = serve_step(params, toks[-1], cache, s + i,
+                                       step_ex)
+            toks.append(_next_tokens(logits))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             rows.append(logits)
     launches = {name: fn.launches for name, fn in _counters().items()}
     peak = torch.cuda.max_memory_allocated()
     kinds = cfg.layer_kinds
-    want = {name: sum(k in ks for k in kinds) * (1 + n)
-            for name, ks in LAYER_KERNELS.items()}
+    want = {name: per_forward(name, kinds) * (1 + n)
+            for name in LAYER_KERNELS}
     want["selective_scan"] = kinds.count("mamba")
     want["rglru_scan"] = kinds.count("rglru")
     for name in SIM_KERNELS + DRAW_KERNELS:
@@ -3556,11 +3798,12 @@ def decode_path(arch, params, cfg):
     if launches != want:
         raise AssertionError(f"{arch} decode: launches {launches}, the "
                              f"prefill and {n} steps need {want}")
-    dec = torch.stack(rows, 1)                              # (b, n, V)
-    if not torch.isfinite(dec).all() or dec.shape != (b, n, cfg.vocab_size):
+    dec = torch.stack(rows, 1)                     # (b, n[, cb], V)
+    if not torch.isfinite(dec).all() or \
+            dec.shape != (b, n) + cb + (cfg.vocab_size,):
         raise AssertionError(f"{arch} decode: logits {tuple(dec.shape)} "
                              f"finite={bool(torch.isfinite(dec).all())}")
-    gen = torch.cat(toks[:n], 1)                            # (b, n)
+    gen = torch.cat(toks[:n], 1)                            # (b, n[, cb])
     check = _lossless(cfg)
     tap = RouteTap()
     with torch.no_grad(), tap:
@@ -3579,12 +3822,12 @@ def decode_path(arch, params, cfg):
             del again
         stepped = list(tap.eids)
         tap.eids.clear()
-        full = forward(params, {"tokens": torch.cat([prompt, gen], 1)},
-                       check)[:, s:]
+        full = forward(params, {"tokens": torch.cat([prompt, gen], 1),
+                                **full_ex}, check)[:, s:]
     # rows (batch row, step) whose experts differ from the forward's in
     # some layer: a near-tie of the router that bf16 rounding flips
     flips = tap.flips(stepped, b, s, n, kinds.count("attn_moe"))
-    err = (dec - full).abs().amax(-1) / full.abs().max()    # (b, n)
+    err = (dec - full).abs().flatten(2).amax(-1) / full.abs().max()  # (b, n)
     rel = float(err.max())
     held = float(err[~flips].max()) if (~flips).any() else float("nan")
     agree = float((full.argmax(-1) == dec.argmax(-1)).float().mean())
@@ -3616,7 +3859,8 @@ def decode_path(arch, params, cfg):
         f"rows; {int(flips.sum())} rows with a flipped router near-tie; "
         f"greedy tokens agree {agree:.4f}")
     profile_run(f"{arch}: one decode step", lambda: serve_step(
-        params, toks[n - 1], cache, s + n - 1), shape=f"{b} x 1 tokens")
+        params, toks[n - 1], cache, s + n - 1, step_ex),
+        shape=f"{b} x 1 tokens")
     return launches
 
 
@@ -3681,19 +3925,26 @@ def decode_cross(arch, device):
     """One reduced float32 model's decode on ``device``: a prefill step
     into a ring of the prompt's length, then DECODE_CROSS["steps"] steps
     past it (the ring wraps); for TinyLlama also a zero cache of a
-    DECODE_CROSS["ring"]-slot ring decoded to position 2 × ring.  Returns
-    the logits and caches of every step, on the CPU."""
+    DECODE_CROSS["ring"]-slot ring decoded to position 2 × ring; for
+    EXTRA_ARCHS with ``request_extras``' inputs (a 2 × 2 patch grid; the
+    steps with musicgen's ``cond``).  Returns the logits and caches of
+    every step, on the CPU."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import request_extras
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.model import init_cache, init_params
     cfg = get_config(arch).reduced(max_d_model=256, max_layers=4)
     b, s, n = DECODE_CROSS["batch"], DECODE_CROSS["prompt"], \
         DECODE_CROSS["steps"]
     params = init_params(cfg, torch.Generator().manual_seed(0), device=device)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     tok = torch.from_numpy(np.random.RandomState(4).randint(
-        0, cfg.vocab_size, (b, s + 2 * DECODE_CROSS["ring"])).astype(
+        0, cfg.vocab_size, (b, s + 2 * DECODE_CROSS["ring"]) + cb).astype(
             np.int32))
+    ex = {k: torch.as_tensor(v, device=device)
+          for k, v in request_extras(cfg, b, s, grid=2).items()}
+    step_ex = {k: v for k, v in ex.items() if k == "cond"}
     serve_step = make_serve_step(cfg, device=device)
 
     def snap(logits, cache):
@@ -3704,11 +3955,11 @@ def decode_cross(arch, device):
     out = []
     with torch.no_grad():
         logits, cache = make_prefill_step(cfg, device=device)(
-            params, {"tokens": tok[:, :s]})
+            params, {"tokens": tok[:, :s], **ex})
         out.append(snap(logits, cache))
         for i in range(n):
             logits, cache = serve_step(params, tok[:, s + i:s + i + 1], cache,
-                                       s + i)
+                                       s + i, step_ex)
             out.append(snap(logits, cache))
         if arch == SERVE_ARCHS[0]:
             W = DECODE_CROSS["ring"]
@@ -3721,22 +3972,28 @@ def decode_cross(arch, device):
 
 
 def decode_cross_check():
-    """The four reduced models' decode on the card against the CPU port,
-    every step's logits and caches at rtol 1e-4 / atol 1e-5 (TF32 off)."""
+    """The six reduced served models' decode on the card against the CPU
+    port, every step's logits and caches at rtol 1e-4 / atol 1e-5 (TF32
+    off; musicgen's logits at ``logit_atol``)."""
     import torch
+    from repro_torch.configs import get_config
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 matmuls are on; the cross-check needs "
                              "float32 products")
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + EXTRA_ARCHS:
+        atol = logit_atol(get_config(arch).reduced(max_d_model=256,
+                                                   max_layers=4))
         card, host = decode_cross(arch, "cuda"), decode_cross(arch, "cpu")
         for i, (g, w) in enumerate(zip(card, host)):
             for j, (a, b) in enumerate(zip(g, w)):
+                # leaf 0 is the logits
                 torch.testing.assert_close(
-                    a, b, rtol=1e-4, atol=1e-5,
+                    a, b, rtol=1e-4, atol=atol if j == 0 else 1e-5,
                     msg=lambda m: f"{arch} decode call {i} leaf {j}: {m}")
         log(f"cross-check: the reduced {arch} prefill step and "
             f"{len(card) - 1} decode steps on cuda match the cpu path "
-            f"(logits and every cache leaf) at rtol=1e-4 / atol=1e-5")
+            f"(logits and every cache leaf) at rtol=1e-4 / atol=1e-5 (the "
+            f"logits' atol {atol:.3g})")
 
 
 def cross_checks():
@@ -5310,16 +5567,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    splitnets_phase()
+    log(f"splitnets phase: {time.perf_counter() - t0:.1f} s")
+
     totals, decoded, flash_by_arch = {}, {}, {}
     t0 = time.perf_counter()
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_ARCHS + EXTRA_ARCHS:
         launches, dec = serving_path(arch)
         for name, count in launches.items():
             totals[name] = totals.get(name, 0) + count
         for name, count in dec.items():
             decoded.setdefault(name, {})[arch] = count
-        if arch in ("qwen2-moe-a2.7b", "recurrentgemma-9b"):
-            flash_by_arch[arch] = launches["flash_attention"]
+        flash_by_arch[arch] = launches["flash_attention"]
         gc.collect()
         torch.cuda.empty_cache()
     log(f"serving and decode paths: {time.perf_counter() - t0:.1f} s")
@@ -5335,12 +5595,22 @@ def main() -> int:
             rec["launches"] = totals[rec["name"]]
             rec["launches_decode"] = decoded[rec["name"]]
         if rec["name"] == "flash_attention":
-            rec["hd128"]["launches"] = flash_by_arch["qwen2-moe-a2.7b"]
-            rec["hd256"]["launches"] = flash_by_arch["recurrentgemma-9b"]
+            # an entry's launches are those of the serving path whose
+            # shape it holds (musicgen's self and cross attention alike)
+            for key, arch in (("hd128", "qwen2-moe-a2.7b"),
+                              ("hd256", "recurrentgemma-9b"),
+                              ("hd128_g7", "qwen2-vl-7b"),
+                              ("hd64_g1", "musicgen-medium"),
+                              ("cross", "musicgen-medium")):
+                rec[key]["launches"] = flash_by_arch[arch]
             for key, arch in (("hd64", SERVE_ARCHS[0]),
                               ("hd128", "qwen2-moe-a2.7b"),
-                              ("hd256", "recurrentgemma-9b")):
+                              ("hd256", "recurrentgemma-9b"),
+                              ("hd128_g7", "qwen2-vl-7b"),
+                              ("hd64_g1", "musicgen-medium")):
                 rec["decode"][key]["launches"] = decoded[rec["name"]][arch]
+            rec["cross_decode"]["launches"] = \
+                decoded[rec["name"]]["musicgen-medium"]
         if rec["name"] == "moe_route":
             rec["decode"]["launches"] = decoded[rec["name"]]["qwen2-moe-a2.7b"]
 

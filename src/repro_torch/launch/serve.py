@@ -20,10 +20,13 @@ this entry point:
     ``--device cpu`` runs the same loop on the CPU).
 
 In plan mode the script serves the full-width model on the card, with
-random weights from ``--seed``.  ``--arch`` names any registered model whose blocks the port
-runs: dense attention (``tinyllama-1.1b``, the default), MoE
-(``qwen2-moe-a2.7b``), Mamba (``falcon-mamba-7b``) or the RG-LRU hybrid
-with local attention (``recurrentgemma-9b``).  ``--device cpu``
+random weights from ``--seed``.  ``--arch`` names any registered model:
+dense attention (``tinyllama-1.1b``, the default), MoE
+(``qwen2-moe-a2.7b``), Mamba (``falcon-mamba-7b``), the RG-LRU hybrid
+with local attention (``recurrentgemma-9b``), M-RoPE with visual embeds
+(``qwen2-vl-7b``) or cross attention over codebooks
+(``musicgen-medium``), the last two with ``request_extras``' seeded
+inputs (a 16 × 16 patch block; at the CPU size one of 2 × 2).  ``--device cpu``
 runs the eager path on the model cut to the reference's CPU size
 (``reduced(max_d_model=256, max_layers=4)``, as its ``_plan_main``
 always serves).
@@ -41,19 +44,63 @@ from repro_torch.models.model import init_params
 from repro_torch.serving.engine import Request, SplitPlaceEngine
 
 
+def request_extras(cfg, batch, seq, seed=0, grid=16):
+    """Seeded inputs beside the tokens that make a family's extra paths
+    compute something (NumPy arrays; ``{}`` for the other families):
+
+    * cross attention (musicgen): ``cond`` (batch, cond_len, d), standard
+      normal.  Zeros, the model's default, make the cross attention
+      exactly 0, since its projections have no bias.
+    * a visual front end (qwen2-vl): ``visual_embeds`` (batch, seq, d),
+      normal × d^-½ like the token embeddings, under a ``visual_mask``
+      over a block of grid × grid positions starting at seq / 8, and
+      ``positions3`` (batch, 3, seq), Qwen2-VL's M-RoPE ids: text before
+      the block at (i, i, i); the block's patch (r, c) at (st, st + r,
+      st + c), st its first position; text after it continuing from the
+      block's largest id + 1.  Equal streams would make M-RoPE plain
+      rope."""
+    rng = np.random.RandomState(seed)
+    d = cfg.d_model
+    out = {}
+    if cfg.cross_attention:
+        out["cond"] = rng.randn(batch, cfg.cond_len, d).astype(np.float32)
+    if cfg.visual_frontend:
+        n = grid * grid
+        st = seq // 8
+        if st + n > seq:
+            raise ValueError(f"a {grid} x {grid} patch block does not fit "
+                             f"{seq} positions from {st}")
+        mask = np.zeros((batch, seq), bool)
+        mask[:, st:st + n] = True
+        out["visual_embeds"] = (rng.randn(batch, seq, d) * d ** -0.5
+                                ).astype(np.float32)
+        out["visual_mask"] = mask
+        p3 = np.broadcast_to(np.arange(seq), (3, seq)).copy()
+        r, c = np.divmod(np.arange(n), grid)
+        p3[:, st:st + n] = [np.full(n, st), st + r, st + c]
+        p3[:, st + n:] = st + grid + np.arange(seq - st - n)
+        out["positions3"] = np.broadcast_to(p3, (batch, 3, seq)).astype(
+            np.int32)
+    return out
+
+
 def serve_requests(params, cfg, *, requests=20, batch=2, seq=64, stages=2,
-                   branches=2, device="cuda", log=print):
+                   branches=2, device="cuda", log=print, extras=None):
     """The reference's request loop: warm up, time each plan once, then
-    serve ``requests`` requests of one seeded (batch, seq) token block,
-    each with a tight (2.5 × semantic latency) or loose (4 × layer
-    latency) deadline by a fair coin.  Returns the engine, the two
-    measured plan latencies, the deadlines' kinds and the results."""
+    serve ``requests`` requests of one seeded (batch, seq) token block
+    ((batch, seq, cb) under codebooks) and the batch entries ``extras``
+    (``request_extras``), each with a tight (2.5 × semantic latency) or
+    loose (4 × layer latency) deadline by a fair coin.  Returns the
+    engine, the two measured plan latencies, the deadlines' kinds and
+    the results."""
     eng = SplitPlaceEngine(params, cfg, num_stages=stages,
                            num_branches=branches, device=device)
     rng = np.random.RandomState(0)
-    tok = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
-    eng.warmup(tok)
-    tokens = {"tokens": torch.as_tensor(tok, device=eng.device)}
+    shape = (batch, seq) + ((cfg.num_codebooks,) if cfg.num_codebooks
+                            else ())
+    tok = rng.randint(0, cfg.vocab_size, shape).astype(np.int32)
+    eng.warmup(tok, extras)
+    tokens = eng.batch(tok, extras)
     _, t_layer = eng._run(0, tokens)
     _, t_sem = eng._run(1, tokens)
     log(f"plan latencies: layer-pipeline {t_layer*1e3:.1f}ms, "
@@ -62,7 +109,8 @@ def serve_requests(params, cfg, *, requests=20, batch=2, seq=64, stages=2,
     for i in range(requests):
         tight.append(bool(rng.rand() < 0.5))
         ddl = t_sem * 2.5 if tight[-1] else t_layer * 4.0
-        r = eng.serve(Request(tokens=tok, deadline_s=float(ddl)))
+        r = eng.serve(Request(tokens=tok, deadline_s=float(ddl),
+                              extras=extras))
         results.append(r)
         log(f"req {i:3d} deadline={'tight' if tight[-1] else 'loose'} -> "
             f"plan={'layer' if r.plan == 0 else 'semantic'} "
@@ -166,9 +214,11 @@ def main(argv=None):
         cfg = cfg.reduced(max_d_model=256, max_layers=4)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen, device=dev)
+    extras = request_extras(cfg, args.batch, args.seq, seed=args.seed,
+                            grid=16 if dev.type == "cuda" else 2)
     serve_requests(params, cfg, requests=args.requests, batch=args.batch,
                    seq=args.seq, stages=args.stages, branches=args.branches,
-                   device=dev)
+                   device=dev, extras=extras)
 
 
 if __name__ == "__main__":

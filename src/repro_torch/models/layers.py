@@ -1,10 +1,10 @@
-"""Shared neural building blocks: norm, MLP, rotary position embedding, init.
+"""Shared neural building blocks: norm, MLP, position embeddings, init.
 
-The port of ``repro.models.layers`` for the dense, MoE and Mamba blocks.
+The port of ``repro.models.layers``.
 Weights keep the reference's layouts (``w_up``/``w_gate`` (d, d_ff),
 ``w_down`` (d_ff, d)); numerics follow it where it fixes them: the norm
-computes in float32 and multiplies by ``1 + weight``, rope angles are
-float32 and the rotation runs in float32 before casting back.
+computes in float32 and multiplies by ``1 + weight``, rope and M-RoPE
+angles are float32 and the rotation runs in float32 before casting back.
 """
 from __future__ import annotations
 
@@ -110,6 +110,41 @@ def apply_rope(x, positions, theta=10000.0, fraction=1.0):
     y2 = x2 * cos + x1 * sin
     y = torch.stack([y1, y2], dim=-1).reshape(xr.shape).to(x.dtype)
     return torch.cat([y, xp], dim=-1) if rot < hd else y
+
+
+def apply_mrope(x, positions3, sections, theta=10000.0):
+    """Qwen2-VL's multimodal rope.  x (b, s, h, hd); positions3 (b, 3, s)
+    the (temporal, height, width) ids.  ``sections`` gives how many of the
+    hd/2 interleaved (cos, sin) pairs each of the three position streams
+    takes, in order; sum(sections) == hd // 2.  Rotates in float32, as
+    ``apply_rope``."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"hd/2 = {hd // 2}")
+    freqs = theta ** (-torch.arange(0, hd, 2, dtype=torch.float32,
+                                    device=x.device) / hd)      # (hd/2,)
+    ang_all = positions3[..., None].float() * freqs           # (b,3,s,hd/2)
+    parts, off = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[:, i, :, off:off + sec])
+        off += sec
+    ang = torch.cat(parts, dim=-1)                              # (b,s,hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., ::2].float(), x[..., 1::2].float()
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_embedding(positions, dim, max_scale=10000.0):
+    """positions (b, s) -> float32 (b, s, dim): sines of the first half,
+    cosines of the second, at frequencies max_scale^(-i / (dim/2))."""
+    half = dim // 2
+    freqs = max_scale ** (-torch.arange(half, dtype=torch.float32,
+                                        device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------------------------------------ causal conv1d

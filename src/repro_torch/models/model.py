@@ -1,8 +1,10 @@
-"""Decoder model of the dense attention, MoE, Mamba and RG-LRU blocks.
+"""Decoder model over every block kind of the reference.
 
 The port of ``repro.models.model`` for ``"attn"``, ``"attn_moe"``,
-``"mamba"``, ``"rglru"`` and ``"local_attn"`` blocks: parameters are a
-dict ``{"embed", "final_norm", "head", "blocks"}`` with one dict per
+``"mamba"``, ``"rglru"``, ``"local_attn"`` and ``"xattn"`` (self
+attention, cross attention to a conditioning sequence, MLP) blocks:
+parameters are a dict ``{"embed", "final_norm", "head", "blocks"}`` with
+one dict per
 layer in ``blocks`` (the reference stacks its body periods along a
 leading axis for ``lax.scan``; the port's forward is a plain loop over
 layers, and ``params_from_jax`` unstacks that axis).
@@ -21,16 +23,26 @@ Public API:
     decode_step(params, tokens, cache, pos, cfg)   -> (logits, cache)
     cache_from_jax(tree, cfg, device)              -> cache
 
-A batch holds ``tokens`` (b, s), optionally explicit ``positions`` (b, s)
-(offset or packed rows; without them they are ``0..s-1``) and, for
-``loss_fn``, ``labels`` (b, s).  With grad enabled and ``cfg.remat`` each
+A batch holds ``tokens`` (b, s), or (b, s, cb) under ``num_codebooks``
+(musicgen: the cb codebooks' embeddings are summed and the head gives
+logits (b, s, cb, vocab)); optionally explicit ``positions`` (b, s)
+(offset or packed rows; without them they are ``0..s-1``); under M-RoPE
+(qwen2-vl) ``positions3`` (b, 3, s), the (temporal, height, width) ids,
+else ``positions`` on all three streams; with a visual front end
+``visual_embeds`` (b, s, d) that replace the token embeddings where
+``visual_mask`` (b, s) is true; with cross attention ``cond`` (b,
+cond_len, d), else zeros; and, for ``loss_fn``, ``labels`` (b, s).
+``pos_emb="sinusoidal"`` adds ``sinusoidal_embedding`` of the positions
+to the embeddings.  Entries a config does not use are ignored, as the
+reference ignores them.  With grad enabled and ``cfg.remat`` each
 layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
 reference's ``jax.checkpoint`` of each scanned period.  A
 decode cache is a list with one dict per layer, as ``params["blocks"]``:
-``{"k", "v"}`` ring buffers for the attention blocks, ``{"h", "conv"}``
-states for the Mamba and RG-LRU blocks.  Other block kinds, M-RoPE,
-cross attention, codebooks and other batch entries raise, naming the
-ROADMAP item that brings them.
+``{"k", "v"}`` ring buffers for the attention blocks (an ``xattn``
+block's cross attention caches nothing: it projects ``cond`` again each
+step, as the reference does), ``{"h", "conv"}`` states for the Mamba and
+RG-LRU blocks.  Codebook labels raise in ``loss_fn``, naming the ROADMAP
+item that brings them.
 """
 from __future__ import annotations
 
@@ -44,42 +56,48 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
-                                       mlp_init, rmsnorm)
+                                       mlp_init, rmsnorm,
+                                       sinusoidal_embedding)
 from repro_torch.optim.optimizers import AdafactorState, AdamWState
 from repro_torch.tree import tree_flatten, tree_leaves
 
 #: the block kinds the port runs
-PORTED_KINDS = ("attn", "attn_moe", "mamba", "rglru", "local_attn")
+PORTED_KINDS = ("attn", "attn_moe", "mamba", "rglru", "local_attn", "xattn")
+
+#: the position schemes the port runs
+POS_EMBS = ("rope", "mrope", "sinusoidal", "none")
 
 #: the batch entries the port reads
-BATCH_KEYS = ("tokens", "positions", "labels")
+BATCH_KEYS = ("tokens", "positions", "labels", "positions3",
+              "visual_embeds", "visual_mask", "cond")
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"repro_torch does not run {what!r} yet "
-                               f"(ROADMAP queue 1 item 18, the remaining "
-                               f"model zoo)")
+    return NotImplementedError(
+        f"repro_torch does not train on {what} yet (ROADMAP queue 1 item "
+        f"18.7, training qwen2-vl-7b and musicgen-medium)")
 
 
 def check_supported(cfg, batch=None):
-    """Raise for a config or batch that needs what the port lacks: block
-    kinds other than ``PORTED_KINDS``, position schemes other than rope or
-    none, and batch entries other than ``BATCH_KEYS``."""
+    """Raise for a config or batch the port cannot run: block kinds other
+    than ``PORTED_KINDS``, position schemes other than ``POS_EMBS``, and
+    batch entries other than ``BATCH_KEYS`` (a ValueError each)."""
     for kind in cfg.layer_kinds:
         if kind not in PORTED_KINDS:
-            raise _not_ported(kind)
-    if cfg.pos_emb not in ("rope", "none"):
-        raise _not_ported(cfg.pos_emb)
+            raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.pos_emb not in POS_EMBS:
+        raise ValueError(f"unknown position scheme {cfg.pos_emb!r}")
     for key in batch or ():
         if key not in BATCH_KEYS:
-            raise _not_ported(key)
+            raise ValueError(f"unknown batch entry {key!r}; the model reads "
+                             f"{BATCH_KEYS}")
 
 
 # ------------------------------------------------------------ parameters
 
 def init_block(generator, kind, cfg, device=None):
     if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
 
@@ -98,8 +116,11 @@ def init_block(generator, kind, cfg, device=None):
                 "mlp": mlp_init(generator, d, cfg.d_ff, cfg, dtype,
                                 device=device)}
     block = {"norm1": norm(),
-             "attn": attn.attn_init(generator, cfg, dtype, device=device),
-             "norm2": norm()}
+             "attn": attn.attn_init(generator, cfg, dtype, device=device)}
+    if kind == "xattn":
+        block["norm_x"] = norm()
+        block["xattn"] = attn.attn_init(generator, cfg, dtype, device=device)
+    block["norm2"] = norm()
     if kind == "attn_moe":
         block["moe"] = moe_mod.moe_init(generator, cfg, dtype, device=device)
     else:
@@ -121,12 +142,15 @@ def init_params(cfg, generator=None, device="cuda"):
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     dtype = dtype_of(cfg.param_dtype)
-    d, v = cfg.d_model, cfg.vocab_size
-    params = {"embed": dense_init(generator, (v, d), dtype, fan_in=d,
-                                  device=dev),
+    d, v, cb = cfg.d_model, cfg.vocab_size, cfg.num_codebooks
+    params = {"embed": dense_init(generator, (cb, v, d) if cb else (v, d),
+                                  dtype, fan_in=d, device=dev),
               "final_norm": torch.zeros((d,), dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(generator, (d, v), dtype, device=dev)
+        # under codebooks the reference's fan-in is shape[0], the codebook
+        # count (its init's own choice, kept)
+        params["head"] = dense_init(generator, (cb, d, v) if cb else (d, v),
+                                    dtype, device=dev)
     params["blocks"] = [init_block(generator, kind, cfg, device=dev)
                         for kind in cfg.layer_kinds]
     return params
@@ -273,9 +297,54 @@ def batch_positions(batch):
     return pos.to(device=tokens.device, dtype=torch.int32), True
 
 
-def embed_tokens(params, tokens, cfg):
-    x = params["embed"][tokens.long()]
+def embed_tokens(params, batch, cfg, positions):
+    """The token embeddings of ``batch["tokens"]`` (under codebooks the
+    sum of each codebook's, in codebook order), replaced by
+    ``visual_embeds`` where ``visual_mask`` is set (visual front end),
+    plus the sinusoidal embedding of ``positions`` (``pos_emb=
+    "sinusoidal"``), in the compute dtype."""
+    tokens = batch["tokens"].long()
+    emb = params["embed"]
+    if cfg.num_codebooks:
+        x = sum(emb[i][tokens[..., i]] for i in range(cfg.num_codebooks))
+    else:
+        x = emb[tokens]
+    if cfg.visual_frontend and "visual_embeds" in batch:
+        mask = batch["visual_mask"].to(device=x.device, dtype=torch.bool)
+        x = torch.where(mask[..., None],
+                        batch["visual_embeds"].to(device=x.device,
+                                                  dtype=x.dtype), x)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     return x.to(dtype_of(cfg.compute_dtype))
+
+
+def make_ctx(batch, cfg):
+    """What every block of one call reads beside its input, the
+    reference's ``_make_ctx``: ``positions`` (b, s) int32 and whether they
+    are ``explicit`` (``batch_positions``); under M-RoPE the batch's
+    ``positions3`` (b, 3, s) int32, if it has them (else the attention
+    rotates by ``positions`` on all three streams); with cross attention
+    ``cond`` (b, cond_len, d) in the compute dtype, the batch's or else
+    zeros."""
+    positions, explicit = batch_positions(batch)
+    ctx = {"positions": positions, "explicit": explicit}
+    b, s = positions.shape
+    dev = positions.device
+    p3 = batch.get("positions3")
+    if cfg.pos_emb == "mrope" and p3 is not None:
+        if tuple(p3.shape) != (b, 3, s):
+            raise ValueError(f"positions3 {tuple(p3.shape)} is not "
+                             f"{(b, 3, s)}")
+        ctx["positions3"] = p3.to(device=dev, dtype=torch.int32)
+    if cfg.cross_attention:
+        dt = dtype_of(cfg.compute_dtype)
+        cond = batch.get("cond")
+        if cond is None:
+            cond = torch.zeros((b, cfg.cond_len, cfg.d_model), dtype=dt,
+                               device=dev)
+        ctx["cond"] = cond.to(device=dev, dtype=dt)
+    return ctx
 
 
 def block_window(kind, cfg):
@@ -298,13 +367,12 @@ def _ring(t, w):
                      dim=1)
 
 
-def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None,
-           aux=None):
+def _block(kind, p, x, ctx, cfg, cache_len=None, aux=None):
     """One block; with ``cache_len`` also its decode cache; with ``aux``
     (a list) an ``attn_moe`` block appends its load-balance loss to it.
     Returns (x, cache or None)."""
     if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     collect = cache_len is not None
     cache = None
     if kind == "mamba":
@@ -326,44 +394,59 @@ def _block(kind, p, x, positions, cfg, explicit=False, cache_len=None,
     window = block_window(kind, cfg)
     h, (k, v) = attn.self_attention(p["attn"],
                                     rmsnorm(x, p["norm1"], cfg.norm_eps),
-                                    positions, cfg, window=window,
-                                    explicit=explicit)
+                                    ctx["positions"], cfg, window=window,
+                                    explicit=ctx["explicit"],
+                                    positions3=ctx.get("positions3"))
     if collect:
         w = min(window or cache_len, cache_len)
         dt = dtype_of(cfg.compute_dtype)
         cache = {"k": _ring(k, w).to(dt), "v": _ring(v, w).to(dt)}
-    x = x + h
+    return _after_self_attention(kind, p, x + h, ctx, cfg, aux), cache
+
+
+def _after_self_attention(kind, p, x, ctx, cfg, aux=None):
+    """An attention block's sub-layers after its self attention: an
+    ``xattn`` block's cross attention, then the MoE FFN or the MLP."""
+    if kind == "xattn":
+        x = x + attn.cross_attention(p["xattn"],
+                                     rmsnorm(x, p["norm_x"], cfg.norm_eps),
+                                     ctx["cond"], cfg)
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         if aux is not None:
             aux.append(moe_mod.aux_load_balance_loss(p["moe"], xn, cfg))
-        return x + moe_mod.moe_apply(p["moe"], xn, cfg), cache
-    return x + mlp_apply(p["mlp"], xn, cfg), cache
+        return x + moe_mod.moe_apply(p["moe"], xn, cfg)
+    return x + mlp_apply(p["mlp"], xn, cfg)
 
 
-def _remat_block(kind, p, x, positions, cfg, explicit):
+def _remat_block(kind, p, x, ctx, cfg):
     """One block under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward.  Returns (x, aux)."""
     def run(x):
         aux = []
-        x, _ = _block(kind, p, x, positions, cfg, explicit, aux=aux)
+        x, _ = _block(kind, p, x, ctx, cfg, aux=aux)
         return x, (aux[0] if aux else x.new_zeros((), dtype=torch.float32))
     return checkpoint(run, x, use_reentrant=False)
 
 
-def apply_block(kind, p, x, positions, cfg, explicit=False):
+def apply_block(kind, p, x, ctx, cfg):
     """One block, each sub-layer pre-norm with a residual: ``"attn"`` and
-    ``"local_attn"`` are self attention then the MLP, ``"attn_moe"`` self
-    attention then the MoE FFN, ``"mamba"`` the Mamba mixer alone,
-    ``"rglru"`` the RG-LRU mixer then the MLP.  ``explicit`` says the
-    positions are not ``0..s-1``.  Returns the new residual stream."""
-    return _block(kind, p, x, positions, cfg, explicit)[0]
+    ``"local_attn"`` are self attention then the MLP, ``"xattn"`` self
+    attention, cross attention to ``ctx["cond"]``, then the MLP,
+    ``"attn_moe"`` self attention then the MoE FFN, ``"mamba"`` the Mamba
+    mixer alone, ``"rglru"`` the RG-LRU mixer then the MLP.  ``ctx`` is
+    ``make_ctx``'s.  Returns the new residual stream."""
+    return _block(kind, p, x, ctx, cfg)[0]
 
 
 def lm_head(params, x, cfg):
+    """Float32 logits (b, s, vocab), or (b, s, cb, vocab) under codebooks
+    (one head per codebook)."""
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
         else params["head"]
+    if cfg.num_codebooks:
+        return torch.einsum("bsd,cdv->bscv", x, w).float()
     return (x @ w).float()
 
 
@@ -374,8 +457,9 @@ def _needs_grad(p):
 
 def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
             with_aux=False):
-    """Full-sequence forward of ``batch["tokens"]`` (b, s), at the batch's
-    ``positions`` if it has them; returns float32 logits (b, s, vocab),
+    """Full-sequence forward of ``batch["tokens"]`` (b, s) or (b, s, cb),
+    with the batch's other entries (``make_ctx``); returns float32 logits
+    (b, s, vocab) or (b, s, cb, vocab),
     and with ``collect_cache`` also the decode cache of ``max_ctx``
     (default s) slots per attention layer, each attention layer keeping
     ``min(its window or max_ctx, max_ctx)`` of them.  With ``with_aux`` it
@@ -386,17 +470,17 @@ def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
     if collect_cache and with_aux:
         raise ValueError("forward: with_aux and collect_cache together")
     tokens = batch["tokens"]
-    positions, explicit = batch_positions(batch)
+    ctx = make_ctx(batch, cfg)
     cache_len = (max_ctx or tokens.shape[1]) if collect_cache else None
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, batch, cfg, ctx["positions"])
     cache, aux = [], []
     for kind, p in zip(cfg.layer_kinds, params["blocks"]):
         if cfg.remat and not collect_cache and _needs_grad(p):
-            x, a = _remat_block(kind, p, x, positions, cfg, explicit)
+            x, a = _remat_block(kind, p, x, ctx, cfg)
             if kind == "attn_moe" and with_aux:
                 aux.append(a)
             continue
-        x, c = _block(kind, p, x, positions, cfg, explicit, cache_len,
+        x, c = _block(kind, p, x, ctx, cfg, cache_len,
                       aux=aux if with_aux else None)
         cache.append(c)
     logits = lm_head(params, x, cfg)
@@ -412,7 +496,8 @@ def loss_fn(params, batch, cfg, aux_weight=0.01):
     """Next-token cross entropy of ``batch["labels"]`` (b, s): the float32
     logsumexp of the logits minus the label's logit, averaged, plus
     ``aux_weight`` times the MoE load-balance loss.  Returns (total,
-    {"ce": the mean cross entropy, "aux": the aux loss})."""
+    {"ce": the mean cross entropy, "aux": the aux loss}).  Codebook
+    labels (b, s, cb) raise: training musicgen is a later slice."""
     labels = batch["labels"]
     if cfg.num_codebooks or labels.dim() != 2:
         raise _not_ported("codebook labels")
@@ -438,12 +523,13 @@ def prefill(params, batch, cfg, max_ctx=None):
 def init_block_cache(kind, cfg, batch, ctx_len, sliding=None, device=None):
     """A zero decode cache of one block for ``batch`` rows: attention
     blocks keep a ring of ``min(ctx_len, W)`` slots, W the block's window
-    (``attn`` / ``attn_moe``: ``cfg.sliding_window``, else ``sliding``,
-    else ctx_len; ``local_attn``: the RG-LRU config's local window)."""
+    (``attn`` / ``attn_moe`` / ``xattn``: ``cfg.sliding_window``, else
+    ``sliding``, else ctx_len; ``local_attn``: the RG-LRU config's local
+    window)."""
     if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     dtype = dtype_of(cfg.compute_dtype)
-    if kind in ("attn", "attn_moe"):
+    if kind in ("attn", "attn_moe", "xattn"):
         w = cfg.sliding_window or (sliding or ctx_len)
         return attn.init_attn_cache(cfg, batch, ctx_len, window=w,
                                     dtype=dtype, device=device)
@@ -464,10 +550,12 @@ def init_cache(cfg, batch, ctx_len, sliding=None, device="cuda"):
             for kind in cfg.layer_kinds]
 
 
-def decode_block(kind, p, x, cache, pos, cfg):
-    """One block of one-token decode.  x (b, 1, d); returns (x, cache)."""
+def decode_block(kind, p, x, cache, pos, ctx, cfg):
+    """One block of one-token decode.  x (b, 1, d); ``ctx`` is
+    ``make_ctx``'s (an ``xattn`` block reads its ``cond``); returns (x,
+    cache)."""
     if kind not in PORTED_KINDS:
-        raise _not_ported(kind)
+        raise ValueError(f"unknown block kind {kind!r}")
     if kind == "mamba":
         y, cache = ssm_mod.mamba_decode(
             p["mamba"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, cfg)
@@ -480,25 +568,30 @@ def decode_block(kind, p, x, cache, pos, cfg):
                              cfg), cache
     h, cache = attn.decode_attention(
         p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, pos, cfg)
-    x = x + h
-    xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
-    if kind == "attn_moe":
-        return x + moe_mod.moe_apply(p["moe"], xn, cfg), cache
-    return x + mlp_apply(p["mlp"], xn, cfg), cache
+    return _after_self_attention(kind, p, x + h, ctx, cfg), cache
 
 
 def decode_step(params, tokens, cache, pos, cfg, batch_extras=None):
-    """One-token decode.  tokens (b, 1); pos the position of those tokens
-    (an int); cache from ``init_cache`` / ``prefill``, whose attention
-    ring buffers are written in place.  Returns (logits (b, 1, vocab)
-    float32, the new cache)."""
-    check_supported(cfg)
-    for key in batch_extras or ():
-        raise _not_ported(key)
+    """One-token decode.  tokens (b, 1), or (b, 1, cb) under codebooks;
+    pos the position of those tokens (an int); ``batch_extras`` the
+    batch's other entries for this step (``cond``; ``visual_embeds`` and
+    ``visual_mask`` of this token; ``positions3`` is read but, as in the
+    reference, M-RoPE rotates by ``pos`` on all three streams); cache
+    from ``init_cache`` / ``prefill``, whose attention ring buffers are
+    written in place.  Returns (logits (b, 1, vocab) or (b, 1, cb,
+    vocab) float32, the new cache)."""
+    extras = dict(batch_extras or {})
+    check_supported(cfg, extras)
     pos = int(pos)
-    x = embed_tokens(params, tokens, cfg)
+    batch = {k: v for k, v in extras.items()
+             if k not in ("positions", "positions3")}
+    batch["tokens"] = tokens
+    batch["positions"] = torch.full((tokens.shape[0], 1), pos,
+                                    dtype=torch.int32, device=tokens.device)
+    ctx = make_ctx(batch, cfg)
+    x = embed_tokens(params, batch, cfg, ctx["positions"])
     new_cache = []
     for kind, p, c in zip(cfg.layer_kinds, params["blocks"], cache):
-        x, c = decode_block(kind, p, x, c, pos, cfg)
+        x, c = decode_block(kind, p, x, c, pos, ctx, cfg)
         new_cache.append(c)
     return lm_head(params, x, cfg), new_cache

@@ -10,12 +10,16 @@ The port of ``repro.serving.engine``.  Per request:
   4. the plan executes (really: ``pipeline_forward`` / ``branch_forward``);
   5. the monolithic forward gives the fidelity reference;
   6. reward couples deadline satisfaction with fidelity (agreement of the
-     plan's argmax tokens with the monolithic forward), eqs. 3–5, and
-     feeds Algorithm 1 and DASO's replay.
+     plan's argmax tokens with the monolithic forward, over the last axis
+     of the logits: per codebook under codebooks), eqs. 3–5, and feeds
+     Algorithm 1 and DASO's replay.
 
-Everything runs on ``device`` (CUDA by default), for any model whose
-blocks the port runs (dense attention, MoE or Mamba): the hand-written
-kernels on the card, their eager twins on the CPU.  Timing synchronizes the
+A request carries its tokens and, for the families that read them, the
+batch's other entries (``Request.extras``: musicgen's ``cond``,
+qwen2-vl's ``visual_embeds``, ``visual_mask`` and ``positions3``), which
+go to both plans and the monolithic forward alike.  Everything runs on
+``device`` (CUDA by default), for every model the port runs: the
+hand-written kernels on the card, their eager twins on the CPU.  Timing synchronizes the
 card where the reference calls ``block_until_ready``.
 """
 from __future__ import annotations
@@ -40,9 +44,10 @@ f32 = torch.float32
 
 @dataclasses.dataclass
 class Request:
-    tokens: np.ndarray          # (b, s)
+    tokens: np.ndarray          # (b, s), or (b, s, cb) under codebooks
     deadline_s: float
     app: int = 0
+    extras: dict = None         # other batch entries, NumPy arrays
 
 
 @dataclasses.dataclass
@@ -101,6 +106,14 @@ class SplitPlaceEngine:
     def _tensor(self, a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def batch(self, tokens, extras=None):
+        """A model batch on the engine's device: int32 ``tokens`` and the
+        ``extras`` entries, each in its own dtype."""
+        b = {k: torch.as_tensor(np.asarray(v), device=self.device)
+             for k, v in (extras or {}).items()}
+        b["tokens"] = self._tensor(tokens, torch.int32)
+        return b
+
     def place_fragments(self, plan: int):
         """DASO placement of the plan's fragments onto device slices given
         the current per-slice queue depths; returns (assignment,
@@ -151,8 +164,8 @@ class SplitPlaceEngine:
                 self._theta, self._daso_opt, _ = daso_mod.train_epoch(
                     self._daso_cfg, self._theta, self._daso_opt, xs, ys)
 
-    def warmup(self, tokens):
-        b = {"tokens": self._tensor(tokens, torch.int32)}
+    def warmup(self, tokens, extras=None):
+        b = self.batch(tokens, extras)
         with torch.no_grad():
             self._pipe(b)
             self._branch(b)
@@ -181,7 +194,7 @@ class SplitPlaceEngine:
         return logits, wall
 
     def serve(self, req: Request) -> ServeResult:
-        batch = {"tokens": self._tensor(req.tokens, torch.int32)}
+        batch = self.batch(req.tokens, req.extras)
         d, _ = mab_mod.decide_ucb(self.state,
                                   self._tensor([req.deadline_s], f32),
                                   self._tensor([req.app], torch.int32),

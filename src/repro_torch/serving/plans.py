@@ -56,15 +56,13 @@ def pipeline_forward(params, batch, cfg, num_stages: int, bounds=None):
     for any stage boundaries; ``bounds`` defaults to equal layer counts,
     the serving engine passes Gillis-DP latency-balanced cuts."""
     M.check_supported(cfg, batch)
-    tokens = batch["tokens"]
-    positions, explicit = M.batch_positions(batch)
-    x = M.embed_tokens(params, tokens, cfg)
+    ctx = M.make_ctx(batch, cfg)
+    x = M.embed_tokens(params, batch, cfg, ctx["positions"])
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
     for lo, hi in (bounds or stage_bounds(len(kinds), num_stages)):
         for i in range(lo, hi):
-            x = M.apply_block(kinds[i], blocks[i], x, positions, cfg,
-                              explicit)
+            x = M.apply_block(kinds[i], blocks[i], x, ctx, cfg)
     return M.lm_head(params, x, cfg)
 
 
@@ -80,7 +78,10 @@ def _flat_blocks(params, cfg) -> List:
 
 
 def _slice_block_params(block, cfg, branch, num_branches):
-    """Head-group / channel-group slice of one block's weights (views)."""
+    """Head-group / channel-group slice of one block's weights (views):
+    the self attention's heads and the MLP's channels, as the reference
+    slices them; every other sub-layer (an ``xattn`` block's cross
+    attention, MoE, Mamba, RG-LRU) runs whole in each branch."""
     def cut(arr, axis, n=num_branches, b=None):
         b = branch if b is None else b
         size = arr.shape[axis] // n
@@ -115,16 +116,15 @@ def branch_forward(params, batch, cfg, num_branches: int):
     (no cross-branch features): the fidelity cost the MAB trades against
     latency."""
     M.check_supported(cfg, batch)
-    tokens = batch["tokens"]
-    positions, explicit = M.batch_positions(batch)
+    ctx = M.make_ctx(batch, cfg)
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
 
     def one_branch(branch):
-        x = M.embed_tokens(params, tokens, cfg)
+        x = M.embed_tokens(params, batch, cfg, ctx["positions"])
         for kind, block in zip(kinds, blocks):
             sliced = _slice_block_params(block, cfg, branch, num_branches)
-            x = M.apply_block(kind, sliced, x, positions, cfg, explicit)
+            x = M.apply_block(kind, sliced, x, ctx, cfg)
         return M.lm_head(params, x, cfg)
 
     logits = [one_branch(b) for b in range(num_branches)]

@@ -89,8 +89,11 @@ def _entry_points():
     from repro_torch.launch import steps, train
     from repro_torch.launch.experiments import run_grid_batched, run_stream
     from repro_torch.models.model import init_cache, init_params
+    from repro_torch.core import splitnets
     from repro_torch.serving.engine import SplitPlaceEngine
     cfg = get_config("tinyllama-1.1b").reduced()
+    clf = splitnets.ClassifierConfig(input_dim=4, num_classes=2, hidden=4,
+                                     depth=1)
     lit = {"Q": np.zeros((2, 2)), "N": np.zeros((2, 2)),
            "R": np.zeros(3), "eps": 0.5, "rho": 0.1, "t": 1}
     tr = compile_trace(make_static_decider("mc"), lam=2.0, seed=0,
@@ -123,6 +126,12 @@ def _entry_points():
         "make_eval_step": lambda: steps.make_eval_step(cfg),
         "make_train_step": lambda: steps.make_train_step(cfg),
         "train_main": lambda: train.main(["--reduced", "--steps", "1"]),
+        "init_mlp": lambda: splitnets.init_mlp(torch.Generator(), [4, 2]),
+        "classifier_from_numpy": lambda: splitnets.classifier_from_numpy(
+            [{"w": np.zeros((4, 2)), "b": np.zeros(2)}]),
+        "train_classifier": lambda: splitnets.train_classifier(
+            torch.Generator(), clf, np.zeros((4, 4), np.float32),
+            np.zeros(4, np.int32), steps=1),
     }
 
 
@@ -136,7 +145,9 @@ def _entry_points():
                                   "serve_stream_main", "init_cache",
                                   "make_prefill_step", "make_serve_step",
                                   "make_eval_step", "make_train_step",
-                                  "train_main"])
+                                  "train_main", "init_mlp",
+                                  "classifier_from_numpy",
+                                  "train_classifier"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

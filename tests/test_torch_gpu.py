@@ -803,6 +803,46 @@ def test_flash_attention_decode_positions_match_twin(cuda, case, dtype):
     assert torch.equal(got, again)
 
 
+#: flash at the shapes qwen2-vl-7b's and musicgen-medium's paths first
+#: launched, at full width: (b, sq, sk, h, kvh, hd, causal, ring slots
+#: written or None for implicit positions)
+FLASH_FAMILY_CASES = {
+    # (a) musicgen's cross attention: 64 keys, a partial key tile
+    "cross": (4, 1024, 64, 24, 24, 64, False, None),
+    # (b) the same at a decode step
+    "cross_decode": (4, 1, 64, 24, 24, 64, False, None),
+    # (c) qwen2-vl's prefill: g = 7, odd, rows position * 7 + head
+    "g7_prefill": (4, 1024, 1024, 28, 4, 128, True, None),
+    # (d) qwen2-vl's decode over 1025 of 1056 ring slots at g = 7
+    "g7_decode": (4, 1, 1056, 28, 4, 128, True, 1025),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(FLASH_FAMILY_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_family_shapes_match_twin(cuda, name, dtype):
+    """Shapes (a)–(d) against the twin at the reference's tolerance
+    (atol 2e-5 in float32, 2e-2 in bfloat16), two runs bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, sk, h, kvh, hd, causal, valid = FLASH_FAMILY_CASES[name]
+    rng = np.random.RandomState(sq + sk + h)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+        cuda, dtype) for shape in ((b, sq, h, hd), (b, sk, kvh, hd),
+                                   (b, sk, kvh, hd)))
+    kw = dict(causal=causal)
+    if valid is not None:
+        kw["pos_q"], kw["pos_k"] = chip_smoke().ring_positions(b, sk, valid)
+    got = flash_attention(q, k, v, **kw)
+    again = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw)
+                               .float(), rtol=0, atol=atol)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", chip_smoke().FLASH_POS_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -843,7 +883,8 @@ def test_selective_scan_final_state_matches_twin(cuda, case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
-                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "qwen2-vl-7b", "musicgen-medium"])
 def test_decode_matches_cpu(cuda, arch):
     """The reduced model's prefill step and decode steps (the ring wraps;
     TinyLlama also over a zero 8-slot ring to position 16) on the card

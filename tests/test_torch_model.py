@@ -206,24 +206,22 @@ def test_branch_forward_matches_reference(small):
                                        ("qwen2-vl-7b", "item 18")])
 def test_unported_archs_raise(arch, item):
     """MoE, Mamba and RG-LRU hybrid models, which raised for decoding
-    until item 17 was ported, build on the CPU at the reduced size and
-    now decode one token from a zero cache; the other archs raise at
-    init, naming item 18."""
+    until item 17 was ported, and musicgen and qwen2-vl, which raised at
+    init until item 18's serving slice, build on the CPU at the reduced
+    size and decode one token from a zero cache (musicgen one token per
+    codebook, its logits one row per codebook)."""
     cfg = get_config(arch).reduced()
-    if item != "item 17":
-        with pytest.raises(NotImplementedError, match=item):
-            tmodel.init_params(cfg, device="cpu")
-        return
     params = tmodel.init_params(cfg, device="cpu")
     # the reference's analytic count leaves out each MoE layer's (d, 1)
     # shared-expert gate, which its init makes
     gates = cfg.num_layers * cfg.d_model if cfg.moe else 0
     assert sum(a.numel() for a in _leaves(params).values()) == \
         cfg.param_count() + gates
-    tok = torch.zeros((1, 1), dtype=torch.int32)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    tok = torch.zeros((1, 1) + cb, dtype=torch.int32)
     cache = tmodel.init_cache(cfg, 1, ctx_len=4, device="cpu")
     logits, cache = tmodel.decode_step(params, tok, cache, 0, cfg)
-    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert logits.shape == (1, 1) + cb + (cfg.vocab_size,)
     assert torch.isfinite(logits).all()
 
 
@@ -286,25 +284,29 @@ def test_bfloat16_routing_matches_reference():
 
 def test_unported_batches_raise(small):
     """Explicit positions and decoding run since item 17; M-RoPE's
-    ``positions3`` and cross attention's ``cond`` still raise, naming
-    item 18."""
+    ``positions3`` and cross attention's ``cond`` run since item 18's
+    serving slice, and a config that does not read them ignores them, as
+    the reference does; an entry no model reads raises."""
     _, cfg, _, params, tok = small
     t = torch.from_numpy(tok)
     pos = tmodel.positions_of(t)
+    plain = tmodel.forward(params, {"tokens": t}, cfg)
     assert torch.equal(tmodel.forward(params, {"tokens": t,
                                                "positions": pos}, cfg),
-                       tmodel.forward(params, {"tokens": t}, cfg))
+                       plain)
     cache = tmodel.init_cache(cfg, t.shape[0], ctx_len=32, device="cpu")
     logits, _ = tmodel.decode_step(params, t[:, :1], cache, 16, cfg)
     assert torch.isfinite(logits).all()
     for key in ("positions3", "cond"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            tmodel.forward(params, {"tokens": t, key: t}, cfg)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tplans.branch_forward(params, {"tokens": t, "cond": t}, cfg, 2)
-    with pytest.raises(NotImplementedError, match="item 18"):
+        assert torch.equal(tmodel.forward(params, {"tokens": t, key: t},
+                                          cfg), plain)
+        with pytest.raises(ValueError, match="unknown batch entry"):
+            tmodel.forward(params, {"tokens": t, key + "s": t}, cfg)
+    with pytest.raises(ValueError, match="unknown batch entry"):
+        tplans.branch_forward(params, {"tokens": t, "conds": t}, cfg, 2)
+    with pytest.raises(ValueError, match="unknown batch entry"):
         tmodel.decode_step(params, t[:, :1], cache, 16, cfg,
-                           batch_extras={"cond": t})
+                           batch_extras={"conds": t})
 
 
 @pytest.mark.parametrize("arch,hd", [("kimi-k2-1t-a32b", 112),
