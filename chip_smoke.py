@@ -67,7 +67,7 @@ to 0 just before and read just after:
   the MAB, DASO and Gillis learners on the card), with its wall, phase
   split, ascent steps, host reads, θ's drift and the rows the trained θ's
   ascent moves; then ``run_grid(backend="torch")`` over the 7 Table-4
-  policies × seeds (0, 1, 2) × T=100 with those products (each simulator
+  policies × seeds (0, 1) × T=100 with those products (each simulator
   kernel launched T times per policy, ``threefry_rows`` T times in
   ``gillis`` and ``random+daso``) and ``aggregate`` beside the paper's
   values; the ``splitplace`` main path with the trained θ; the host
@@ -78,8 +78,8 @@ to 0 just before and read just after:
 * interval telemetry (``telemetry``) — each simulator path above
   (``bestfit-rr``, ``mab``, ``splitplace``, ``splitplace`` and ``mab`` in
   train mode, ``gillis``, ``random+daso``) with ``telemetry="interval"``
-  beside its summary run, 3 interleaved calls each (1 on the paths with
-  a DASO stage): equal summaries, a
+  beside its summary run, one call of each (``TELEMETRY_CALLS``): equal
+  summaries, a
   finite (16, 100, 18 + engine columns) series whose ``n_fin`` and
   ``energy_j`` sum to the totals, no added host read, cell 0 against the
   port's host ``EdgeSim`` oracle (``torchsim.reference``) at
@@ -89,9 +89,9 @@ to 0 just before and read just after:
   cases with the interval program on the card against the host oracles;
 * the streaming serve loop (``stream``) — ``run_stream`` at its own
   defaults (the Table-3 fleet, λ=6, 30 substeps, a ring of 512 slots,
-  chunks of 64 intervals): ``mc`` until 10⁴ tasks are offered, then
-  ``splitplace`` (θ at ``SurrogatePlacer``'s widths) and ``gillis`` until
-  2000; the admission ledger balances with nothing dropped, device memory
+  chunks of 64 intervals): ``mc`` until 5000 tasks are offered, then
+  ``splitplace`` (θ at ``SurrogatePlacer``'s widths) until 1000 and
+  ``gillis`` until 2000; the admission ledger balances with nothing dropped, device memory
   is flat from the second chunk on, each simulator kernel (and
   ``threefry_rows`` in ``gillis``) is launched once per interval and no
   kernel library is loaded after the first chunk; it prints the chunk
@@ -146,6 +146,18 @@ to 0 just before and read just after:
   (within 1e-4), the blocks' output rms at init, and the losses in
   float32, without the clip, with the experts drawn at 1/√d, and over 30
   steps;
+* counts (``count_phase``) — inside the TinyLlama training path, each of
+  the four families' serving paths (one more forward of 4 × 1024) and
+  each cut training family, one more call under ``launch.flopcount``: the
+  FLOPs, products and bytes counted on the card must equal the same
+  call's count on the meta device exactly, and each kernel's launch
+  counter must rise by the calls of its operator the counter saw;
+  counted FLOPs / (the phase's ms × 989e12) is printed as mfu;
+* the dry-run (``dryrun_phase``) — ``python -m repro_torch.launch.dryrun``
+  of TinyLlama-1.1B's ``train_4k`` on the fake (16, 16) mesh in a
+  subprocess on the CPU, started after the build beside the card's
+  phases and waited for at the end: 256 cards, its peak under the card's 80 GB, a compute
+  term, collective traffic, a useful-FLOP ratio in (0.05, 1.5];
 
 profiles one more ``bestfit-rr`` run for each simulator kernel's summed
 device time, and cross-checks the GPU driver against the committed golden
@@ -343,11 +355,13 @@ TRAIN_CROSS = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=12,
                    substeps=4)
 
 #: the paper's experiment protocol (benchmarks/table4.py): the shared §6.3
-#: pretraining pass, then the 7 policies × 3 seeds on the interval program
+#: pretraining pass, then the 7 policies × 2 seeds (the protocol's 3, cut
+#: to keep the script well inside its limit on a slow host) on the
+#: interval program
 TABLE4_POLICIES = ("mc", "gillis", "semantic+gobi", "layer+gobi",
                    "random+daso", "mab+gobi", "splitplace")
 TABLE4_PRETRAIN = dict(n_intervals=200, lam=6.0, seed=7, substeps=10)
-TABLE4 = dict(seeds=(0, 1, 2), lams=(6.0,), n_intervals=100, substeps=10)
+TABLE4 = dict(seeds=(0, 1), lams=(6.0,), n_intervals=100, substeps=10)
 #: the host backend on the card, with the same pretraining products
 TABLE4_HOST = dict(seeds=(0,), lams=(6.0,), n_intervals=40, substeps=10)
 #: the card against the CPU at a reduced size: a 36-interval pretraining
@@ -2087,6 +2101,176 @@ def _train_family(name):
     return _family(name)
 
 
+#: count_phase: the kernel operators' names by their dispatchers'
+#: launch counters
+COUNT_OPS = {"flash_attention": "flash_attn_fwd",
+             "flash_attention_bwd": "flash_attn_bwd",
+             "moe_route": "moe_route_fwd", "moe_route_bwd": "moe_route_bwd",
+             "selective_scan": "selective_scan_fwd",
+             "selective_scan_bwd": "selective_scan_bwd",
+             "rglru_scan": "rglru_scan_fwd",
+             "rglru_scan_bwd": "rglru_scan_bwd"}
+#: every count_check's result, in the order the phases ran them
+COUNTS = []
+
+
+def _on_card(batch):
+    import torch
+    return {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+
+
+def _forward_no_grad(params, batch, cfg):
+    import torch
+    from repro_torch.models.model import forward
+    with torch.no_grad():
+        return forward(params, batch, cfg)
+
+
+def _meta_like(tree):
+    """``tree`` with its tensors (and NumPy arrays) as meta tensors of the
+    same shapes and dtypes, its other values kept."""
+    import torch
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    out = []
+    for _, t in tree_flatten(tree):
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
+        out.append(torch.empty(t.shape, dtype=t.dtype, device="meta")
+                   if isinstance(t, torch.Tensor) else t)
+    return tree_unflatten(tree, out)
+
+
+def _count_diff(card, meta):
+    """The operators whose calls differ between two counters."""
+    names = set(card.ops) | set(meta.ops)
+    return {n: (card.ops.get(n, 0), meta.ops.get(n, 0)) for n in sorted(names)
+            if card.ops.get(n, 0) != meta.ops.get(n, 0)}
+
+
+def count_check(label, step, args, meta_step, ms):
+    """count_phase's check of one call the script already makes: the call
+    once more on the card under the FLOP counter
+    (``launch.flopcount.count_fn``), held exactly against the same call on
+    the meta device (``meta_step`` on ``_meta_like(args)``), and each
+    kernel's launch counter against the operator calls the counter saw.
+    Logs the counted TFLOP, ``ms`` (the phase's measured ms per call) and
+    the share of the bf16 peak, counted FLOPs / (ms x 989e12), as mfu."""
+    import torch
+    from repro_torch.launch.flopcount import count_fn
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    t0 = time.perf_counter()
+    counters = _train_counters()
+    before = {n: fn.launches for n, fn in counters.items()}
+    torch.cuda.synchronize()
+    card = count_fn(step, *args)
+    torch.cuda.synchronize()
+    rose = {n: fn.launches - before[n] for n, fn in counters.items()}
+    del card.result
+    meta = count_fn(meta_step, *_meta_like(args))
+    got = (card.dot_flops, card.other_flops, card.hbm_bytes)
+    want = (meta.dot_flops, meta.other_flops, meta.hbm_bytes)
+    if got != want:
+        raise AssertionError(f"count_phase {label}: card (dot, other, bytes) "
+                             f"{got} != meta {want}; operators that differ "
+                             f"{_count_diff(card, meta)}")
+    seen = {n: card.ops.get(f"repro_torch.{op}.default", 0)
+            for n, op in COUNT_OPS.items()}
+    if rose != seen:
+        raise AssertionError(f"count_phase {label}: launches {rose} != the "
+                             f"operator calls counted {seen}")
+    mfu = card.flops / (ms * 1e-3 * PEAK_FLOPS_BF16)
+    rec = {"label": label, "tflop": card.flops / 1e12,
+           "dot_tflop": card.dot_flops / 1e12, "hbm_gb": card.hbm_bytes / 1e9,
+           "ms": ms, "mfu": mfu, "launches": {n: c for n, c in seen.items()
+                                              if c},
+           "check_s": time.perf_counter() - t0}
+    COUNTS.append(rec)
+    log(f"count_phase {label}: {rec['tflop']:.4f} TFLOP counted "
+        f"({rec['dot_tflop']:.4f} in products), {rec['hbm_gb']:.2f} GB, card "
+        f"= meta exactly; {ms:.2f} ms per call measured; mfu "
+        f"{mfu:.4f} of 989e12; kernel calls {rec['launches']}")
+    return rec
+
+
+def count_phase():
+    """The FLOP counter on the card: ``count_check`` ran inside
+    ``train_path`` (TinyLlama-1.1B's step), each family's serving path (a
+    forward of 4 x 1024) and ``train_cut`` (each cut family's step); here
+    every check is accounted for and summarised."""
+    want = 1 + len(SERVE_ARCHS) + len(TRAIN_CUT)
+    if len(COUNTS) != want:
+        raise AssertionError(f"count_phase: {len(COUNTS)} checks ran, "
+                             f"{want} expected")
+    log(f"count_phase: {len(COUNTS)} calls counted on the card = meta, "
+        f"{sum(r['check_s'] for r in COUNTS):.1f} s of checks: "
+        + json.dumps(COUNTS))
+    return COUNTS
+
+
+#: dryrun_phase's combination and its subprocess's time limit from when
+#: dryrun_phase starts to wait, s
+DRYRUN_ARGS = ["--arch", "tinyllama-1.1b", "--shape", "train_4k", "--mesh",
+               "single"]
+DRYRUN_TIMEOUT = 300
+
+
+def dryrun_start():
+    """Start ``python -m repro_torch.launch.dryrun`` of TinyLlama-1.1B's
+    ``train_4k`` on the (16, 16) mesh in a subprocess (on the CPU: fake
+    tensors, nothing on the card), to run beside the card's phases;
+    ``dryrun_phase`` waits for it.  Returns (the process, its output
+    file, its error stream)."""
+    import atexit
+    import tempfile
+    fd, out = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", out], stdout=subprocess.DEVNULL, stderr=err, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+                       "OMP_NUM_THREADS": "2"})
+    # an earlier phase's failure must not leave it running
+    atexit.register(_stop, proc)
+    return proc, out, err
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def dryrun_phase(started):
+    """The dry-run ``dryrun_start`` started, waited for within
+    ``DRYRUN_TIMEOUT``: its JSON, and the reference test's assertions with
+    the card's 80 GB (256 cards, peak under 80 GB, a compute term,
+    collective traffic, a useful-FLOP ratio in (0.05, 1.5])."""
+    proc, out, err = started
+    try:
+        proc.wait(timeout=DRYRUN_TIMEOUT)
+        if proc.returncode != 0:
+            err.seek(0)
+            raise AssertionError(f"dryrun_phase: the dry-run failed "
+                                 f"({proc.returncode}):\n"
+                                 f"{err.read()[-3000:]}")
+        with open(out) as f:
+            d = json.load(f)
+    finally:
+        _stop(proc)
+        err.close()
+        os.remove(out)
+    log("dryrun_phase: " + json.dumps(d))
+    ok = (d["chips"] == 256 and d["memory"]["peak_gb"] < 80.0
+          and d["roofline"]["compute_s"] > 0
+          and d["collective_bytes_per_device"] > 0
+          and 0.05 < d["useful_flops_ratio"] <= 1.5)
+    if not ok:
+        raise AssertionError(f"dryrun_phase: the report fails the "
+                             f"reference test's assertions: {d}")
+    return d
+
+
 def train_profile(label, step_fn, params, opt_state, batch, lr):
     """Device time of one train step by kernel family from torch.profiler,
     and the optimizer's share (the clip and the update, timed apart with
@@ -2254,6 +2438,10 @@ def train_path():
     keep.clear()
     batch = TokenPipeline(cfg.vocab_size, s, b, seed=1).next_batch()
     step_fn = make_train_step(cfg, lr=3e-4)
+    count_check(f"TinyLlama-1.1B train step ({b} x {s})", step_fn,
+                (params, opt_state, _on_card(batch), 3e-5),
+                make_train_step(cfg, lr=3e-4, device="meta"),
+                stats["median_ms"])
     prof, params, opt_state = train_profile(
         "TinyLlama-1.1B training (8 x 256 tokens)", step_fn, params,
         opt_state, batch, 3e-5)
@@ -2342,6 +2530,10 @@ def train_cut(arch, layers):
                              f"{losses}")
     rises = [i for i in range(1, len(losses)) if losses[i] > losses[i - 1]]
     stats = _step_stats(times[1:])
+    count_check(f"{arch} train step ({layers} layers, {b} x {s})", step_fn,
+                (params, opt_state, _on_card(pipe.next_batch())),
+                make_train_step(cfg, lr=TRAIN_CUT_RUN["lr"], device="meta"),
+                stats["median_ms"])
     prof, params, opt_state = train_profile(
         f"{arch} ({layers} layers, {b} x {s} tokens)", step_fn, params,
         opt_state, pipe.next_batch(), TRAIN_CUT_RUN["lr"])
@@ -3391,6 +3583,17 @@ def serving_path(arch):
         raise AssertionError(f"{arch}: logits {tuple(logits.shape)} "
                              f"finite={bool(torch.isfinite(logits).all())}")
     del logits
+    if arch in SERVE_ARCHS:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _forward_no_grad(params, batch, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        count_check(f"{arch} forward ({SERVE['batch']} x {SERVE['seq']})",
+                    _forward_no_grad, (params, batch, cfg), _forward_no_grad,
+                    float(np.median(times)) * 1e3)
     tokens = SERVE["batch"] * SERVE["seq"]
     by_plan = {p: [r for r in results if r.plan == p] for p in (0, 1)}
     fid = {p: float(np.mean([r.fidelity for r in rs])) if rs else None
@@ -4357,7 +4560,7 @@ def table4_pretrain():
 
 def table4_grid(pre):
     """Table 4 on the interval program: ``run_grid(backend="torch")`` over
-    the 7 policies × 3 seeds with the pretraining products, the counts of
+    the 7 policies × 2 seeds with the pretraining products, the counts of
     every kernel set to 0 just before and read just after (and per
     policy), then ``aggregate`` beside the paper's values.  Returns the
     launches per kernel."""
@@ -4627,10 +4830,11 @@ def table4_phase():
 #: cannot resolve the overhead there, and three calls of them (~200 s)
 #: took the script to 1162 s of its 1200 on an H100 80GB HBM3 machine
 #: (700 W) whose host-bound phases ran 1.3-1.5x slower than another's.
-#: The other paths run two calls each (three took the telemetry phase to
-#: 115-327 s of a 651-1162 s script), so the whole script keeps ~25 % of
-#: its limit spare on a slow host
-TELEMETRY_CALLS = 2
+#: The other paths ran two calls each until the count and dry-run phases
+#: took the whole script to 1151 s of its 1200 on such a host; one each
+#: since (three took the telemetry phase to 115-327 s of a 651-1162 s
+#: script)
+TELEMETRY_CALLS = 1
 TELEMETRY_DASO_CALLS = 1
 TELEMETRY_CEILING = 0.05
 #: the train path's finetune is chaotic past ~50 intervals at the main
@@ -5199,13 +5403,15 @@ def differential_phase():
 #
 # run_stream's own defaults (the Table-3 fleet, λ=6, 300 s intervals of 30
 # substeps, a ring of 512 slots, chunks of 64 intervals): the reference's
-# --quick soak size for mc, 2000 tasks for splitplace and gillis; replay
+# 5000 tasks for mc (half the reference's --quick soak size),
+# 1000 for splitplace (its DASO stage makes it the slowest, ~29 s for
+# 2000), 2000 for gillis; replay
 # of main-grid cell 0 in chunks of 32 against the one-shot program; the
 # card against the CPU at 1500 tasks.
 
 STREAM = dict(lam=6.0, seed=0, chunk_intervals=64, max_active=512,
               substeps=30)
-STREAM_TASKS = {"mc": 10_000, "splitplace": 2000, "gillis": 2000}
+STREAM_TASKS = {"mc": 5000, "splitplace": 1000, "gillis": 2000}
 STREAM_REPLAY = dict(n_intervals=100, chunk=32, substeps=30)
 STREAM_REPLAY_POLICIES = ("bestfit-rr", "splitplace", "gillis")
 STREAM_CROSS = dict(target_tasks=1500, **STREAM)
@@ -5508,6 +5714,7 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  [{name}] {line}")
 
+    dryrun = dryrun_start()
     t0 = time.perf_counter()
     records = []
     for phase in (kernel_phase, flash_phase, moe_route_phase,
@@ -5635,6 +5842,11 @@ def main() -> int:
                 rec[key]["launches"] = n["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    count_phase()
+    dryrun_phase(dryrun)
+    log(f"count and dry-run phases: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     cross_checks()

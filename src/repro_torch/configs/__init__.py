@@ -1,5 +1,7 @@
 """Architecture registry (a copy of the reference's ``configs`` package,
-which is data).  Each module registers exactly one ModelConfig."""
+which is data).  Each module registers exactly one ModelConfig;
+``ASSIGNED_ARCHS`` and ``INPUT_SHAPES`` are the dry-run's architectures
+and named input shapes."""
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -32,3 +34,17 @@ def load_all():
     for m in _ARCH_MODULES:
         importlib.import_module(f"repro_torch.configs.{m}")
 
+
+
+ASSIGNED_ARCHS = [
+    "qwen1.5-110b", "recurrentgemma-9b", "musicgen-medium", "qwen2-moe-a2.7b",
+    "tinyllama-1.1b", "nemotron-4-340b", "falcon-mamba-7b", "qwen2-vl-7b",
+    "kimi-k2-1t-a32b", "llama3-405b",
+]
+
+INPUT_SHAPES = {
+    "train_4k":    dict(seq_len=4096,   global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768,  global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32768,  global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524288, global_batch=1,   kind="decode"),
+}

@@ -18,14 +18,18 @@ atomics; ``moe_route_plan`` gives the launch shape); a CPU tensor runs
 the eager twin ``ref.moe_route_ref``.  There is no fallback from one to the
 other.  ``moe_route.launches`` counts kernel launches (one per call).
 
-Training: when grad is enabled and the logits require it, the call goes
-through ``MoeRouteFn`` (on both devices); eid and slot carry no gradient,
-and the gates' backward is ``moe_route_bwd``: on a CUDA tensor the kernel
-``route_bwd_kernel`` of ``csrc/moe_route.cu`` (through the normalisation by
-max(Σ, 1e-9), then the softmax; the forward's layout: a sub-warp of lanes
-per token, the row in registers, the picks broadcast by shuffles), on a
-CPU tensor the twin ``ref.moe_route_bwd_ref``.  ``moe_route_bwd.launches``
-counts its launches.
+The dispatcher reaches the kernel only through the operator
+``repro_torch::moe_route_fwd`` (``kernels.ops``; it returns (gate, eid,
+slot); cost rule ``route_cost``, DTensor rule a split over the groups).
+
+Training: eid and slot carry no gradient, and the operator's autograd
+formula for the gates calls ``repro_torch::moe_route_bwd``: on a CUDA
+tensor the kernel ``route_bwd_kernel`` of ``csrc/moe_route.cu`` (through
+the normalisation by max(Σ, 1e-9), then the softmax; the forward's
+layout: a sub-warp of lanes per token, the row in registers, the picks
+broadcast by shuffles), on a CPU tensor the twin
+``ref.moe_route_bwd_ref``.  ``moe_route_bwd.launches`` counts its
+launches.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.ref import moe_route_bwd_ref, moe_route_ref
 
@@ -154,56 +159,116 @@ def moe_route_bwd_cuda(logits, eid, g_gate):
     return g_logits
 
 
+def route_cost(groups, gs, E, k):
+    """(dot, other) FLOPs of routing ``groups`` groups of ``gs`` tokens:
+    what the reference's counter counts for its twin
+    (``repro.kernels.ref.moe_route_ref``, per group) — the softmax (3 per
+    logit, 3 per token), top-k (2 per pick), the gates' normalisation (2
+    per token, 1 per pick), the one-hot slot count (4 per pick and
+    expert) and its sum (1 per pick)."""
+    per = 3 * gs * E + 5 * gs + 4 * gs * k + 4 * gs * k * E
+    return 0.0, float(groups * per)
+
+
+def _fwd_cost(args, opts):
+    logits, k = args[0], args[1]
+    groups = logits.shape[0] if logits.dim() == 3 else 1
+    return route_cost(groups, logits.shape[-2], logits.shape[-1], k)
+
+
+def _bwd_cost(args, opts):
+    """(dot, other) FLOPs of the backward kernel: per token 6 per expert
+    (the softmax again, the scatter of g_v, g_logits = p∘(g_p − Σ)) and
+    8 per pick (the picked probabilities, their sum and the
+    normalisation's vjp)."""
+    logits, eid = args[0], args[1]
+    tokens = logits.numel() // logits.shape[-1]
+    return 0.0, float(tokens * (6 * logits.shape[-1] + 8 * eid.shape[-1]))
+
+
+def _sharding(*args, n_out):
+    """Placements of one mesh dimension: replicated, or (grouped logits)
+    split over the groups, whose slots are counted within each group."""
+    from torch.distributed.tensor import Replicate, Shard
+    tensors = [a for a in args if hasattr(a, "shape")]
+    opts = [([Replicate()] * n_out, [Replicate() if hasattr(a, "shape")
+                                     else None for a in args])]
+    if len(tensors[0].shape) == 3:
+        opts.append(([Shard(0)] * n_out, [Shard(0) if hasattr(a, "shape")
+                                          else None for a in args]))
+    return opts
+
+
+def _gate_first(out):
+    """The operator returns (gate, eid, slot): the float output first."""
+    eid, gate, slot = out
+    return gate, eid, slot
+
+
+def _fwd_cpu(logits, top_k):
+    return tuple(t.contiguous() for t in
+                 _gate_first(moe_route_ref(logits, top_k)))
+
+
+def _fwd_cuda(logits, top_k):
+    return _gate_first(moe_route_cuda(logits, top_k))
+
+
+def _fwd_fake(logits, top_k):
+    shape = tuple(logits.shape[:-1]) + (top_k,)
+    return (logits.new_empty(shape, dtype=torch.float32),
+            logits.new_empty(shape, dtype=torch.int32),
+            logits.new_empty(shape, dtype=torch.int32))
+
+
+moe_route_bwd_op = ops.define(
+    "moe_route_bwd", "(Tensor logits, Tensor eid, Tensor g_gate) -> Tensor",
+    cpu=moe_route_bwd_ref, cuda=moe_route_bwd_cuda,
+    fake=lambda logits, eid, g_gate: logits.new_empty(
+        logits.shape, dtype=torch.float32),
+    cost=_bwd_cost, sharding=lambda *a: _sharding(*a, n_out=1))
+
+
+def _setup(ctx, inputs, output):
+    _, eid, slot = output
+    ctx.mark_non_differentiable(eid, slot)
+    ctx.save_for_backward(inputs[0], eid)
+
+
+def _backward(ctx, g_gate, g_eid, g_slot):
+    logits, eid = ctx.saved_tensors
+    if g_gate is None:
+        return None, None
+    return moe_route_bwd_op(logits, eid, g_gate).to(logits.dtype), None
+
+
+moe_route_fwd_op = ops.define(
+    "moe_route_fwd",
+    "(Tensor logits, int top_k) -> (Tensor, Tensor, Tensor)",
+    cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake, cost=_fwd_cost,
+    backward=_backward, setup_context=_setup,
+    sharding=lambda *a: _sharding(*a, n_out=3))
+
+
 def moe_route_bwd(logits, eid, g_gate):
-    """The gates' backward: the CUDA kernel on CUDA tensors, the eager twin
-    on CPU tensors."""
-    if logits.device.type == "cpu":
-        return moe_route_bwd_ref(logits, eid, g_gate)
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_route_bwd: unsupported device "
-                         f"{logits.device}")
-    return moe_route_bwd_cuda(logits, eid, g_gate)
+    """The gates' backward (``repro_torch::moe_route_bwd``): the CUDA
+    kernel on CUDA tensors, the eager twin on CPU tensors."""
+    ops.check_device(logits, "moe_route_bwd")
+    return moe_route_bwd_op(logits, eid, g_gate)
 
 
 moe_route_bwd.launches = 0
 
 
-class MoeRouteFn(torch.autograd.Function):
-    """Routing with the gates' gradient (``moe_route_bwd``); eid and slot
-    are not differentiable."""
-
-    @staticmethod
-    def forward(ctx, logits, top_k):
-        out = moe_route_ref(logits, top_k) if logits.device.type == "cpu" \
-            else moe_route_cuda(logits, top_k)
-        eid, _, slot = out
-        ctx.mark_non_differentiable(eid, slot)
-        ctx.save_for_backward(logits, eid)
-        return out
-
-    @staticmethod
-    def backward(ctx, g_eid, g_gate, g_slot):
-        logits, eid = ctx.saved_tensors
-        if g_gate is None:
-            return None, None
-        return moe_route_bwd(logits, eid, g_gate).to(logits.dtype), None
-
-
 def moe_route(logits, top_k):
-    """Routing: the CUDA kernel on CUDA tensors, the eager twin on CPU
-    tensors; through ``MoeRouteFn`` when the gates' gradient is wanted."""
-    if torch.is_grad_enabled() and logits.requires_grad:
-        _check(logits, top_k)
-        if logits.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"moe_route: unsupported device "
-                             f"{logits.device}")
-        return MoeRouteFn.apply(logits, top_k)
-    if logits.device.type == "cpu":
-        _check(logits, top_k)
-        return moe_route_ref(logits, top_k)
-    if logits.device.type != "cuda":
-        raise ValueError(f"moe_route: unsupported device {logits.device}")
-    return moe_route_cuda(logits, top_k)
+    """Routing (``repro_torch::moe_route_fwd``): the CUDA kernel on CUDA
+    tensors, the eager twin on CPU tensors, shapes only on the meta
+    device; the gates differentiable in the logits."""
+    _check(logits, top_k)
+    ops.check_device(logits, "moe_route")
+    grad = torch.is_grad_enabled() and logits.requires_grad
+    gate, eid, slot = ops.call(moe_route_fwd_op, grad, logits, int(top_k))
+    return eid, gate, slot
 
 
 moe_route.launches = 0

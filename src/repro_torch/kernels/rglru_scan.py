@@ -13,20 +13,26 @@ register, the sequence walked in order with 16 steps loaded ahead); a CPU
 tensor runs the eager twin ``ref.rglru_scan_ref``.  There is no fallback
 from one to the other.  ``rglru_scan.launches`` counts kernel launches.
 
-Training: when grad is enabled and a or bx requires it, the call goes
-through ``RglruScanFn`` (on both devices), which keeps a and the output h
-and whose backward is ``rglru_scan_bwd``: on a CUDA tensor the backward
-kernel of ``csrc/rglru_scan.cu`` (gh walked down the sequence, one thread
-per channel, the forward's register buffers of steps loaded ahead; equal
-to the twin bitwise), on a CPU tensor the twin
-``ref.rglru_scan_bwd_ref``.
+The dispatcher reaches the kernel only through the operator
+``repro_torch::rglru_scan_fwd`` (``kernels.ops``; cost rule
+``selective_scan.scan_cost`` of w lanes, the reference's
+``linear_recurrence`` being the same chunked scan; DTensor rule a split
+over the batch or the channels).
+
+Training: its autograd formula keeps a and the output h and calls
+``repro_torch::rglru_scan_bwd``: on a CUDA tensor the backward kernel of
+``csrc/rglru_scan.cu`` (gh walked down the sequence, one thread per
+channel, the forward's register buffers of steps loaded ahead; equal to
+the twin bitwise), on a CPU tensor the twin ``ref.rglru_scan_bwd_ref``.
 ``rglru_scan_bwd.launches`` counts backward launches.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.build import LIBRARIES
+from repro_torch.kernels.selective_scan import scan_cost
 from repro_torch.kernels.ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -109,49 +115,73 @@ def rglru_scan_bwd_cuda(a, h, gh):
     return g_a, g_bx
 
 
+def _fwd_cost(args, opts):
+    b, s, w = args[0].shape
+    return scan_cost(b, s, w)
+
+
+def _bwd_cost(args, opts):
+    """(dot, other) FLOPs of the backward kernel: 3 operations per (row,
+    step, channel): gh = gh_out + the carry, the carry a·gh, g_a =
+    gh·h_prev."""
+    b, s, w = args[0].shape
+    return 0.0, 3.0 * b * s * w
+
+
+def _sharding(*args, n_out):
+    """Placements of one mesh dimension: replicated, or split over the
+    batch or the channels (every operand (b, s, w))."""
+    from torch.distributed.tensor import Replicate, Shard
+    n_in = len(args)
+    return [([p] * n_out, [p] * n_in)
+            for p in (Replicate(), Shard(0), Shard(2))]
+
+
+def _bwd_fake(a, h, gh):
+    return a.new_empty(a.shape), a.new_empty(a.shape)
+
+
+rglru_scan_bwd_op = ops.define(
+    "rglru_scan_bwd", "(Tensor a, Tensor h, Tensor gh) -> (Tensor, Tensor)",
+    cpu=rglru_scan_bwd_ref, cuda=rglru_scan_bwd_cuda, fake=_bwd_fake,
+    cost=_bwd_cost, sharding=lambda *a: _sharding(*a, n_out=2))
+
+
+def _setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], output)
+
+
+def _backward(ctx, gh):
+    a, h = ctx.saved_tensors
+    return rglru_scan_bwd_op(a, h, gh)
+
+
+rglru_scan_fwd_op = ops.define(
+    "rglru_scan_fwd", "(Tensor a, Tensor bx) -> Tensor",
+    cpu=rglru_scan_ref, cuda=rglru_scan_cuda,
+    fake=lambda a, bx: a.new_empty(a.shape, dtype=torch.float32),
+    cost=_fwd_cost, backward=_backward, setup_context=_setup,
+    sharding=lambda *a: _sharding(*a, n_out=1))
+
+
 def rglru_scan_bwd(a, h, gh):
-    """The backward: the CUDA kernel on CUDA tensors, the eager twin on
-    CPU tensors."""
-    if a.device.type == "cpu":
-        return rglru_scan_bwd_ref(a, h, gh)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
-    return rglru_scan_bwd_cuda(a, h, gh)
+    """The backward (``repro_torch::rglru_scan_bwd``): the CUDA kernel on
+    CUDA tensors, the eager twin on CPU tensors."""
+    ops.check_device(a, "rglru_scan_bwd")
+    return rglru_scan_bwd_op(a, h, gh)
 
 
 rglru_scan_bwd.launches = 0
 
 
-class RglruScanFn(torch.autograd.Function):
-    """The recurrence with its gradient (``rglru_scan_bwd``)."""
-
-    @staticmethod
-    def forward(ctx, a, bx):
-        h = rglru_scan_ref(a, bx) if a.device.type == "cpu" \
-            else rglru_scan_cuda(a, bx)
-        ctx.save_for_backward(a, h)
-        return h
-
-    @staticmethod
-    def backward(ctx, gh):
-        a, h = ctx.saved_tensors
-        return rglru_scan_bwd(a, h, gh)
-
-
 def rglru_scan(a, bx):
-    """The recurrence: the CUDA kernel on CUDA tensors, the eager twin on
-    CPU tensors; through ``RglruScanFn`` when a gradient is wanted."""
-    if torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad):
-        _check(a, bx)
-        if a.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"rglru_scan: unsupported device {a.device}")
-        return RglruScanFn.apply(a, bx)
-    if a.device.type == "cpu":
-        _check(a, bx)
-        return rglru_scan_ref(a, bx)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan: unsupported device {a.device}")
-    return rglru_scan_cuda(a, bx)
+    """The recurrence (``repro_torch::rglru_scan_fwd``): the CUDA kernel on
+    CUDA tensors, the eager twin on CPU tensors, shapes only on the meta
+    device; differentiable in a and bx."""
+    _check(a, bx)
+    ops.check_device(a, "rglru_scan")
+    grad = torch.is_grad_enabled() and (a.requires_grad or bx.requires_grad)
+    return ops.call(rglru_scan_fwd_op, grad, a, bx)
 
 
 rglru_scan.launches = 0

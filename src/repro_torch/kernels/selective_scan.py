@@ -17,14 +17,17 @@ sequence walked in order); a CPU tensor runs the eager twin
 ``ref.selective_scan_ref``.  There is no fallback from one to the other.
 ``selective_scan.launches`` counts kernel launches.
 
-Training: when grad is enabled and an input requires it, the call goes
-through ``SelectiveScanFn`` (on both devices; y only, not the final
-state), whose backward is ``selective_scan_bwd``: on a CUDA tensor the
-backward kernels of ``csrc/selective_scan.cu`` (a thread per (channel,
-state); a forward pass keeps the state at every L-th step, then each chunk
-of L steps is recomputed from its checkpoint and gh walked down it; g_C
-summed over channel blocks through written partials; no atomics), on a CPU
-tensor the twin ``ref.selective_scan_bwd_ref``.
+The dispatcher reaches the kernel only through the operator
+``repro_torch::selective_scan_fwd`` (``kernels.ops``; cost rule
+``scan_cost``, DTensor rule a split over the batch or the channels).
+
+Training: its autograd formula (of y, not the final state) calls
+``repro_torch::selective_scan_bwd``: on a CUDA tensor the backward
+kernels of ``csrc/selective_scan.cu`` (a thread per (channel, state); a
+forward pass keeps the state at every L-th step, then each chunk of L
+steps is recomputed from its checkpoint and gh walked down it; g_C
+summed over channel blocks through written partials; no atomics), on a
+CPU tensor the twin ``ref.selective_scan_bwd_ref``.
 ``selective_scan_bwd.launches`` counts backward calls.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.kernels.build import LIBRARIES
 from repro_torch.kernels.ref import selective_scan_bwd_ref, selective_scan_ref
 
@@ -156,58 +160,152 @@ def selective_scan_bwd_cuda(dA, dBx, C, gy):
     return g_dA, g_dBx, g_C
 
 
+#: the reference's chunk (``repro.models.ssm.selective_scan``)
+CHUNK = 64
+#: what the reference's counter counts per (batch row, channel, state)
+#: for one chunk of its associative scan: the up- and down-sweeps of
+#: ``lax.associative_scan``, the carry's injection (2 per step) and the
+#: last state's slice; plus 3 scalar operations per chunk
+CHUNK_OPS = 741
+
+
+def scan_cost(b, s, lanes, n=None):
+    """(dot, other) FLOPs of a chunked scan of ``lanes`` = b·d_in·n (or
+    b·w) independent recurrences over s steps, as the reference's counter
+    counts its jnp twin: the sequence padded to whole chunks (each padded
+    input entry a copy), ``CHUNK_OPS`` per lane and chunk; with ``n``
+    (the selective scan: lanes = d_in·n per row) also y_t = <h_t, C_t>,
+    a product of 2·b·s_pad·d_in·n.  ``lanes`` excludes the batch."""
+    s_pad = -(-s // CHUNK) * CHUNK
+    chunks = s_pad // CHUNK
+    other = chunks * (CHUNK_OPS * b * lanes + 3)
+    if s_pad != s:
+        other += 2 * b * s_pad * lanes + (b * s_pad * n if n else 0)
+    dot = 2.0 * b * s_pad * lanes if n else 0.0
+    return dot, float(other)
+
+
+def _h_none(dA):
+    """The final-state output of a call that did not ask for it: (b, d_in,
+    0) float32, which shards like the real one."""
+    return dA.new_empty((dA.shape[0], dA.shape[2], 0), dtype=torch.float32)
+
+
+def _fwd_cpu(dA, dBx, C, final_state):
+    if final_state:
+        return selective_scan_ref(dA, dBx, C, final_state=True)
+    return selective_scan_ref(dA, dBx, C), _h_none(dA)
+
+
+def _fwd_cuda(dA, dBx, C, final_state):
+    if final_state:
+        return selective_scan_cuda(dA, dBx, C, final_state=True)
+    return selective_scan_cuda(dA, dBx, C), _h_none(dA)
+
+
+def _fwd_fake(dA, dBx, C, final_state):
+    b, s, d_in, n = dA.shape
+    return (dA.new_empty((b, s, d_in), dtype=torch.float32),
+            dA.new_empty((b, d_in, n if final_state else 0),
+                         dtype=torch.float32))
+
+
+def _fwd_cost(args, opts):
+    b, s, d_in, n = args[0].shape
+    return scan_cost(b, s, d_in * n, n)
+
+
+def _bwd_cost(args, opts):
+    """(dot, other) FLOPs of the backward kernels: g_C = Σ_d gy·h, a
+    product of 2·b·s·d_in·n, and 8 operations per (row, step, channel,
+    state): the state formed twice (the checkpoint pass, then each chunk
+    from its checkpoint; a product and a sum each), gh = C·gy + the carry
+    (2), the carry dA·gh (1) and g_dA = gh·h (1)."""
+    b, s, d_in, n = args[0].shape
+    return 2.0 * b * s * d_in * n, 8.0 * b * s * d_in * n
+
+
+def _fwd_sharding(dA, dBx, C, final_state):
+    """Placements of one mesh dimension: replicated, split over the
+    batch, or over the channels (C replicated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    return [([R, R], [R, R, R, None]),
+            ([Shard(0), Shard(0)], [Shard(0)] * 3 + [None]),
+            ([Shard(2), Shard(1)], [Shard(2), Shard(2), R, None])]
+
+
+def _bwd_sharding(dA, dBx, C, gy):
+    """As the forward's; over the channels g_C is a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    R = Replicate()
+    return [([R, R, R], [R, R, R, R]),
+            ([Shard(0)] * 3, [Shard(0)] * 4),
+            ([Shard(2), Shard(2), Partial()], [Shard(2), Shard(2), R,
+                                                Shard(2)])]
+
+
+def _bwd_cpu(dA, dBx, C, gy):
+    _check(dA, dBx, C)
+    return selective_scan_bwd_ref(dA, dBx, C, gy)
+
+
+def _bwd_fake(dA, dBx, C, gy):
+    return (dA.new_empty(dA.shape), dBx.new_empty(dBx.shape),
+            dA.new_empty(C.shape, dtype=torch.float32))
+
+
+selective_scan_bwd_op = ops.define(
+    "selective_scan_bwd",
+    "(Tensor dA, Tensor dBx, Tensor C, Tensor gy) -> (Tensor, Tensor, Tensor)",
+    cpu=_bwd_cpu, cuda=selective_scan_bwd_cuda, fake=_bwd_fake,
+    cost=_bwd_cost, sharding=_bwd_sharding)
+
+
+def _setup(ctx, inputs, output):
+    dA, dBx, C, _ = inputs
+    ctx.save_for_backward(dA, dBx, C)
+
+
+def _backward(ctx, gy, g_h):
+    dA, dBx, C = ctx.saved_tensors
+    g_dA, g_dBx, g_C = selective_scan_bwd_op(dA, dBx, C, gy)
+    return g_dA, g_dBx, g_C.to(C.dtype), None
+
+
+selective_scan_fwd_op = ops.define(
+    "selective_scan_fwd",
+    "(Tensor dA, Tensor dBx, Tensor C, bool final_state) -> (Tensor, Tensor)",
+    cpu=_fwd_cpu, cuda=_fwd_cuda, fake=_fwd_fake, cost=_fwd_cost,
+    backward=_backward, setup_context=_setup, sharding=_fwd_sharding)
+
+
 def selective_scan_bwd(dA, dBx, C, gy):
-    """The backward: the CUDA kernels on CUDA tensors, the eager twin on
-    CPU tensors."""
-    if dA.device.type == "cpu":
-        _check(dA, dBx, C)
-        return selective_scan_bwd_ref(dA, dBx, C, gy)
-    if dA.device.type != "cuda":
-        raise ValueError(f"selective_scan_bwd: unsupported device "
-                         f"{dA.device}")
-    return selective_scan_bwd_cuda(dA, dBx, C, gy)
+    """The backward (``repro_torch::selective_scan_bwd``): the CUDA kernels
+    on CUDA tensors, the eager twin on CPU tensors."""
+    _check(dA, dBx, C)
+    ops.check_device(dA, "selective_scan_bwd")
+    return selective_scan_bwd_op(dA, dBx, C, gy)
 
 
 selective_scan_bwd.launches = 0
 
 
-class SelectiveScanFn(torch.autograd.Function):
-    """y of the scan with its gradient (``selective_scan_bwd``)."""
-
-    @staticmethod
-    def forward(ctx, dA, dBx, C):
-        ctx.save_for_backward(dA, dBx, C)
-        if dA.device.type == "cpu":
-            return selective_scan_ref(dA, dBx, C)
-        return selective_scan_cuda(dA, dBx, C)
-
-    @staticmethod
-    def backward(ctx, gy):
-        dA, dBx, C = ctx.saved_tensors
-        g_dA, g_dBx, g_C = selective_scan_bwd(dA, dBx, C, gy)
-        return g_dA, g_dBx, g_C.to(C.dtype)
-
-
 def selective_scan(dA, dBx, C, final_state=False):
-    """The scan: the CUDA kernel on CUDA tensors, the eager twin on CPU
-    tensors; through ``SelectiveScanFn`` when a gradient is wanted (of y:
-    a final state asked for with a gradient raises)."""
-    if torch.is_grad_enabled() and (dA.requires_grad or dBx.requires_grad
-                                    or C.requires_grad):
-        _check(dA, dBx, C)
-        if final_state:
-            raise ValueError("selective_scan: the gradient covers y, not "
-                             "the final state")
-        if dA.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"selective_scan: unsupported device "
-                             f"{dA.device}")
-        return SelectiveScanFn.apply(dA, dBx, C)
-    if dA.device.type == "cpu":
-        _check(dA, dBx, C)
-        return selective_scan_ref(dA, dBx, C, final_state=final_state)
-    if dA.device.type != "cuda":
-        raise ValueError(f"selective_scan: unsupported device {dA.device}")
-    return selective_scan_cuda(dA, dBx, C, final_state=final_state)
+    """The scan (``repro_torch::selective_scan_fwd``): the CUDA kernel on
+    CUDA tensors, the eager twin on CPU tensors, shapes only on the meta
+    device; differentiable in y (a final state asked for with a gradient
+    raises)."""
+    _check(dA, dBx, C)
+    ops.check_device(dA, "selective_scan")
+    grad = torch.is_grad_enabled() and (dA.requires_grad or dBx.requires_grad
+                                        or C.requires_grad)
+    if final_state and grad:
+        raise ValueError("selective_scan: the gradient covers y, not the "
+                         "final state")
+    y, h = ops.call(selective_scan_fwd_op, grad, dA, dBx, C,
+                    bool(final_state))
+    return (y, h) if final_state else y
 
 
 selective_scan.launches = 0

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.dist import flatten_last2, unflatten_last
 from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 
 
@@ -40,7 +41,7 @@ def attn_init(generator, cfg, dtype, device=None):
 def _proj(x, w):
     """einsum("bsd,dhe->bshe") as one matrix product."""
     d, h, e = w.shape
-    return (x @ w.reshape(d, h * e)).unflatten(-1, (h, e))
+    return unflatten_last(x @ w.reshape(d, h * e), (h, e))
 
 
 def project_qkv(p, x, cfg):
@@ -70,7 +71,7 @@ def _rope_qk(q, k, positions, cfg, positions3=None):
 def _out_proj(out, wo):
     """einsum("bshe,hed->bsd") as one matrix product."""
     h, hd, d = wo.shape
-    return out.reshape(*out.shape[:2], h * hd) @ wo.reshape(h * hd, d)
+    return flatten_last2(out) @ wo.reshape(h * hd, d)
 
 
 def self_attention(p, x, positions, cfg, window=0, explicit=False,

@@ -13,6 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.dist import constrained, seq_gathered
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
@@ -24,7 +26,10 @@ def dtype_of(name: str) -> torch.dtype:
 def dense_init(generator, shape, dtype, fan_in=None, device=None):
     """Normal(0, 1) × 1/√fan_in drawn in float32 from ``generator`` (on
     the generator's device), cast to ``dtype`` and moved to ``device``;
-    ``fan_in`` defaults to ``shape[0]`` as in the reference."""
+    ``fan_in`` defaults to ``shape[0]`` as in the reference.  On the meta
+    device nothing is drawn or allocated: the leaf's shape and dtype."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(1, fan_in))
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -33,10 +38,14 @@ def dense_init(generator, shape, dtype, fan_in=None, device=None):
 
 
 def rmsnorm(x, weight, eps=1e-6):
+    """RMS norm over the last dim in float32, times ``1 + weight``.  On a
+    mesh its output is gathered along the sequence (``seq_gathered``):
+    every sub-layer and the head read the residual through it, as
+    sequence parallelism all-gathers after the norm."""
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + weight.float())).to(dt)
+    return seq_gathered((x * (1.0 + weight.float())).to(dt))
 
 
 def softplus(x):
@@ -75,14 +84,14 @@ def mlp_init(generator, d_model, d_ff, cfg, dtype, device=None):
     return p
 
 
-def mlp_apply(p, x, cfg):
+def mlp_apply(p, x, cfg, constrain=None):
     act = activation_fn(cfg.activation)
     up = x @ p["w_up"]
     if cfg.mlp_gated:
         h = act(x @ p["w_gate"]) * up
     else:
         h = act(up)
-    return h @ p["w_down"]
+    return constrained(constrain, h, "ffn_hidden") @ p["w_down"]
 
 
 # ---------------------------------------------------------------- RoPE

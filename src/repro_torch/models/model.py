@@ -31,18 +31,22 @@ logits (b, s, cb, vocab)); optionally explicit ``positions`` (b, s)
 else ``positions`` on all three streams; with a visual front end
 ``visual_embeds`` (b, s, d) that replace the token embeddings where
 ``visual_mask`` (b, s) is true; with cross attention ``cond`` (b,
-cond_len, d), else zeros; and, for ``loss_fn``, ``labels`` (b, s).
+cond_len, d), else zeros; and, for ``loss_fn``, ``labels`` of the
+tokens' shape (under codebooks one label per codebook).
 ``pos_emb="sinusoidal"`` adds ``sinusoidal_embedding`` of the positions
 to the embeddings.  Entries a config does not use are ignored, as the
 reference ignores them.  With grad enabled and ``cfg.remat`` each
-layer runs under ``torch.utils.checkpoint`` (non-reentrant), the
-reference's ``jax.checkpoint`` of each scanned period.  A
+period of the body's block pattern runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference's ``jax.checkpoint`` of each scanned
+period; the dense prefix and a partial last period are not
+rematerialised, as in the reference.  A
 decode cache is a list with one dict per layer, as ``params["blocks"]``:
 ``{"k", "v"}`` ring buffers for the attention blocks (an ``xattn``
 block's cross attention caches nothing: it projects ``cond`` again each
 step, as the reference does), ``{"h", "conv"}`` states for the Mamba and
-RG-LRU blocks.  Codebook labels raise in ``loss_fn``, naming the ROADMAP
-item that brings them.
+RG-LRU blocks.  ``constrain`` (the reference's ``with_sharding_constraint``
+hook; ``launch.sharding.make_constrain`` on a mesh) is the identity
+without a mesh, so a call without one computes what it always did.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.dist import constrained
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
                                        mlp_init, rmsnorm,
                                        sinusoidal_embedding)
@@ -70,12 +75,6 @@ POS_EMBS = ("rope", "mrope", "sinusoidal", "none")
 #: the batch entries the port reads
 BATCH_KEYS = ("tokens", "positions", "labels", "positions3",
               "visual_embeds", "visual_mask", "cond")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"repro_torch does not train on {what} yet (ROADMAP queue 1 item "
-        f"18.7, training qwen2-vl-7b and musicgen-medium)")
 
 
 def check_supported(cfg, batch=None):
@@ -136,7 +135,9 @@ def init_params(cfg, generator=None, device="cuda"):
     RG-LRU's ``b_a``, ``b_i`` and ``Lambda`` stay float32, as the
     reference keeps them),
     drawn from ``generator`` (default: a CPU generator seeded 0) on its
-    own device and placed on ``device``."""
+    own device and placed on ``device``.  On ``device="meta"`` nothing is
+    drawn or allocated (the leaves' shapes and dtypes, as the reference's
+    ``eval_shape`` of its init gives them: ``launch.specs``)."""
     check_supported(cfg)
     dev = resolve(device)
     if generator is None:
@@ -305,10 +306,13 @@ def embed_tokens(params, batch, cfg, positions):
     "sinusoidal"``), in the compute dtype."""
     tokens = batch["tokens"].long()
     emb = params["embed"]
+    take = _mesh_embedding if hasattr(emb, "placements") \
+        else (lambda t, e: e[t])
     if cfg.num_codebooks:
-        x = sum(emb[i][tokens[..., i]] for i in range(cfg.num_codebooks))
+        x = sum(take(tokens[..., i], emb[i])
+                for i in range(cfg.num_codebooks))
     else:
-        x = emb[tokens]
+        x = take(tokens, emb)
     if cfg.visual_frontend and "visual_embeds" in batch:
         mask = batch["visual_mask"].to(device=x.device, dtype=torch.bool)
         x = torch.where(mask[..., None],
@@ -317,6 +321,17 @@ def embed_tokens(params, batch, cfg, positions):
     if cfg.pos_emb == "sinusoidal":
         x = x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
     return x.to(dtype_of(cfg.compute_dtype))
+
+
+def _mesh_embedding(tokens, table):
+    """Rows of a DTensor ``table`` by ``embedding``, the table's vocabulary
+    split gathered first (indexing's gradient, an index_put, and the
+    masked lookup of a vocabulary-split table both lack a working DTensor
+    rule on some torch releases)."""
+    from torch.distributed.tensor import Replicate, Shard
+    whole = [Replicate() if p == Shard(0) else p for p in table.placements]
+    return torch.nn.functional.embedding(
+        tokens, table.redistribute(table.device_mesh, whole))
 
 
 def make_ctx(batch, cfg):
@@ -367,30 +382,37 @@ def _ring(t, w):
                      dim=1)
 
 
-def _block(kind, p, x, ctx, cfg, cache_len=None, aux=None):
+def _block(kind, p, x, ctx, cfg, cache_len=None, aux=None, constrain=None):
     """One block; with ``cache_len`` also its decode cache; with ``aux``
-    (a list) an ``attn_moe`` block appends its load-balance loss to it.
-    Returns (x, cache or None)."""
+    (a list) an ``attn_moe`` block appends its load-balance loss to it;
+    ``constrain`` places the residual stream after each sub-layer and the
+    sub-layers' inner activations, as the reference.  Returns (x, cache
+    or None)."""
     if kind not in PORTED_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     collect = cache_len is not None
     cache = None
+
+    def add(x, y):
+        return _residual_add(constrain, x, y)
+
     if kind == "mamba":
         xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
         if collect:
-            y, cache = ssm_mod.mamba_prefill(p["mamba"], xn, cfg)
+            y, cache = ssm_mod.mamba_prefill(p["mamba"], xn, cfg, constrain)
         else:
-            y = ssm_mod.mamba_apply(p["mamba"], xn, cfg)
-        return x + y, cache
+            y = ssm_mod.mamba_apply(p["mamba"], xn, cfg, constrain)
+        return add(x, y), cache
     if kind == "rglru":
         xn = rmsnorm(x, p["norm1"], cfg.norm_eps)
         if collect:
-            y, cache = rglru_mod.rglru_prefill(p["rglru"], xn, cfg)
+            y, cache = rglru_mod.rglru_prefill(p["rglru"], xn, cfg,
+                                               constrain)
         else:
-            y = rglru_mod.rglru_apply(p["rglru"], xn, cfg)
-        x = x + y
-        return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
-                             cfg), cache
+            y = rglru_mod.rglru_apply(p["rglru"], xn, cfg, constrain)
+        x = add(x, y)
+        return add(x, mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
+                                cfg, constrain)), cache
     window = block_window(kind, cfg)
     h, (k, v) = attn.self_attention(p["attn"],
                                     rmsnorm(x, p["norm1"], cfg.norm_eps),
@@ -401,32 +423,53 @@ def _block(kind, p, x, ctx, cfg, cache_len=None, aux=None):
         w = min(window or cache_len, cache_len)
         dt = dtype_of(cfg.compute_dtype)
         cache = {"k": _ring(k, w).to(dt), "v": _ring(v, w).to(dt)}
-    return _after_self_attention(kind, p, x + h, ctx, cfg, aux), cache
+    return _after_self_attention(kind, p, add(x, h), ctx, cfg, aux,
+                                 constrain, residual=True), cache
 
 
-def _after_self_attention(kind, p, x, ctx, cfg, aux=None):
+def _after_self_attention(kind, p, x, ctx, cfg, aux=None, constrain=None,
+                          residual=False):
     """An attention block's sub-layers after its self attention: an
-    ``xattn`` block's cross attention, then the MoE FFN or the MLP."""
+    ``xattn`` block's cross attention, then the MoE FFN or the MLP; with
+    ``residual`` the stream is constrained after each (the reference's
+    forward; its decode constrains only the FFN's inner activations)."""
+    con = constrain if residual else None
     if kind == "xattn":
-        x = x + attn.cross_attention(p["xattn"],
-                                     rmsnorm(x, p["norm_x"], cfg.norm_eps),
-                                     ctx["cond"], cfg)
+        x = _residual_add(con, x, attn.cross_attention(
+            p["xattn"], rmsnorm(x, p["norm_x"], cfg.norm_eps), ctx["cond"],
+            cfg))
     xn = rmsnorm(x, p["norm2"], cfg.norm_eps)
     if kind == "attn_moe":
         if aux is not None:
             aux.append(moe_mod.aux_load_balance_loss(p["moe"], xn, cfg))
-        return x + moe_mod.moe_apply(p["moe"], xn, cfg)
-    return x + mlp_apply(p["mlp"], xn, cfg)
+        y = moe_mod.moe_apply(p["moe"], xn, cfg, constrain)
+    else:
+        y = mlp_apply(p["mlp"], xn, cfg, constrain)
+    return _residual_add(con, x, y)
 
 
-def _remat_block(kind, p, x, ctx, cfg):
-    """One block under ``torch.utils.checkpoint`` (non-reentrant): its
-    activations are recomputed in the backward.  Returns (x, aux)."""
+def _residual_add(constrain, x, y):
+    """x + y, both placed as the residual stream first (on a mesh the
+    sub-layer's output is reduce-scattered onto the sequence split by its
+    own autograd node, so that its gradient returns in the sub-layer's
+    placement)."""
+    return constrained(constrain, x + constrained(constrain, y, "residual"),
+                       "residual")
+
+
+def _remat_period(kinds, ps, x, ctx, cfg, constrain=None):
+    """One period of the body's block pattern under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, as the reference checkpoints each scanned
+    period.  Returns (x, the load-balance losses of its ``attn_moe``
+    blocks, in order)."""
     def run(x):
         aux = []
-        x, _ = _block(kind, p, x, ctx, cfg, aux=aux)
-        return x, (aux[0] if aux else x.new_zeros((), dtype=torch.float32))
-    return checkpoint(run, x, use_reentrant=False)
+        for kind, p in zip(kinds, ps):
+            x, _ = _block(kind, p, x, ctx, cfg, aux=aux, constrain=constrain)
+        return (x, *aux)
+    out = checkpoint(run, x, use_reentrant=False)
+    return out[0], list(out[1:])
 
 
 def apply_block(kind, p, x, ctx, cfg):
@@ -446,6 +489,11 @@ def lm_head(params, x, cfg):
     w = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
         else params["head"]
     if cfg.num_codebooks:
+        if hasattr(x, "placements"):
+            # on a mesh one product per codebook: the einsum's (cb, V)
+            # flatten has no layout when V is split and cb is not
+            return torch.stack([x @ w[c] for c in range(w.shape[0])],
+                               dim=2).float()
         return torch.einsum("bsd,cdv->bscv", x, w).float()
     return (x @ w).float()
 
@@ -456,7 +504,7 @@ def _needs_grad(p):
 
 
 def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
-            with_aux=False):
+            with_aux=False, constrain=None):
     """Full-sequence forward of ``batch["tokens"]`` (b, s) or (b, s, cb),
     with the batch's other entries (``make_ctx``); returns float32 logits
     (b, s, vocab) or (b, s, cb, vocab),
@@ -465,24 +513,37 @@ def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
     ``min(its window or max_ctx, max_ctx)`` of them.  With ``with_aux`` it
     returns (logits, aux): aux the () float32 sum of every ``attn_moe``
     block's load-balance loss (the reference's ``forward`` returns it
-    beside the logits)."""
+    beside the logits).  ``constrain`` (``launch.sharding.make_constrain``
+    on a mesh) places the activations at the reference's points; without
+    it nothing changes."""
     check_supported(cfg, batch)
     if collect_cache and with_aux:
         raise ValueError("forward: with_aux and collect_cache together")
     tokens = batch["tokens"]
     ctx = make_ctx(batch, cfg)
     cache_len = (max_ctx or tokens.shape[1]) if collect_cache else None
-    x = embed_tokens(params, batch, cfg, ctx["positions"])
+    x = constrained(constrain,
+                    embed_tokens(params, batch, cfg, ctx["positions"]),
+                    "residual")
     cache, aux = [], []
-    for kind, p in zip(cfg.layer_kinds, params["blocks"]):
-        if cfg.remat and not collect_cache and _needs_grad(p):
-            x, a = _remat_block(kind, p, x, ctx, cfg)
-            if kind == "attn_moe" and with_aux:
-                aux.append(a)
+    kinds, blocks = cfg.layer_kinds, params["blocks"]
+    prefix, (pattern, periods), _ = cfg.scan_segments
+    body_end = len(prefix) + len(pattern) * periods
+    i = 0
+    while i < len(kinds):
+        period = slice(i, i + len(pattern))
+        if (cfg.remat and not collect_cache and len(prefix) <= i < body_end
+                and _needs_grad(blocks[period])):
+            x, a = _remat_period(kinds[period], blocks[period], x, ctx, cfg,
+                                 constrain)
+            if with_aux:
+                aux.extend(a)
+            i += len(pattern)
             continue
-        x, c = _block(kind, p, x, ctx, cfg, cache_len,
-                      aux=aux if with_aux else None)
+        x, c = _block(kinds[i], blocks[i], x, ctx, cfg, cache_len,
+                      aux=aux if with_aux else None, constrain=constrain)
         cache.append(c)
+        i += 1
     logits = lm_head(params, x, cfg)
     if with_aux:
         total = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -492,30 +553,61 @@ def forward(params, batch, cfg, collect_cache=False, max_ctx=None,
     return (logits, cache) if collect_cache else logits
 
 
-def loss_fn(params, batch, cfg, aux_weight=0.01):
-    """Next-token cross entropy of ``batch["labels"]`` (b, s): the float32
-    logsumexp of the logits minus the label's logit, averaged, plus
-    ``aux_weight`` times the MoE load-balance loss.  Returns (total,
-    {"ce": the mean cross entropy, "aux": the aux loss}).  Codebook
-    labels (b, s, cb) raise: training musicgen is a later slice."""
+def loss_fn(params, batch, cfg, aux_weight=0.01, constrain=None):
+    """Next-token cross entropy of ``batch["labels"]`` (b, s), or (b, s,
+    cb) under codebooks (one cross entropy per codebook): the float32
+    logsumexp of the logits minus the label's logit, averaged over every
+    label, plus ``aux_weight`` times the MoE load-balance loss.  Returns
+    (total, {"ce": the mean cross entropy, "aux": the aux loss}).
+    ``constrain`` as in ``forward``; the logits are constrained as the
+    reference's ``"logits"``."""
     labels = batch["labels"]
-    if cfg.num_codebooks or labels.dim() != 2:
-        raise _not_ported("codebook labels")
-    logits, aux = forward(params, batch, cfg, with_aux=True)
-    lse = torch.logsumexp(logits, dim=-1)
-    label_logit = torch.gather(logits, -1,
-                               labels.to(logits.device).long()[..., None])
-    loss = (lse - label_logit[..., 0]).mean()
+    want = tuple(batch["tokens"].shape)
+    if tuple(labels.shape) != want:
+        raise ValueError(f"labels {tuple(labels.shape)} do not match tokens "
+                         f"{want}")
+    logits, aux = forward(params, batch, cfg, with_aux=True,
+                          constrain=constrain)
+    logits = constrained(constrain, logits, "logits")
+    labels = labels.to(logits.device).long()
+    if not hasattr(logits, "placements"):
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    else:
+        # on a mesh the reference's sharding-safe forms, over the logits'
+        # vocabulary split with no whole-vocabulary copy: the logsumexp
+        # from a max and a sum (each reduced across the split), the label
+        # logit as a contraction with the one-hot labels made in that split
+        top = logits.detach().amax(-1, keepdim=True)
+        lse = (top + torch.log(torch.exp(logits - top).sum(-1,
+                                                           keepdim=True)))
+        lse = lse[..., 0]
+        onehot = labels[..., None] == _vocab_ids(logits)
+        label_logit = (logits * onehot.to(logits.dtype)).sum(-1)
+    loss = (lse - label_logit).mean()
     return loss + aux_weight * aux, {"ce": loss, "aux": aux}
 
 
-def prefill(params, batch, cfg, max_ctx=None):
+def _vocab_ids(logits):
+    """``arange(V)`` as a DTensor split over the mesh dimensions that split
+    the vocabulary (the last dim) of the DTensor ``logits``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    last = Shard(logits.dim() - 1)
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    return distribute_tensor(
+        ids, logits.device_mesh,
+        [Shard(0) if p == last else Replicate() for p in logits.placements],
+        src_data_rank=None)
+
+
+def prefill(params, batch, cfg, max_ctx=None, constrain=None):
     """Full-sequence forward returning (logits, decode cache); ``max_ctx``
     sets the attention caches' length, by default s + 32, so that decoding
     continues past the prompt without wrapping the ring."""
     if max_ctx is None:
         max_ctx = batch["tokens"].shape[1] + 32
-    return forward(params, batch, cfg, collect_cache=True, max_ctx=max_ctx)
+    return forward(params, batch, cfg, collect_cache=True, max_ctx=max_ctx,
+                   constrain=constrain)
 
 
 # ---------------------------------------------------------------- decode
@@ -550,7 +642,7 @@ def init_cache(cfg, batch, ctx_len, sliding=None, device="cuda"):
             for kind in cfg.layer_kinds]
 
 
-def decode_block(kind, p, x, cache, pos, ctx, cfg):
+def decode_block(kind, p, x, cache, pos, ctx, cfg, constrain=None):
     """One block of one-token decode.  x (b, 1, d); ``ctx`` is
     ``make_ctx``'s (an ``xattn`` block reads its ``cond``); returns (x,
     cache)."""
@@ -565,13 +657,15 @@ def decode_block(kind, p, x, cache, pos, ctx, cfg):
             p["rglru"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, cfg)
         x = x + y
         return x + mlp_apply(p["mlp"], rmsnorm(x, p["norm2"], cfg.norm_eps),
-                             cfg), cache
+                             cfg, constrain), cache
     h, cache = attn.decode_attention(
         p["attn"], rmsnorm(x, p["norm1"], cfg.norm_eps), cache, pos, cfg)
-    return _after_self_attention(kind, p, x + h, ctx, cfg), cache
+    return _after_self_attention(kind, p, x + h, ctx, cfg,
+                                 constrain=constrain), cache
 
 
-def decode_step(params, tokens, cache, pos, cfg, batch_extras=None):
+def decode_step(params, tokens, cache, pos, cfg, batch_extras=None,
+                constrain=None):
     """One-token decode.  tokens (b, 1), or (b, 1, cb) under codebooks;
     pos the position of those tokens (an int); ``batch_extras`` the
     batch's other entries for this step (``cond``; ``visual_embeds`` and
@@ -592,6 +686,6 @@ def decode_step(params, tokens, cache, pos, cfg, batch_extras=None):
     x = embed_tokens(params, batch, cfg, ctx["positions"])
     new_cache = []
     for kind, p, c in zip(cfg.layer_kinds, params["blocks"], cache):
-        x, c = decode_block(kind, p, x, c, pos, ctx, cfg)
+        x, c = decode_block(kind, p, x, c, pos, ctx, cfg, constrain)
         new_cache.append(c)
     return lm_head(params, x, cfg), new_cache

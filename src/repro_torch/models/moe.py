@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels.moe_route import moe_route
 from repro_torch.kernels.ref import topk_distinct
+from repro_torch.models.dist import constrained
 from repro_torch.models.layers import (activation_fn, dense_init, mlp_apply,
                                        mlp_init)
 
@@ -103,12 +104,16 @@ def _add_shared(p, x2, y, cfg):
     return y
 
 
-def moe_apply(p, x, cfg):
-    """x (b, s, d) -> (b, s, d): routed experts plus the shared expert."""
+def moe_apply(p, x, cfg, constrain=None):
+    """x (b, s, d) -> (b, s, d): routed experts plus the shared expert.
+    ``constrain`` places the groups (``"moe_group"``), the dispatch
+    buffers (``"moe_buffer"``) and the experts' inputs
+    (``"moe_expert"``) as the reference's gather dispatch does."""
     m = cfg.moe
     b, s, d = x.shape
     E, k = m.num_experts, m.top_k
     xg, S, gs = _group(x, m)
+    xg = constrained(constrain, xg, "moe_group")
     G = xg.shape[0]
     C = _capacity(gs, m)
     eid, gate, slot = moe_route(router_logits(p, xg).contiguous(), k)
@@ -116,17 +121,24 @@ def moe_apply(p, x, cfg):
     dest = torch.where(keep, eid * C + slot, E * C).long()
     dest = dest.reshape(G, gs * k, 1).expand(G, gs * k, d)
     src = xg[:, :, None, :].expand(G, gs, k, d).reshape(G, gs * k, d)
-    buf = xg.new_zeros((G, E * C + 1, d))
-    buf.scatter_(1, dest, src)
-    xout = _expert_ffn(p, buf[:, :-1].reshape(G, E, C, d), cfg)
+    buf = constrained(constrain, xg.new_zeros((G, E * C + 1, d)),
+                      "moe_buffer")
+    buf.scatter_(1, dest, constrained(constrain, src, "moe_buffer"))
+    xin = constrained(constrain, buf[:, :-1].reshape(G, E, C, d),
+                      "moe_expert")
+    xout = constrained(constrain, _expert_ffn(p, xin, cfg), "moe_expert")
     xout = torch.cat([xout.reshape(G, E * C, d), xg.new_zeros((G, 1, d))],
                      dim=1)
+    xout = constrained(constrain, xout, "moe_buffer")
     gathered = torch.gather(xout, 1, dest).reshape(G, gs, k, d)
     w = (gate * keep).to(x.dtype)
-    y = torch.einsum("gskd,gsk->gsd", gathered, w)
-    y = y.reshape(-1, d)[:S]
-    y = _add_shared(p, x.reshape(S, d), y, cfg)
-    return y.reshape(b, s, d)
+    y = constrained(constrain, torch.einsum("gskd,gsk->gsd", gathered, w),
+                    "moe_group").reshape(-1, d)
+    if y.shape[0] != S:                              # the last group's pad
+        y = y[:S]
+    # back to (b, s, d) before the shared expert, which runs on x as it
+    # is (the same products: a (b, s, d) matmul is a (b·s, d) one)
+    return _add_shared(p, x, y.reshape(b, s, d), cfg)
 
 
 def aux_load_balance_loss(p, x, cfg):
@@ -136,6 +148,10 @@ def aux_load_balance_loss(p, x, cfg):
     m = cfg.moe
     b, s, d = x.shape
     _, top_idx, probs = router_topk(p, x.reshape(b * s, d), m)
-    frac = torch.nn.functional.one_hot(top_idx, m.num_experts).sum(1) \
-        .float().mean(0)                                     # (E,)
+    # the one-hot picks as a comparison (``one_hot`` checks its indices
+    # on the host on a real device and not on the meta one, so a step would
+    # count differently there)
+    picks = top_idx[..., None] == torch.arange(m.num_experts,
+                                               device=top_idx.device)
+    frac = picks.sum(1).float().mean(0)                      # (E,)
     return m.num_experts * torch.sum(frac * probs.mean(0))

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.models.dist import constrained
 from repro_torch.models.layers import (activation_fn, causal_conv1d,
                                        causal_conv1d_step, conv_tail,
                                        dense_init, softplus)
@@ -80,12 +81,13 @@ def _gates(p, xc):
     return a, gated_x
 
 
-def rglru_apply(p, x, cfg):
+def rglru_apply(p, x, cfg, constrain=None):
     """Full-sequence recurrent block.  x (b, s, d) -> (b, s, d)."""
     gelu = activation_fn("gelu")
     xi = x @ p["in_x"]
     gate = gelu(x @ p["in_gate"])
-    xc = causal_conv1d(xi, p["conv_w"], p["conv_b"])
+    xc = constrained(constrain, causal_conv1d(xi, p["conv_w"], p["conv_b"]),
+                     "rnn_inner")
     a, bx = _gates(p, xc)
     h = rglru_scan(a, bx)
     del a, bx
@@ -93,14 +95,15 @@ def rglru_apply(p, x, cfg):
     return y @ p["out"]
 
 
-def rglru_prefill(p, x, cfg):
+def rglru_prefill(p, x, cfg, constrain=None):
     """Full-sequence forward that also returns the decode cache
     ``{"h": the last state (b, w) float32, "conv": the last k-1 conv
     inputs (b, k-1, w)}``."""
     gelu = activation_fn("gelu")
     xi = x @ p["in_x"]
     gate = gelu(x @ p["in_gate"])
-    xc = causal_conv1d(xi, p["conv_w"], p["conv_b"])
+    xc = constrained(constrain, causal_conv1d(xi, p["conv_w"], p["conv_b"]),
+                     "rnn_inner")
     a, bx = _gates(p, xc)
     h = rglru_scan(a, bx)
     del a, bx

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.dist import constrained
 from repro_torch.models.layers import (causal_conv1d, causal_conv1d_step,
                                        conv_tail, dense_init, softplus)
 
@@ -66,12 +67,14 @@ def _ssm_inputs(p, xc, cfg):
     return dA, dBx, C.float()
 
 
-def mamba_apply(p, x, cfg):
+def mamba_apply(p, x, cfg, constrain=None):
     """Full-sequence mamba block.  x (b, s, d) -> (b, s, d)."""
     d_in = cfg.ssm.expand * cfg.d_model
     xz = x @ p["in_proj"]
     xi, z = xz[..., :d_in], xz[..., d_in:]
-    xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    xc = constrained(constrain,
+                     F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"])),
+                     "ssm_inner")
     dA, dBx, C = _ssm_inputs(p, xc, cfg)
     y = selective_scan(dA, dBx, C)
     del dA, dBx
@@ -80,14 +83,16 @@ def mamba_apply(p, x, cfg):
     return y @ p["out_proj"]
 
 
-def mamba_prefill(p, x, cfg):
+def mamba_prefill(p, x, cfg, constrain=None):
     """Full-sequence forward that also returns the decode cache
     ``{"h": the scan's final state (b, d_in, n) float32, "conv": the last
     k-1 conv inputs (b, k-1, d_in)}``."""
     d_in = cfg.ssm.expand * cfg.d_model
     xz = x @ p["in_proj"]
     xi, z = xz[..., :d_in], xz[..., d_in:]
-    xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    xc = constrained(constrain,
+                     F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"])),
+                     "ssm_inner")
     dA, dBx, C = _ssm_inputs(p, xc, cfg)
     y, h_final = selective_scan(dA, dBx, C, final_state=True)
     del dA, dBx

@@ -50,6 +50,12 @@ def _slices(*tensors):
         yield [f[i:i + SLICE] for f in flat]
 
 
+def _local(t):
+    """A DTensor's shard on this rank, any other tensor itself: the
+    elementwise updates run on the shards, which is exact."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def global_norm(tensors) -> torch.Tensor:
     """√(Σ x²) over every tensor, in float32 (a () tensor)."""
     total = None
@@ -66,9 +72,9 @@ def clip_by_global_norm_(tensors, max_norm):
     in float32 and cast back to its dtype (the reference's
     ``clip_by_global_norm``); returns the norm."""
     n = global_norm(tensors)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    scale = _local(torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0))
     for x in tensors:
-        for (part,) in _slices(x):
+        for (part,) in _slices(_local(x)):
             part.copy_(part.float() * scale)
     return n
 
@@ -142,9 +148,10 @@ def adamw_update_(grads, state: AdamWState, params, lr, b1=0.9, b2=0.95,
     """``adamw_update`` written into ``params`` and the state's moments, a
     slice at a time; returns those same tensors (params, state)."""
     step, bc1, bc2 = _bias_corrections(state, b1, b2)
+    bc1, bc2 = _local(bc1), _local(bc2)
     hp = (lr, b1, b2, eps, weight_decay)
     for leaf in zip(params, grads, state.m, state.v):
-        for p, g, m, v in _slices(*leaf):
+        for p, g, m, v in _slices(*map(_local, leaf)):
             for old, new in zip((p, m, v), _adamw_leaf(p, g, m, v, bc1, bc2,
                                                        *hp)):
                 old.copy_(new)

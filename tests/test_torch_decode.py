@@ -273,7 +273,7 @@ def test_steps_refuse_a_mesh():
     cfg = get_config("tinyllama-1.1b").reduced()
     for make in (tsteps.make_prefill_step, tsteps.make_serve_step,
                  tsteps.make_eval_step):
-        with pytest.raises(NotImplementedError, match="items 12 and 18"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             make(cfg, mesh=object(), device="cpu")
 
 

@@ -1038,3 +1038,70 @@ def test_train_steps_match_cpu(cuda, arch):
     1e-4 / atol 1e-5 of each leaf's scale (``chip_smoke.train_step_cross``)."""
     worst, leaves = chip_smoke().train_step_cross(arch)
     assert worst <= 1e-4 and leaves > 0
+
+
+# ----------------------------------------------- the kernel operators
+
+def _to_card(args, cuda):
+    return tuple(a.detach().to(cuda).requires_grad_(a.requires_grad)
+                 if isinstance(a, torch.Tensor) else a for a in args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [c[0] for c in __import__(
+    "test_torch_ops").CASES])
+def test_opcheck_on_cuda(cuda, name):
+    """``torch.library.opcheck`` of every ``repro_torch::`` operator on
+    CUDA tensors (the kernels), at the CPU tests' cases."""
+    from test_torch_ops import CASES
+    _, op, make = next(c for c in CASES if c[0] == name)
+    torch.library.opcheck(op, _to_card(make(np.random.default_rng(0)),
+                                       cuda))
+
+
+def _filled(tree, device, seed):
+    """``tree``'s tensors as seeded values on ``device`` (ints in [0, 8),
+    bools alternating, floats small normals), its other values kept."""
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for _, t in tree_flatten(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+        elif t.dtype in (torch.int32, torch.int64):
+            out.append(torch.randint(0, 8, t.shape, generator=g,
+                                     dtype=t.dtype).to(device))
+        elif t.dtype == torch.bool:
+            out.append((torch.arange(t.numel()).reshape(t.shape) % 2 == 0)
+                       .to(device))
+        else:
+            out.append((0.1 * torch.randn(t.shape, generator=g))
+                       .to(device=device, dtype=t.dtype))
+    return tree_unflatten(tree, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "musicgen-medium", "qwen2-vl-7b"])
+def test_count_on_cuda_equals_meta(cuda, arch, monkeypatch):
+    """A 2-layer model's train step, prefill and decode count the same on
+    the card (through the kernels) as on the meta device."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.flopcount import count_fn
+    cfg = configs.get_config(arch).reduced()
+    shapes = {"train": dict(seq_len=8, global_batch=2, kind="train"),
+              "prefill": dict(seq_len=8, global_batch=2, kind="prefill"),
+              "decode": dict(seq_len=12, global_batch=2, kind="decode")}
+    monkeypatch.setattr(configs, "INPUT_SHAPES", shapes)
+    monkeypatch.setattr(specs, "INPUT_SHAPES", shapes)
+    for name in shapes:
+        step, args = dryrun.step_and_inputs(cfg, name, "meta")
+        meta = count_fn(step, *args)
+        step, args = dryrun.step_and_inputs(cfg, name, "cuda")
+        card = count_fn(step, *_filled(args, cuda, seed=len(name)))
+        assert (card.dot_flops, card.other_flops, card.hbm_bytes) == (
+            meta.dot_flops, meta.other_flops, meta.hbm_bytes), (arch, name)
+        if name == "train":                 # every family's kernels run
+            assert any(op.startswith("repro_torch.") for op in card.ops)

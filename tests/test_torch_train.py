@@ -105,5 +105,5 @@ def test_codebook_labels_raise_naming_their_item():
     tparams = tmodel.params_from_jax(params, cfg, device="cpu")
     bad = {"tokens": torch.from_numpy(batch["tokens"]),
            "labels": torch.from_numpy(batch["labels"])[..., None]}
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="do not match tokens"):
         tmodel.loss_fn(tparams, bad, cfg)

@@ -157,5 +157,5 @@ def test_train_step_writes_in_place_what_the_functional_update_gives(
 
 def test_train_step_refuses_a_mesh():
     cfg = get_config("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsteps.make_train_step(cfg, mesh=object(), device="cpu")

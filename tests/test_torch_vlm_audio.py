@@ -266,12 +266,26 @@ def test_mrope_decode_broadcasts_pos():
 
 
 def test_codebook_labels_raise_naming_the_training_slice():
+    """Codebook labels (b, s, cb) train: one cross entropy per codebook,
+    averaged, as the reference's ``loss_fn`` (the dry-run counts
+    musicgen's training step with them); labels of another shape than
+    the tokens raise."""
+    jcfg = jget_config("musicgen-medium").reduced()
     cfg = get_config("musicgen-medium").reduced()
-    params = tmodel.init_params(cfg, device="cpu")
-    tok = _t(_tokens(cfg, 4, 6))
-    with pytest.raises(NotImplementedError,
-                       match="item 18.7, training qwen2-vl-7b and musicgen"):
-        tmodel.loss_fn(params, {"tokens": tok, "labels": tok}, cfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(0), jcfg)
+    params = tmodel.params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                    device="cpu")
+    tok, lab = _tokens(cfg, 4, 6), _tokens(cfg, 5, 6)
+    want, wm = jmodel.loss_fn(jparams, {"tokens": jnp.asarray(tok),
+                                        "labels": jnp.asarray(lab)}, jcfg)
+    got, gm = tmodel.loss_fn(params, {"tokens": _t(tok), "labels": _t(lab)},
+                             cfg)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5)
+    np.testing.assert_allclose(_np(gm["ce"]), np.asarray(wm["ce"]),
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="do not match tokens"):
+        tmodel.loss_fn(params, {"tokens": _t(tok),
+                                "labels": _t(lab[..., 0])}, cfg)
 
 
 def test_unknown_batch_entries_raise(model):
