@@ -67,7 +67,7 @@ to 0 just before and read just after:
   the MAB, DASO and Gillis learners on the card), with its wall, phase
   split, ascent steps, host reads, θ's drift and the rows the trained θ's
   ascent moves; then ``run_grid(backend="torch")`` over the 7 Table-4
-  policies × seeds (0, 1) × T=100 with those products (each simulator
+  policies × seed 0 × T=100 with those products (each simulator
   kernel launched T times per policy, ``threefry_rows`` T times in
   ``gillis`` and ``random+daso``) and ``aggregate`` beside the paper's
   values; the ``splitplace`` main path with the trained θ; the host
@@ -77,10 +77,11 @@ to 0 just before and read just after:
   at rtol 1e-9);
 * interval telemetry (``telemetry``) — each simulator path above
   (``bestfit-rr``, ``mab``, ``splitplace``, ``splitplace`` and ``mab`` in
-  train mode, ``gillis``, ``random+daso``) with ``telemetry="interval"``
-  beside its summary run, one call of each (``TELEMETRY_CALLS``): equal
+  train mode, ``gillis``, ``random+daso``) on the main grid cut to 50
+  intervals (``TELEMETRY_GRID``) with ``telemetry="interval"`` beside its
+  summary run, one call of each (``TELEMETRY_CALLS``): equal
   summaries, a
-  finite (16, 100, 18 + engine columns) series whose ``n_fin`` and
+  finite (16, 50, 18 + engine columns) series whose ``n_fin`` and
   ``energy_j`` sum to the totals, no added host read, cell 0 against the
   port's host ``EdgeSim`` oracle (``torchsim.reference``) at
   ``tests/test_differential.py``'s rule, and the walls of both modes;
@@ -96,9 +97,10 @@ to 0 just before and read just after:
   ``threefry_rows`` in ``gillis``) is launched once per interval and no
   kernel library is loaded after the first chunk; it prints the chunk
   walls, the steady tasks/s and the feeder thread's overlap with the
-  chunks.  Then ``replay_stream`` of main-grid cell 0 in chunks of 32
-  equals the one-shot program to every digit (``bestfit-rr``,
-  ``splitplace``, ``gillis``), and ``mc`` and ``gillis`` at 1500 tasks
+  chunks.  Then ``replay_stream`` of main-grid cell 0 cut to 50
+  intervals in chunks of 32 equals the one-shot program to every digit
+  (``bestfit-rr``, ``splitplace``, ``gillis``), and ``mc`` and ``gillis``
+  at 750 tasks
   give the CPU's counters and its summaries within rtol 1e-9;
 * the paper's splits (``splitnets``) — Fig. 2's protocol through
   ``core.splitnets`` on the card: per app (mnist, fashionmnist, cifar100)
@@ -127,7 +129,10 @@ to 0 just before and read just after:
   passes, both scans', ``moe_route``'s gates) against their twins at the
   reference's kernel-test shapes, the training shape (bf16, b=8, s=256,
   32/4 heads, hd=64), hd=128 at 16/16, hd=256 at 16/1 with window 2048
-  at s=4096, (4, 1024, 8192, 16), (4, 1024, 4096) and G=1, gs=4096, E=60,
+  at s=4096, the wide blocks' heads at hd 112 and 192, musicgen-medium's
+  cross attention (1024 queries over 64 keys, non-causal, 24/24 heads)
+  and qwen2-vl-7b's 28/4 heads (g = 7; these two in float32 too, at atol
+  2e-5), (4, 1024, 8192, 16), (4, 1024, 4096) and G=1, gs=4096, E=60,
   k=4 (float32 atol 1e-4, bf16 2e-2 of each output's scale; flash also
   against autograd of ``attention_ref``; two runs bitwise equal; the
   flash forward with its logsumexp gives the serving forward's bits),
@@ -137,15 +142,28 @@ to 0 just before and read just after:
   bf16, AdamW, remat): the loss must improve, every step launches flash
   44 times forward and 22 backward, the state after step 50 is
   checkpointed and restored bit-exactly, one step is profiled; three
-  steps of each reduced float32 model on the card against the CPU; ten
-  steps each of qwen2-moe-a2.7b (2 layers), falcon-mamba-7b (2) and
-  recurrentgemma-9b (3) at full width on 4 × 1024 tokens, each freed
-  before the next, whose losses must fall; then qwen2-moe's slow fall
+  steps of each of the six reduced float32 models on the card against the
+  CPU; ten steps each of qwen2-moe-a2.7b (2 layers), falcon-mamba-7b (2),
+  recurrentgemma-9b (3), qwen2-vl-7b (2) and musicgen-medium (all 48, on
+  (4, 1024, 4) codebook batches) at full width on 4 × 1024 tokens, each
+  freed before the next, whose losses must fall and whose launches per
+  step must equal the remat arithmetic; then qwen2-moe's slow fall
   probed (``train_moe_probe``): one step's float32 gradients through the
   kernels against autograd through the twins, per group of leaves
   (within 1e-4), the blocks' output rms at init, and the losses in
   float32, without the clip, with the experts drawn at 1/√d, and over 30
   steps;
+* the GPipe pipeline (``pipeline``) — ``serving.pipeline_smap.
+  pipeline_shard_map`` over two stages on two CUDA streams of the card,
+  TinyLlama-1.1B at full width and depth in bf16, 4 × 1024 tokens in 1
+  and in 4 microbatches, against ``forward`` and ``pipeline_forward``
+  (within 2e-2 of the logits' scale; the argmax agreement; flash
+  launched once per layer per microbatch), timed beside ``forward``;
+* the grid's dispatch (``grid``) — ``run_grid_batched`` on the main
+  paths' grid for ``bestfit-rr`` and ``splitplace`` with ``threads=2``
+  and with ``devices=1`` against the main paths' one call (every summary
+  metric within rtol 1e-4 / atol 1e-9, ``bestfit-rr`` bitwise); on one
+  card ``devices=2`` must raise;
 * counts (``count_phase``) — inside the TinyLlama training path, each of
   the four families' serving paths (one more forward of 4 × 1024) and
   each cut training family, one more call under ``launch.flopcount``: the
@@ -361,7 +379,7 @@ TRAIN_CROSS = dict(seeds=(0, 1), lams=(5.0, 24.0), n_intervals=12,
 TABLE4_POLICIES = ("mc", "gillis", "semantic+gobi", "layer+gobi",
                    "random+daso", "mab+gobi", "splitplace")
 TABLE4_PRETRAIN = dict(n_intervals=200, lam=6.0, seed=7, substeps=10)
-TABLE4 = dict(seeds=(0, 1), lams=(6.0,), n_intervals=100, substeps=10)
+TABLE4 = dict(seeds=(0,), lams=(6.0,), n_intervals=100, substeps=10)
 #: the host backend on the card, with the same pretraining products
 TABLE4_HOST = dict(seeds=(0,), lams=(6.0,), n_intervals=40, substeps=10)
 #: the card against the CPU at a reduced size: a 36-interval pretraining
@@ -1643,14 +1661,24 @@ def rglru_scan_phase():
 #: the backward kernels' tolerance against their twins, of each output's
 #: largest entry
 TRAIN_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
-#: flash backward shapes (b, s, h, kvh, hd, window): the training shape of
-#: TinyLlama-1.1B (the main path's), qwen2-moe's heads at hd=128,
-#: recurrentgemma's at hd=256 where its 2048-token window bites, and the
-#: wide blocks' (WIDE_ARCHS): kimi-k2's 64/8 at hd=112, nemotron-4's 96/8
-#: at hd=192
-TRAIN_FLASH = [(8, 256, 32, 4, 64, 0), (4, 1024, 16, 16, 128, 0),
-               (1, 4096, 16, 1, 256, 2048), (4, 1024, 64, 8, 112, 0),
-               (4, 1024, 96, 8, 192, 0)]
+#: flash backward shapes (b, sq, sk, h, kvh, hd, causal, window, key):
+#: the training shape of TinyLlama-1.1B (the main path's, the kernels
+#: line's entry itself), qwen2-moe's heads at hd=128, recurrentgemma's at
+#: hd=256 where its 2048-token window bites, the wide blocks'
+#: (WIDE_ARCHS): kimi-k2's 64/8 at hd=112, nemotron-4's 96/8 at hd=192,
+#: and the two shapes only the multimodal families train: musicgen's
+#: cross attention (1024 queries over the 64 ``cond`` keys, non-causal,
+#: 24/24 heads) and qwen2-vl's group of 7 (28/4 heads at hd=128)
+TRAIN_FLASH = [(8, 256, 256, 32, 4, 64, True, 0, "hd64"),
+               (4, 1024, 1024, 16, 16, 128, True, 0, "hd128"),
+               (1, 4096, 4096, 16, 1, 256, True, 2048, "hd256"),
+               (4, 1024, 1024, 64, 8, 112, True, 0, "hd112"),
+               (4, 1024, 1024, 96, 8, 192, True, 0, "hd192"),
+               (4, 1024, 64, 24, 24, 64, False, 0, "cross"),
+               (4, 1024, 1024, 28, 4, 128, True, 0, "hd128_g7")]
+#: TRAIN_FLASH's entries also held in float32, at FLASH_ATOL (the
+#: forward's tolerance, tighter than TRAIN_ATOL's)
+TRAIN_FLASH_F32 = ("cross", "hd128_g7")
 TRAIN_SCAN = (4, 1024, 8192, 16)
 #: the shape the falcon-mamba training path launches (b=1 per microbatch)
 TRAIN_SCAN_STEP = (1, 1024, 8192, 16)
@@ -1679,17 +1707,18 @@ def _scaled_err(got, want, where, atol, floor=1e-30):
 
 
 def _flash_train_check(q, k, v, causal, window, dtype, where, pos_q=None,
-                       pos_k=None, autograd=True):
+                       pos_k=None, autograd=True, atol=None):
     """The forward with its logsumexp (output bitwise the serving
     forward's), the backward kernel against its twin (each fed its own
     forward) and against autograd of ``attention_ref``, two backward runs
-    bitwise equal.  Returns (largest absolute error, do)."""
+    bitwise equal, within ``atol`` (TRAIN_ATOL's unless given) of each
+    output's scale.  Returns (largest absolute error, do)."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda)
     from repro_torch.kernels.ref import attention_bwd_ref, attention_ref
     kw = dict(causal=causal, window=window, pos_q=pos_q, pos_k=pos_k)
-    atol = TRAIN_ATOL[dtype]
+    atol = TRAIN_ATOL[dtype] if atol is None else atol
     out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
     if not torch.equal(out, flash_attention_cuda(q, k, v, **kw)):
         raise AssertionError(f"{where}: the forward with lse differs from "
@@ -1723,15 +1752,16 @@ def _flash_train_check(q, k, v, causal, window, dtype, where, pos_q=None,
     return worst, do
 
 
-def _flash_bwd_bound(b, s, h, kvh, hd, window, dtype_bytes, peak):
-    """(bytes, operations) of the backward at a causal self-attention
-    shape: q, k, v, o, dO and lse read once, dq, dk, dv written once; the
-    five products over the visible pairs (S, dV, dP, dQ, dK)."""
-    pairs = _visible_pairs(s, window)
-    q_elems, kv_elems = b * s * h * hd, 2 * b * s * kvh * hd
+def _flash_bwd_bound(b, sq, sk, h, kvh, hd, causal, window, dtype_bytes):
+    """(bytes, operations) of the backward: q, k, v, o, dO and lse read
+    once, dq, dk, dv written once; the five products over the visible
+    pairs (S, dV, dP, dQ, dK): a causal self attention's (sq = sk), or
+    every pair without a mask."""
+    pairs = _visible_pairs(sq, window) if causal else sq * sk
+    q_elems, kv_elems = b * sq * h * hd, 2 * b * sk * kvh * hd
     reads = 3 * q_elems + kv_elems          # q, o, dO; k, v
     writes = q_elems + kv_elems             # dq; dk, dv
-    nbytes = (reads + writes) * dtype_bytes + b * h * s * 4
+    nbytes = (reads + writes) * dtype_bytes + b * h * sq * 4
     return nbytes, 10.0 * b * h * hd * pairs
 
 
@@ -1754,7 +1784,8 @@ def sdpa_bwd_ms(q, k, v, do, lib_kw, reps=5):
 def train_flash_phase():
     """The flash backward on the card: the reference's test shapes and the
     bfloat16 kernel's tile edges (float32 and bfloat16), explicit
-    positions, then TRAIN_FLASH in bfloat16; timed (CUDA graphs) at the
+    positions, TRAIN_FLASH_F32's shapes in float32, then TRAIN_FLASH in
+    bfloat16; timed (CUDA graphs) at the
     training shape beside the twin and the library's
     ``scaled_dot_product_attention`` backward (``sdpa_bwd_ms``; a
     yardstick only, the port never calls it)."""
@@ -1791,14 +1822,29 @@ def train_flash_phase():
         f"bfloat16 {worst['bfloat16']:.3e}; the "
         f"forward with lse gives the serving forward's bits; two backward "
         f"runs bitwise equal")
+    f32 = {}
+    for b, sq, sk, h, kvh, hd, causal, window, key in TRAIN_FLASH:
+        if key not in TRAIN_FLASH_F32:
+            continue
+        q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, "float32")
+        f32[key], _ = _flash_train_check(
+            q, k, v, causal, window, "float32",
+            f"flash bwd float32 {key} {(b, sq, sk, h, kvh, hd)} "
+            f"causal={causal}", atol=FLASH_ATOL["float32"])
+        log(f"flash bwd float32 {key} b={b} sq={sq} sk={sk} h={h} "
+            f"kvh={kvh} hd={hd} causal={causal}: matches the twin and "
+            f"autograd of attention_ref within {FLASH_ATOL['float32']} of "
+            f"each output's scale, two runs bitwise equal; max abs err "
+            f"{f32[key]:.3e}")
+        del q, k, v
     rec = None
-    for b, s, h, kvh, hd, window in TRAIN_FLASH:
-        q, k, v = _flash_inputs(rng, b, s, s, h, kvh, hd, "bfloat16")
-        where = f"flash bwd bfloat16 b={b} s={s} h={h} kvh={kvh} hd={hd} " \
-                f"window={window}"
-        err, do = _flash_train_check(q, k, v, True, window, "bfloat16",
-                                     where, autograd=s <= 1024)
-        kw = dict(window=window)
+    for b, sq, sk, h, kvh, hd, causal, window, key in TRAIN_FLASH:
+        q, k, v = _flash_inputs(rng, b, sq, sk, h, kvh, hd, "bfloat16")
+        where = f"flash bwd bfloat16 {key} b={b} sq={sq} sk={sk} h={h} " \
+                f"kvh={kvh} hd={hd} causal={causal} window={window}"
+        err, do = _flash_train_check(q, k, v, causal, window, "bfloat16",
+                                     where, autograd=sq <= 1024)
+        kw = dict(causal=causal, window=window)
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         out, lse = flash_attention_cuda(q, k, v, with_lse=True, **kw)
         ms = graph_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse,
@@ -1811,22 +1857,26 @@ def train_flash_phase():
             q, k, v, want_o, want_lse, do, **kw), 2)
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
-        if window and window < s:
-            pos = torch.arange(s, device="cuda")
+        if not causal:
+            lib_kw = {}
+        elif window and window < sq:
+            pos = torch.arange(sq, device="cuda")
             lag = pos[:, None] - pos[None, :]
             lib_kw = dict(attn_mask=(lag >= 0) & (lag < window))
         else:
             lib_kw = dict(is_causal=True)
         library_ms = sdpa_bwd_ms(qt, kt, vt, do.transpose(1, 2), lib_kw)
-        nbytes, flops = _flash_bwd_bound(b, s, h, kvh, hd, window, 2,
-                                         H100_BF16_S)
+        nbytes, flops = _flash_bwd_bound(b, sq, sk, h, kvh, hd, causal,
+                                         window, 2)
         sub = _record("flash_attention_bwd",
                       "src/repro_torch/kernels/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:87", err, ms,
                       plain_ms, nbytes, flops, peak=H100_BF16_S,
                       library_ms=library_ms)
-        sub["shape"] = {"b": b, "s": s, "h": h, "kvh": kvh, "hd": hd,
-                        "window": window}
+        sub["shape"] = {"b": b, "sq": sq, "sk": sk, "h": h, "kvh": kvh,
+                        "hd": hd, "causal": causal, "window": window}
+        if key in f32:
+            sub["max_abs_err_float32"] = f32[key]
         sub["forward_ms"] = fwd_ms
         sub["forward_lse_ms"] = fwd_lse_ms
         log(f"{where}: backward {ms:.4f} ms/call (CUDA graphs; twin "
@@ -1842,10 +1892,10 @@ def train_flash_phase():
             rec = sub
             rec["gradient_of"] = "flash_attention"
         else:
-            rec[f"hd{hd}"] = {key: sub[key] for key in (
+            rec[key] = {name: sub[name] for name in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
                 "bound_by", "library_ms", "forward_ms",
-                "forward_lse_ms")}
+                "forward_lse_ms", "max_abs_err_float32") if name in sub}
     return rec
 
 
@@ -2049,9 +2099,12 @@ TRAIN_ARGV = ["--arch", "tinyllama-1.1b", "--steps", "100", "--batch", "8",
               "--seq", "256", "--lr", "3e-4", "--log-every", "10"]
 TRAIN_CKPT_STEP = 50
 #: the other families at full width and cut depth: layers, batch x seq,
-#: steps at a constant lr; a run is cut in batch only past TRAIN_MAX_BYTES
+#: steps at a constant lr; a run is cut in batch only past TRAIN_MAX_BYTES.
+#: qwen2-vl-7b's 28 layers reckon 103.4 GB (``_train_bytes``), past one
+#: card; musicgen-medium trains whole (its 48 layers, 24.6 GB reckoned)
 TRAIN_CUT = {"qwen2-moe-a2.7b": 2, "falcon-mamba-7b": 2,
-             "recurrentgemma-9b": 3}
+             "recurrentgemma-9b": 3, "qwen2-vl-7b": 2,
+             "musicgen-medium": 48}
 TRAIN_CUT_RUN = dict(batch=4, seq=1024, steps=10, lr=3e-4)
 TRAIN_MAX_BYTES = 70e9
 #: the reduced card-vs-CPU train steps: batch x seq, steps, the CLI's
@@ -2471,12 +2524,13 @@ def train_path():
 def _train_bytes(cfg, tokens):
     """Bytes a training step holds, reckoned: per parameter its value,
     its gradient, a float32 accumulator when microbatches accumulate and
-    the two AdamW moments (12 or 16 bytes); four float32 (tokens x vocab)
-    logit-sized buffers of a microbatch; 2 GB of an update slice's
-    temporaries."""
+    the two AdamW moments (12 or 16 bytes); four float32 (tokens x vocab,
+    times the codebooks) logit-sized buffers of a microbatch; 2 GB of an
+    update slice's temporaries."""
     per_param = 2 + 2 + 8 + (4 if cfg.grad_accum > 1 else 0)
     return cfg.param_count() * per_param \
-        + 4 * 4 * (tokens // cfg.grad_accum) * cfg.vocab_size + 2e9
+        + 4 * 4 * (tokens // cfg.grad_accum) * cfg.vocab_size \
+        * max(1, cfg.num_codebooks) + 2e9
 
 
 def train_cut(arch, layers):
@@ -2505,7 +2559,8 @@ def train_cut(arch, layers):
     init, _ = make_optimizer(cfg.optimizer, stack_groups(params, cfg))
     opt_state = init(tree_leaves(params))
     step_fn = make_train_step(cfg, lr=TRAIN_CUT_RUN["lr"])
-    pipe = TokenPipeline(cfg.vocab_size, s, b, seed=0)
+    pipe = TokenPipeline(cfg.vocab_size, s, b, seed=0,
+                         num_codebooks=cfg.num_codebooks)
     counters = _train_counters()
     expect = _expected_train_launches(cfg)
     losses, gnorms, times = [], [], []
@@ -2779,7 +2834,8 @@ def train_step_cross(arch):
         init, _ = make_optimizer(cfg.optimizer, stack_groups(params, cfg))
         state = init(tree_leaves(params))
         step_fn = make_train_step(cfg, lr=c["peak"], device=dev)
-        pipe = TokenPipeline(cfg.vocab_size, c["seq"], c["batch"], seed=4)
+        pipe = TokenPipeline(cfg.vocab_size, c["seq"], c["batch"], seed=4,
+                             num_codebooks=cfg.num_codebooks)
         metrics = []
         for i in range(c["steps"]):
             params, state, m = step_fn(
@@ -2823,7 +2879,8 @@ def train_phase():
     gc.collect()
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    worst = {arch: train_step_cross(arch) for arch in SERVE_ARCHS}
+    worst = {arch: train_step_cross(arch)
+             for arch in SERVE_ARCHS + EXTRA_ARCHS}
     log(f"train_step_cross: {STEP_CROSS['steps']} steps of each reduced "
         f"float32 model on the card match the CPU (parameters, optimizer "
         f"state, loss and grad norm within rtol 1e-4 / atol 1e-5 of each "
@@ -2852,6 +2909,15 @@ def train_phase():
             a: c["launches_per_step"][name] for a, c in cuts.items()}
         if not rec["launches"]:
             raise AssertionError(f"{name} was launched no time in training")
+        if name == "flash_attention_bwd":
+            # the two shapes only the multimodal families launch take their
+            # cut runs' launches (musicgen's self and cross attention alike)
+            for key, arch in (("cross", "musicgen-medium"),
+                              ("hd128_g7", "qwen2-vl-7b")):
+                rec[key]["launches"] = cuts[arch]["launches"][name]
+                if not rec[key]["launches"]:
+                    raise AssertionError(f"{name} was launched no time in "
+                                         f"{arch}'s training")
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return recs, launches, {"tinyllama": main, "cut": cuts,
                             "cross": worst, "moe_probe": probe}
@@ -2984,6 +3050,219 @@ def wide_block_phase():
     return out
 
 
+#: the GPipe pipeline (``serving.pipeline_smap``): TinyLlama-1.1B at full
+#: width and depth in bf16 over ``stages`` streams of the one card, batch x
+#: seq tokens in each of ``microbatches``, against ``forward`` and
+#: ``pipeline_forward`` within ``atol`` of the logits' scale; ``reps``
+#: synchronized calls timed
+PIPELINE = dict(arch="tinyllama-1.1b", stages=2, batch=4, seq=1024,
+                microbatches=(1, 4), atol=2e-2, reps=5)
+
+
+def _synced_runs(fn, device, reps):
+    """``reps`` host-clock ms of ``fn``, each synchronized on ``device``'s
+    card, sorted."""
+    import torch
+    times = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def _spread_ms(times):
+    return (f"median {np.median(times):.2f} ms (min {times[0]:.2f}, max "
+            f"{times[-1]:.2f})")
+
+
+def pipeline_phase(device="cuda", cfg=None):
+    """``pipeline_shard_map`` over PIPELINE's stages of one device (a
+    CUDA stream each on the card) at each microbatch count, against
+    ``forward`` and ``pipeline_forward`` of the same seeded weights: the
+    largest error over the logits' scale within ``atol``, the share of
+    rows whose argmax agrees, and flash launched once per layer per
+    microbatch (counts set to 0 just before each run and read just after);
+    the median of ``reps`` synchronized calls beside ``forward``'s.
+    Returns the report."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.serving.pipeline_smap import pipeline_shard_map
+    from repro_torch.serving.plans import pipeline_forward
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    P = PIPELINE
+    cfg = cfg or get_config(P["arch"])
+    S = P["stages"]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (P["batch"], P["seq"]), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "stages": S,
+           "batch": P["batch"], "seq": P["seq"]}
+    with torch.no_grad():
+        want = forward(params, batch, cfg)
+        plain = pipeline_forward(params, batch, cfg, S)
+        scale = float(want.abs().max())
+        out["forward_ms"] = _synced_runs(
+            lambda: forward(params, batch, cfg), dev, P["reps"])
+        for m in P["microbatches"]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            flash_attention.launches = 0
+            got = pipeline_shard_map(params, batch, cfg, [dev] * S, m)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            launches = flash_attention.launches
+            expect = cfg.num_layers * m if dev.type == "cuda" else 0
+            if launches != expect:
+                raise AssertionError(f"pipeline M={m}: flash launched "
+                                     f"{launches} times, expected {expect}")
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"pipeline M={m}: logits "
+                                     f"{tuple(got.shape)} or not finite")
+            errs = {name: float((got - ref).abs().max()) / scale
+                    for name, ref in (("forward", want),
+                                      ("pipeline_forward", plain))}
+            worst = max(errs.values())
+            if not worst <= P["atol"]:
+                raise AssertionError(f"pipeline M={m}: error over the "
+                                     f"logits' scale {errs} > {P['atol']}")
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            times = _synced_runs(lambda: pipeline_shard_map(
+                params, batch, cfg, [dev] * S, m), dev, P["reps"])
+            out[f"M{m}"] = {"err_over_scale": errs, "argmax_agree": agree,
+                            "flash_launches": launches, "ms": times}
+            log(f"pipeline {cfg.name} ({cfg.num_layers} layers, "
+                f"{cfg.compute_dtype}) S={S} streams M={m} microbatches of "
+                f"{P['batch'] // m} x {P['seq']}: largest error over the "
+                f"logits' scale {scale:.3f} vs forward {errs['forward']:.3e}, "
+                f"vs pipeline_forward {errs['pipeline_forward']:.3e} (bound "
+                f"{P['atol']}); argmax agrees on {agree:.4f} of rows; flash "
+                f"launched {launches} times; {_spread_ms(times)} of "
+                f"{P['reps']} synchronized calls, forward "
+                f"{_spread_ms(out['forward_ms'])}")
+    del params, want, plain
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"pipeline phase: {out['phase_s']:.1f} s")
+    return out
+
+
+#: the grid's dispatch: ``run_grid_batched`` on MAIN's grid with
+#: ``threads`` chunks and on ``devices`` shards, each against the one call
+#: at the reference's contract (tests/test_grid_sharded.py)
+GRID_DISPATCH = dict(policies=("bestfit-rr", "splitplace"), threads=2,
+                     devices=1, rtol=1e-4, atol=1e-9)
+
+
+def _grid_diff(one, got, label):
+    """The largest relative difference of every scalar summary metric;
+    raises past GRID_DISPATCH's rtol / atol."""
+    worst = 0.0
+    if len(one) != len(got):
+        raise AssertionError(f"{label}: {len(got)} records, {len(one)} "
+                             f"expected")
+    for a, b in zip(one, got):
+        for k, v in a.items():
+            if not isinstance(v, float):
+                if v != b[k]:
+                    raise AssertionError(f"{label}: {k} {b[k]!r} != {v!r}")
+                continue
+            if not np.isclose(b[k], v, rtol=GRID_DISPATCH["rtol"],
+                              atol=GRID_DISPATCH["atol"]):
+                raise AssertionError(f"{label}: {k} {b[k]!r} vs the one "
+                                     f"call's {v!r}")
+            worst = max(worst, abs(b[k] - v) / max(abs(v), 1e-300))
+    return worst
+
+
+def grid_phase(mab_state, device="cuda", grid=None, one=None):
+    """``run_grid_batched`` on MAIN's grid (``grid`` overrides it) for
+    GRID_DISPATCH's policies: the one call (``one[policy]``: the main
+    path's (records, wall s), when it ran it), ``threads`` chunks and
+    ``devices`` shards, each chunked run against the one call (every
+    summary metric within rtol 1e-4 / atol 1e-9; ``bestfit-rr`` bitwise),
+    the simulator kernels launched once per interval in the sharded run
+    (counts set to 0 just before and read just after); then more shards
+    than cards raises.  Returns the report."""
+    import torch
+    from repro_torch.core.daso import DASOConfig, init_surrogate
+    from repro_torch.launch.experiments import run_grid_batched
+    t_phase = time.perf_counter()
+    G = dict(grid or MAIN)
+    dev = torch.device(device)
+    cfg = DASOConfig(**DASO_MAIN)
+    theta = init_surrogate(cfg, torch.Generator(device=dev).manual_seed(
+        DASO_SEED), device=dev)
+    kw = {"bestfit-rr": {},
+          "splitplace": dict(mab_state=mab_state, daso_theta=theta,
+                             daso_cfg=cfg)}
+    out = {}
+    for policy in GRID_DISPATCH["policies"]:
+        walls, recs = {}, {}
+        runs = [("one call", {})]
+        if one and policy in one:
+            recs["one call"], walls["one call"] = one[policy]
+            runs = []
+        for label, dispatch in runs + [
+                (f"threads={GRID_DISPATCH['threads']}",
+                 dict(threads=GRID_DISPATCH["threads"])),
+                (f"devices={GRID_DISPATCH['devices']}",
+                 dict(devices=GRID_DISPATCH["devices"]
+                      if dev.type == "cuda" else [dev]))]:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            for fn in _counters().values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            recs[label] = run_grid_batched(policy, **G, device=dev,
+                                           **dispatch, **kw[policy])
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            walls[label] = time.perf_counter() - t0
+            if dispatch.get("devices") and dev.type == "cuda":
+                for name in SIM_KERNELS:
+                    n = _counters()[name].launches
+                    if n != G["n_intervals"]:
+                        raise AssertionError(
+                            f"grid {policy} {label}: {name} launched {n} "
+                            f"times, expected {G['n_intervals']}")
+        one = recs.pop("one call")
+        diffs = {label: _grid_diff(one, got, f"grid {policy} {label}")
+                 for label, got in recs.items()}
+        bitwise = {label: got == one for label, got in recs.items()}
+        if policy == "bestfit-rr" and not all(bitwise.values()):
+            raise AssertionError(f"grid {policy}: a chunked run is not "
+                                 f"bitwise the one call: {bitwise}")
+        out[policy] = {"walls_s": walls, "max_rel_diff": diffs,
+                       "bitwise": bitwise}
+        log(f"grid dispatch {policy}: G={len(one)} T={G['n_intervals']} "
+            f"substeps={G['substeps']}; largest relative difference from "
+            f"the one call "
+            + ", ".join(f"{k} {v:.3e} (bitwise {bitwise[k]})"
+                        for k, v in diffs.items())
+            + f" (rtol {GRID_DISPATCH['rtol']}); walls "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    if dev.type == "cuda" and torch.cuda.device_count() == 1:
+        try:
+            run_grid_batched("bestfit-rr", **G, device=dev, devices=2)
+        except ValueError as e:
+            log(f"grid dispatch devices=2 on one card raises: {e}")
+        else:
+            raise AssertionError("devices=2 ran on a one-card machine")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"grid phase: {out['phase_s']:.1f} s")
+    return out
+
+
 #: the paper's Fig. 2 protocol (``benchmarks/splitnets_fig2.py``): per
 #: app a monolithic MLP classifier (depth 4 on 6000 rows for ``steps``
 #: steps; depth 2 on 20000 rows for at least ``big_steps`` when it has
@@ -2999,17 +3278,7 @@ SPLITNETS = dict(apps=("mnist", "fashionmnist", "cifar100"), hidden=256,
 def _synced_ms(fn, device, reps):
     """Median of ``reps`` host-clock runs of ``fn``, each synchronized on
     ``device``'s card."""
-    import torch
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        fn()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return float(np.median(_synced_runs(fn, device, reps)))
 
 
 def splitnets_phase(device="cuda"):
@@ -3165,15 +3434,17 @@ class CompileClock:
             setattr(self._mod, name, fn)
 
 
-def main_path(policy, label=None, draws=False, **kw):
+def main_path(policy, label=None, draws=False, grid=None, **kw):
     """One main-path grid through run_grid_batched with every kernel's
     launch count set to 0 just before and read just after; ``draws``: the
-    policy draws once per interval (``DRAW_KERNELS``).  Returns (records,
-    wall s, launches per kernel, phase seconds)."""
+    policy draws once per interval (``DRAW_KERNELS``); ``grid`` overrides
+    MAIN.  Returns (records, wall s, launches per kernel, phase
+    seconds)."""
     import torch
     from repro_torch.env.torchsim.driver import PHASES
     from repro_torch.launch.experiments import run_grid_batched
     label = label or policy
+    grid = grid or MAIN
     phase_s = {}
     gc.collect()
     torch.cuda.synchronize()
@@ -3181,17 +3452,17 @@ def main_path(policy, label=None, draws=False, **kw):
         fn.launches = 0
     t0 = time.perf_counter()
     with CompileClock() as compile_s:
-        recs = run_grid_batched(policy, **MAIN, device="cuda",
+        recs = run_grid_batched(policy, **grid, device="cuda",
                                 phase_s=phase_s, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in _counters().items()}
     for name in SIM_KERNELS + (DRAW_KERNELS if draws else ()):
         count = launches[name]
-        if count != MAIN["n_intervals"]:
+        if count != grid["n_intervals"]:
             raise AssertionError(f"{label}: {name} launched {count} times, "
                                  f"expected once per interval "
-                                 f"({MAIN['n_intervals']})")
+                                 f"({grid['n_intervals']})")
     for r in recs:
         if r["dropped_tasks"] != 0:
             raise AssertionError(f"{label}: dropped tasks in {r}")
@@ -3207,8 +3478,8 @@ def main_path(policy, label=None, draws=False, **kw):
     if "daso_train" in phase_s:
         shares.append(f"the DASO finetune {phase_s['daso_train']:.4f} s of "
                       "feedback")
-    log(f"main path {label}: G={len(recs)} T={MAIN['n_intervals']} "
-        f"substeps={MAIN['substeps']}: wall {wall:.3f} s, "
+    log(f"main path {label}: G={len(recs)} T={grid['n_intervals']} "
+        f"substeps={grid['substeps']}: wall {wall:.3f} s, "
         f"{len(recs) / wall:.3f} traces/s, {tasks / wall:.1f} tasks/s "
         f"({int(tasks)} tasks); launches {launches}; phases "
         + ", ".join(f"{k} {phase_s[k]:.3f} s" for k in PHASES)
@@ -3390,7 +3661,8 @@ def daso_stage_profile(captured):
 
 def daso_path(mab_state):
     """The splitplace main path at SurrogatePlacer's widths, with its DASO
-    tallies, the stage's launches at one interval and a profiled run."""
+    tallies, the stage's launches at one interval and a profiled run;
+    returns the main path's records and wall s."""
     import torch
     from repro_torch.core.daso import DASOConfig, init_surrogate
     cfg = DASOConfig(**DASO_MAIN)
@@ -3398,10 +3670,11 @@ def daso_path(mab_state):
     theta = init_surrogate(cfg, gen, device="cuda")
     kw = dict(mab_state=mab_state, daso_theta=theta, daso_cfg=cfg)
     with DasoTally(capture_at=DASO_PROFILE_INTERVAL) as tally:
-        main_path("splitplace", **kw)
+        recs, wall, _, _ = main_path("splitplace", **kw)
     daso_report(tally, cfg, "main path splitplace", MAIN["n_intervals"])
     daso_stage_profile(tally.captured)
     sim_profile("splitplace", **kw)
+    return recs, wall
 
 
 class DrawTap:
@@ -4834,6 +5107,9 @@ def table4_phase():
 #: took the whole script to 1151 s of its 1200 on such a host; one each
 #: since (three took the telemetry phase to 115-327 s of a 651-1162 s
 #: script)
+#: the telemetry phase's grid: the main grid cut to 50 intervals, to keep
+#: the whole script under its time limit
+TELEMETRY_GRID = dict(MAIN, n_intervals=50)
 TELEMETRY_CALLS = 1
 TELEMETRY_DASO_CALLS = 1
 TELEMETRY_CEILING = 0.05
@@ -4919,13 +5195,14 @@ def telemetry_train_cut(kw, errs):
 
 
 def telemetry_oracle(label, kw):
-    """The port's host oracle of cell 0 of the main grid (λ=6, seed 0)
+    """The port's host oracle of cell 0 of TELEMETRY_GRID (λ=6, seed 0)
     for the path ``label``, with ``telemetry="interval"``."""
     from repro_torch.env import torchsim
     from repro_torch.env.workload import COMPRESSED, LAYER
-    lam, seed = MAIN["lams"][0], MAIN["seeds"][0]
-    shape = dict(lam=lam, seed=seed, n_intervals=MAIN["n_intervals"],
-                 substeps=MAIN["substeps"])
+    lam, seed = TELEMETRY_GRID["lams"][0], TELEMETRY_GRID["seeds"][0]
+    shape = dict(lam=lam, seed=seed,
+                 n_intervals=TELEMETRY_GRID["n_intervals"],
+                 substeps=TELEMETRY_GRID["substeps"])
     tel = dict(telemetry="interval")
     if label == "bestfit-rr":
         tr = torchsim.compile_trace(
@@ -4954,8 +5231,9 @@ def _spread(xs):
 
 
 def telemetry_phase(mab_state):
-    """Every simulator main path with ``telemetry="interval"`` on the main
-    grid (G=16, T=100, 30 substeps, K=default_capacity): per path, the
+    """Every simulator main path with ``telemetry="interval"`` on
+    TELEMETRY_GRID (the main grid cut to T=50; G=16, 30 substeps,
+    K=default_capacity): per path, the
     summary keys equal the summary run's, the series is (G, T, 18 +
     engine columns) and finite with ``n_fin`` summing to
     ``tasks_completed`` and ``energy_j`` to the energy total (rtol 1e-12),
@@ -4967,7 +5245,8 @@ def telemetry_phase(mab_state):
     from repro_torch.core.mab import host_reads
     from repro_torch.env.metrics import TELEMETRY_COLS
     totals, errs = {}, {}
-    G, T = len(MAIN["seeds"]) * len(MAIN["lams"]), MAIN["n_intervals"]
+    tg = TELEMETRY_GRID
+    G, T = len(tg["seeds"]) * len(tg["lams"]), tg["n_intervals"]
     for label, policy, kw, draws, ecols in telemetry_paths(mab_state):
         walls = {"summary": [], "interval": []}
         first = {}
@@ -4979,7 +5258,7 @@ def telemetry_phase(mab_state):
                 with SeriesTap() as tap:
                     recs, wall, launches, _ = main_path(
                         policy, label=f"{label} [{mode} {call + 1}]",
-                        draws=draws, telemetry=mode, **kw)
+                        draws=draws, grid=tg, telemetry=mode, **kw)
                 walls[mode].append(wall)
                 if call == 0:
                     first[mode] = (recs, tap.outs, launches,
@@ -5406,15 +5685,16 @@ def differential_phase():
 # 5000 tasks for mc (half the reference's --quick soak size),
 # 1000 for splitplace (its DASO stage makes it the slowest, ~29 s for
 # 2000), 2000 for gillis; replay
-# of main-grid cell 0 in chunks of 32 against the one-shot program; the
-# card against the CPU at 1500 tasks.
+# of main-grid cell 0 cut to 50 intervals in chunks of 32 against the
+# one-shot program; the card against the CPU at 750 tasks (both cut, from
+# 100 intervals and 1500 tasks, for the script's time limit).
 
 STREAM = dict(lam=6.0, seed=0, chunk_intervals=64, max_active=512,
               substeps=30)
 STREAM_TASKS = {"mc": 5000, "splitplace": 1000, "gillis": 2000}
-STREAM_REPLAY = dict(n_intervals=100, chunk=32, substeps=30)
+STREAM_REPLAY = dict(n_intervals=50, chunk=32, substeps=30)
 STREAM_REPLAY_POLICIES = ("bestfit-rr", "splitplace", "gillis")
-STREAM_CROSS = dict(target_tasks=1500, **STREAM)
+STREAM_CROSS = dict(target_tasks=750, **STREAM)
 STREAM_CROSS_POLICIES = ("mc", "gillis")
 STREAM_RTOL = 1e-9
 #: the serving report's integer keys (the admission ledger and its shape)
@@ -5728,7 +6008,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    _, _, launches, _ = main_path("bestfit-rr")
+    one_call = {}
+    recs, wall, launches, _ = main_path("bestfit-rr")
+    one_call["bestfit-rr"] = (recs, wall)
     device = sim_profile("bestfit-rr")
     for rec in records:
         if rec["name"] in SIM_KERNELS:
@@ -5737,7 +6019,7 @@ def main() -> int:
                 rec["device_ms_per_run"] = device[rec["name"]][0]
     mab_state = mab_state_from_numpy(MAB_LITERAL, device="cuda")
     main_path("mab", mab_state=mab_state)
-    daso_path(mab_state)
+    one_call["splitplace"] = daso_path(mab_state)
     draws, draw_err_main = train_paths(mab_state)
     for rec in records:
         if rec["name"] == "threefry_rows":
@@ -5840,6 +6122,18 @@ def main() -> int:
                 rec[key]["wide_block"] = wide[arch]
             elif rec["name"] == "flash_attention_bwd":
                 rec[key]["launches"] = n["flash_attention_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    piped = pipeline_phase()
+    for rec in records:
+        if rec["name"] == "flash_attention":
+            rec["launches_pipeline"] = {
+                f"M{m}": piped[f"M{m}"]["flash_launches"]
+                for m in PIPELINE["microbatches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid_phase(mab_state, one=one_call)
     gc.collect()
     torch.cuda.empty_cache()
 

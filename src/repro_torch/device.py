@@ -19,3 +19,21 @@ def resolve(device="cuda") -> torch.device:
             "device is available; pass device='cpu' to run the eager "
             "PyTorch path on the CPU")
     return dev
+
+
+#: (card index, part) -> that part's CUDA stream, kept for the process
+_PART_STREAMS = {}
+
+
+def part_stream(dev, i: int):
+    """The CUDA stream of part ``i`` (a pipeline stage, a grid part) on the
+    card ``dev``, made once and kept: the caching allocator pools memory
+    per stream, so a fresh stream per call would allocate the part's
+    tensors anew on every call."""
+    dev = torch.device(dev)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    key = (index, i)
+    if key not in _PART_STREAMS:
+        _PART_STREAMS[key] = torch.cuda.Stream(device=index)
+    return _PART_STREAMS[key]

@@ -21,6 +21,10 @@ chunk program (``driver.run_chunk``) continues one episode from chunk to
 chunk, with rolling QPS, percentile and violation metrics
 (``stream.serve``, ``stream.replay_stream``).
 
+``run_grid_engine`` and every ``run_grid_arrays*`` run a grid as one call
+by default; ``threads`` cuts it into thread chunks and ``devices``
+shards it over ``launch.mesh.make_grid_mesh``'s devices.
+
 ``reference`` holds the host oracles: the compiled trace replayed through
 the NumPy ``EdgeSim`` with the same learner functions
 (``replay_trace_edgesim*``).
@@ -54,6 +58,10 @@ from repro_torch.env.torchsim.reference import (
     replay_trace_edgesim_learned, replay_trace_edgesim_static_daso,
     replay_trace_edgesim_trained)
 from repro_torch.env.torchsim import stream
+from repro_torch.env.torchsim.stream import (RollingMetrics, StreamFeeder,
+                                             StreamRunner,
+                                             make_stream_policy,
+                                             replay_stream, serve)
 from repro_torch.env.torchsim.policies import (DASO_LEARNED_POLICIES,
                                                LEARNED_POLICIES,
                                                MAB_LEARNED_POLICIES,
@@ -77,5 +85,6 @@ __all__ = [
     "host_policy", "make_static_decider", "replay_trace_edgesim",
     "replay_trace_edgesim_gillis", "replay_trace_edgesim_learned",
     "replay_trace_edgesim_static_daso", "replay_trace_edgesim_trained",
-    "stream",
+    "stream", "RollingMetrics", "StreamFeeder", "StreamRunner",
+    "make_stream_policy", "replay_stream", "serve",
 ]

@@ -9,7 +9,9 @@ whose every step works on the whole grid at once (leading axis
 G), calling the engine's ``decide / place / feedback`` hooks around the
 shared physics.  ``run_grid_engine`` compiles nothing: it stacks the
 traces, uploads them once (``arrays.to_device``) and runs the loop on
-``device``.  ``run_trace_*`` is the same with G=1.
+``device``, as one call by default, or cut into thread chunks
+(``threads``) or device shards (``devices``, ``launch.mesh.
+make_grid_mesh``).  ``run_trace_*`` is the same with G=1.
 
 The loop's body is ``run_intervals``: intervals ``[t0, t0 + T)`` over a
 given carry ``(state, acc, es)`` (``init_carry`` builds the first).  The
@@ -34,8 +36,10 @@ the CPU, and raises when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -46,7 +50,7 @@ from repro_torch.core import mab as mab_mod
 from repro_torch.core.mab import (MABState, mab_state_from_numpy,
                                   timed_host_reads)
 from repro_torch.core.prng import prng_key
-from repro_torch.device import resolve
+from repro_torch.device import part_stream, resolve
 from repro_torch.env.cluster import Cluster, make_cluster
 from repro_torch.env.torchsim import engines, kernels
 from repro_torch.env.metrics import TELEMETRY_COLS, series_percentiles
@@ -333,20 +337,90 @@ def _summarize(out, interval_s: float, n_intervals: int,
     return s
 
 
+def _grid_parts(traces, devs):
+    """The grid padded to a multiple of ``len(devs)`` by repeating the last
+    trace (its arrivals masked off in ``run_grid_engine``: dead cells that
+    admit nothing), cut into one contiguous slice per entry of ``devs``;
+    returns [(chunk, device)]."""
+    check_grid_homogeneous(traces)
+    padded = list(traces) + [traces[-1]] * ((-len(traces)) % len(devs))
+    per = len(padded) // len(devs)
+    return [(padded[i * per:(i + 1) * per], d) for i, d in enumerate(devs)]
+
+
+@contextlib.contextmanager
+def _on_device(dev, stream):
+    """``dev`` as the current CUDA device (the kernels launch on the
+    current stream), with ``stream`` (a part's own, or None) as the
+    current stream, so that one part's host reads wait for its own
+    launches only, not for another part's on the same card; nothing on
+    the CPU."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev):
+        if stream is None:
+            yield
+            return
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            yield
+
+
+def _run_parts(run, parts):
+    """``run`` over every part, from a thread each when there are several
+    (each part's interval program enqueues and syncs on its own stream;
+    the host work between launches is what the threads overlap)."""
+    if len(parts) == 1:
+        return [run(parts[0])]
+    with ThreadPoolExecutor(max_workers=len(parts)) as ex:
+        return list(ex.map(run, parts))
+
+
 def run_grid_engine(engine, traces: Sequence, es_builder: Callable,
                     cluster: Optional[Cluster] = None,
                     max_active: Optional[int] = None,
                     swap_slowdown: float = 0.5, device="cuda",
                     phase_s: Optional[dict] = None,
-                    telemetry: str = "summary") -> list:
+                    telemetry: str = "summary",
+                    threads: Optional[int] = None, devices=None) -> list:
     """Run a grid of compiled traces through the interval program under
-    ``engine`` on ``device``; returns one summary dict per trace (same
-    order).  ``es_builder(G, device)`` builds the engine state with one
-    row per cell.  ``telemetry="interval"`` adds each cell's per-interval
-    series and percentile estimates to its summary."""
+    ``engine``; returns one summary dict per trace (same order).
+    ``es_builder(chunk, device)`` builds the engine state of a chunk of
+    traces on ``device``, one row per cell (per-cell leaves, the seed
+    keys, follow their traces).  ``telemetry="interval"`` adds each
+    cell's per-interval series and percentile estimates to its summary.
+
+    Dispatch: by default (``threads=None``, ``devices=None``) the whole
+    grid is one call of the interval program on ``device``.  ``devices``
+    (``"auto"``, an int or a list of devices: ``launch.mesh.
+    make_grid_mesh``; its devices must be of ``device``'s type) shards it
+    into one contiguous slice per device; ``threads=n`` (without
+    ``devices``) into n slices on ``device``, as ``devices=[device] * n``
+    does.  Each slice runs from a thread of its own, on a CUDA stream of
+    its own; the grid is padded to a multiple of the slice count with
+    dead cells whose rows are dropped.  Every part is stacked at the
+    grid's common arrival and fragment pads and slot capacity; cells are
+    independent, so per cell the results do not depend on the
+    dispatch.  ``phase_s`` times one call and raises with more than one
+    part; the kernels' launch counters are plain attributes, exact only
+    around a run of one part."""
     tcols = _check_telemetry(engine, telemetry)
-    dev = resolve(device)
-    check_grid_homogeneous(traces)
+    if devices is not None:
+        from repro_torch.launch.mesh import make_grid_mesh
+        devs = make_grid_mesh(devices)
+        kind = torch.device(device).type
+        if any(d.type != kind for d in devs):
+            raise ValueError(f"devices={devices!r} gives {devs}, not all of "
+                             f"device={device!r}'s type {kind!r}")
+    else:
+        devs = [resolve(device)] * max(1, min(int(threads or 1),
+                                              len(traces)))
+    parts = _grid_parts(traces, devs)
+    if phase_s is not None and len(parts) > 1:
+        raise ValueError(f"phase_s times one call of the interval program; "
+                         f"this grid runs as {len(parts)} parts (threads="
+                         f"{threads!r}, devices={devices!r})")
     led = get_ledger()
     cluster = cluster or make_cluster()
     cl = ClusterArrays.from_cluster(cluster)
@@ -354,23 +428,40 @@ def run_grid_engine(engine, traces: Sequence, es_builder: Callable,
     t0 = traces[0]
     G = len(traces)
     with led.span("grid", engine=engine.name, n_traces=G,
-                  device=dev.type, telemetry=telemetry):
+                  device=parts[0][1].type, telemetry=telemetry,
+                  n_parts=len(parts)):
         with led.span("upload", engine=engine.name, n_traces=G):
-            leaves = to_device(stack_traces(traces), dev)
-            cld = to_device(cl.as_dict(), dev)
-            es = es_builder(G, dev)
+            stacked = stack_traces([t for chunk, _ in parts for t in chunk])
+            stacked["valid"][G:] = False          # the dead padded cells
+            jobs, lo = [], 0
+            for i, (chunk, dev) in enumerate(parts):
+                hi = lo + len(chunk)
+                own = len(parts) > 1 and dev.type == "cuda"
+                jobs.append((to_device({k: v[lo:hi]
+                                        for k, v in stacked.items()}, dev),
+                             to_device(cl.as_dict(), dev),
+                             es_builder(chunk, dev), dev,
+                             part_stream(dev, i) if own else None))
+                lo = hi
+
+        def run(job):
+            leaves, cld, es, dev, stream = job
+            with _on_device(dev, stream):
+                out = run_program(engine, leaves, cld, es, K, t0.substeps,
+                                  t0.interval_s, swap_slowdown, phase_s,
+                                  telemetry)
+                return _tree(out, lambda v: v.cpu().numpy())
+
         with led.span("dispatch", engine=engine.name, n_traces=G,
-                      telemetry=telemetry):
-            out = run_program(engine, leaves, cld, es, K, t0.substeps,
-                              t0.interval_s, swap_slowdown, phase_s,
-                              telemetry)
-            out = _tree(out, lambda v: v.cpu().numpy())
+                      telemetry=telemetry, n_parts=len(parts)):
+            outs = _run_parts(run, jobs)
+        rows = [_tree(out, lambda v: v[i]) for out in outs
+                for i in range(len(out["dropped"]))][:G]
         cost_total = float(cl.cost_hr.sum())
         with led.span("summarize", engine=engine.name, n_traces=G):
             return [engine.summarize(row, _summarize(
                 row, t0.interval_s, t0.n_intervals, cost_total,
-                telemetry_cols=tcols))
-                for row in (_tree(out, lambda v: v[i]) for i in range(G))]
+                telemetry_cols=tcols)) for row in rows]
 
 
 def _tree(x, fn):
@@ -404,14 +495,18 @@ def _check_variants(traces, expected):
 def _mab_es(mab_state):
     """Engine-state builder for the MAB engines: every cell starts from
     its own copy of ``mab_state`` — a port ``MABState`` with a grid axis
-    of 1 (or of G), or the reference's fields as a dict of NumPy arrays
-    (see ``mab_state_from_numpy``)."""
-    def build(G, dev):
+    of 1 (or of G, one row per cell: then the grid runs as one part), or
+    the reference's fields as a dict of NumPy arrays (see
+    ``mab_state_from_numpy``)."""
+    def build(chunk, dev):
+        G = len(chunk)
         if isinstance(mab_state, MABState):
             g0 = mab_state.Q.shape[0]
             if g0 not in (1, G):
                 raise ValueError(f"mab_state has a grid axis of {g0}, the "
-                                 f"grid has {G} cells")
+                                 f"part of the grid has {G} cells (a "
+                                 f"per-cell state runs the grid as one "
+                                 f"part: threads=None, devices=None)")
             return {"mab": MABState(*[
                 v.to(dev).expand(G, *v.shape[1:]).clone()
                 for v in mab_state])}
@@ -424,8 +519,8 @@ def _deploy_es(mab_state, theta):
     ``mab_state`` and θ on the device (``()`` under BestFit placement)."""
     mab_es = _mab_es(mab_state)
 
-    def build(G, dev):
-        es = mab_es(G, dev)
+    def build(chunk, dev):
+        es = mab_es(chunk, dev)
         es["theta"] = _theta_on(theta, dev)
         return es
     return build
@@ -460,14 +555,17 @@ def run_grid_arrays(traces: Sequence[TraceArrays],
                     max_active: Optional[int] = None,
                     swap_slowdown: float = 0.5, device="cuda",
                     phase_s: Optional[dict] = None,
-                    telemetry: str = "summary") -> list:
+                    telemetry: str = "summary",
+                    threads: Optional[int] = None, devices=None) -> list:
     """Run a grid of statically-decided compiled traces (BestFit
-    placement); returns one §6.4 summary dict per trace."""
+    placement); returns one §6.4 summary dict per trace.  ``threads`` /
+    ``devices``: ``run_grid_engine``'s dispatch."""
     return run_grid_engine(engines.StaticEngine(), traces,
-                           lambda G, dev: {}, cluster=cluster,
+                           lambda chunk, dev: {}, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s, telemetry=telemetry)
+                           phase_s=phase_s, telemetry=telemetry,
+                           threads=threads, devices=devices)
 
 
 def run_trace_arrays(trace: TraceArrays, cluster: Optional[Cluster] = None,
@@ -487,7 +585,9 @@ def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
                             swap_slowdown: float = 0.5, device="cuda",
                             mab_hp=MAB_HP,
                             phase_s: Optional[dict] = None,
-                            telemetry: str = "summary") -> list:
+                            telemetry: str = "summary",
+                            threads: Optional[int] = None,
+                            devices=None) -> list:
     """Run a grid of dual traces under the deploy-mode MAB policy: online
     UCB split decisions + Algorithm-1 feedback, placed by BestFit, or by
     the DASO stage when ``daso_cfg``/``daso_theta`` are given
@@ -502,7 +602,8 @@ def run_grid_arrays_learned(traces: Sequence[DualTraceArrays], mab_state,
                            cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s, telemetry=telemetry)
+                           phase_s=phase_s, telemetry=telemetry,
+                           threads=threads, devices=devices)
 
 
 def run_trace_arrays_learned(trace: DualTraceArrays, mab_state,
@@ -549,7 +650,9 @@ def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
                                 max_active: Optional[int] = None,
                                 swap_slowdown: float = 0.5, device="cuda",
                                 phase_s: Optional[dict] = None,
-                            telemetry: str = "summary") -> list:
+                                telemetry: str = "summary",
+                                threads: Optional[int] = None,
+                                devices=None) -> list:
     """Run a grid of dual traces under a static-decider baseline arm
     (``layer+gobi`` / ``semantic+gobi``: a fixed split, placed by the
     decision-blind DASO stage; ``random+daso``: a fair coin per row from
@@ -560,16 +663,17 @@ def run_grid_arrays_static_daso(traces: Sequence[DualTraceArrays],
     engine, theta = _static_daso_engine(policy, daso_cfg, daso_theta,
                                         cluster)
 
-    def build(G, dev):
+    def build(chunk, dev):
         es = {"theta": _theta_on(theta, dev)}
         if engine.arm < 0:
-            es["key"] = _trace_keys(traces, dev)
+            es["key"] = _trace_keys(chunk, dev)
         return es
 
     return run_grid_engine(engine, traces, build, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s, telemetry=telemetry)
+                           phase_s=phase_s, telemetry=telemetry,
+                           threads=threads, devices=devices)
 
 
 def run_trace_arrays_static_daso(trace: DualTraceArrays, policy: str,
@@ -608,7 +712,9 @@ def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
                             swap_slowdown: float = 0.5, device="cuda",
                             mab_hp=MAB_HP, train_hp=TRAIN_HP,
                             phase_s: Optional[dict] = None,
-                            telemetry: str = "summary") -> list:
+                            telemetry: str = "summary",
+                            threads: Optional[int] = None,
+                            devices=None) -> list:
     """Run a grid of dual traces with the §6.3 training loop: ε-greedy MAB
     decisions + Algorithm-1 feedback, and with ``daso_cfg``/``daso_theta``
     online DASO finetuning (replay-window appends and weighted AdamW
@@ -626,9 +732,10 @@ def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
                                     daso_cfg=daso_cfg)
     mab_es = _mab_es(mab_state)
 
-    def build(G, dev):
-        es = mab_es(G, dev)
-        es["key"] = _trace_keys(traces, dev)
+    def build(chunk, dev):
+        G = len(chunk)
+        es = mab_es(chunk, dev)
+        es["key"] = _trace_keys(chunk, dev)
         es["theta"], es["opt"], es["win"] = (), (), {}
         if daso_cfg is not None:
             es["theta"] = daso_mod.theta_cells(theta, G, dev)
@@ -640,7 +747,8 @@ def run_grid_arrays_trained(traces: Sequence[DualTraceArrays], mab_state,
     return run_grid_engine(engine, traces, build, cluster=cluster,
                            max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s, telemetry=telemetry)
+                           phase_s=phase_s, telemetry=telemetry,
+                           threads=threads, devices=devices)
 
 
 def run_trace_arrays_trained(trace: DualTraceArrays, mab_state,
@@ -677,8 +785,12 @@ def gillis_init_state(num_apps: int = 3, eps0: float = GILLIS_HP[0]):
 def _gillis_es(seeds, gillis_state, num_apps: int, eps0: float):
     """The ``es_builder`` of the Gillis engine: every cell starts from its
     own copy of ``gillis_state``, or from zeros and ε₀, and draws from
-    ``trace_train_key`` of its seed (``seeds``, one per cell)."""
-    def build(G, dev):
+    ``trace_train_key`` of its seed: its trace's (``seeds`` None), or the
+    one of ``seeds`` (one per cell: a stream's, which has no trace)."""
+    def build(chunk, dev):
+        G = len(chunk)
+        if seeds is not None and len(seeds) != G:
+            raise ValueError(f"{len(seeds)} seeds for {G} cells")
         if gillis_state is None:
             Q = mab_mod.gillis_init(num_apps, grid=G, device=dev)
             eps = torch.full((G,), eps0, dtype=f8, device=dev)
@@ -688,7 +800,8 @@ def _gillis_es(seeds, gillis_state, num_apps: int, eps0: float):
             eps = torch.as_tensor(np.float64(gillis_state["eps"]),
                                   device=dev).expand(G)
         return {"Q": Q.clone(), "eps": eps.clone(),
-                "key": _seed_keys(seeds, dev),
+                "key": _seed_keys([t.seed for t in chunk] if seeds is None
+                                  else seeds, dev),
                 "layer_ref": torch.as_tensor(gillis_layer_ref(num_apps),
                                              device=dev)}
     return build
@@ -701,7 +814,9 @@ def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
                            swap_slowdown: float = 0.5, device="cuda",
                            gillis_hp=GILLIS_HP, num_apps: int = 3,
                            phase_s: Optional[dict] = None,
-                           telemetry: str = "summary") -> list:
+                           telemetry: str = "summary",
+                           threads: Optional[int] = None,
+                           devices=None) -> list:
     """Run a grid of (LAYER, COMPRESSED) dual traces under the Gillis
     baseline: contextual ε-greedy Q-learning with per-interval ε decay and
     per-leaving-task TD(0) updates, BestFit placement.  Every cell starts
@@ -711,11 +826,12 @@ def run_grid_arrays_gillis(traces: Sequence[DualTraceArrays],
     _check_variants(traces, engines.GILLIS_VARIANTS)
     engine = engines.GillisEngine(gillis_hp=tuple(gillis_hp))
     return run_grid_engine(engine, traces,
-                           _gillis_es([t.seed for t in traces],
-                                      gillis_state, num_apps, gillis_hp[0]),
+                           _gillis_es(None, gillis_state, num_apps,
+                                      gillis_hp[0]),
                            cluster=cluster, max_active=max_active,
                            swap_slowdown=swap_slowdown, device=device,
-                           phase_s=phase_s, telemetry=telemetry)
+                           phase_s=phase_s, telemetry=telemetry,
+                           threads=threads, devices=devices)
 
 
 def run_trace_arrays_gillis(trace: DualTraceArrays, gillis_state=None,

@@ -270,9 +270,10 @@ class StreamRunner:
     each call uploads one chunk tape, advances the stream by it and
     returns that chunk's per-interval telemetry rows, the one
     device→host copy per chunk besides the MAB's and Gillis's
-    per-interval host reads.  ``es0(G, device)`` builds the engine's
+    per-interval host reads.  ``es0(cells, device)`` builds the engine's
     starting state (``driver.run_grid_engine``'s ``es_builder``); it is
-    called once, with G=1, when the first chunk fixes F."""
+    called once, for one cell that has no trace (``[None]``: its seed
+    keys are the builder's own), when the first chunk fixes F."""
 
     def __init__(self, engine, es0, *, interval_s: float, substeps: int,
                  max_active: int, cluster: Optional[Cluster] = None,
@@ -303,7 +304,7 @@ class StreamRunner:
         if self.carry is not None:
             return
         state, acc = driver.init_carry(1, self.K, F, self.cl.n, self.device)
-        self.carry = (state, acc, self._es0(1, self.device))
+        self.carry = (state, acc, self._es0([None], self.device))
         self._layout = self._layout_of(self.carry)
 
     def run_chunk(self, tape: dict) -> np.ndarray:
@@ -530,7 +531,7 @@ def make_stream_policy(policy: str, *, cluster: Optional[Cluster] = None,
                        seed: int = 0, mab_state=None, daso_theta=None,
                        daso_cfg=None, gillis_state=None, num_apps: int = 3):
     """Resolve a policy name into ``(engine, es0, feeder_kwargs)`` for the
-    serving loop; ``es0(G, device)`` builds the engine state.
+    serving loop; ``es0(cells, device)`` builds the engine state.
 
     Static BestFit policies (``policies.STATIC_POLICIES``) get a host
     decider feeder; the learned policies get dual-variant feeders with
@@ -544,7 +545,7 @@ def make_stream_policy(policy: str, *, cluster: Optional[Cluster] = None,
     cluster = cluster or make_cluster()
     if policy in pol.STATIC_POLICIES:
         dec = pol.make_static_decider(policy, mab_state=mab_state)
-        return engines.StaticEngine(), (lambda G, dev: {}), \
+        return engines.StaticEngine(), (lambda cells, dev: {}), \
             {"decider": dec}
     if policy in pol.MAB_LEARNED_POLICIES:
         if mab_state is None:

@@ -28,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -88,11 +89,13 @@ def _compile_cmds(name: str, tmp: Path):
 
 
 class KernelLibraries:
-    """Loaded kernel libraries of this process, built on first request.
-    ``logs`` keeps each build's compiler output (``-Xptxas -v``: registers,
-    shared memory, spills)."""
+    """Loaded kernel libraries of this process, built on first request
+    (once, also when several threads ask at once: the grid's thread
+    chunks).  ``logs`` keeps each build's compiler output (``-Xptxas -v``:
+    registers, shared memory, spills)."""
 
     def __init__(self):
+        self._lock = threading.RLock()
         self._libs: Dict[str, ctypes.CDLL] = {}
         self.logs: Dict[str, str] = {}
         self.hits = 0
@@ -139,6 +142,10 @@ class KernelLibraries:
         return dict(self.logs)
 
     def get(self, name: str) -> ctypes.CDLL:
+        with self._lock:
+            return self._get(name)
+
+    def _get(self, name: str) -> ctypes.CDLL:
         lib = self._libs.get(name)
         if lib is not None:
             self.hits += 1
@@ -157,13 +164,14 @@ class KernelLibraries:
         ``pointers`` pointers, then ``ints`` ints, then a stream, and
         returning an int (a CUDA error code), typed once per process."""
         key = (name, symbol)
-        fn = self._entries.get(key)
-        if fn is None:
-            fn = getattr(self.get(name), symbol)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * pointers \
-                + [ctypes.c_int] * ints + [ctypes.c_void_p]
-            self._entries[key] = fn
+        with self._lock:
+            fn = self._entries.get(key)
+            if fn is None:
+                fn = getattr(self.get(name), symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [ctypes.c_void_p] * pointers \
+                    + [ctypes.c_int] * ints + [ctypes.c_void_p]
+                self._entries[key] = fn
         return fn
 
     def cache_stats(self) -> dict:

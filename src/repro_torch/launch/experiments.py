@@ -90,7 +90,7 @@ def _run_torch(policy: str, cells, *, n_intervals, substeps, interval_s,
                max_active=None, daso_theta=None, daso_cfg=None, mab_hp=None,
                mode="deploy", train_hp=None, gillis_state=None,
                daso_opt_state=None, device="cuda", phase_s=None,
-               telemetry="summary") -> list:
+               telemetry="summary", threads=None, devices=None) -> list:
     """One batched interval program for ``policy`` over the (λ, seed)
     ``cells``; one summary dict per cell (see ``run_grid_batched``)."""
     if mode not in ("deploy", "train"):
@@ -103,7 +103,8 @@ def _run_torch(policy: str, cells, *, n_intervals, substeps, interval_s,
             cluster=cluster, **kw) for lam, seed in cells]
 
     run_kw = dict(cluster=cluster, max_active=max_active, device=device,
-                  phase_s=phase_s, telemetry=telemetry)
+                  phase_s=phase_s, telemetry=telemetry, threads=threads,
+                  devices=devices)
     if policy == "gillis":
         return torchsim.run_grid_arrays_gillis(
             dual(variants=(LAYER, COMPRESSED)), gillis_state, **run_kw)
@@ -297,10 +298,16 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
                      mode: str = "deploy", train_hp=None, gillis_state=None,
                      daso_opt_state=None, device="cuda",
                      telemetry: str = "summary",
-                     phase_s: Optional[dict] = None) -> List[dict]:
+                     phase_s: Optional[dict] = None,
+                     threads: Optional[int] = None,
+                     devices=None) -> List[dict]:
     """Run a whole (seed × λ) grid for one policy as ONE batched interval
     program on ``device``; one record per trace, in
-    ``itertools.product(lams, seeds)`` order.
+    ``itertools.product(lams, seeds)`` order.  ``threads=n`` runs it as n
+    contiguous chunks from a thread each, ``devices`` (``"auto"``, an int
+    or a list of devices) sharded one slice per device
+    (``torchsim.run_grid_engine``); the default is the one call, where
+    the reference defaults to one chunk per CPU core.
 
     Static policies (``torchsim.STATIC_POLICIES``) compile single-variant
     traces.  The MAB policies (``torchsim.MAB_LEARNED_POLICIES``) compile
@@ -336,7 +343,8 @@ def run_grid_batched(policy: str = "mc", seeds: Sequence[int] = (0,),
                       mab_hp=mab_hp, mode=mode, train_hp=train_hp,
                       gillis_state=gillis_state,
                       daso_opt_state=daso_opt_state, device=device,
-                      phase_s=phase_s, telemetry=telemetry)
+                      phase_s=phase_s, telemetry=telemetry, threads=threads,
+                      devices=devices)
     return [_record(policy, seed, lam, out)
             for (lam, seed), out in zip(cells, outs)]
 

@@ -8,7 +8,9 @@ TPU v5e chips; the port prices NVIDIA H100 80GB HBM3 cards at their
 (``fake_world``): this process is rank 0 of a world that exists only in
 shapes, so the dry-run (``launch.dryrun``) can place fake DTensors on it
 and see every collective DTensor would issue, with nothing allocated or
-sent.  Nothing here runs at import.
+sent.  ``make_grid_mesh`` lists the devices the simulator's grid is
+sharded over (``env/torchsim/driver.run_grid_engine(devices=...)``).
+Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -71,6 +73,38 @@ def make_production_mesh(*, multi_pod: bool = False):
     shape, names = MULTI if multi_pod else SINGLE
     fake_world(math.prod(shape))
     return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def make_grid_mesh(devices="auto") -> list:
+    """The devices the simulator's grid axis is sharded over, one
+    contiguous slice of grid cells per device (the counterpart of the
+    reference's 1-D ``"grid"`` mesh: the cells are independent, so a list
+    of devices is the whole mesh).
+
+    ``"auto"`` (or None) takes every visible CUDA device; an int n the
+    first n of them, and raises a ``ValueError`` outside 1..count; a
+    sequence of devices (``torch.device`` or strings, e.g. ``["cpu"] *
+    8``) is taken as given.  There is no CPU fallback: ``"auto"`` with no
+    CUDA device visible raises."""
+    import torch
+    from repro_torch.device import resolve
+    if devices is None or isinstance(devices, str) and devices == "auto":
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise ValueError("devices='auto': no CUDA device is visible "
+                             "(pass a list of devices to shard over "
+                             "others)")
+        return [torch.device("cuda", i) for i in range(n)]
+    if isinstance(devices, int) and not isinstance(devices, bool):
+        avail = torch.cuda.device_count()
+        if not 1 <= devices <= avail:
+            raise ValueError(f"devices={devices!r}: need 1..{avail} "
+                             f"(visible CUDA devices: {avail})")
+        return [torch.device("cuda", i) for i in range(devices)]
+    devs = [resolve(d) for d in devices]
+    if not devs:
+        raise ValueError("devices: an empty sequence")
+    return devs
 
 
 def axis_sizes(mesh) -> dict:

@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_repro():
               "repro_torch.env.torchsim.stream",
               "repro_torch.launch.steps", "repro_torch.launch.train",
               "repro_torch.optim.optimizers", "repro_torch.ckpt.checkpoint",
-              "repro_torch.data.pipeline", "repro_torch.tree"):
+              "repro_torch.data.pipeline", "repro_torch.tree",
+              "repro_torch.serving.pipeline_smap",
+              "repro_torch.launch.mesh"):
         assert m in mods
     code = ("import importlib, sys\n"
             f"mods = {mods!r}\n"
@@ -91,6 +93,7 @@ def _entry_points():
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.core import splitnets
     from repro_torch.serving.engine import SplitPlaceEngine
+    from repro_torch.serving.pipeline_smap import pipeline_shard_map
     cfg = get_config("tinyllama-1.1b").reduced()
     clf = splitnets.ClassifierConfig(input_dim=4, num_classes=2, hidden=4,
                                      depth=1)
@@ -132,6 +135,11 @@ def _entry_points():
         "train_classifier": lambda: splitnets.train_classifier(
             torch.Generator(), clf, np.zeros((4, 4), np.float32),
             np.zeros(4, np.int32), steps=1),
+        "pipeline_shard_map": lambda: pipeline_shard_map(
+            None, {"tokens": torch.zeros((2, 4), dtype=torch.int32)}, cfg,
+            ["cuda"], 1),
+        "run_grid_arrays_sharded": lambda: run_grid_arrays(
+            [tr], devices=["cuda"]),
     }
 
 
@@ -147,7 +155,8 @@ def _entry_points():
                                   "make_eval_step", "make_train_step",
                                   "train_main", "init_mlp",
                                   "classifier_from_numpy",
-                                  "train_classifier"])
+                                  "train_classifier", "pipeline_shard_map",
+                                  "run_grid_arrays_sharded"])
 def test_entry_points_default_to_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")

@@ -943,6 +943,23 @@ def test_flash_attention_backward_matches_twin(cuda, case, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("key", ["cross", "hd128_g7"])
+def test_flash_attention_backward_family_shapes(cuda, key, dtype):
+    """The backward at the two shapes only the multimodal families train
+    (``chip_smoke.TRAIN_FLASH``): musicgen's cross attention (1024 queries
+    over 64 keys, non-causal, 24/24 heads) and qwen2-vl's group of 7,
+    float32 at the forward's atol 2e-5 of each output's scale."""
+    cs = chip_smoke()
+    b, sq, sk, h, kvh, hd, causal, window, _ = next(
+        c for c in cs.TRAIN_FLASH if c[-1] == key)
+    q, k, v = cs._flash_inputs(np.random.RandomState(hd), b, sq, sk, h, kvh,
+                               hd, dtype)
+    cs._flash_train_check(q, k, v, causal, window, dtype, f"{key} {dtype}",
+                          atol=cs.FLASH_ATOL[dtype])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["offset", "packed"])
 def test_flash_attention_backward_explicit_positions(cuda, kind):
     cs = chip_smoke()
@@ -1031,7 +1048,8 @@ def test_moe_route_backward_matches_twin(cuda, case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-moe-a2.7b",
-                                  "falcon-mamba-7b", "recurrentgemma-9b"])
+                                  "falcon-mamba-7b", "recurrentgemma-9b",
+                                  "qwen2-vl-7b", "musicgen-medium"])
 def test_train_steps_match_cpu(cuda, arch):
     """Three train steps of the reduced float32 model on the card against
     the CPU: parameters, optimizer state, loss and grad norm within rtol
@@ -1105,3 +1123,46 @@ def test_count_on_cuda_equals_meta(cuda, arch, monkeypatch):
             meta.dot_flops, meta.other_flops, meta.hbm_bytes), (arch, name)
         if name == "train":                 # every family's kernels run
             assert any(op.startswith("repro_torch.") for op in card.ops)
+
+
+# --------------------------------------------- pipeline and grid dispatch
+
+@pytest.mark.gpu
+def test_pipeline_on_streams_matches_forward(cuda, monkeypatch):
+    """``pipeline_shard_map`` over two streams of the card at a reduced
+    bf16 TinyLlama against ``forward`` (``chip_smoke.pipeline_phase``):
+    within 2e-2 of the logits' scale, flash once per layer per
+    microbatch."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cs = chip_smoke()
+    monkeypatch.setitem(cs.PIPELINE, "seq", 64)
+    monkeypatch.setitem(cs.PIPELINE, "reps", 1)
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(
+        max_layers=4), compute_dtype="bfloat16", param_dtype="bfloat16")
+    out = cs.pipeline_phase("cuda", cfg=cfg)
+    assert out["M4"]["flash_launches"] == 16
+
+
+@pytest.mark.gpu
+def test_part_streams_are_kept_per_card_and_part(cuda):
+    """The pipeline's stages and the grid's parts share one stream cache:
+    part i of a card gets the same stream on every call."""
+    from repro_torch.device import part_stream
+    s0 = part_stream(cuda, 0)
+    assert part_stream(cuda, 0) is s0
+    assert part_stream(torch.device("cuda", cuda.index or 0), 0) is s0
+    assert part_stream(cuda, 1) is not s0
+
+
+@pytest.mark.gpu
+def test_grid_dispatch_matches_the_one_call(cuda):
+    """``run_grid_batched`` with ``threads=2`` and ``devices=1`` against
+    the one call on the card (``chip_smoke.grid_phase`` at a small grid;
+    ``devices=2`` raises on one card)."""
+    from repro_torch.core.mab import mab_state_from_numpy
+    cs = chip_smoke()
+    out = cs.grid_phase(mab_state_from_numpy(cs.MAB_LITERAL, device=cuda),
+                        grid=dict(seeds=(0, 1, 2), lams=(6.0,),
+                                  n_intervals=36, substeps=4))
+    assert all(out["bestfit-rr"]["bitwise"].values())

@@ -2,8 +2,10 @@
 
 Every family the port trains, cut to ``reduced()`` (float32): TinyLlama
 (``attn``), qwen2-moe (``attn_moe``, whose load-balance aux loss is not
-0), falcon-mamba (``mamba``) and recurrentgemma (``rglru`` +
-``local_attn``).  The reference's parameters (``init_params(PRNGKey(0))``)
+0), falcon-mamba (``mamba``), recurrentgemma (``rglru`` +
+``local_attn``), qwen2-vl (``attn`` under M-RoPE, its three streams the
+plain positions) and musicgen (``xattn`` over the zero ``cond`` that
+``make_ctx`` supplies, (b, s, 4) codebook tokens and labels).  The reference's parameters (``init_params(PRNGKey(0))``)
 go to the port through ``params_from_jax``; the batch is the
 ``TokenPipeline``'s.  ``loss_fn``'s value, its ``ce`` and ``aux`` and the
 gradient of every parameter (``jax.value_and_grad`` against
@@ -28,7 +30,7 @@ from repro_torch.tree import tree_flatten, tree_leaves
 
 TOL = dict(rtol=1e-4)
 ARCHS = ("tinyllama-1.1b", "qwen2-moe-a2.7b", "falcon-mamba-7b",
-         "recurrentgemma-9b")
+         "recurrentgemma-9b", "qwen2-vl-7b", "musicgen-medium")
 B, S = 2, 12
 
 
@@ -45,7 +47,8 @@ def _setup(arch):
     cfg = get_config(arch).reduced()
     params = jax.tree.map(np.asarray,
                           jmodel.init_params(jax.random.PRNGKey(0), jcfg))
-    batch = TokenPipeline(cfg.vocab_size, S, B, seed=3).next_batch()
+    batch = TokenPipeline(cfg.vocab_size, S, B, seed=3,
+                          num_codebooks=cfg.num_codebooks).next_batch()
     return jcfg, cfg, params, batch
 
 

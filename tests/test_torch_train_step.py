@@ -5,8 +5,9 @@ Three steps from the same parameters and optimizer state
 (``params_from_jax``, ``opt_state_from_jax``) on the same
 ``TokenPipeline`` batches at the training CLI's schedule (peak 3e-4,
 warmup 20 of 100 steps), reduced float32 models: TinyLlama under AdamW, TinyLlama under Adafactor (its
-statistics over ``stack_groups``), and recurrentgemma with
-``grad_accum=2``.  Parameters, optimizer state, loss and gradient norm
+statistics over ``stack_groups``), recurrentgemma with
+``grad_accum=2``, qwen2-vl (M-RoPE) and musicgen (``xattn`` blocks, the
+pipeline's (b, s, 4) codebook batches).  Parameters, optimizer state, loss and gradient norm
 agree at rtol 1e-4 / atol 1e-5 of each leaf's largest entry.
 
 AdamW's update m̂ / (√v̂ + eps) of a gradient entry near 0 magnifies that
@@ -81,7 +82,8 @@ def _run(arch, change, batch, from_init=False):
                                       device="cpu")
     jstep = jax.jit(jsteps.make_train_step(jcfg, mesh=None, lr=PEAK))
     tstep = tsteps.make_train_step(cfg, lr=PEAK, device="cpu")
-    pipe = TokenPipeline(cfg.vocab_size, S, batch, seed=2)
+    pipe = TokenPipeline(cfg.vocab_size, S, batch, seed=2,
+                         num_codebooks=cfg.num_codebooks)
     for i in range(STEPS):
         b = pipe.next_batch()
         lr = jopt.warmup_cosine(i, PEAK, warmup_steps=WARMUP,
@@ -106,7 +108,8 @@ def _run(arch, change, batch, from_init=False):
 @pytest.mark.parametrize("arch,change,batch", [
     ("tinyllama-1.1b", {}, 2),
     ("tinyllama-1.1b", {"optimizer": "adafactor"}, 2),
-    ("recurrentgemma-9b", {"grad_accum": 2}, 4)])
+    ("recurrentgemma-9b", {"grad_accum": 2}, 4),
+    ("qwen2-vl-7b", {}, 2), ("musicgen-medium", {}, 2)])
 def test_three_train_steps_match_reference(arch, change, batch):
     cfg, params, jparams = _run(arch, change, batch)
     want = tree_leaves(tmodel.params_from_jax(
