@@ -1,0 +1,6 @@
+"""Flash attention's share of its roofline in the traced sub-window."""
+from perfbench.metrics._share import roofline_share
+
+
+def read(run):
+    return roofline_share(run, "flash_attention")
