@@ -17,7 +17,9 @@ reference.  Two forms of the ascent:
 
   * the serving engine's ``optimize_placement``: one placement, float32,
     gradients from ``torch.autograd.grad``, a host read of the step norm
-    per step;
+    per step but the first (a recording ledger counts the steps,
+    ``daso.ascent_steps``, as ``train_epoch`` counts ``daso.train_epochs``,
+    and each read under ``host.waits``);
   * the simulator's ``optimize_placement_grid``: one placement per grid
     cell (leading axis G), in the logits' dtype (float64 in the interval
     program, as the reference runs that stage under ``enable_x64``), the
@@ -41,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve
+from repro_torch.obs import HOST_WAITS, get_ledger
 from repro_torch.optim.optimizers import AdamWState, adamw_init, adamw_update
 
 f32, f8 = torch.float32, torch.float64
@@ -118,6 +121,7 @@ def train_epoch(cfg: DASOConfig, theta, opt_state, xs, ys):
     new, opt_state = adamw_update(list(grads), opt_state,
                                   [p.detach() for p in params], cfg.lr_train,
                                   weight_decay=0.0)
+    get_ledger().count("daso.train_epochs")
     return _unflat(new), opt_state, loss.detach()
 
 
@@ -149,11 +153,15 @@ def optimize_placement(cfg: DASOConfig, theta, state, placement0, decisions,
         return surrogate_apply(theta, pack_input(cfg, state, p, decisions,
                                                  mask))
 
+    led = get_ledger()
     p = placement0
     vel = torch.zeros_like(placement0)
     i = 0
-    delta = torch.tensor(math.inf, dtype=f32)
-    while i < cfg.place_iters and bool(delta > cfg.tol):
+    while i < cfg.place_iters:
+        if i:
+            led.count(HOST_WAITS)               # the step norm's read
+            if not bool(delta > cfg.tol):
+                break
         pg = p.detach().requires_grad_()
         with torch.enable_grad():
             (g,) = torch.autograd.grad(score(pg), pg)
@@ -162,6 +170,7 @@ def optimize_placement(cfg: DASOConfig, theta, state, placement0, decisions,
         delta = torch.linalg.norm(new_p - p)
         p = new_p
         i += 1
+    led.count("daso.ascent_steps", i)
     with torch.no_grad():
         return p, score(p), i
 

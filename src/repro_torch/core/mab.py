@@ -47,6 +47,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.device import resolve
 from repro_torch.kernels.threefry import threefry_rows
+from repro_torch.obs import HOST_WAITS, get_ledger
 
 LAYER, SEMANTIC = 0, 1        # arm indices
 HIGH, LOW = 0, 1              # context indices
@@ -186,6 +187,7 @@ def host_reads() -> int:
 
 def _host_max(count) -> int:
     _HOST_READS[0] += 1
+    get_ledger().count(HOST_WAITS)
     phase_s = _phase_s.get()
     if phase_s is None:
         return int(count.max())
@@ -194,6 +196,12 @@ def _host_max(count) -> int:
     n = int(count.max())
     phase_s["mab_host_read"] += time.perf_counter() - t0
     return n
+
+
+def _scalar32(x: float, device):
+    """``x`` as a float32 scalar on ``device``: a blocking upload."""
+    get_ledger().count(HOST_WAITS)
+    return torch.tensor(x, dtype=f32, device=device)
 
 
 def _masked_rows(mask):
@@ -212,8 +220,8 @@ def update_response_estimates(state: MABState, apps, resp, was_layer,
     R = state.R.clone()
     G = R.shape[0]
     gi = torch.arange(G, device=R.device)
-    phi32 = torch.tensor(phi, dtype=f32, device=R.device)
-    keep32 = torch.tensor(1.0 - phi, dtype=f32, device=R.device)
+    phi32 = _scalar32(phi, R.device)
+    keep32 = _scalar32(1.0 - phi, R.device)
     order, count, n = _masked_rows(was_layer)
     for i in range(n):
         row = order[:, i]
@@ -266,7 +274,7 @@ def update_q(state: MABState, O, cnt, gamma: float = 0.3,
     ``fused`` rounds the step once, as the jitted reference contracts it;
     without it the product and the sum round apart, as the reference's
     op-by-op host decider computes them."""
-    g32 = torch.tensor(gamma, dtype=f32, device=O.device)
+    g32 = _scalar32(gamma, O.device)
     step = _fma32(g32, O - state.Q, state.Q) if fused \
         else state.Q + g32 * (O - state.Q)
     Q = torch.where(cnt > 0, step, state.Q)
@@ -283,8 +291,8 @@ def rbed_update(state: MABState, O, cnt, k: float = 0.1) -> MABState:
     n_have = torch.clamp(have.sum(dim=1), min=1).to(f32)
     o_mab = torch.where(have.any(dim=1), total / n_have, 0.0)
     improve = o_mab > state.rho
-    dec32 = torch.tensor(1.0 - k, dtype=f32, device=O.device)
-    inc32 = torch.tensor(1.0 + k, dtype=f32, device=O.device)
+    dec32 = _scalar32(1.0 - k, O.device)
+    inc32 = _scalar32(1.0 + k, O.device)
     eps = torch.where(improve, dec32 * state.eps, state.eps)
     rho = torch.where(improve, inc32 * state.rho, state.rho)
     return state._replace(eps=eps, rho=rho)

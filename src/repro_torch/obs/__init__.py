@@ -7,8 +7,9 @@ and load counters, warnings, interval-series snapshots) and exports JSONL
 that ``tools/obs_report.py`` renders; the on-device half is the
 ``telemetry="interval"`` knob of ``repro_torch.env.torchsim``.
 """
-from repro_torch.obs.ledger import (RunLedger, get_ledger, load_ledger_lines,
-                                    provenance_stamp, use_ledger)
+from repro_torch.obs.ledger import (HOST_WAITS, RunLedger, get_ledger,
+                                    load_ledger_lines, provenance_stamp,
+                                    use_ledger)
 
-__all__ = ["RunLedger", "get_ledger", "load_ledger_lines",
+__all__ = ["HOST_WAITS", "RunLedger", "get_ledger", "load_ledger_lines",
            "provenance_stamp", "use_ledger"]

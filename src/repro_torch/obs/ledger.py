@@ -8,11 +8,15 @@ of the interval program), how the kernel libraries were obtained
 loads served from the process, libraries loaded or built), and on which
 torch / CUDA / card the numbers were measured (``provenance_stamp``).
 
-One process-global ledger is always active (``get_ledger``); scoped
-recording swaps it with ``use_ledger``.  Recording is a lock plus a dict
-append per event, so the driver records every run.
-``tools/obs_report.py`` renders a dumped ledger into a text report (span
-tree, cache stats, sparkline interval curves).
+One process-global ledger is always active (``get_ledger``), and it
+records nothing: its ``span`` yields None without reading a clock and its
+``count`` returns at once, so instrumented code costs an attribute check
+while no one listens.  ``use_ledger(RunLedger(...))`` turns recording on
+for its scope.  Recording is a lock plus a dict append per event.
+Span starts are ``time.perf_counter`` readings, so a reader can put them
+on any time base anchored on that clock.  ``tools/obs_report.py`` renders
+a dumped ledger into a text report (span tree, cache stats, sparkline
+interval curves).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import os
 import subprocess
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 
 def _card() -> str | None:
@@ -62,12 +66,13 @@ class RunLedger:
     """Append-only trace of one run: spans (nested via a thread-local
     stack, or an explicit ``parent=`` id for worker threads), counters,
     warnings, named interval series, and an optional cache-stats
-    snapshot.  ``dump`` writes one JSON object per line."""
+    snapshot.  ``dump`` writes one JSON object per line.  A ledger made
+    with ``recording=False`` keeps no span, counter or warning."""
 
-    def __init__(self, name: str = "run"):
+    def __init__(self, name: str = "run", recording: bool = True):
         self.name = name
+        self.recording = recording
         self.created_s = time.time()
-        self._origin = time.perf_counter()
         self.provenance = None
         self.cache_stats = None
         self.events = []
@@ -91,11 +96,19 @@ class RunLedger:
         st = self._stack()
         return st[-1] if st else None
 
+    def span(self, name: str, parent=None, sync=None, **attrs):
+        """Record a wall-clock span: its start (``start_s``, a
+        ``time.perf_counter`` reading) and duration.  Nesting comes from
+        the per-thread span stack; ``parent`` overrides it.  With ``sync``
+        (a torch device) the span ends after a synchronize of a CUDA
+        device, so its wall holds the device work queued inside it.  Off
+        recording, a shared no-op context that yields None."""
+        if not self.recording:
+            return _OFF
+        return self._span(name, parent, sync, attrs)
+
     @contextmanager
-    def span(self, name: str, parent=None, **attrs):
-        """Record a wall-clock span: its start (``start_s``, seconds since
-        the ledger was made) and duration.  Nesting comes from the
-        per-thread span stack; ``parent`` overrides it."""
+    def _span(self, name, parent, sync, attrs):
         with self._lock:
             sid = self._next_id
             self._next_id += 1
@@ -106,10 +119,13 @@ class RunLedger:
         try:
             yield sid
         finally:
+            if sync is not None and sync.type == "cuda":
+                import torch
+                torch.cuda.synchronize(sync)
             dur = time.perf_counter() - t0
             st.pop()
             ev = {"kind": "span", "id": sid, "parent": pid, "name": name,
-                  "start_s": t0 - self._origin, "dur_s": dur}
+                  "start_s": t0, "dur_s": dur}
             if attrs:
                 ev["attrs"] = attrs
             with self._lock:
@@ -118,10 +134,14 @@ class RunLedger:
     # ------------------------------------------- counters / warnings / data
 
     def count(self, name: str, n: int = 1):
+        if not self.recording:
+            return
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
     def warn(self, message: str, **attrs):
+        if not self.recording:
+            return
         ev = {"kind": "warning", "message": message}
         if attrs:
             ev["attrs"] = attrs
@@ -155,24 +175,6 @@ class RunLedger:
         self.provenance = provenance_stamp(**knobs)
         return self.provenance
 
-    # ---------------------------------------------------------- profiling
-
-    @contextmanager
-    def profile(self, trace_dir: str):
-        """Opt-in ``torch.profiler`` trace (CPU, and CUDA where there is a
-        card) around a block; the Chrome trace lands in ``trace_dir`` and
-        the block is also recorded as a ledger span."""
-        import torch
-        from torch.profiler import ProfilerActivity, profile
-        os.makedirs(trace_dir, exist_ok=True)
-        acts = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            with self.span("profile", trace_dir=trace_dir):
-                yield
-        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-
     # ------------------------------------------------------------- export
 
     def to_lines(self):
@@ -205,19 +207,36 @@ def load_ledger_lines(path: str):
         return [json.loads(ln) for ln in f if ln.strip()]
 
 
-_ACTIVE = RunLedger("default")
+#: what a span yields, and does, off recording
+_OFF = nullcontext()
+
+#: The counter of the points where the host waits for the card, counted
+#: at each site (on the CPU too, where nothing waits, so that a count is
+#: the same on either device).  The sites on the serving engine's path:
+#:   * every blocking host-to-device copy of host data: the engine's
+#:     ``_tensor`` (and so ``batch``), and ``core/mab``'s float32
+#:     constants (``_scalar32``);
+#:   * every device read: the engine's ``_read`` (the decision, the
+#:     placement's assignment and DASO input, the fidelity),
+#:     ``core/daso.optimize_placement``'s step-norm test before each step
+#:     but the first, and ``core/mab._host_max``;
+#:   * every explicit synchronize: the engine's ``_sync``.
+#: A span's own ``sync=`` is tracing's, and not counted.
+HOST_WAITS = "host.waits"
+
+_ACTIVE = RunLedger("default", recording=False)
 
 
 def get_ledger() -> RunLedger:
-    """The currently-active ledger (a process-global default unless a
-    ``use_ledger`` scope is open)."""
+    """The currently-active ledger: a process-global default that records
+    nothing, unless a ``use_ledger`` scope is open."""
     return _ACTIVE
 
 
 @contextmanager
 def use_ledger(ledger: RunLedger):
-    """Route driver instrumentation into ``ledger`` for the scope's
-    duration, then restore the previous one."""
+    """Route instrumentation into ``ledger`` for the scope's duration (and
+    so turn recording on), then restore the previous one."""
     global _ACTIVE
     prev = _ACTIVE
     _ACTIVE = ledger

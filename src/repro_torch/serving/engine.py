@@ -21,6 +21,24 @@ go to both plans and the monolithic forward alike.  Everything runs on
 ``device`` (CUDA by default), for every model the port runs: the
 hand-written kernels on the card, their eager twins on the CPU.  Timing synchronizes the
 card where the reference calls ``block_until_ready``.
+
+Under a recording ledger (``repro_torch.obs.use_ledger``) each request is
+one ``engine.serve`` span whose children are, in order,
+``engine.upload`` (``batch``), ``engine.decide`` (the UCB decision and
+its read), ``engine.place`` (DASO's placement), ``engine.plan`` (``_run``;
+its ``engine.plan.stage`` / ``engine.plan.branch`` spans come from
+``serving/plans``), ``engine.mono``, ``engine.fidelity``,
+``engine.update`` (Algorithm 1's bookkeeping) and, on the requests that
+train DASO, ``engine.daso_train``.  The place, mono, update and train
+spans synchronize the card at their end while recording, so that each
+holds its own device work; ``_run`` synchronizes by itself.  Counters:
+``engine.h2d_bytes`` (what ``_tensor`` and ``batch`` upload),
+``host.waits`` (``repro_torch.obs.HOST_WAITS``: each upload, read and
+synchronize, counted where it happens, here and in core/mab and
+core/daso), and core/daso's ``daso.ascent_steps`` and
+``daso.train_epochs``.  Off recording no span reads a clock or
+synchronizes, and nothing the engine decides depends on whether it
+records.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ from repro_torch.core import daso as daso_mod
 from repro_torch.core import mab as mab_mod
 from repro_torch.device import resolve
 from repro_torch.models.model import forward
+from repro_torch.obs import HOST_WAITS, get_ledger
 from repro_torch.serving.plans import (LAYER_PLAN, SEMANTIC_PLAN, PlanSpec,
                                        branch_forward, optimal_stage_bounds,
                                        pipeline_forward)
@@ -100,17 +119,28 @@ class SplitPlaceEngine:
         return forward(self.params, batch, self.cfg)
 
     def _sync(self):
+        get_ledger().count(HOST_WAITS)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _tensor(self, a, dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+    def _tensor(self, a, dtype=None):
+        """``a`` on the engine's device: a blocking upload."""
+        t = torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+        led = get_ledger()
+        led.count(HOST_WAITS)
+        led.count("engine.h2d_bytes", t.numel() * t.element_size())
+        return t
+
+    @staticmethod
+    def _read(t):
+        """``t`` on the host: the host waits for the card."""
+        get_ledger().count(HOST_WAITS)
+        return t.cpu()
 
     def batch(self, tokens, extras=None):
         """A model batch on the engine's device: int32 ``tokens`` and the
         ``extras`` entries, each in its own dtype."""
-        b = {k: torch.as_tensor(np.asarray(v), device=self.device)
-             for k, v in (extras or {}).items()}
+        b = {k: self._tensor(v) for k, v in (extras or {}).items()}
         b["tokens"] = self._tensor(tokens, torch.int32)
         return b
 
@@ -138,8 +168,8 @@ class SplitPlaceEngine:
                 dec_t, mask_t)
         else:
             p_opt = self._tensor(logits, f32)
-        assign = daso_mod.placement_to_assignment(
-            p_opt, mask_t).cpu().numpy()[:n]
+        assign = self._read(daso_mod.placement_to_assignment(
+            p_opt, mask_t)).numpy()[:n]
         if plan == LAYER_PLAN:
             # sequential stages: queue cost = sum of per-stage waits
             qcost = float(sum(self.slice_load[a] for a in assign))
@@ -149,20 +179,21 @@ class SplitPlaceEngine:
         for a in assign:
             self.slice_load[a] += 1.0
         self.slice_load *= 0.8                     # queues drain
-        x = daso_mod.pack_input(self._daso_cfg, state, p_opt, dec_t,
-                                mask_t).cpu().numpy()
+        x = self._read(daso_mod.pack_input(self._daso_cfg, state, p_opt,
+                                           dec_t, mask_t)).numpy()
         return assign, qcost, x
 
     def _daso_feedback(self, x, reward):
         self._replay.append((x, reward))
         if len(self._replay) >= 16 and len(self._replay) % 4 == 0:
-            xs = self._tensor(np.stack([r[0] for r in self._replay[-64:]]),
-                              f32)
-            ys = self._tensor(np.array([r[1] for r in self._replay[-64:]],
-                                       np.float32), f32)
-            for _ in range(2):
-                self._theta, self._daso_opt, _ = daso_mod.train_epoch(
-                    self._daso_cfg, self._theta, self._daso_opt, xs, ys)
+            with get_ledger().span("engine.daso_train", sync=self.device):
+                xs = self._tensor(
+                    np.stack([r[0] for r in self._replay[-64:]]), f32)
+                ys = self._tensor(np.array(
+                    [r[1] for r in self._replay[-64:]], np.float32), f32)
+                for _ in range(2):
+                    self._theta, self._daso_opt, _ = daso_mod.train_epoch(
+                        self._daso_cfg, self._theta, self._daso_opt, xs, ys)
 
     def warmup(self, tokens, extras=None):
         b = self.batch(tokens, extras)
@@ -194,31 +225,43 @@ class SplitPlaceEngine:
         return logits, wall
 
     def serve(self, req: Request) -> ServeResult:
-        batch = self.batch(req.tokens, req.extras)
-        d, _ = mab_mod.decide_ucb(self.state,
-                                  self._tensor([req.deadline_s], f32),
-                                  self._tensor([req.app], torch.int32),
-                                  self.ucb_c)
-        plan = int(d[0])          # 0=LAYER(pipeline) 1=SEMANTIC(branch)
-        assign, qcost, daso_x = self.place_fragments(plan)
-        logits, latency = self._run(plan, batch)
-        latency = latency * (1.0 + 0.25 * qcost)   # queueing on busy slices
-        with torch.no_grad():
-            ref = self._mono(batch)
-        fid = float((torch.argmax(logits, -1) == torch.argmax(ref, -1))
-                    .to(f32).mean())
-        met = latency <= req.deadline_s
-        reward = 0.5 * (float(met) + fid)
-        # Algorithm-1 bookkeeping (single leaving task)
-        self.state = mab_mod.end_of_interval(
-            self.state,
-            self._tensor([req.app], torch.int32),
-            self._tensor([req.deadline_s], f32),
-            self._tensor([latency], f32),
-            self._tensor([fid], f32),
-            self._tensor([plan], torch.int32),
-            self.phi, self.gamma)
-        self._daso_feedback(daso_x, reward)
+        led = get_ledger()
+        dev = self.device
+        with led.span("engine.serve"):
+            with led.span("engine.upload"):
+                batch = self.batch(req.tokens, req.extras)
+            with led.span("engine.decide"):
+                d, _ = mab_mod.decide_ucb(
+                    self.state, self._tensor([req.deadline_s], f32),
+                    self._tensor([req.app], torch.int32), self.ucb_c)
+                # 0=LAYER(pipeline) 1=SEMANTIC(branch)
+                plan = int(self._read(d[0]))
+            with led.span("engine.place", sync=dev):
+                assign, qcost, daso_x = self.place_fragments(plan)
+            with led.span("engine.plan", kind="layer" if plan == LAYER_PLAN
+                          else "semantic"):
+                logits, latency = self._run(plan, batch)
+            latency = latency * (1.0 + 0.25 * qcost)  # queueing on slices
+            with led.span("engine.mono", sync=dev):
+                with torch.no_grad():
+                    ref = self._mono(batch)
+            with led.span("engine.fidelity"):
+                fid = float(self._read((torch.argmax(logits, -1)
+                                        == torch.argmax(ref, -1))
+                                       .to(f32).mean()))
+            met = latency <= req.deadline_s
+            reward = 0.5 * (float(met) + fid)
+            # Algorithm-1 bookkeeping (single leaving task)
+            with led.span("engine.update", sync=dev):
+                self.state = mab_mod.end_of_interval(
+                    self.state,
+                    self._tensor([req.app], torch.int32),
+                    self._tensor([req.deadline_s], f32),
+                    self._tensor([latency], f32),
+                    self._tensor([fid], f32),
+                    self._tensor([plan], torch.int32),
+                    self.phi, self.gamma)
+            self._daso_feedback(daso_x, reward)
         return ServeResult(plan, latency, fid, met, reward)
 
     def serve_many(self, reqs: List[Request]) -> List[ServeResult]:

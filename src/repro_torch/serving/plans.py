@@ -24,6 +24,7 @@ import numpy as np
 
 from repro_torch.core.partitioner import model_layer_costs, optimal_partition
 from repro_torch.models import model as M
+from repro_torch.obs import get_ledger
 
 LAYER_PLAN, SEMANTIC_PLAN = 0, 1
 
@@ -54,15 +55,20 @@ def pipeline_forward(params, batch, cfg, num_stages: int, bounds=None):
     order, structured as sequential stages (the per-stage boundary is
     where activations move between devices).  Equals ``forward`` bitwise
     for any stage boundaries; ``bounds`` defaults to equal layer counts,
-    the serving engine passes Gillis-DP latency-balanced cuts."""
+    the serving engine passes Gillis-DP latency-balanced cuts.  A recording
+    ledger gets an ``engine.plan.stage`` span per stage (the host's
+    launches; it never synchronizes)."""
     M.check_supported(cfg, batch)
     ctx = M.make_ctx(batch, cfg)
     x = M.embed_tokens(params, batch, cfg, ctx["positions"])
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
-    for lo, hi in (bounds or stage_bounds(len(kinds), num_stages)):
-        for i in range(lo, hi):
-            x = M.apply_block(kinds[i], blocks[i], x, ctx, cfg)
+    led = get_ledger()
+    for k, (lo, hi) in enumerate(bounds or stage_bounds(len(kinds),
+                                                        num_stages)):
+        with led.span("engine.plan.stage", stage=k):
+            for i in range(lo, hi):
+                x = M.apply_block(kinds[i], blocks[i], x, ctx, cfg)
     return M.lm_head(params, x, cfg)
 
 
@@ -114,18 +120,22 @@ def branch_forward(params, batch, cfg, num_branches: int):
     """Semantic-split execution: B disjoint weight-slice branches run the
     whole depth; branch logits are averaged.  Approximate by construction
     (no cross-branch features): the fidelity cost the MAB trades against
-    latency."""
+    latency.  A recording ledger gets an ``engine.plan.branch`` span per
+    branch (the host's launches; it never synchronizes)."""
     M.check_supported(cfg, batch)
     ctx = M.make_ctx(batch, cfg)
     kinds = cfg.layer_kinds
     blocks = _flat_blocks(params, cfg)
+    led = get_ledger()
 
     def one_branch(branch):
-        x = M.embed_tokens(params, batch, cfg, ctx["positions"])
-        for kind, block in zip(kinds, blocks):
-            sliced = _slice_block_params(block, cfg, branch, num_branches)
-            x = M.apply_block(kind, sliced, x, ctx, cfg)
-        return M.lm_head(params, x, cfg)
+        with led.span("engine.plan.branch", branch=branch):
+            x = M.embed_tokens(params, batch, cfg, ctx["positions"])
+            for kind, block in zip(kinds, blocks):
+                sliced = _slice_block_params(block, cfg, branch,
+                                             num_branches)
+                x = M.apply_block(kind, sliced, x, ctx, cfg)
+            return M.lm_head(params, x, cfg)
 
     logits = [one_branch(b) for b in range(num_branches)]
     return sum(logits) / num_branches

@@ -236,6 +236,144 @@ def test_engine_matches_reference_over_20_requests():
         _close(tl_["w"], jl_["w"], atol=1e-6)
 
 
+# ------------------------------------------------- the engine's spans
+
+#: ``engine.serve``'s children in order; ``engine.daso_train`` ends the
+#: requests that train DASO
+SERVE_CHILDREN = ["engine.upload", "engine.decide", "engine.place",
+                  "engine.plan", "engine.mono", "engine.fidelity",
+                  "engine.update"]
+PLAN_S = {0: [0.010, 0.012, 0.011, 0.013], 1: [0.004, 0.005, 0.0045, 0.006]}
+
+
+def _traced_engine():
+    """A tiny engine on the CPU with scripted plan walls (so that its
+    decisions do not follow the host's clock), its warm-up done, and 20
+    requests of tight or loose deadlines."""
+    cfg = get_config("tinyllama-1.1b").reduced()
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    eng = tengine.SplitPlaceEngine(params, cfg, device="cpu", seed=3)
+    _scripted(eng, PLAN_S, {0: 0, 1: 0})
+    rng = np.random.RandomState(0)
+    tok = rng.randint(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+    eng.warmup(tok)
+    reqs = [tengine.Request(tokens=tok, deadline_s=float(
+        0.005 * 2.5 if rng.rand() < 0.5 else 0.011 * 4.0))
+        for _ in range(20)]
+    return eng, reqs
+
+
+def _serve_counted(eng, reqs, led):
+    """Serve ``reqs`` under ``led``: the results and each request's
+    counter deltas."""
+    from repro_torch.obs import use_ledger
+    results, deltas = [], []
+    with use_ledger(led):
+        for r in reqs:
+            before = dict(led.counters)
+            results.append(eng.serve(r))
+            deltas.append({k: v - before.get(k, 0)
+                           for k, v in led.counters.items()})
+    return results, deltas
+
+
+def test_engine_spans_per_request():
+    """One ``engine.serve`` span per request; its children in the
+    engine's order, ``engine.daso_train`` on the requests that train;
+    one ``engine.plan.stage`` per stage or ``engine.plan.branch`` per
+    branch under ``engine.plan``, whose ``kind`` names the plan."""
+    from repro_torch.obs import RunLedger
+    eng, reqs = _traced_engine()
+    led = RunLedger("engine")
+    results, _ = _serve_counted(eng, reqs, led)
+    spans = [e for e in led.events if e["kind"] == "span"]
+    kids = {}
+    for e in spans:
+        kids.setdefault(e["parent"], []).append(e)
+    serves = sorted(kids[None], key=lambda e: e["start_s"])
+    assert [e["name"] for e in serves] == ["engine.serve"] * 20
+    for k, (sp, res) in enumerate(zip(serves, results)):
+        children = sorted(kids[sp["id"]], key=lambda e: e["start_s"])
+        trains = k + 1 >= 16 and (k + 1) % 4 == 0
+        assert [c["name"] for c in children] == SERVE_CHILDREN + (
+            ["engine.daso_train"] if trains else []), k
+        for c in children:
+            assert sp["start_s"] <= c["start_s"]
+            assert c["start_s"] + c["dur_s"] <= sp["start_s"] + sp["dur_s"]
+        plan = children[3]
+        layer = res.plan == tplans.LAYER_PLAN
+        assert plan["attrs"] == {"kind": "layer" if layer else "semantic"}
+        parts = sorted(kids[plan["id"]], key=lambda e: e["start_s"])
+        name, n, key = (("engine.plan.stage", eng.layer_plan.num_stages,
+                         "stage") if layer else
+                        ("engine.plan.branch", eng.sem_plan.num_branches,
+                         "branch"))
+        assert [(c["name"], c["attrs"][key]) for c in parts] == \
+            [(name, i) for i in range(n)], k
+        assert all(c["id"] not in kids for c in parts)
+    assert {r.plan for r in results} == {0, 1}
+
+
+def test_engine_waits_by_hand():
+    """``host.waits`` of each request, counted where each wait happens, is
+    the sum of its sites: the tokens' upload, the decision's two uploads
+    and read, the placement's four uploads and two reads (and the
+    ascent's step reads once 16 replays exist), ``_run``'s two
+    synchronizes, the fidelity's read, the update's five uploads, the
+    MAB's five float32 constants and two reads, and DASO training's two
+    uploads; ``engine.h2d_bytes`` the bytes of the engine's uploads."""
+    from repro_torch.obs import HOST_WAITS, RunLedger
+    eng, reqs = _traced_engine()
+    led = RunLedger("engine")
+    reads = tmab.host_reads()
+    _, deltas = _serve_counted(eng, reqs, led)
+    assert tmab.host_reads() - reads == 2 * len(reqs)
+    cfg = eng._daso_cfg
+    W, C = cfg.num_workers, cfg.max_containers
+    feats = tdaso.feature_size(cfg)
+    tok_bytes = reqs[0].tokens.size * 4
+    for k, d in enumerate(deltas):
+        steps = d.get("daso.ascent_steps", 0)
+        assert (steps > 0) == (k >= 16), k
+        trains = d.get("daso.train_epochs", 0) // 2
+        assert trains == (k + 1 >= 16 and (k + 1) % 4 == 0), k
+        want = (1 + 3 + 6 + min(steps, cfg.place_iters - 1) + 2 + 1
+                + 5 + 5 + 2 + 2 * trains)
+        assert d[HOST_WAITS] == want, (k, d)
+        rows = min(k + 1, 64)
+        assert d["engine.h2d_bytes"] == (
+            tok_bytes + 8 + 4 * (W + 2 * C + C * W) + 5 * 4
+            + trains * rows * (feats + 1) * 4), (k, d)
+    total = led.counters
+    assert total["daso.train_epochs"] == 4
+    assert total[HOST_WAITS] == sum(d[HOST_WAITS] for d in deltas)
+
+
+def test_engine_tracing_changes_nothing():
+    """Served with the ledger off and on from the same seed, the results,
+    the MAB state, θ, the slice loads and the replay are bitwise equal,
+    and the off run adds no event or counter to the default ledger."""
+    from repro_torch.obs import RunLedger, get_ledger
+    off_eng, reqs = _traced_engine()
+    default = get_ledger()
+    off = [off_eng.serve(r) for r in reqs]
+    assert get_ledger() is default
+    assert default.events == [] and default.counters == {}
+    on_eng, _ = _traced_engine()
+    on, _ = _serve_counted(on_eng, reqs, RunLedger("engine"))
+    assert on == off
+    for k in tmab.MABState._fields:
+        assert torch.equal(getattr(on_eng.state, k),
+                           getattr(off_eng.state, k)), k
+    for a, b in zip(on_eng._theta, off_eng._theta):
+        assert torch.equal(a["w"], b["w"]) and torch.equal(a["b"], b["b"])
+    np.testing.assert_array_equal(on_eng.slice_load, off_eng.slice_load)
+    for (xa, ya), (xb, yb) in zip(on_eng._replay, off_eng._replay):
+        np.testing.assert_array_equal(xa, xb)
+        assert ya == yb
+
+
 def test_memory_feasible_partition_respects_budget():
     """The reference test's six 3-byte layers under a 7-byte budget, and a
     budget no layer fits; the cuts equal the reference's."""

@@ -17,8 +17,10 @@
     telemetry="interval")`` returns the series, ``run_grid_batched`` keeps
     only the scalar percentile fields, and a bad knob raises;
   * **ledger** — spans nest, the JSONL dump round-trips and
-    ``tools/obs_report.py`` renders it; the provenance stamp's keys; the
-    kernel libraries' build and load counters.
+    ``tools/obs_report.py`` renders it; the default ledger records
+    nothing; span starts are ``perf_counter`` readings; ``sync=`` runs
+    only while recording; the provenance stamp's keys; the kernel
+    libraries' build and load counters.
 """
 from __future__ import annotations
 
@@ -349,18 +351,68 @@ def test_ledger_scopes_and_default():
         led.add_series("bad", ["a", "b"], np.zeros((3, 3)))
 
 
-def test_ledger_profile_scope(tmp_path):
-    """``RunLedger.profile`` writes a ``torch.profiler`` Chrome trace of
-    the block and records it as a span."""
+def test_default_ledger_records_nothing(monkeypatch):
+    """The process-global ledger keeps no span, counter or warning, and
+    its spans read no clock and yield None."""
+    from repro_torch.obs import get_ledger
+    from repro_torch.obs import ledger as ledger_mod
+    led = get_ledger()
+    assert not led.recording
+
+    def no_clock():
+        raise AssertionError("an off span read the clock")
+
+    monkeypatch.setattr(ledger_mod.time, "perf_counter", no_clock)
+    with led.span("outer", sync=None, where="unit") as sid:
+        assert sid is None
+        with led.span("inner"):
+            led.count("calls")
+            led.count("bytes", 64)
+        led.warn("unheard")
+    assert led.events == [] and led.counters == {}
+    assert led.current_span() is None
+
+
+def test_span_starts_on_the_perf_counter():
+    """A scoped ledger's span starts are ``time.perf_counter`` readings:
+    a reading taken inside a span lies within its [start, start + dur]."""
+    import time
+
+    from repro_torch.obs import RunLedger, use_ledger
+    led = RunLedger("clock")
+    inside = []
+    with use_ledger(led):
+        with led.span("outer"):
+            inside.append(time.perf_counter())
+            with led.span("inner"):
+                inside.append(time.perf_counter())
+    spans = {e["name"]: e for e in led.events}
+    for name, t in zip(("outer", "inner"), inside):
+        e = spans[name]
+        assert e["start_s"] <= t <= e["start_s"] + e["dur_s"], (name, e, t)
+    assert spans["outer"]["start_s"] <= spans["inner"]["start_s"]
+
+
+def test_span_sync_only_when_recording(monkeypatch):
+    """``sync=`` synchronizes a CUDA device once at the span's end while
+    recording, and never off recording or on the CPU."""
     import torch
 
-    from repro_torch.obs import RunLedger
-    led = RunLedger("profiled")
-    with led.profile(str(tmp_path / "trace")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert trace["traceEvents"]
-    assert [e["name"] for e in led.events] == ["profile"]
+    from repro_torch.obs import RunLedger, get_ledger
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", calls.append)
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    with get_ledger().span("off", sync=card):
+        pass
+    assert calls == []
+    led = RunLedger("sync")
+    with led.span("on", sync=card):
+        assert calls == []
+    assert calls == [card]
+    with led.span("cpu", sync=cpu):
+        pass
+    assert calls == [card]
+    assert [e["name"] for e in led.events] == ["on", "cpu"]
 
 
 def test_provenance_stamp_keys():
